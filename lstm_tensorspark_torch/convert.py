@@ -1,0 +1,57 @@
+"""Parameter conversion between the JAX package's pytree and the port.
+
+The input of :func:`params_from_numpy` is the JAX LM parameter pytree after
+``jax.tree.map(np.asarray, params)``: ``embedding``, ``layers`` (one object
+per layer carrying the 12 per-gate arrays as attributes ``W_i`` … ``b_o`` —
+read by name, so the JAX class is never imported; plain mappings work too)
+and ``head`` (``kernel`` and ``bias``, or ``bias`` alone for a tied head).
+Both directions copy the values bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .ops.lstm_cell import LSTMParams
+
+_GATE_FIELDS = LSTMParams._fields
+
+
+def _field(layer, name):
+    if isinstance(layer, dict):
+        return layer[name]
+    return getattr(layer, name)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    arr = np.array(a, dtype=np.float32, copy=True)  # writable, owned copy
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_numpy(tree, device: str | torch.device = "cuda") -> dict:
+    """JAX LM params (numpy leaves) → the port's parameter dict on
+    ``device``."""
+    dev = resolve_device(device)
+    layers = [
+        LSTMParams(*(_tensor(_field(layer, f), dev) for f in _GATE_FIELDS))
+        for layer in tree["layers"]
+    ]
+    head = {k: _tensor(v, dev) for k, v in tree["head"].items()}
+    return {"embedding": _tensor(tree["embedding"], dev), "layers": layers,
+            "head": head}
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameter dict → numpy leaves, layers as dicts keyed by
+    the 12 gate-field names (``W_i`` … ``b_o``)."""
+    def arr(t):
+        return t.detach().cpu().numpy().copy()
+
+    return {
+        "embedding": arr(params["embedding"]),
+        "layers": [{f: arr(getattr(layer, f)) for f in _GATE_FIELDS}
+                   for layer in params["layers"]],
+        "head": {k: arr(v) for k, v in params["head"].items()},
+    }

@@ -1,0 +1,97 @@
+"""LSTM language model: embedding → stacked LSTM → linear head.
+
+Port of ``lstm_tensorspark_tpu/models/lstm_lm.py`` (forward only, float32).
+Params are a plain dict, as in the JAX package::
+
+    {"embedding": [V, E],
+     "layers": [LSTMParams, ...],
+     "head": {"kernel": [H, V], "bias": [V]}}   # untied
+     "head": {"bias": [V]}                       # tied: kernel = embedding.T
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops.embedding import embed_lookup
+from ..ops.lstm_cell import LSTMParams, glorot_uniform, init_lstm_params, zero_carry
+from ..ops.scan import stacked_lstm_scan
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    vocab_size: int
+    hidden_size: int = 128
+    num_layers: int = 1
+    embed_size: int | None = None  # defaults to hidden_size
+    tie_embeddings: bool = False
+    # float32 only in this port; bf16 compute is a later slice
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise ValueError(
+                f"compute_dtype {self.compute_dtype!r} is not supported by "
+                "the port yet (float32 only)")
+        if self.tie_embeddings and self.embed != self.hidden_size:
+            raise ValueError("tie_embeddings requires embed_size == hidden_size")
+
+    @property
+    def embed(self) -> int:
+        return self.embed_size or self.hidden_size
+
+
+def init_lm(gen: torch.Generator, cfg: LMConfig):
+    """Parameter dict drawn on the CPU from ``gen`` (a CPU generator):
+    embedding N(0, 0.02²), per-layer cell init, Glorot head, zero bias."""
+    embedding = torch.randn((cfg.vocab_size, cfg.embed), generator=gen,
+                            dtype=torch.float32) * 0.02
+    layers = [
+        init_lstm_params(gen, cfg.embed if i == 0 else cfg.hidden_size,
+                         cfg.hidden_size)
+        for i in range(cfg.num_layers)
+    ]
+    params = {"embedding": embedding, "layers": layers}
+    head = {"bias": torch.zeros((cfg.vocab_size,), dtype=torch.float32)}
+    if not cfg.tie_embeddings:
+        head["kernel"] = glorot_uniform(gen, (cfg.hidden_size, cfg.vocab_size))
+    params["head"] = head
+    return params
+
+
+def params_to(params, device) -> dict:
+    """The parameter dict with every tensor on ``device``."""
+    return {
+        "embedding": params["embedding"].to(device),
+        "layers": [LSTMParams(*(t.to(device) for t in layer))
+                   for layer in params["layers"]],
+        "head": {k: v.to(device) for k, v in params["head"].items()},
+    }
+
+
+def init_carries(cfg: LMConfig, batch: int, device=None):
+    return [zero_carry(batch, cfg.hidden_size, device=device)
+            for _ in range(cfg.num_layers)]
+
+
+def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig, *,
+                carries=None, mask: torch.Tensor | None = None):
+    """tokens [B, T] → (per-layer final carries, top-layer activations
+    [B, T, H]). ``mask`` [B, T] bool freezes the carries at False steps."""
+    xs = embed_lookup(params["embedding"], tokens)
+    return stacked_lstm_scan(params["layers"], xs, carries, mask=mask)
+
+
+def _head_kernel(params, cfg: LMConfig):
+    head = params["head"]
+    kernel = params["embedding"].T if cfg.tie_embeddings else head["kernel"]
+    return kernel, head["bias"]
+
+
+def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig, *, carries=None):
+    """tokens [B, T] → (logits [B, T, V], final per-layer carries)."""
+    finals, ys = lm_backbone(params, tokens, cfg, carries=carries)
+    kernel, bias = _head_kernel(params, cfg)
+    return ys @ kernel + bias, finals
