@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the LSTM LM serving path, for NVIDIA Hopper (H100).
+"""PyTorch/CUDA port of the LSTM LM framework (serving, and float32 training
+of the LM), for NVIDIA Hopper (H100).
 
 The package stands beside ``lstm_tensorspark_tpu`` (the JAX reference) and
 imports nothing of it. Layouts at the public functions follow the JAX

@@ -1,5 +1,12 @@
-"""Command line of the port: ``python -m lstm_tensorspark_torch serve ...``.
+"""Command line of the port: ``python -m lstm_tensorspark_torch {train,serve}``.
 
+- ``train`` trains the LSTM LM on the char corpus (BASELINE.md config 1 by
+  its flags), as the JAX package's ``cli._run_lm`` does on one device with
+  a host-fed stream: dataset → config → init → optimizer → batch stream →
+  ``train_loop`` (log, eval cadence) → a final eval record. Float32 only;
+  ``--compute-dtype bfloat16`` and ``--dropout`` > 0 exit with
+  ``USAGE_RC`` (not ported yet). A run of ``--anomaly-limit`` consecutive
+  non-finite steps exits with ``ANOMALY_RC``.
 - ``serve --selftest`` decodes ``--sessions`` concurrent sessions through
   the full server path and checks that the greedy tokens equal the plain
   ``models/generate.generate`` on the CPU for the same weights (rc 0 on
@@ -8,7 +15,7 @@
   ``GET /healthz`` and ``GET /v1/stats`` until interrupted.
 
 Weights are drawn from ``--seed`` (serving a trained checkpoint waits for
-the training part of the port). ``--device`` defaults to ``cuda`` and
+the port's checkpoints). ``--device`` defaults to ``cuda`` and
 fails without a card unless ``--device cpu`` is given.
 """
 
@@ -22,7 +29,8 @@ import threading
 import numpy as np
 import torch
 
-from .exit_codes import FAIL_RC, OK_RC, USAGE_RC
+from .exit_codes import ANOMALY_RC, FAIL_RC, OK_RC, USAGE_RC
+from .train.optimizer import OPTIMIZERS
 
 DEFAULT_WINDOW_LADDER = (1, 4, 8)
 
@@ -185,12 +193,159 @@ def _serve_http(args) -> int:
     return OK_RC
 
 
+def build_train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="lstm_tensorspark_torch train",
+        description="train the LSTM language model on PyTorch/CUDA "
+                    "(one device, float32)")
+    p.add_argument("--dataset", type=str, default="ptb_char",
+                   choices=["ptb_char", "wikitext2", "wikitext103", "imdb",
+                            "uci_electricity"],
+                   help="ptb_char only so far; the others are not ported")
+    p.add_argument("--data-path", type=str, default=None,
+                   help="corpus directory (falls back to the synthetic "
+                        "stand-in)")
+    p.add_argument("--hidden-units", type=int, default=128)
+    p.add_argument("--num-layers", type=int, default=1)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--num-steps", type=int, default=None,
+                   help="step budget (overrides --epochs; 0 = eval only)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--seq-len", type=int, default=None,
+                   help="window length (default 64)")
+    p.add_argument("--learning-rate", type=float, default=1.0)
+    p.add_argument("--optimizer", type=str, default="sgd",
+                   choices=OPTIMIZERS)
+    p.add_argument("--momentum", type=float, default=0.0)
+    p.add_argument("--clip-norm", type=float, default=None)
+    p.add_argument("--weight-decay", type=float, default=0.0,
+                   help="adamw only")
+    p.add_argument("--warmup-steps", type=int, default=0,
+                   help="linear LR warmup steps")
+    p.add_argument("--decay-steps", type=int, default=None,
+                   help="cosine decay horizon in steps (enables the "
+                        "warmup-cosine schedule)")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="not ported yet: any value > 0 is refused")
+    p.add_argument("--tie-embeddings", action="store_true")
+    p.add_argument("--compute-dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="float32 only so far; bfloat16 is refused")
+    p.add_argument("--stateful", action="store_true",
+                   help="carry recurrent state across contiguous windows")
+    p.add_argument("--eval-every", type=int, default=0)
+    p.add_argument("--eval-batches", type=int, default=None,
+                   help="cap each eval pass at N batches")
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--anomaly-limit", type=int, default=0,
+                   help="exit with ANOMALY_RC after K consecutive non-finite "
+                        "steps (one host sync per step while on; 0 = off)")
+    p.add_argument("--jsonl", type=str, default=None,
+                   help="metrics JSONL path")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return p
+
+
+def _run_train(args) -> int:
+    from .data import cap_batches, get_dataset, lm_batch_stream, lm_epoch_batches
+    from .device import configure_precision, resolve_device
+    from .models.lstm_lm import LMConfig, init_carries, init_lm, lm_loss, params_to
+    from .train import (AnomalousTrainingError, MetricsLogger, evaluate,
+                        init_train_state, make_eval_step, make_optimizer,
+                        make_train_step, train_loop)
+    from .train.loop import device_batches
+
+    refused = None
+    if args.compute_dtype != "float32":
+        refused = (f"--compute-dtype {args.compute_dtype} is not ported yet "
+                   "(float32 only)")
+    elif args.dropout > 0:
+        refused = "--dropout > 0 is not ported yet"
+    elif args.eval_batches is not None and args.eval_batches < 1:
+        refused = f"--eval-batches must be >= 1, got {args.eval_batches}"
+    if refused:
+        print(f"train: {refused}", file=sys.stderr)
+        return USAGE_RC
+    dev = resolve_device(args.device)
+    configure_precision()
+    seq_len = args.seq_len or 64
+    B = args.batch_size
+    try:
+        data = get_dataset(args.dataset, args.data_path)
+    except ValueError as e:
+        print(f"train: {e}", file=sys.stderr)
+        return USAGE_RC
+    with MetricsLogger(args.jsonl) as logger:
+        if data["synthetic"]:
+            logger.log({"note": f"dataset {args.dataset}: no files at "
+                                "--data-path, using synthetic stand-in"})
+        vocab = data["vocab"]
+        cfg = LMConfig(vocab_size=len(vocab), hidden_size=args.hidden_units,
+                       num_layers=args.num_layers,
+                       tie_embeddings=args.tie_embeddings)
+
+        def loss_fn(params, batch, carries=None):
+            return lm_loss(params, batch, cfg, carries=carries)
+
+        params = params_to(init_lm(torch.Generator().manual_seed(args.seed),
+                                   cfg), dev)
+        optimizer = make_optimizer(
+            args.optimizer, args.learning_rate, momentum=args.momentum,
+            clip_norm=args.clip_norm, weight_decay=args.weight_decay,
+            warmup_steps=args.warmup_steps, decay_steps=args.decay_steps)
+        stateful = args.stateful
+        state = init_train_state(
+            params, optimizer,
+            carries=init_carries(cfg, B, device=dev) if stateful else None)
+        train_tokens, valid_tokens = data["train"], data["valid"]
+        steps_per_epoch = max((len(train_tokens) - 1) // (B * seq_len), 1)
+        # the valid split can be smaller than one training-size window:
+        # evaluate with the largest batch that fits
+        eval_bs = min(B, max((len(valid_tokens) - 1) // seq_len, 0))
+        eval_step = make_eval_step(loss_fn, stateful=stateful)
+
+        def eval_fn(params):
+            if eval_bs <= 0:
+                return {"eval_skipped": 1}
+            ev = cap_batches(lm_epoch_batches(valid_tokens, eval_bs, seq_len),
+                             args.eval_batches)
+            carries = (init_carries(cfg, eval_bs, device=dev) if stateful
+                       else None)
+            return evaluate(eval_step, params, device_batches(ev, dev),
+                            carries=carries)
+
+        logger.log({"note": "start", "dataset": args.dataset,
+                    "vocab": len(vocab), "device": str(dev),
+                    "device_name": (torch.cuda.get_device_name(dev)
+                                    if dev.type == "cuda" else "cpu"),
+                    "steps_per_epoch": steps_per_epoch, "backend": "single"})
+        total = (args.num_steps if args.num_steps is not None
+                 else args.epochs * steps_per_epoch)
+        batches = device_batches(lm_batch_stream(train_tokens, B, seq_len), dev)
+        try:
+            state = train_loop(
+                state, make_train_step(loss_fn, optimizer, stateful=stateful),
+                batches, num_steps=total, log_every=args.log_every,
+                logger=logger,
+                eval_fn=eval_fn if args.eval_every else None,
+                eval_every=args.eval_every, tokens_per_batch=B * seq_len,
+                anomaly_limit=args.anomaly_limit)
+        except AnomalousTrainingError as e:
+            print(f"anomaly abort: {e} (exit {ANOMALY_RC})", file=sys.stderr)
+            return ANOMALY_RC
+        logger.log({"step": state.step, **eval_fn(state.params),
+                    "note": "final"})
+    return OK_RC
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "train":
+        return _run_train(build_train_parser().parse_args(argv[1:]))
     if not argv or argv[0] != "serve":
-        print("usage: python -m lstm_tensorspark_torch serve "
-              "(--selftest | --http) [flags]; see serve --help",
-              file=sys.stderr)
+        print("usage: python -m lstm_tensorspark_torch {train,serve} [flags]; "
+              "see train --help, serve --help", file=sys.stderr)
         return USAGE_RC
     args = build_serve_parser().parse_args(argv[1:])
     if args.selftest:

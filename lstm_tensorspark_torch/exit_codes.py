@@ -5,3 +5,4 @@ importing the JAX package)."""
 OK_RC = 0
 FAIL_RC = 1
 USAGE_RC = 2  # argparse / flag-validation error (deterministic, no retry)
+ANOMALY_RC = 77  # consecutive non-finite train steps (--anomaly-limit)

@@ -5,8 +5,11 @@ C interface, loaded through ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Libraries go to ``build/torch_kernels/`` beside the
 package, named by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one is reused. Nothing here runs at import time:
-the first call of a kernel's wrapper builds it, or :func:`build` builds a
-set of kernels up front, one ``nvcc`` process per source, all at once.
+the first call of a kernel's wrapper builds it (:func:`launcher`), or
+:func:`build` builds a set of kernels up front, one ``nvcc`` process per
+source, all at once. Also here: what every wrapper shares — its launch
+counter (:class:`LaunchCounts`) and the check of a tensor it passes by
+pointer (:func:`check_f32`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -27,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_launchers: dict[str, object] = {}
 
 
 def _nvcc() -> str:
@@ -85,6 +91,41 @@ def build(names) -> float:
     return time.perf_counter() - t0
 
 
+class LaunchCounts:
+    """Plain integer counters of one kernel's wrapper: ``kernel`` counts
+    CUDA launches, ``reference`` counts calls that ran the plain version
+    (CPU tensors). Increments are under a lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.kernel = 0
+        self.reference = 0
+
+    def bump(self, field: str) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + 1)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.kernel = 0
+            self.reference = 0
+
+
+def check_f32(name: str, t, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device`` — what every kernel wrapper checks before it passes a
+    pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name``, built first if
     needed."""
@@ -98,3 +139,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
     return lib
+
+
+def launcher(name: str, argtypes):
+    """The C entry point ``<name>_launch`` of kernel ``name`` (built and
+    loaded first if needed), with ``argtypes`` set and an int result: the
+    CUDA error code of the launch."""
+    fn = _launchers.get(name)
+    if fn is not None:
+        return fn
+    lib = load(name)
+    with _lock:
+        fn = _launchers.get(name)
+        if fn is None:
+            fn = getattr(lib, f"{name}_launch")
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _launchers[name] = fn
+    return fn

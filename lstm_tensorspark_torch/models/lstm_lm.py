@@ -1,7 +1,10 @@
 """LSTM language model: embedding → stacked LSTM → linear head.
 
-Port of ``lstm_tensorspark_tpu/models/lstm_lm.py`` (forward only, float32).
-Params are a plain dict, as in the JAX package::
+Port of ``lstm_tensorspark_tpu/models/lstm_lm.py`` (float32): the forward,
+and :func:`lm_loss`, the next-token cross-entropy that training
+differentiates. The recurrence goes through ``ops/scan.stacked_lstm_scan``,
+so on the card every layer runs the hand-written recurrence kernels and on
+the CPU the plain loop. Params are a plain dict, as in the JAX package::
 
     {"embedding": [V, E],
      "layers": [LSTMParams, ...],
@@ -15,9 +18,14 @@ import dataclasses
 
 import torch
 
-from ..ops.embedding import embed_lookup
+from ..ops.embedding import embed_lookup, selected_logits
 from ..ops.lstm_cell import LSTMParams, glorot_uniform, init_lstm_params, zero_carry
 from ..ops.scan import stacked_lstm_scan
+
+
+# At this vocab size the JAX lm_loss switches to the vocab-chunked
+# cross-entropy (ops/xent.py), which is not ported yet.
+_CHUNKED_XENT_MIN_V = 2**17
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,3 +103,29 @@ def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig, *, carries=None):
     finals, ys = lm_backbone(params, tokens, cfg, carries=carries)
     kernel, bias = _head_kernel(params, cfg)
     return ys @ kernel + bias, finals
+
+
+def lm_loss(params, batch, cfg: LMConfig, *, carries=None):
+    """Next-token cross-entropy, the mean over B*T tokens of
+    ``logsumexp(logits) - logits[target]``.
+
+    ``batch``: dict with "inputs" and "targets" [B, T] integer tensors.
+    Returns ``(loss, aux)`` with ``aux = {"loss", "tokens", "carries"}``
+    (``tokens`` a host float; ``carries`` the final per-layer (h, c), still
+    attached to the graph).
+    """
+    if cfg.vocab_size >= _CHUNKED_XENT_MIN_V:
+        raise NotImplementedError(
+            f"vocab {cfg.vocab_size} >= {_CHUNKED_XENT_MIN_V} takes the "
+            "vocab-chunked cross-entropy in the JAX package; chunked xent "
+            "is not ported yet")
+    logits, finals = lm_forward(params, batch["inputs"], cfg, carries=carries)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = selected_logits(logits, batch["targets"])
+    loss = torch.mean(lse - tgt)
+    aux = {
+        "loss": loss,
+        "tokens": float(batch["targets"].numel()),
+        "carries": finals,
+    }
+    return loss, aux

@@ -1,2 +1,3 @@
-"""Cell, scan, embedding and the CUDA decode-window kernel with its plain
-version."""
+"""Cell, scan and its kernel dispatch, embedding, and the hand-written CUDA
+kernels (decode window, LSTM recurrence forward and backward) with their
+plain versions."""

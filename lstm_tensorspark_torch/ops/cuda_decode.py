@@ -25,7 +25,6 @@ the CUDA source for what the design does about it).
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
@@ -73,27 +72,14 @@ def decode_weights(params, fused_layers, tie_embeddings: bool) -> DecodeWeights:
                          params["head"]["bias"].contiguous())
 
 
-class LaunchCounts:
-    """Plain integer counters: ``kernel`` counts CUDA launches of the
-    window kernel, ``reference`` counts dispatches that ran the plain
-    version (CPU tensors). Increments are under a lock."""
+counts = kernels.LaunchCounts()
 
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.kernel = 0
-        self.reference = 0
-
-    def bump(self, field: str) -> None:
-        with self._lock:
-            setattr(self, field, getattr(self, field) + 1)
-
-    def reset(self) -> None:
-        with self._lock:
-            self.kernel = 0
-            self.reference = 0
-
-
-counts = LaunchCounts()
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_pp = ctypes.POINTER(ctypes.c_void_p)
+# csrc/decode_window.cu::decode_window_launch
+_ARGTYPES = [_p, _i, _i, _i, _i, _pp, _pp, _pp, _p, _p, _p, _p, _p, _p, _p,
+             _p, _p, _i, _i, ctypes.c_float, _i, _i, _p, _p, _p, _p, _p, _p,
+             _p]
 
 
 def decode_window(weights: DecodeWeights, h, c, tokens, alive, remaining,
@@ -170,38 +156,6 @@ def decode_window_reference(weights: DecodeWeights, h, c, tokens, alive,
             alive.to(torch.int32), rem)
 
 
-_lib_lock = threading.Lock()
-_lib = None
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = kernels.load("decode_window")
-            p = ctypes.c_void_p
-            i = ctypes.c_int
-            pp = ctypes.POINTER(ctypes.c_void_p)
-            lib.decode_window_launch.argtypes = [
-                p, i, i, i, i, pp, pp, pp, p, p, p, p, p, p, p, p, p,
-                i, i, ctypes.c_float, i, i, p, p, p, p, p, p, p]
-            lib.decode_window_launch.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
-def _check_f32(name, t, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _int_row(name, t, B, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -225,16 +179,16 @@ def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
     if nbytes > MAX_SMEM_BYTES:
         raise ValueError(f"shape L={L} H={H} E={E} needs {nbytes} bytes of "
                          f"shared memory per block (> {MAX_SMEM_BYTES})")
-    _check_f32("h", h, (L, B, H), dev)
-    _check_f32("c", c, (L, B, H), dev)
-    _check_f32("embedding", weights.embedding, (V, E), dev)
+    kernels.check_f32("h", h, (L, B, H), dev)
+    kernels.check_f32("c", c, (L, B, H), dev)
+    kernels.check_f32("embedding", weights.embedding, (V, E), dev)
     for l, f in enumerate(weights.layers):
         D = E if l == 0 else H
-        _check_f32(f"layer {l} kernel", f.kernel, (D, 4 * H), dev)
-        _check_f32(f"layer {l} recurrent", f.recurrent, (H, 4 * H), dev)
-        _check_f32(f"layer {l} bias", f.bias, (4 * H,), dev)
-    _check_f32("head kernel", weights.head_kernel, (H, V), dev)
-    _check_f32("head bias", weights.head_bias, (V,), dev)
+        kernels.check_f32(f"layer {l} kernel", f.kernel, (D, 4 * H), dev)
+        kernels.check_f32(f"layer {l} recurrent", f.recurrent, (H, 4 * H), dev)
+        kernels.check_f32(f"layer {l} bias", f.bias, (4 * H,), dev)
+    kernels.check_f32("head kernel", weights.head_kernel, (H, V), dev)
+    kernels.check_f32("head bias", weights.head_bias, (V,), dev)
     tok = _int_row("tokens", tokens, B, dev)
     alv = _int_row("alive", alive, B, dev)
     rem = _int_row("remaining", remaining, B, dev)
@@ -244,7 +198,7 @@ def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
     else:
         if noise is None:
             raise ValueError("temperature sampling needs noise [K, B, V]")
-        _check_f32("noise", noise, (window, B, V), dev)
+        kernels.check_f32("noise", noise, (window, B, V), dev)
         noise_ptr = noise.data_ptr()
 
     toks = torch.empty((window, B), dtype=torch.int32, device=dev)
@@ -256,10 +210,10 @@ def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
     Us = ptrs(*(f.recurrent.data_ptr() for f in weights.layers))
     bs = ptrs(*(f.bias.data_ptr() for f in weights.layers))
     scale = int(not greedy and temperature != 1.0)
-    lib = _library()
+    launch = kernels.launcher("decode_window", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.decode_window_launch(
+        rc = launch(
             weights.embedding.data_ptr(), V, E, L, H, Ws, Us, bs,
             weights.head_kernel.data_ptr(), weights.head_bias.data_ptr(),
             h.data_ptr(), c.data_ptr(), tok.data_ptr(), alv.data_ptr(),

@@ -38,7 +38,10 @@ def test_importing_every_module_loads_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["loaded"] == []
     for mod in ("serve.engine", "serve.server", "ops.cuda_decode", "cli",
-                "convert", "kernels"):
+                "convert", "kernels", "ops.cuda_lstm", "ops.scan",
+                "ops.embedding", "models.lstm_lm", "data.corpus",
+                "data.datasets", "data.batching", "train.optimizer",
+                "train.loop", "train.metrics", "exit_codes"):
         assert f"lstm_tensorspark_torch.{mod}" in report["modules"]
 
 
