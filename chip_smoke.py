@@ -37,7 +37,27 @@ Phases (each one fails the run):
    versions, same seed and batches), and 5 of a 2-layer stack, then 300 steps with an eval every 100
    whose kernel launch counts must equal steps × layers (+ the eval
    forwards), steps/s and tokens/s, and the device idle share over 20
-   steps under ``torch.profiler``.
+   steps under ``torch.profiler``;
+7. hold the residentx kernels (``csrc/lstmx_fwd.cu``, ``csrc/lstmx_bwd.cu``)
+   against their plain versions in all four roles — one direction and the
+   stacked two directions of a bi-LSTM layer, forward and backward — at
+   config 2 (B=32 per direction, T=400, D=H=256), masked with the IMDB
+   stand-in's lengths and unmasked, at the LM's ``--seq-len 256`` shape
+   (B=64, T=256, D=H=128; one direction) and at an awkward shape (B=8,
+   T=257, D=72, H=200); time each role at the shape its launches in phase
+   8 come from in turns (plain, kernel, kernel, plain) with CUDA events and
+   under ``torch.profiler``, beside cuDNN's ``torch.nn.LSTM``
+   (bidirectional for the stacked roles) and the bound; and time the
+   stacked pair under the card's plan against the other row cut of each
+   kernel;
+8. train config 2 through the CLI: the first 10 losses on the card at
+   ``--dropout 0``, without and with ``--remat-chunk 50``, against the same
+   run on the CPU (without remat: the plain scan's values do not depend
+   on it); 300 steps at ``--dropout 0.2`` with an eval every 100,
+   whose launch counts must equal the prediction; the LM at
+   ``--seq-len 256`` (the single-direction residentx pair) for 10 steps
+   against the CPU; and the device idle share over 20 config-2 steps under
+   ``torch.profiler``.
 
 The last lines are the kernel report (one JSON object), the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``. Exits
@@ -80,6 +100,18 @@ TRAIN_FLAGS = ["train", "--dataset", "ptb_char", "--hidden-units", "128",
                "--learning-rate", "0.5", "--stateful", "--compute-dtype",
                "float32"]
 TRAIN_STEPS, EVAL_EVERY, EVAL_BATCHES = 300, 100, 8
+# config 2: the bi-LSTM classifier on the IMDB stand-in (B=32, T=400,
+# E=H=256, V=113), Adam 1e-3, clip 1.0
+CONFIG2 = dict(B=32, T=400, D=256, H=256)
+CONFIG2_FLAGS = ["train", "--dataset", "imdb", "--hidden-units", "256",
+                 "--num-layers", "1", "--batch-size", "32", "--seq-len",
+                 "400", "--optimizer", "adam", "--learning-rate", "1e-3",
+                 "--clip-norm", "1.0", "--compute-dtype", "float32"]
+CONFIG2_STEPS, CONFIG2_EVAL_EVERY = 300, 100
+AWKWARD = dict(B=8, T=257, D=72, H=200)
+# config 1's LM at --seq-len 256 (E=H=128): the single-direction
+# residentx pair
+LM256 = dict(B=64, T=256, D=128, H=128)
 
 
 def fail(msg: str) -> None:
@@ -167,8 +199,10 @@ def time_ms(torch, fn, iters):
 
 def device_profile(torch, fn, calls=None):
     """Device-side view of ``fn()`` from ``torch.profiler``: (device busy
-    ms summed over all kernels and copies, wall ms, {name: device ms}) —
-    or None when the profiler records no device time."""
+    ms summed over all kernels and copies, wall ms, {name: device ms},
+    {name: events recorded}) — or None when the profiler records no device
+    time. The profiler can miss the first launches of a window, so a
+    per-launch time divides by the events recorded, not by the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -178,7 +212,7 @@ def device_profile(torch, fn, calls=None):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
+    by_name, counts = {}, {}
     for evt in prof.key_averages():
         # device-side events only (kernels, copies): the CPU operators that
         # launched them also report their children's device time, and
@@ -189,9 +223,10 @@ def device_profile(torch, fn, calls=None):
                      getattr(evt, "self_cuda_time_total", 0.0))
         if us > 0:
             by_name[evt.key] = us / 1e3
+            counts[evt.key] = evt.count
     if not by_name:
         return None
-    return sum(by_name.values()), wall * 1e3, by_name
+    return sum(by_name.values()), wall * 1e3, by_name, counts
 
 
 def bound(cfg, B, K, row_steps, sampled):
@@ -271,7 +306,7 @@ def kernel_phase(torch, tlm, tgen, cd, device):
                 print(f"  {name} {label}: the profiler recorded no device "
                       "time (device busy not measured)", flush=True)
                 continue
-            busy, wall, by_name = prof
+            busy, wall, by_name, _ = prof
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
             print(f"  {name} {label} x20 under torch.profiler: device busy "
                   f"{busy / 20:.4f} ms of {wall / 20:.4f} ms wall per call; "
@@ -390,7 +425,7 @@ def serve_phase(torch, tlm, tgen, cd, serve, device):
         print("  serve under torch.profiler: no device time recorded "
               "(device idle share not measured)", flush=True)
     else:
-        busy, pwall, by_name = prof
+        busy, pwall, by_name, _ = prof
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         print(f"  serve burst under torch.profiler: device busy {busy:.3f} ms "
               f"of {pwall:.3f} ms wall (idle share "
@@ -587,8 +622,10 @@ def lstm_kernel_phase(torch, cl, device):
         prof = device_profile(torch, lambda: [kernel() for _ in range(20)])
         dev_ms = None
         if prof is not None:
-            dev_ms = sum(v for k, v in prof[2].items()
-                         if f"lstm_{kind}_kernel" in k) / 20
+            keys = [k for k in prof[2] if f"lstm_{kind}_kernel" in k]
+            n = sum(prof[3][k] for k in keys)
+            if n:
+                dev_ms = sum(prof[2][k] for k in keys) / n
         timings[kind] = dict(kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                              bound_ms=bound_ms, bound_by=bound_by,
                              device_ms=dev_ms,
@@ -718,13 +755,442 @@ def train_phase(torch, cli, cl, device):
         print("  20 steps under torch.profiler: no device time recorded "
               "(idle share not measured)", flush=True)
     else:
-        busy, wall, by_name = prof
+        busy, wall, by_name, _ = prof
         idle = 1 - busy / wall
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(f"  20 steps under torch.profiler: device busy {busy:.3f} ms "
               f"of {wall:.3f} ms wall (idle share {idle:.3f}); top: "
               + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top), flush=True)
     return launches
+
+
+def imdb_lengths(B, T):
+    """The lengths of the IMDB stand-in's first config-2 training batch
+    (shuffle seed 0, length buckets): what the kernels' mask sees."""
+    from lstm_tensorspark_torch.data import get_dataset, padded_batches
+
+    seqs, labels = get_dataset("imdb", max_len=T)["train"]
+    return next(padded_batches(seqs, labels, B, T, shuffle_seed=0))["lengths"]
+
+
+def lstmx_inputs(torch, B, T, D, H, ndir, lengths, seed, device):
+    """Seeded direction-stacked inputs of the residentx pair — xs, W, b, U,
+    h0, c0, mask (or None) — and the backward's cotangents dys, dhT, dcT,
+    on ``device``. With ``lengths`` each direction's rows are right-padded
+    to them; the second direction's mask is time-flipped, as the bi-LSTM
+    layer feeds it."""
+    g = torch.Generator().manual_seed(seed)
+    BS, G = ndir * B, 4 * H
+    xs = torch.randn(T, BS, D, generator=g)
+    W = torch.randn(ndir, D, G, generator=g) / D ** 0.5
+    b = torch.randn(ndir, G, generator=g) * 0.1
+    U = torch.randn(ndir, H, G, generator=g) / H ** 0.5
+    h0 = torch.randn(BS, H, generator=g) * 0.5
+    c0 = torch.randn(BS, H, generator=g) * 0.5
+    mask = None
+    if lengths is not None:
+        m = (torch.arange(T)[:, None]
+             < torch.as_tensor(lengths)[None, :]).float()
+        mask = m if ndir == 1 else torch.cat([m, torch.flip(m, dims=(0,))], 1)
+    dys = torch.randn(T, BS, H, generator=g)
+    dhT = torch.randn(BS, H, generator=g)
+    dcT = torch.randn(BS, H, generator=g)
+
+    def dev(t):
+        return None if t is None else t.to(device).contiguous()
+
+    return ([dev(t) for t in (xs, W, b, U, h0, c0, mask)],
+            [dev(t) for t in (dys, dhT, dcT)])
+
+
+def lstmx_bound(B, T, D, H, ndir, kind, masked, save_c=True):
+    """Least time of one call of the pair: the larger of the bytes it must
+    move (each input read once, each output written once) over HBM
+    bandwidth and its products' FLOPs over the float32 peak. The forward
+    (with ``save_c``: its cs writes) does the projection and h @ U,
+    2·T·BS·(D+H)·4H; the backward rebuilds z (the same) and does dz @ Uᵀ,
+    2·T·BS·4H·H."""
+    BS, G = ndir * B, 4 * H
+    weights = ndir * (D * G + G + H * G)
+    if kind == "fwd":  # xs, W, b, U, h0, c0 in; ys, hT, cT (and cs) out
+        floats = T * BS * D + weights + 2 * BS * H + T * BS * H \
+            + 2 * BS * H + (T * BS * H if save_c else 0)
+        flops = 2 * T * BS * (D + H) * G
+    else:  # xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT in; dz, dh0, dc0 out
+        floats = T * BS * D + 3 * T * BS * H + 4 * BS * H + weights \
+            + T * BS * G + 2 * BS * H
+        flops = 2 * T * BS * (D + H) * G + 2 * T * BS * G * H
+    nbytes = 4 * (floats + (T * BS if masked else 0))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cudnn_bi_yardstick(torch, B, T, D, H, ndir, device):
+    """cuDNN's ``torch.nn.LSTM`` (bidirectional when ``ndir`` is 2) on one
+    layer at the same B, T, D, H, unmasked, TF32 off: (forward ms, backward
+    alone ms). It does more than the kernels — its forward includes the
+    input product for both directions' inputs, its backward also gives dx,
+    dW, dU and db — so it is a yardstick, not a like-for-like time; the
+    port never calls it."""
+    lstm = torch.nn.LSTM(D, H, bidirectional=ndir == 2).to(device)
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(T, B, D, generator=g).to(device).requires_grad_()
+    dy = torch.randn(T, B, ndir * H, generator=g).to(device)
+    ys, _ = lstm(x)
+
+    def fwd():
+        return lstm(x)
+
+    def bwd():
+        return torch.autograd.grad(ys, [x, *lstm.parameters()], dy,
+                                   retain_graph=True)
+
+    return time_ms(torch, fwd, 20), time_ms(torch, bwd, 20)
+
+
+# Each role is timed at the shape of the run its launches on the main path
+# come from (phase 8): the one-direction forward as config 2 runs it under
+# --remat-chunk 50 (inside the recompute Function, so without cs), the
+# one-direction backward in the LM at --seq-len 256, the stacked pair in
+# config 2's main run (the forward of a training step, with cs).
+LSTMX_ROLES = {  # role: (shape, ndir, kind, masked, save_c)
+    "lstmx_fwd": ("config2", 1, "fwd", True, False),
+    "lstmx_bwd": ("lm256", 1, "bwd", False, True),
+    "bilstm_fwd": ("config2", 2, "fwd", True, True),
+    "bilstm_bwd": ("config2", 2, "bwd", True, True),
+}
+
+
+def lstmx_kernel_phase(torch, cx, device):
+    print("== phase 7: residentx kernels (one and two directions) vs plain "
+          "versions", flush=True)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    B2, T2, D2, H2 = (CONFIG2[k] for k in ("B", "T", "D", "H"))
+    lens2 = imdb_lengths(B2, T2)
+    print(f"  IMDB stand-in lengths of the first config-2 batch: min "
+          f"{int(lens2.min())}, max {int(lens2.max())}, mean "
+          f"{float(lens2.mean()):.1f}", flush=True)
+    shapes = {"config2": CONFIG2, "lm256": LM256, "awkward": AWKWARD}
+    aw = AWKWARD
+    lens_aw = [aw["T"] - 3 * i for i in range(aw["B"])]
+    lens_aw[-1] = 1
+    cases = []
+    for ndir in (1, 2):
+        cases += [("config2", ndir, lens2), ("config2", ndir, None)]
+        if ndir == 1:
+            cases.append(("lm256", 1, None))
+        cases.append(("awkward", ndir, lens_aw))
+    errs = {("fwd", 1): 0.0, ("bwd", 1): 0.0, ("fwd", 2): 0.0, ("bwd", 2): 0.0}
+    for i, (name, ndir, lens) in enumerate(cases):
+        B, T, D, H = (shapes[name][k] for k in ("B", "T", "D", "H"))
+        label = (f"{name} B={B} T={T} D={D} H={H} ndir={ndir} "
+                 f"mask={lens is not None}")
+        inputs, (dys, dhT, dcT) = lstmx_inputs(torch, B, T, D, H, ndir, lens,
+                                               seed=20 + i, device=device)
+        xs, W, b, U, h0, c0, mask = inputs
+        got = cx.lstmx_forward(*inputs, save_c=True)
+        bare = cx.lstmx_forward(*inputs)
+        ref = cx.lstmx_forward_reference(*inputs, save_c=True)
+        torch.cuda.synchronize()
+        e = {}
+        for n, a, r in zip(("ys", "hT", "cT", "cs"), got, ref):
+            e[n] = held(torch, n, a, r, label, scaled=False)
+        for n, a, r in zip(("ys", "hT", "cT"), bare, got):
+            if not torch.equal(a, r):
+                fail(f"{label}: the forward without cs gives other {n} than "
+                     "with it")
+        ys, cs = ref[0], ref[3]
+        bgot = cx.lstmx_backward(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT,
+                                 mask)
+        bref = cx.lstmx_backward_reference(xs, ys, h0, cs, c0, dys, W, b, U,
+                                           dhT, dcT, mask)
+        torch.cuda.synchronize()
+        for n, a, r in zip(("dz", "dh0", "dc0"), bgot, bref):
+            e[n] = held(torch, n, a, r, label, scaled=True)
+        errs["fwd", ndir] = max(errs["fwd", ndir],
+                                *(e[n] for n in ("ys", "hT", "cT", "cs")))
+        errs["bwd", ndir] = max(errs["bwd", ndir], e["dz"], e["dh0"],
+                                e["dc0"])
+        print(f"  {label}: max |d| " + ", ".join(
+            f"{n} {v:.2e}" for n, v in e.items()), flush=True)
+        print(f"    plan {cx.card_plan(B, H, D, ndir, device)}", flush=True)
+
+    timings = {}
+    lib = {}
+    for role, (name, nd, kind, masked, save_c) in LSTMX_ROLES.items():
+        B, T, D, H = (shapes[name][k] for k in ("B", "T", "D", "H"))
+        if (name, nd) not in lib:
+            lib[name, nd] = cudnn_bi_yardstick(torch, B, T, D, H, nd, device)
+            print(f"  cuDNN torch.nn.LSTM{' bidirectional' if nd == 2 else ''}"
+                  f" (yardstick; also the input product, dx and the weight "
+                  f"gradients) {name} B={B} T={T} D={D} H={H}: forward "
+                  f"{lib[name, nd][0]:.4f} ms, backward alone "
+                  f"{lib[name, nd][1]:.4f} ms", flush=True)
+        inputs, (dys, dhT, dcT) = lstmx_inputs(
+            torch, B, T, D, H, nd, lens2 if masked else None, seed=7,
+            device=device)
+        xs, W, b, U, h0, c0, mask = inputs
+        ys, _, _, cs = cx.lstmx_forward(*inputs, save_c=True)
+        bargs = (xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask)
+        if kind == "fwd":
+            def kernel():
+                return cx.lstmx_forward(*inputs, save_c=save_c)
+
+            def plain():
+                return cx.lstmx_forward_reference(*inputs, save_c=save_c)
+        else:
+            def kernel():
+                return cx.lstmx_backward(*bargs)
+
+            def plain():
+                return cx.lstmx_backward_reference(*bargs)
+        p1 = time_ms(torch, plain, 2)
+        k1 = time_ms(torch, kernel, 10)
+        k2 = time_ms(torch, kernel, 10)
+        p2 = time_ms(torch, plain, 2)
+        bound_ms, bound_by = lstmx_bound(B, T, D, H, nd, kind, masked, save_c)
+        prof = device_profile(torch, lambda: [kernel() for _ in range(10)])
+        dev_ms = None
+        if prof is not None:
+            keys = [k for k in prof[2] if f"lstmx_{kind}_kernel" in k]
+            n = sum(prof[3][k] for k in keys)
+            if n:
+                dev_ms = sum(prof[2][k] for k in keys) / n
+        timings[role] = dict(
+            kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+            bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms,
+            library_ms=lib[name, nd][0 if kind == "fwd" else 1],
+            max_err=errs[kind, nd])
+        print(f"  {role} {name} B={B} T={T} D={D} H={H} (mask={masked}, "
+              f"cs={save_c if kind == 'fwd' else 'in'}): kernel_ms "
+              f"{timings[role]['kernel_ms']:.4f} ({k1:.4f}, {k2:.4f}), "
+              f"device_ms "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}, "
+              f"plain_ms {timings[role]['plain_ms']:.4f} ({p1:.4f}, "
+              f"{p2:.4f}), library_ms {timings[role]['library_ms']:.4f}, "
+              f"bound_ms {bound_ms:.6f} ({bound_by})", flush=True)
+    rows_ab(torch, cx, lens2, sms, device)
+    return timings
+
+
+def rows_ab(torch, cx, lens2, sms, device):
+    """The stacked pair at config 2 under the card's plan and under the
+    other row cut of each kernel, alternated with CUDA events: the forward
+    with 4-row clusters (16 of them, more than the card keeps at once: the
+    plan for every cluster resident), the backward with 8-row clusters
+    (the plan for half the SMs: one wave, a one-step projection chunk).
+    The forward's results must not change by a bit (none of its sums
+    depends on the rows); the backward's dz @ Uᵀ split follows its rows,
+    so under either cut its dz, dh0, dc0 are held against the plain
+    version with the phase's tolerance."""
+    B2, T2, D2, H2 = (CONFIG2[k] for k in ("B", "T", "D", "H"))
+    inputs, (dys, dhT, dcT) = lstmx_inputs(torch, B2, T2, D2, H2, 2, lens2,
+                                           seed=7, device=device)
+    xs, W, b, U, h0, c0, mask = inputs
+    card = cx.card_plan(B2, H2, D2, 2, device)
+    alt = {"fwd": card._replace(fwd=cx.plan(B2, H2, D2, 2, sms).fwd),
+           "bwd": card._replace(bwd=cx.plan(B2, H2, D2, 2, sms // 2).bwd)}
+    ys, _, _, cs = cx.lstmx_forward(*inputs, save_c=True)
+    bargs = (xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask)
+    calls = {"fwd": lambda p: cx.lstmx_forward(*inputs, save_c=True, xplan=p),
+             "bwd": lambda p: cx.lstmx_backward(*bargs, xplan=p)}
+    bref = cx.lstmx_backward_reference(*bargs)
+    parts, bwd_err = [], 0.0
+    for kind in ("fwd", "bwd"):
+        a, o = getattr(card, kind), getattr(alt[kind], kind)
+        got, other = calls[kind](card), calls[kind](alt[kind])
+        if kind == "fwd":
+            if not all(torch.equal(x, y) for x, y in zip(got, other)):
+                fail("bilstm_fwd: the row cut changed the results")
+        else:
+            for p, out in (("card plan", got), ("other cut", other)):
+                for n, x, r in zip(("dz", "dh0", "dc0"), out, bref):
+                    bwd_err = max(bwd_err, held(
+                        torch, n, x, r, f"bilstm_bwd row cut ({p})", True))
+        t = {p: [] for p in ("card", "alt")}
+        for p in ("card", "alt", "alt", "card"):
+            pl = card if p == "card" else alt[kind]
+            t[p].append(time_ms(torch, lambda: calls[kind](pl), 10))
+        parts.append(
+            f"{kind} card plan {a.rows} rows ({a.groups * 2} clusters, chunk "
+            f"{a.chunk}) {sum(t['card']) / 2:.4f} ms ({t['card'][0]:.4f}, "
+            f"{t['card'][1]:.4f}) vs {o.rows} rows ({o.groups * 2} clusters, "
+            f"chunk {o.chunk}) {sum(t['alt']) / 2:.4f} ms ({t['alt'][0]:.4f}, "
+            f"{t['alt'][1]:.4f})")
+    print(f"  row cut of the stacked pair at config 2 (the card keeps "
+          f"{cx.max_clusters(device, card.cluster)} clusters of "
+          f"{card.cluster}; forward results bit-equal, backward within "
+          f"{bwd_err:.2e} of the plain version): " + "; ".join(parts),
+          flush=True)
+
+
+def config2_phase(torch, cli, cl, cx, device):
+    print("== phase 8: train config 2 through the CLI", flush=True)
+    from lstm_tensorspark_torch.data import get_dataset
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_config2_")
+    counters = {"lstm_fwd": cl.fwd_counts, "lstm_bwd": cl.bwd_counts,
+                "lstmx_fwd": cx.fwdx_counts, "lstmx_bwd": cx.bwdx_counts,
+                "bilstm_fwd": cx.bi_fwdx_counts,
+                "bilstm_bwd": cx.bi_bwdx_counts}
+
+    def run(name, flags):
+        """One CLI run with every count set to 0 just before it; returns
+        its records and the kernel launches it made (plain runs under
+        'plain')."""
+        for c in counters.values():
+            c.reset()
+        path = os.path.join(tmp, f"{name}.jsonl")
+        rc = cli.main(flags + ["--jsonl", path])
+        if rc != 0:
+            fail(f"train run {name} exited {rc}")
+        launches = {k: c.kernel for k, c in counters.items()}
+        launches["plain"] = sum(c.reference for c in counters.values())
+        with open(path) as f:
+            return [json.loads(line) for line in f], launches
+
+    def expect(got, name, **want):
+        full = {k: 0 for k in counters}
+        full.update(want)
+        full["plain"] = 0
+        if got != full:
+            fail(f"{name}: launch counts {got} != predicted {full}")
+
+    # the CPU reference runs once, without remat: with --remat-chunk the
+    # plain scan gives the same values (tests/test_torch_scan_routes.py), so
+    # both card runs are held against it
+    first = {}
+    for remat, devs in ((None, ("cuda", "cpu")), (50, ("cuda",))):
+        extra = [] if remat is None else ["--remat-chunk", str(remat)]
+        for dev in devs:
+            name = f"first10_remat{remat}_{dev}"
+            t0 = time.perf_counter()
+            recs, launches = run(name, CONFIG2_FLAGS + extra + [
+                "--num-steps", "10", "--log-every", "1", "--dropout", "0",
+                "--eval-batches", "1", "--device", dev])
+            first[remat, dev] = [r["loss"] for r in recs if "loss" in r]
+            if len(first[remat, dev]) != 10:
+                fail(f"{name} logged {len(first[remat, dev])} losses, not 10")
+            if dev == "cuda":
+                # 10 steps and one eval batch; with remat each direction is
+                # its own scan and the backward is the plain recompute
+                if remat is None:
+                    expect(launches, name, bilstm_fwd=11, bilstm_bwd=10)
+                else:
+                    expect(launches, name, lstmx_fwd=22)
+                    remat_launches = launches
+            print(f"  {name}: {time.perf_counter() - t0:.1f} s, launches "
+                  f"{launches}", flush=True)
+        a, b = first[remat, "cuda"], first[None, "cpu"]
+        gap = max(abs(x - y) for x, y in zip(a, b))
+        print(f"  remat_chunk={remat}, first 10 losses: card "
+              f"{[round(x, 6) for x in a]}; CPU {[round(x, 6) for x in b]}; "
+              f"max |d| {gap:.2e}", flush=True)
+        if not gap <= TRAIN_LOSS_TOL:
+            fail(f"config 2 (remat_chunk={remat}) card losses differ from "
+                 f"the CPU run by {gap:.3e} > {TRAIN_LOSS_TOL}")
+
+    # the main run: every bi-layer forward and backward through the stacked
+    # kernels, dropout on
+    valid = get_dataset("imdb", max_len=CONFIG2["T"])["valid"][0]
+    per_eval = -(-len(valid) // CONFIG2["B"])  # filler rows pad the last
+    n_evals = CONFIG2_STEPS // CONFIG2_EVAL_EVERY + 1
+    recs, launches = run("main", CONFIG2_FLAGS + [
+        "--num-steps", str(CONFIG2_STEPS), "--log-every", "50",
+        "--eval-every", str(CONFIG2_EVAL_EVERY), "--dropout", "0.2",
+        "--device", "cuda"])
+    want = dict(bilstm_fwd=CONFIG2_STEPS + n_evals * per_eval,
+                bilstm_bwd=CONFIG2_STEPS)
+    print(f"  kernel launches {launches} (predicted {want}: {CONFIG2_STEPS} "
+          f"steps, + {n_evals} evals x {per_eval} batches forward)",
+          flush=True)
+    expect(launches, "main", **want)
+    main_launches = launches
+    for r in recs:
+        print(f"  {json.dumps(r)}", flush=True)
+    logged = [r for r in recs if "loss" in r]
+    final = recs[-1]
+    if final.get("note") != "final" or not 0.0 <= final.get(
+            "eval_accuracy", -1.0) <= 1.0:
+        fail(f"the run did not end with a final eval record: {final}")
+    if not all(r["loss"] == r["loss"] and r["loss"] < 1e9 for r in logged):
+        fail("a logged loss is not finite")
+    sps = sorted(r["steps_per_sec"] for r in logged[1:])
+    eps = sorted(r["examples_per_sec"] for r in logged[1:])
+    print(f"  loss at step 1 {first[None, 'cuda'][0]:.6f} (dropout 0 run), "
+          f"at step {logged[0]['step']} {logged[0]['loss']:.6f}, at step "
+          f"{logged[-1]['step']} {logged[-1]['loss']:.6f}; final eval_loss "
+          f"{final['eval_loss']:.6f}, eval_accuracy "
+          f"{final['eval_accuracy']:.4f}; steady state (median of the log "
+          f"windows after the first) {sps[len(sps) // 2]:.2f} steps/s, "
+          f"{eps[len(eps) // 2]:.1f} examples/s", flush=True)
+
+    # the LM at T=256: the single-direction residentx pair
+    lm = {}
+    for dev in ("cuda", "cpu"):
+        recs, launches = run(f"lm256_{dev}", TRAIN_FLAGS + [
+            "--seq-len", "256", "--num-steps", "10", "--log-every", "1",
+            "--eval-batches", "1", "--device", dev])
+        lm[dev] = [r["loss"] for r in recs if "loss" in r]
+        if dev == "cuda":
+            expect(launches, "lm256_cuda", lstmx_fwd=11, lstmx_bwd=10)
+            lm_launches = launches
+    gap = max(abs(x - y) for x, y in zip(lm["cuda"], lm["cpu"]))
+    print(f"  LM at --seq-len 256, first 10 losses: card "
+          f"{[round(x, 6) for x in lm['cuda']]}; CPU "
+          f"{[round(x, 6) for x in lm['cpu']]}; max |d| {gap:.2e}; launches "
+          f"{lm_launches}", flush=True)
+    if len(lm["cuda"]) != 10 or not gap <= TRAIN_LOSS_TOL:
+        fail(f"LM at T=256: card losses differ from the CPU run by {gap:.3e}")
+
+    # device idle share over 20 config-2 steps under torch.profiler, through
+    # the same library calls the CLI makes
+    from lstm_tensorspark_torch.data import epoch_stream, padded_batches
+    from lstm_tensorspark_torch.models import classifier as tclf
+    from lstm_tensorspark_torch.train import (init_train_state, make_optimizer,
+                                              make_train_step)
+    from lstm_tensorspark_torch.train.loop import device_batches
+
+    data = get_dataset("imdb", max_len=CONFIG2["T"])
+    cfg = tclf.ClassifierConfig(vocab_size=len(data["vocab"]),
+                                hidden_size=CONFIG2["H"], dropout=0.2)
+    params = tclf.classifier_params_to(
+        tclf.init_classifier(torch.Generator().manual_seed(0), cfg), device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    opt = make_optimizer("adam", 1e-3, clip_norm=1.0)
+    state = init_train_state(params, opt)
+    step = make_train_step(
+        lambda p, b: tclf.classifier_loss(p, b, cfg, dropout_gen=gen), opt)
+    batches = device_batches(epoch_stream(
+        lambda e: padded_batches(*data["train"], CONFIG2["B"], CONFIG2["T"],
+                                 shuffle_seed=e), steps_per_epoch=50), device)
+    for _ in range(5):
+        state, m = step(state, next(batches))
+    holder = [state]
+
+    def twenty():
+        s = holder[0]
+        for _ in range(20):
+            s, m = step(s, next(batches))
+        holder[0] = s
+        return m
+
+    prof = device_profile(torch, twenty)
+    if prof is None:
+        print("  20 steps under torch.profiler: no device time recorded "
+              "(idle share not measured)", flush=True)
+    else:
+        busy, wall, by_name, _ = prof
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"  20 config-2 steps under torch.profiler: device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms wall (idle share "
+              f"{1 - busy / wall:.3f}); top: "
+              + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top), flush=True)
+    return {"lstmx_fwd": remat_launches["lstmx_fwd"],
+            "lstmx_bwd": lm_launches["lstmx_bwd"],
+            "bilstm_fwd": main_launches["bilstm_fwd"],
+            "bilstm_bwd": main_launches["bilstm_bwd"]}
 
 
 def main() -> int:
@@ -741,6 +1207,7 @@ def main() -> int:
         from lstm_tensorspark_torch.models import lstm_lm as tlm
         from lstm_tensorspark_torch.ops import cuda_decode as cd
         from lstm_tensorspark_torch.ops import cuda_lstm as cl
+        from lstm_tensorspark_torch.ops import cuda_lstmx as cx
     except ImportError as e:
         fail(f"the port is not importable (run from the repo root): {e}")
 
@@ -754,7 +1221,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     print("== phase 2: build the CUDA kernels", flush=True)
-    sources = ["decode_window", "lstm_fwd", "lstm_bwd"]
+    sources = ["decode_window", "lstm_fwd", "lstm_bwd", "lstmx_fwd",
+               "lstmx_bwd"]
     secs = kernels.build(sources)
     print(f"  {', '.join(n + '.cu' for n in sources)} built in {secs:.2f} s",
           flush=True)
@@ -770,6 +1238,8 @@ def main() -> int:
     launches, tokens = serve_phase(torch, tlm, tgen, cd, serve, device)
     lstm_timings = lstm_kernel_phase(torch, cl, device)
     train_launches = train_phase(torch, cli, cl, device)
+    lstmx_timings = lstmx_kernel_phase(torch, cx, device)
+    config2_launches = config2_phase(torch, cli, cl, cx, device)
 
     main_path = timings["config1"]
     lstm_rows = [{
@@ -787,6 +1257,26 @@ def main() -> int:
         "bound_by": lstm_timings[kind]["bound_by"],
         "library_ms": lstm_timings[kind]["library_ms"],
     } for kind in ("fwd", "bwd")]
+    replaces = {
+        "lstmx_fwd": "lstm_tensorspark_tpu/ops/pallas_lstm.py:383",
+        "lstmx_bwd": "lstm_tensorspark_tpu/ops/pallas_lstm.py:444",
+        "bilstm_fwd": "lstm_tensorspark_tpu/ops/pallas_bilstm.py:108",
+        "bilstm_bwd": "lstm_tensorspark_tpu/ops/pallas_bilstm.py:178",
+    }
+    lstmx_rows = [{
+        "name": role,
+        "route": "cuda",
+        "source": ("lstm_tensorspark_torch/csrc/lstmx_"
+                   f"{role.split('_')[1]}.cu"),
+        "replaces": replaces[role],
+        "launches": config2_launches[role],
+        "max_abs_err": lstmx_timings[role]["max_err"],
+        "ms": lstmx_timings[role]["kernel_ms"],
+        "plain_ms": lstmx_timings[role]["plain_ms"],
+        "bound_ms": lstmx_timings[role]["bound_ms"],
+        "bound_by": lstmx_timings[role]["bound_by"],
+        "library_ms": lstmx_timings[role]["library_ms"],
+    } for role in replaces]
     print(json.dumps({"kernels": [{
         "name": "decode_window",
         "route": "cuda",
@@ -799,7 +1289,7 @@ def main() -> int:
         "bound_ms": main_path["bound_ms"],
         "bound_by": main_path["bound_by"],
         "library_ms": None,
-    }] + lstm_rows}), flush=True)
+    }] + lstm_rows + lstmx_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,14 @@
 - ``train`` trains the LSTM LM on the char corpus (BASELINE.md config 1 by
   its flags), as the JAX package's ``cli._run_lm`` does on one device with
   a host-fed stream: dataset → config → init → optimizer → batch stream →
-  ``train_loop`` (log, eval cadence) → a final eval record. Float32 only;
-  ``--compute-dtype bfloat16`` and ``--dropout`` > 0 exit with
-  ``USAGE_RC`` (not ported yet). A run of ``--anomaly-limit`` consecutive
-  non-finite steps exits with ``ANOMALY_RC``.
+  ``train_loop`` (log, eval cadence) → a final eval record. ``--dataset
+  imdb`` trains the bi-LSTM classifier instead (BASELINE.md config 2,
+  ``tasks/classification.py``), with ``--dropout``. ``--remat-chunk``
+  takes the recompute backward (JAX's choice when it is set). Float32
+  only; ``--compute-dtype bfloat16``, ``--dropout`` > 0 for the LM and the
+  other datasets exit with ``USAGE_RC`` (not ported yet). A run of
+  ``--anomaly-limit`` consecutive non-finite steps exits with
+  ``ANOMALY_RC``.
 - ``serve --selftest`` decodes ``--sessions`` concurrent sessions through
   the full server path and checks that the greedy tokens equal the plain
   ``models/generate.generate`` on the CPU for the same weights (rc 0 on
@@ -196,12 +200,14 @@ def _serve_http(args) -> int:
 def build_train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="lstm_tensorspark_torch train",
-        description="train the LSTM language model on PyTorch/CUDA "
-                    "(one device, float32)")
+        description="train the LSTM language model or, with --dataset "
+                    "imdb, the bi-LSTM classifier on PyTorch/CUDA (one "
+                    "device, float32)")
     p.add_argument("--dataset", type=str, default="ptb_char",
                    choices=["ptb_char", "wikitext2", "wikitext103", "imdb",
                             "uci_electricity"],
-                   help="ptb_char only so far; the others are not ported")
+                   help="ptb_char (LM) and imdb (bi-LSTM classifier) so "
+                        "far; the others are not ported")
     p.add_argument("--data-path", type=str, default=None,
                    help="corpus directory (falls back to the synthetic "
                         "stand-in)")
@@ -212,7 +218,8 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="step budget (overrides --epochs; 0 = eval only)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--seq-len", type=int, default=None,
-                   help="window length (default 64)")
+                   help="window length (default 64; imdb: padded "
+                        "example length, default 400)")
     p.add_argument("--learning-rate", type=float, default=1.0)
     p.add_argument("--optimizer", type=str, default="sgd",
                    choices=OPTIMIZERS)
@@ -226,7 +233,11 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="cosine decay horizon in steps (enables the "
                         "warmup-cosine schedule)")
     p.add_argument("--dropout", type=float, default=0.0,
-                   help="not ported yet: any value > 0 is refused")
+                   help="classifier (imdb) only: dropout on the final "
+                        "states and between layers; refused for the LM")
+    p.add_argument("--remat-chunk", type=int, default=None,
+                   help="checkpoint the recurrence in chunks of N steps: "
+                        "the backward recomputes them (T % N == 0)")
     p.add_argument("--tie-embeddings", action="store_true")
     p.add_argument("--compute-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
@@ -260,15 +271,23 @@ def _run_train(args) -> int:
     if args.compute_dtype != "float32":
         refused = (f"--compute-dtype {args.compute_dtype} is not ported yet "
                    "(float32 only)")
-    elif args.dropout > 0:
-        refused = "--dropout > 0 is not ported yet"
+    elif args.dropout > 0 and args.dataset != "imdb":
+        refused = ("--dropout > 0 is not ported yet for the LM (the "
+                   "classifier, --dataset imdb, takes it)")
     elif args.eval_batches is not None and args.eval_batches < 1:
         refused = f"--eval-batches must be >= 1, got {args.eval_batches}"
+    elif args.remat_chunk is not None and args.remat_chunk < 1:
+        refused = f"--remat-chunk must be >= 1, got {args.remat_chunk}"
     if refused:
         print(f"train: {refused}", file=sys.stderr)
         return USAGE_RC
     dev = resolve_device(args.device)
     configure_precision()
+    if args.dataset == "imdb":
+        from .tasks.classification import run_classifier
+
+        with MetricsLogger(args.jsonl) as logger:
+            return run_classifier(args, dev, logger)
     seq_len = args.seq_len or 64
     B = args.batch_size
     try:
@@ -283,7 +302,8 @@ def _run_train(args) -> int:
         vocab = data["vocab"]
         cfg = LMConfig(vocab_size=len(vocab), hidden_size=args.hidden_units,
                        num_layers=args.num_layers,
-                       tie_embeddings=args.tie_embeddings)
+                       tie_embeddings=args.tie_embeddings,
+                       remat_chunk=args.remat_chunk)
 
         def loss_fn(params, batch, carries=None):
             return lm_loss(params, batch, cfg, carries=carries)

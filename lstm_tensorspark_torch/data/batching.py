@@ -1,8 +1,10 @@
-"""LM batching: a token stream → contiguous [B, T] windows (host, numpy).
+"""Batching (host, numpy): a token stream → contiguous [B, T] LM windows,
+and variable-length examples → padded, length-bucketed batches.
 
-Port of the LM part of ``lstm_tensorspark_tpu/data/batching.py``. The
-stream is split into ``batch_size`` parallel row streams so window t's
-final recurrent state can seed window t+1 (stateful truncated BPTT).
+Port of the LM and classification parts of
+``lstm_tensorspark_tpu/data/batching.py``. The LM stream is split into
+``batch_size`` parallel row streams so window t's final recurrent state
+can seed window t+1 (stateful truncated BPTT).
 """
 
 from __future__ import annotations
@@ -11,6 +13,20 @@ import itertools
 from typing import Iterator
 
 import numpy as np
+
+
+def epoch_stream(epoch_fn, *, steps_per_epoch: int, start_step: int = 0):
+    """Endless epochs of ``epoch_fn(epoch)`` batches; ``start_step``
+    fast-forwards the epoch index (and so any per-epoch shuffle seed in
+    ``epoch_fn``) and the in-epoch offset to where a resumed run is."""
+    epoch, skip = divmod(start_step, steps_per_epoch) if start_step else (0, 0)
+    while True:
+        it = epoch_fn(epoch)
+        if skip:
+            it = itertools.islice(it, skip, None)
+            skip = 0
+        yield from it
+        epoch += 1
 
 
 def cap_batches(batches, n: int | None):
@@ -69,3 +85,43 @@ def lm_batch_stream(tokens: np.ndarray, batch_size: int, seq_len: int, *,
             skip = 0
         yield from it
         epoch += 1
+
+
+def example_order(lengths: list[int], *, shuffle_seed: int | None = None,
+                  bucket: bool = True) -> np.ndarray:
+    """The example order: a seeded shuffle, then a stable sort by length
+    (length buckets)."""
+    order = np.arange(len(lengths))
+    if shuffle_seed is not None:
+        np.random.RandomState(shuffle_seed).shuffle(order)
+    if bucket:
+        order = order[np.argsort([lengths[i] for i in order], kind="stable")]
+    return order
+
+
+def padded_batches(sequences: list[np.ndarray], labels: np.ndarray,
+                   batch_size: int, max_len: int, *, bucket: bool = True,
+                   shuffle_seed: int | None = None,
+                   drop_remainder: bool = True) -> Iterator[dict]:
+    """Variable-length classification batches padded to ``max_len``:
+    {"tokens" [B, L] int32, "lengths" [B] int32, "labels" [B] int32,
+    "valid" [B] bool}. With ``drop_remainder=False`` the last short batch
+    is filled with all-zero rows marked ``valid=False`` (length 0), so
+    metrics weight rows instead of counting an example twice."""
+    order = example_order([len(s) for s in sequences],
+                          shuffle_seed=shuffle_seed, bucket=bucket)
+    for start in range(0, len(order), batch_size):
+        idx = order[start:start + batch_size]
+        if len(idx) < batch_size and drop_remainder:
+            break
+        toks = np.zeros((batch_size, max_len), np.int32)
+        lens = np.zeros((batch_size,), np.int32)
+        labs = np.zeros((batch_size,), np.int32)
+        valid = np.zeros((batch_size,), bool)
+        for row, i in enumerate(idx):
+            seq = sequences[i][:max_len]
+            toks[row, :len(seq)] = seq
+            lens[row] = len(seq)
+            labs[row] = labels[i]
+            valid[row] = True
+        yield {"tokens": toks, "lengths": lens, "labels": labs, "valid": valid}

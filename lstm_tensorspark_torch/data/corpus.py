@@ -1,9 +1,10 @@
 """Corpus loading and the character vocabulary (host side, numpy).
 
-Port of ``lstm_tensorspark_tpu/data/corpus.py`` for the char-level corpus:
-``Vocab``, ``build_char_vocab``, ``load_text``, ``synthetic_text`` and the
-seed paragraph it draws from, ``resolve_split_files``. A copy, not an
-import: the JAX package's ``data`` package imports jax.
+Port of ``lstm_tensorspark_tpu/data/corpus.py``: ``Vocab`` (char and word
+encoding), ``build_char_vocab``, ``build_word_vocab``, ``load_text``,
+``synthetic_text`` and the seed paragraph it draws from,
+``resolve_split_files``. A copy, not an import: the JAX package's ``data``
+package imports jax.
 
 The real corpora are not in the repository, so every loader falls back to
 a deterministic synthetic stand-in (a bigram Markov chain over the seed
@@ -14,6 +15,7 @@ byte-for-byte the JAX package's.
 from __future__ import annotations
 
 import os
+from collections import Counter
 
 import numpy as np
 
@@ -57,13 +59,19 @@ class Vocab:
         return np.asarray([self.stoi.get(t, unk) for t in tokens], dtype=np.int32)
 
     def encode_text(self, text: str, level: str) -> np.ndarray:
-        """Encode raw text at the "char" level (the word level is not
-        ported yet). Characters outside the vocabulary map to <unk>, as in
-        the JAX package's native encoder."""
-        if level != "char":
-            raise ValueError(f"{level!r}-level encoding is not ported yet "
-                             "(char only)")
+        """Encode raw text at the "char" or the "word" (whitespace) level.
+        Tokens outside the vocabulary map to <unk>, as in the JAX package's
+        native encoders — the special strings too, when raw text holds
+        them."""
         unk = self.stoi.get("<unk>", 0)
+        if level == "word":
+            n_special = sum(1 for t in self.itos if t in _SPECIALS)
+            lookup = {w: n_special + i
+                      for i, w in enumerate(self.itos[n_special:])}
+            return np.asarray([lookup.get(w, unk) for w in text.split()],
+                              np.int32)
+        if level != "char":
+            raise ValueError(f"unknown encoding level {level!r}")
         # one-character entries only: the specials never occur in raw text
         chars = {c: i for c, i in self.stoi.items() if len(c) == 1}
         if text.isascii() and all(ord(c) < 128 for c in chars):
@@ -80,6 +88,16 @@ class Vocab:
 
 def build_char_vocab(text: str) -> Vocab:
     return Vocab(sorted(set(text)))
+
+
+def build_word_vocab(text: str, max_size: int | None = None) -> Vocab:
+    """Whitespace words, most common first (ties in first-occurrence
+    order, ``Counter.most_common``), at most ``max_size`` entries with the
+    two specials."""
+    n = max_size - 2 if max_size else None
+    if n is not None and n <= 0:
+        return Vocab([])
+    return Vocab([w for w, _ in Counter(text.split()).most_common(n)])
 
 
 def load_text(path: str) -> str:

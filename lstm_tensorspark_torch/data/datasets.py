@@ -1,21 +1,28 @@
-"""Dataset registry (host side): BASELINE.md config 1's char-level corpus.
+"""Dataset registry (host side): BASELINE.md config 1's char-level corpus
+and config 2's IMDB sentiment examples.
 
-Port of ``lstm_tensorspark_tpu/data/datasets.py`` for ``ptb_char``. Real
-files under ``data_path`` are used when present; otherwise the synthetic
-stand-in, whose splits, vocabulary and encoded arrays are byte-equal to
-the JAX package's. The other datasets of the JAX registry (wikitext2,
-wikitext103, imdb, uci_electricity) are not ported yet and raise.
+Port of ``lstm_tensorspark_tpu/data/datasets.py`` for ``ptb_char`` and
+``imdb``. Real files under ``data_path`` are used when present; otherwise
+the synthetic stand-in, whose splits, vocabulary and encoded arrays are
+byte-equal to the JAX package's. The other datasets of the JAX registry
+(wikitext2, wikitext103, uci_electricity) are not ported yet and raise.
 
-Returned dict: {"train", "valid", "test"} int32 token arrays, "vocab",
-and "synthetic": bool.
+Returned dict: {"train", "valid", "test"} int32 token arrays (LM) or
+(sequences, labels) pairs (classification), "vocab", and "synthetic":
+bool.
 """
 
 from __future__ import annotations
 
-from .corpus import build_char_vocab, load_text, resolve_split_files, synthetic_text
+import os
+
+import numpy as np
+
+from .corpus import (build_char_vocab, build_word_vocab, load_text,
+                     resolve_split_files, synthetic_text)
 
 # the JAX registry's other names, refused with a clear message
-_NOT_PORTED = ("wikitext2", "wikitext103", "imdb", "uci_electricity")
+_NOT_PORTED = ("wikitext2", "wikitext103", "uci_electricity")
 
 
 def _lm_dataset(data_path: str | None, basenames: list[str], level: str, *,
@@ -45,7 +52,114 @@ def ptb_char(data_path=None, **kw):
                        synthetic_tokens=200_000, **kw)
 
 
-DATASETS = {"ptb_char": ptb_char}
+def _resolve_imdb_root(data_path: str | None) -> str | None:
+    """Locate the aclImdb layout ``<root>/{train,test}/{pos,neg}/*.txt``:
+    the aclImdb directory itself or a parent holding it; None when absent
+    (synthetic stand-in)."""
+    if not data_path or not os.path.isdir(data_path):
+        return None
+    for root in (data_path, os.path.join(data_path, "aclImdb")):
+        if all(os.path.isdir(os.path.join(root, split, label))
+               for split in ("train", "test") for label in ("pos", "neg")):
+            return root
+    return None
+
+
+def _read_imdb_split(root: str, split: str, max_examples: int | None = None):
+    """One aclImdb split as (texts, labels), positives first, files in
+    sorted order."""
+    texts, labels = [], []
+    for label_name, label in (("pos", 1), ("neg", 0)):
+        d = os.path.join(root, split, label_name)
+        names = [n for n in sorted(os.listdir(d)) if n.endswith(".txt")]
+        if max_examples is not None:
+            names = names[: max_examples // 2]
+        for name in names:
+            with open(os.path.join(d, name), encoding="utf-8",
+                      errors="replace") as f:
+                texts.append(f.read())
+            labels.append(label)
+    return texts, labels
+
+
+def _imdb_real(root: str, *, max_len: int, max_vocab: int = 25_000,
+               valid_frac: float = 0.1, max_examples: int | None = None,
+               seed: int = 0):
+    """aclImdb → word-id sequences clipped to ``max_len``, labels, and the
+    train split's vocabulary; the valid split is a seeded shuffle's head of
+    the train split."""
+    train_texts, train_labels = _read_imdb_split(root, "train", max_examples)
+    test_texts, test_labels = _read_imdb_split(root, "test", max_examples)
+    vocab = build_word_vocab(" ".join(train_texts), max_vocab)
+
+    def encode(texts, labels):
+        seqs = [vocab.encode_text(t, "word")[:max_len] for t in texts]
+        return seqs, np.asarray(labels, np.int32)
+
+    # interleave pos/neg before the valid split so both splits stay balanced
+    order = np.random.RandomState(seed).permutation(len(train_texts))
+    train_texts = [train_texts[i] for i in order]
+    train_labels = [train_labels[i] for i in order]
+    n_valid = int(len(train_texts) * valid_frac)
+    seqs, labels = encode(train_texts, train_labels)
+    test_seqs, test_labels = encode(test_texts, test_labels)
+    return {
+        "train": (seqs[n_valid:], labels[n_valid:]),
+        "valid": (seqs[:n_valid], labels[:n_valid]),
+        "test": (test_seqs, test_labels),
+        "vocab": vocab,
+        "num_classes": 2,
+        "max_len": max_len,
+        "synthetic": False,
+    }
+
+
+def imdb(data_path=None, *, num_examples: int | None = None,
+         max_len: int = 400, seed: int = 0, signal: float = 0.25):
+    """BASELINE.md config 2: binary sentiment over variable-length
+    sequences. Real data: ``data_path`` at the aclImdb directory (or its
+    parent). Otherwise the synthetic stand-in: two word distributions
+    shifted by class (``signal`` the class-specific token fraction),
+    lengths log-uniform in [20, max_len], labels alternating; 80/10/10
+    train/valid/test of ``num_examples`` (default 2000)."""
+    root = _resolve_imdb_root(data_path)
+    if root is not None:
+        return _imdb_real(root, max_len=max_len, seed=seed,
+                          max_examples=num_examples)
+    num_examples = num_examples or 2000
+    rng = np.random.RandomState(seed)
+    vocab = build_word_vocab(synthetic_text(50_000, seed))
+    V = len(vocab)
+    pos_words = np.arange(2, V, 2)
+    neg_words = np.arange(3, V, 2)
+    sequences, labels = [], []
+    for i in range(num_examples):
+        label = i % 2
+        length = int(np.exp(rng.uniform(np.log(20), np.log(max_len))))
+        base = pos_words if label else neg_words
+        mix = rng.rand(length) < signal  # class-specific vs shared noise
+        seq = np.where(
+            mix, base[rng.randint(len(base), size=length)],
+            rng.randint(2, V, size=length),
+        ).astype(np.int32)
+        sequences.append(seq)
+        labels.append(label)
+    labels = np.asarray(labels, np.int32)
+    n_train = int(num_examples * 0.8)
+    n_valid = int(num_examples * 0.1)
+    return {
+        "train": (sequences[:n_train], labels[:n_train]),
+        "valid": (sequences[n_train:n_train + n_valid],
+                  labels[n_train:n_train + n_valid]),
+        "test": (sequences[n_train + n_valid:], labels[n_train + n_valid:]),
+        "vocab": vocab,
+        "num_classes": 2,
+        "max_len": max_len,
+        "synthetic": True,
+    }
+
+
+DATASETS = {"ptb_char": ptb_char, "imdb": imdb}
 
 
 def get_dataset(name: str, data_path: str | None = None, **kw):

@@ -3,17 +3,22 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, loaded through ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Libraries go to ``build/torch_kernels/`` beside the
-package, named by a hash of the source and the flags, so an edited source
+package, named by a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source
 rebuilds and an unchanged one is reused. Nothing here runs at import time:
 the first call of a kernel's wrapper builds it (:func:`launcher`), or
 :func:`build` builds a set of kernels up front, one ``nvcc`` process per
-source, all at once. Also here: what every wrapper shares — its launch
-counter (:class:`LaunchCounts`) and the check of a tensor it passes by
-pointer (:func:`check_f32`).
+source, all at once. Inside :func:`defined` the kernels are built and
+launched with extra preprocessor macros (an instrumented build, e.g. the
+phase clocks of ``phase_clocks.py``), as libraries of their own beside the
+plain ones. Also here: what every wrapper shares — its launch counter
+(:class:`LaunchCounts`) and the check of a tensor it passes by pointer
+(:func:`check_f32`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,8 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
-_launchers: dict[str, object] = {}
+_defines: tuple[str, ...] = ()  # macros of the current build (defined())
+_loaded: dict[tuple, ctypes.CDLL] = {}  # by (name, macros)
+_launchers: dict[tuple, object] = {}
 
 
 def _nvcc() -> str:
@@ -49,9 +55,29 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def _flags() -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{m}" for m in _defines)
+
+
+@contextlib.contextmanager
+def defined(*macros: str):
+    """Inside the block, kernels build and launch with ``macros`` defined
+    (``nvcc -D``): libraries of their own (the flags are in the hash), so
+    the plain build is untouched and comes back after the block."""
+    global _defines
+    saved, _defines = _defines, tuple(macros)
+    try:
+        yield
+    finally:
+        _defines = saved
+
+
 def library_path(name: str) -> Path:
+    """Where kernel ``name``'s library goes: named by a hash of its source,
+    the shared headers of ``csrc/`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + " ".join(_flags()).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -72,7 +98,7 @@ def build(names) -> float:
         for n in todo:
             out = library_path(n)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            cmd = [nvcc, *_flags(), "-o", str(tmp), str(CSRC / f"{n}.cu")]
             procs.append((n, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -129,15 +155,16 @@ def check_f32(name: str, t, shape, device) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name``, built first if
     needed."""
-    lib = _loaded.get(name)
+    key = (name, _defines)
+    lib = _loaded.get(key)
     if lib is not None:
         return lib
     build([name])
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
             lib = ctypes.CDLL(str(library_path(name)))
-            _loaded[name] = lib
+            _loaded[key] = lib
     return lib
 
 
@@ -145,15 +172,16 @@ def launcher(name: str, argtypes):
     """The C entry point ``<name>_launch`` of kernel ``name`` (built and
     loaded first if needed), with ``argtypes`` set and an int result: the
     CUDA error code of the launch."""
-    fn = _launchers.get(name)
+    key = (name, _defines)
+    fn = _launchers.get(key)
     if fn is not None:
         return fn
     lib = load(name)
     with _lock:
-        fn = _launchers.get(name)
+        fn = _launchers.get(key)
         if fn is None:
             fn = getattr(lib, f"{name}_launch")
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            _launchers[name] = fn
+            _launchers[key] = fn
     return fn

@@ -37,6 +37,8 @@ class LMConfig:
     tie_embeddings: bool = False
     # float32 only in this port; bf16 compute is a later slice
     compute_dtype: str = "float32"
+    # checkpoint chunks of the recurrence; the backward recomputes them
+    remat_chunk: int | None = None
 
     def __post_init__(self):
         if self.compute_dtype != "float32":
@@ -89,7 +91,8 @@ def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig, *,
     """tokens [B, T] → (per-layer final carries, top-layer activations
     [B, T, H]). ``mask`` [B, T] bool freezes the carries at False steps."""
     xs = embed_lookup(params["embedding"], tokens)
-    return stacked_lstm_scan(params["layers"], xs, carries, mask=mask)
+    return stacked_lstm_scan(params["layers"], xs, carries, mask=mask,
+                             remat_chunk=cfg.remat_chunk)
 
 
 def _head_kernel(params, cfg: LMConfig):

@@ -5,6 +5,7 @@ from .loop import (
     AnomalousTrainingError,
     TrainState,
     evaluate,
+    evaluate_classifier,
     init_train_state,
     make_eval_step,
     make_train_step,
@@ -14,5 +15,5 @@ from .metrics import MetricsLogger
 from .optimizer import make_optimizer
 
 __all__ = ["AnomalousTrainingError", "MetricsLogger", "TrainState",
-           "evaluate", "init_train_state", "make_eval_step",
+           "evaluate", "evaluate_classifier", "init_train_state", "make_eval_step",
            "make_optimizer", "make_train_step", "train_loop"]

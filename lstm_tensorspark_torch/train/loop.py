@@ -14,9 +14,10 @@ chosen on the device with ``torch.where``, so the guard costs no host sync
 ``train_loop(anomaly_limit=K)`` raises :class:`AnomalousTrainingError`
 after K consecutive anomalous steps.
 
-Params are the LM's dict (``embedding``, ``layers`` of ``LSTMParams``,
-``head``); the optimizer sees them as a flat list in the JAX pytree's leaf
-order (:func:`param_leaves`).
+Params are a model's dict (the LM's ``embedding``, ``layers``, ``head``;
+the classifier's ``embedding``, ``fwd``, ``bwd``, ``head``); the optimizer
+sees them as a flat list in the JAX pytree's leaf order
+(:func:`param_leaves`).
 """
 
 from __future__ import annotations
@@ -55,23 +56,30 @@ class TrainState(NamedTuple):
 
 
 def param_leaves(params) -> list[torch.Tensor]:
-    """The LM params as a flat list, in the JAX pytree's leaf order
-    (dict keys sorted: embedding, head, layers)."""
-    leaves = [params["embedding"]]
-    leaves += [params["head"][k] for k in sorted(params["head"])]
-    for layer in params["layers"]:
-        leaves += list(layer)
-    return leaves
+    """The params as a flat list, in the JAX pytree's leaf order: dict
+    keys sorted, lists and ``LSTMParams`` fields in order (the LM's
+    embedding, head, layers; the classifier's bwd, embedding, fwd, head)."""
+    if isinstance(params, dict):
+        return [t for k in sorted(params) for t in param_leaves(params[k])]
+    if isinstance(params, (list, tuple)):
+        return [t for p in params for t in param_leaves(p)]
+    return [params]
 
 
-def params_from_leaves(like, leaves) -> dict:
+def params_from_leaves(like, leaves) -> Any:
     """Inverse of :func:`param_leaves` for params shaped like ``like``."""
     it = iter(leaves)
-    out = {"embedding": next(it)}
-    out["head"] = {k: next(it) for k in sorted(like["head"])}
-    out["layers"] = [LSTMParams(*(next(it) for _ in LSTMParams._fields))
-                     for _ in like["layers"]]
-    return out
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, LSTMParams):
+            return LSTMParams(*(build(t) for t in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(t) for t in node)
+        return next(it)
+
+    return build(like)
 
 
 def _map_state(fn, new, old):
@@ -197,6 +205,27 @@ def evaluate(eval_step, params, batches: Iterable, *, carries=None) -> dict:
     return eval_metrics(total / max(weight, 1.0))
 
 
+def evaluate_classifier(eval_step, params, batches: Iterable) -> dict:
+    """``eval_loss`` and ``eval_accuracy`` over ``batches``, each batch's
+    metrics weighted by its valid rows (filler rows count for nothing).
+    ``eval_step(params, batch)`` returns {"loss", "accuracy"}; everything
+    is read back once, after the last batch is queued."""
+    rows = []
+    for batch in batches:
+        m = eval_step(params, batch)
+        rows.append(torch.stack([m["loss"], m["accuracy"],
+                                 batch["valid"].sum().to(torch.float32)]))
+    if not rows:
+        return {"eval_skipped": 1}
+    tot_loss = tot_acc = tot_w = 0.0
+    for loss, acc, w in torch.stack(rows).cpu().tolist():
+        tot_loss += loss * w
+        tot_acc += acc * w
+        tot_w += w
+    tot_w = max(tot_w, 1.0)
+    return {"eval_loss": tot_loss / tot_w, "eval_accuracy": tot_acc / tot_w}
+
+
 def eval_metrics(loss: float) -> dict:
     """Loss → the eval record's metrics (perplexity capped at exp(30))."""
     loss = float(loss)
@@ -222,10 +251,15 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
                num_steps: int | None = None, log_every: int = 50,
                logger=None, eval_fn: Callable[[Any], dict] | None = None,
                eval_every: int = 0, tokens_per_batch: int | None = None,
-               anomaly_limit: int = 0) -> TrainState:
+               examples_per_batch: int | None = None,
+               anomaly_limit: int = 0,
+               best_metric: str | None = None) -> TrainState:
     """Drive ``train_step`` over ``batches``, logging every ``log_every``
-    steps (loss, grad_norm, steps_per_sec, tokens_per_sec) and calling
-    ``eval_fn(params)`` every ``eval_every`` steps.
+    steps (loss, grad_norm, steps_per_sec, tokens_per_sec and
+    examples_per_sec when given per batch) and calling ``eval_fn(params)``
+    every ``eval_every`` steps. With ``best_metric`` (higher is better,
+    e.g. ``eval_accuracy``), an eval that raises it (NaN never counts) is
+    logged as a ``new best`` record.
 
     Reading the logged loss is the only host sync of a logged step; with
     ``anomaly_limit=K`` (off at 0) every step's ``anomalous`` flag is read
@@ -237,6 +271,7 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
     last_metrics = None
     anomalous_total = 0
     anomalous_consec = 0
+    best = None
     for i, batch in enumerate(batches):
         if num_steps is not None and i >= num_steps:
             break
@@ -271,12 +306,22 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
                     record["anomalous"] = bad
             if tokens_per_batch:
                 record["tokens_per_sec"] = tokens_per_batch * log_every / dt
+            if examples_per_batch:
+                record["examples_per_sec"] = (examples_per_batch * log_every
+                                              / dt)
             if logger is not None:
                 logger.log(record)
         if eval_every and step % eval_every == 0 and eval_fn is not None:
             ev = eval_fn(state.params)
             if logger is not None:
                 logger.log({"step": state.step, **ev})
+            v = ev.get(best_metric) if best_metric else None
+            if v is not None and v == v and (best is None or v > best):
+                best = v
+                if logger is not None:
+                    logger.log({"step": state.step,
+                                "note": f"new best {best_metric}",
+                                best_metric: v})
             # the eval's time is not training throughput
             window_start = time.perf_counter()
     if last_metrics is not None:

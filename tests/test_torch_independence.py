@@ -41,7 +41,9 @@ def test_importing_every_module_loads_no_jax():
                 "convert", "kernels", "ops.cuda_lstm", "ops.scan",
                 "ops.embedding", "models.lstm_lm", "data.corpus",
                 "data.datasets", "data.batching", "train.optimizer",
-                "train.loop", "train.metrics", "exit_codes"):
+                "train.loop", "train.metrics", "exit_codes",
+                "ops.cuda_lstmx", "ops.cuda_bilstm", "ops.masking",
+                "models.classifier", "tasks.classification"):
         assert f"lstm_tensorspark_torch.{mod}" in report["modules"]
 
 

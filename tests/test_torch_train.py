@@ -256,7 +256,7 @@ def test_anomaly_limit_exits_77(capsys):
 
 @pytest.mark.parametrize("flags", [["--compute-dtype", "bfloat16"],
                                    ["--dropout", "0.1"],
-                                   ["--dataset", "imdb"]])
+                                   ["--dataset", "wikitext2"]])
 def test_train_refuses_what_is_not_ported(flags, capsys):
     rc = tcli.main(["train", "--device", "cpu", "--num-steps", "1", *flags])
     assert rc == USAGE_RC
