@@ -57,7 +57,24 @@ Phases (each one fails the run):
    whose launch counts must equal the prediction; the LM at
    ``--seq-len 256`` (the single-direction residentx pair) for 10 steps
    against the CPU; and the device idle share over 20 config-2 steps under
-   ``torch.profiler``.
+   ``torch.profiler``;
+9. hold the tiled kernels (``csrc/lstm_tiled_fwd.cu``,
+   ``csrc/lstm_tiled_bwd.cu``) against their plain versions at config 5's
+   per-chip shard (B=16, T=128, H=1024), at B=64 with H=1024 and at config
+   3's width (B=32, T=70, H=650), masked and unmasked, from non-zero
+   carries, the forward with and without residuals; print their plans;
+   time both at config 5's shard in turns (plain, kernel, kernel, plain)
+   with CUDA events and under ``torch.profiler``, beside cuDNN's
+   ``torch.nn.LSTM`` and the bound; and time the tiled pair against the
+   resident pair at config 3's width, the route rule's boundary;
+10. train config 5's model (4 x 1024 word LM on the WikiText-103
+   stand-in, B=16, T=128, Adam 1e-3, clip 1.0, stateful, f32) through the
+   CLI: the first 5 losses at ``--dropout 0`` on the card, without and
+   with ``--remat-chunk 32``, against one CPU run; 200 steps at
+   ``--dropout 0.2`` with an eval every 100, whose tiled launch counts must
+   equal the prediction while every other recurrence counter stays at 0;
+   steps/s, tokens/s, eval perplexity, and the device idle share over 20
+   steps under ``torch.profiler``.
 
 The last lines are the kernel report (one JSON object), the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``. Exits
@@ -112,6 +129,18 @@ AWKWARD = dict(B=8, T=257, D=72, H=200)
 # config 1's LM at --seq-len 256 (E=H=128): the single-direction
 # residentx pair
 LM256 = dict(B=64, T=256, D=128, H=128)
+# config 5's model (4 x 1024 word LM, T=128) at its per-chip batch (a global
+# batch of 256 over 16 chips): every layer runs the tiled pair
+CONFIG5 = dict(B=16, T=128, H=1024, L=4)
+LSTM_CONFIG5 = dict(B=16, T=128, H=1024)
+LSTM_B64 = dict(B=64, T=128, H=1024)
+CONFIG5_FLAGS = ["train", "--dataset", "wikitext103", "--hidden-units",
+                 "1024", "--num-layers", "4", "--batch-size", "16",
+                 "--seq-len", "128", "--optimizer", "adam", "--learning-rate",
+                 "1e-3", "--clip-norm", "1.0", "--stateful",
+                 "--compute-dtype", "float32", "--logits-dtype", "float32"]
+CONFIG5_FIRST = 5
+CONFIG5_STEPS, CONFIG5_EVAL_EVERY, CONFIG5_EVAL_BATCHES = 200, 100, 8
 
 
 def fail(msg: str) -> None:
@@ -487,16 +516,16 @@ def lstm_bound(B, T, H, kind, masked=False):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def cudnn_yardstick(torch, cl, inputs, cots):
+def cudnn_yardstick(torch, forward, layer_scan, inputs, cots):
     """cuDNN's ``torch.nn.LSTM`` on one layer at the same B, T, H: input
     weights W [H, 4H] and bias b drawn here, U copied across (the gate order
     i, f, g, o is the same in both; ``bias_hh`` is 0), TF32 off. It computes
-    the same function as the kernel fed ``xproj = x @ W + b``, plus that
-    input product; its backward also gives dW, dU, db and dx. Returns
-    (forward ms, backward-alone ms, forward + backward ms, max |ys - ys of
-    the forward kernel|, and the port's whole layer forward + backward ms:
-    ``cuda_lstm_scan`` through both kernels and the matmuls around them,
-    the same function as cuDNN's forward + backward)."""
+    the same function as the kernel ``forward`` fed ``xproj = x @ W + b``,
+    plus that input product; its backward also gives dW, dU, db and dx.
+    Returns (forward ms, backward-alone ms, forward + backward ms, max |ys
+    - ys of the forward kernel|, and the port's whole layer forward +
+    backward ms: ``layer_scan`` through both kernels and the matmuls
+    around them, the same function as cuDNN's forward + backward)."""
     xproj, U, h0, c0, _ = inputs
     dys, dhT, dcT = cots
     T, B, G = xproj.shape
@@ -521,7 +550,7 @@ def cudnn_yardstick(torch, cl, inputs, cots):
         return lstm(xg, hc)
 
     ys, (hT, cT) = fwd()
-    kys = cl.lstm_forward((x @ W + b).contiguous(), U, h0, c0)[0]
+    kys = forward((x @ W + b).contiguous(), U, h0, c0)[0]
     torch.cuda.synchronize()
     diff = float((ys.detach() - kys).abs().max())
 
@@ -543,7 +572,7 @@ def cudnn_yardstick(torch, cl, inputs, cots):
     port_out = [dys.transpose(0, 1), dhT, dcT]
 
     def port_both():
-        (h, c), y = cl.cuda_lstm_scan(lp, xs, (h0g, c0g))
+        (h, c), y = layer_scan(lp, xs, (h0g, c0g))
         return torch.autograd.grad([y, h, c], [*gates, xs, h0g, c0g],
                                    port_out)
 
@@ -606,7 +635,7 @@ def lstm_kernel_phase(torch, cl, device):
                     dhT, dcT)),
     }
     lib_fwd, lib_bwd, lib_both, lib_diff, port_both = cudnn_yardstick(
-        torch, cl, inputs, (dys, dhT, dcT))
+        torch, cl.lstm_forward, cl.cuda_lstm_scan, inputs, (dys, dhT, dcT))
     print(f"  cuDNN torch.nn.LSTM (yardstick, input width {H}): forward "
           f"{lib_fwd:.4f} ms, backward alone {lib_bwd:.4f} ms, forward + "
           f"backward {lib_both:.4f} ms; its ys vs the forward kernel max |d| "
@@ -1025,15 +1054,12 @@ def rows_ab(torch, cx, lens2, sms, device):
           flush=True)
 
 
-def config2_phase(torch, cli, cl, cx, device):
+def config2_phase(torch, cli, cl, cx, ct, device):
     print("== phase 8: train config 2 through the CLI", flush=True)
     from lstm_tensorspark_torch.data import get_dataset
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_config2_")
-    counters = {"lstm_fwd": cl.fwd_counts, "lstm_bwd": cl.bwd_counts,
-                "lstmx_fwd": cx.fwdx_counts, "lstmx_bwd": cx.bwdx_counts,
-                "bilstm_fwd": cx.bi_fwdx_counts,
-                "bilstm_bwd": cx.bi_bwdx_counts}
+    counters = all_counters(cl, cx, ct)
 
     def run(name, flags):
         """One CLI run with every count set to 0 just before it; returns
@@ -1193,6 +1219,313 @@ def config2_phase(torch, cli, cl, cx, device):
             "bilstm_bwd": main_launches["bilstm_bwd"]}
 
 
+def all_counters(cl, cx, ct):
+    """Every recurrence kernel's launch counter, by kernel name."""
+    return {"lstm_fwd": cl.fwd_counts, "lstm_bwd": cl.bwd_counts,
+            "lstmx_fwd": cx.fwdx_counts, "lstmx_bwd": cx.bwdx_counts,
+            "bilstm_fwd": cx.bi_fwdx_counts, "bilstm_bwd": cx.bi_bwdx_counts,
+            "lstm_tiled_fwd": ct.fwd_counts, "lstm_tiled_bwd": ct.bwd_counts}
+
+
+def in_turns(torch, first, second, iters):
+    """(first ms, second ms), each the mean of two CUDA-event timings taken
+    in turns (first, second, second, first), and the four readings."""
+    a1 = time_ms(torch, first, iters)
+    b1 = time_ms(torch, second, iters)
+    b2 = time_ms(torch, second, iters)
+    a2 = time_ms(torch, first, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2, (a1, b1, b2, a2)
+
+
+def profiled_ms(torch, fn, name, calls):
+    """Device ms per launch of kernel ``name`` under ``torch.profiler`` over
+    ``calls`` calls of ``fn``, or None when the profiler records none."""
+    prof = device_profile(torch, lambda: [fn() for _ in range(calls)])
+    if prof is None:
+        return None
+    keys = [k for k in prof[2] if name in k]
+    n = sum(prof[3][k] for k in keys)
+    return sum(prof[2][k] for k in keys) / n if n else None
+
+
+def tiled_kernel_phase(torch, cl, ct, device):
+    print("== phase 9: tiled LSTM kernels vs plain versions", flush=True)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for name, spec in (("config5", LSTM_CONFIG5), ("config5-b64", LSTM_B64),
+                       ("config3", LSTM_CONFIG3)):
+        B, T, H = spec["B"], spec["T"], spec["H"]
+        for masked in (False, True):
+            label = f"{name} B={B} T={T} H={H} mask={masked}"
+            inputs, (dys, dhT, dcT) = lstm_inputs(torch, B, T, H, masked,
+                                                  seed=B + H + masked,
+                                                  device=device)
+            got = ct.lstm_tiled_forward(*inputs, save_residuals=True)
+            bare = ct.lstm_tiled_forward(*inputs)
+            ref = cl.lstm_forward_reference(*inputs, save_residuals=True)
+            torch.cuda.synchronize()
+            e = {}
+            for n, a, r in zip(("ys", "hT", "cT", "z", "cs"), got, ref):
+                e[n] = held(torch, n, a, r, label, scaled=n == "z")
+            for n, a, r in zip(("ys", "hT", "cT"), bare, got):
+                if not torch.equal(a, r):
+                    fail(f"{label}: the tiled forward without residuals "
+                         f"gives other {n} than with them")
+            ys, hT, cT, z, cs = ref
+            c_prev = torch.cat([inputs[3][None], cs[:-1]])
+            bgot = ct.lstm_tiled_backward(z, inputs[3], cs, dys, inputs[1],
+                                          dhT, dcT, inputs[4])
+            bref = cl.lstm_backward_reference(z, c_prev, dys, inputs[1], dhT,
+                                              dcT, inputs[4])
+            torch.cuda.synchronize()
+            for n, a, r in zip(("dz", "dh0", "dc0"), bgot, bref):
+                e[n] = held(torch, n, a, r, label, scaled=True)
+            errs["fwd"] = max(errs["fwd"], *(e[n] for n in
+                                             ("ys", "hT", "cT", "z", "cs")))
+            errs["bwd"] = max(errs["bwd"], e["dz"], e["dh0"], e["dc0"])
+            print(f"  {label}: max |d| " + ", ".join(
+                f"{n} {v:.2e}" for n, v in e.items()), flush=True)
+        for kind in ("fwd", "bwd"):
+            p = ct.plan(kind, B, H, sms)
+            print(f"  {name} tiled {kind} plan: {p.blocks} blocks of "
+                  f"{ct.THREADS} threads, {p.units} units a block, h tile "
+                  f"{p.ktile} rows, split {p.ksplit}, {p.smem_bytes} bytes of "
+                  "shared memory a block", flush=True)
+
+    # timing at config 5's shard, the training path's shapes (forward with
+    # residuals, unmasked)
+    B, T, H = LSTM_CONFIG5["B"], LSTM_CONFIG5["T"], LSTM_CONFIG5["H"]
+    inputs, (dys, dhT, dcT) = lstm_inputs(torch, B, T, H, False, seed=1,
+                                          device=device)
+    _, _, _, z, cs = ct.lstm_tiled_forward(*inputs, save_residuals=True)
+    c_prev = torch.cat([inputs[3][None], cs[:-1]])
+    bargs = (z, inputs[3], cs, dys, inputs[1], dhT, dcT)
+    fns = {
+        "fwd": (lambda: ct.lstm_tiled_forward(*inputs, save_residuals=True),
+                lambda: cl.lstm_forward_reference(*inputs,
+                                                  save_residuals=True)),
+        "bwd": (lambda: ct.lstm_tiled_backward(*bargs),
+                lambda: cl.lstm_backward_reference(
+                    z, c_prev, dys, inputs[1], dhT, dcT)),
+    }
+    lib_fwd, lib_bwd, lib_both, lib_diff, port_both = cudnn_yardstick(
+        torch, ct.lstm_tiled_forward, ct.cuda_lstm_tiled_scan, inputs,
+        (dys, dhT, dcT))
+    print(f"  cuDNN torch.nn.LSTM (yardstick, input width {H}) at config "
+          f"5's shard B={B} T={T} H={H}: forward {lib_fwd:.4f} ms, backward "
+          f"alone {lib_bwd:.4f} ms, forward + backward {lib_both:.4f} ms; its"
+          f" ys vs the tiled forward max |d| {lib_diff:.2e}; the port's layer"
+          f" (both tiled kernels and the matmuls around them) forward + "
+          f"backward {port_both:.4f} ms", flush=True)
+    timings = {}
+    for kind, (kernel, plain) in fns.items():
+        plain_ms, kernel_ms, r = in_turns(torch, plain, kernel, 5)
+        bound_ms, bound_by = lstm_bound(B, T, H, kind)
+        dev_ms = profiled_ms(torch, kernel, f"lstm_tiled_{kind}_kernel", 20)
+        timings[kind] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             device_ms=dev_ms,
+                             library_ms=lib_fwd if kind == "fwd" else lib_bwd,
+                             max_err=errs[kind])
+        print(f"  lstm_tiled_{kind} config5: kernel_ms {kernel_ms:.4f} "
+              f"({r[1]:.4f}, {r[2]:.4f}), device_ms "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}, "
+              f"plain_ms {plain_ms:.4f} ({r[0]:.4f}, {r[3]:.4f}), library_ms "
+              f"{timings[kind]['library_ms']:.4f}, bound_ms {bound_ms:.6f} "
+              f"({bound_by}); the T={T} dependent steps and grid barriers "
+              "are a latency floor the bound does not see", flush=True)
+
+    # the route at config 3's width: the tiled pair against the resident
+    # pair (U read through L2 there), in turns
+    B, T, H = LSTM_CONFIG3["B"], LSTM_CONFIG3["T"], LSTM_CONFIG3["H"]
+    inputs, (dys, dhT, dcT) = lstm_inputs(torch, B, T, H, False, seed=3,
+                                          device=device)
+    _, _, _, z, cs = ct.lstm_tiled_forward(*inputs, save_residuals=True)
+    bargs = (z, inputs[3], cs, dys, inputs[1], dhT, dcT)
+    parts = []
+    for kind, res, til in (
+            ("fwd", lambda: cl.lstm_forward(*inputs, save_residuals=True),
+             lambda: ct.lstm_tiled_forward(*inputs, save_residuals=True)),
+            ("bwd", lambda: cl.lstm_backward(*bargs),
+             lambda: ct.lstm_tiled_backward(*bargs))):
+        res_ms, til_ms, r = in_turns(torch, res, til, 10)
+        parts.append(f"{kind} resident {res_ms:.4f} ms ({r[0]:.4f}, "
+                     f"{r[3]:.4f}) vs tiled {til_ms:.4f} ms ({r[1]:.4f}, "
+                     f"{r[2]:.4f})")
+    print(f"  route at config 3's width B={B} T={T} H={H} (resident plan "
+          f"keeps U in shared memory: {cl.plan('fwd', B, H, sms).smem_w}): "
+          + "; ".join(parts), flush=True)
+    return timings
+
+
+def config5_phase(torch, cli, cl, cx, ct, device):
+    print("== phase 10: train config 5's model through the CLI", flush=True)
+    from lstm_tensorspark_torch.data import get_dataset, lm_windows
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_config5_")
+    counters = all_counters(cl, cx, ct)
+
+    def run(name, flags):
+        """One CLI run with every count set to 0 just before it; returns
+        its records and the kernel launches it made (plain runs under
+        'plain')."""
+        for c in counters.values():
+            c.reset()
+        path = os.path.join(tmp, f"{name}.jsonl")
+        t0 = time.perf_counter()
+        rc = cli.main(flags + ["--jsonl", path])
+        if rc != 0:
+            fail(f"train run {name} exited {rc}")
+        launches = {k: c.kernel for k, c in counters.items()}
+        launches["plain"] = sum(c.reference for c in counters.values())
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return recs, launches
+
+    def expect(got, name, **want):
+        full = {k: 0 for k in counters}
+        full.update(want)
+        full["plain"] = 0
+        if got != full:
+            fail(f"{name}: launch counts {got} != predicted {full}")
+
+    L, n = CONFIG5["L"], CONFIG5_FIRST
+    # the CPU reference runs once, without remat: with --remat-chunk the
+    # plain scan gives the same values, so both card runs are held to it
+    first = {}
+    for remat, dev in ((None, "cuda"), (None, "cpu"), (32, "cuda")):
+        extra = [] if remat is None else ["--remat-chunk", str(remat)]
+        name = f"first{n}_remat{remat}_{dev}"
+        recs, launches = run(name, CONFIG5_FLAGS + extra + [
+            "--num-steps", str(n), "--log-every", "1", "--dropout", "0",
+            "--eval-batches", "1", "--device", dev])
+        first[remat, dev] = [r["loss"] for r in recs if "loss" in r]
+        if len(first[remat, dev]) != n:
+            fail(f"{name} logged {len(first[remat, dev])} losses, not {n}")
+        if dev == "cuda":
+            # n steps and one eval batch, every layer through the tiled
+            # forward; without remat the tiled backward, with it the plain
+            # recompute
+            expect(launches, name, lstm_tiled_fwd=(n + 1) * L,
+                   lstm_tiled_bwd=0 if remat else n * L)
+            print(f"    launches {launches}", flush=True)
+    for remat in (None, 32):
+        a, b = first[remat, "cuda"], first[None, "cpu"]
+        gap = max(abs(x - y) for x, y in zip(a, b))
+        print(f"  remat_chunk={remat}, first {n} losses: card "
+              f"{[round(x, 6) for x in a]}; CPU {[round(x, 6) for x in b]}; "
+              f"max |d| {gap:.2e}", flush=True)
+        if not gap <= TRAIN_LOSS_TOL:
+            fail(f"config 5 (remat_chunk={remat}) card losses differ from "
+                 f"the CPU run by {gap:.3e} > {TRAIN_LOSS_TOL}")
+
+    # the main run: dropout 0.2, an eval cadence; every layer of every step
+    # and eval batch through the tiled pair
+    valid = get_dataset("wikitext103")["valid"]
+    B, T = CONFIG5["B"], CONFIG5["T"]
+    per_eval = min(CONFIG5_EVAL_BATCHES, lm_windows(valid, B, T)[2])
+    n_evals = CONFIG5_STEPS // CONFIG5_EVAL_EVERY + 1  # the cadence, final
+    recs, launches = run("main", CONFIG5_FLAGS + [
+        "--num-steps", str(CONFIG5_STEPS), "--log-every", "25",
+        "--eval-every", str(CONFIG5_EVAL_EVERY), "--eval-batches",
+        str(CONFIG5_EVAL_BATCHES), "--dropout", "0.2", "--device", "cuda"])
+    want = dict(lstm_tiled_fwd=(CONFIG5_STEPS + n_evals * per_eval) * L,
+                lstm_tiled_bwd=CONFIG5_STEPS * L)
+    print(f"  kernel launches {launches} (predicted {want}: "
+          f"{CONFIG5_STEPS} steps x {L} layers, + {n_evals} evals x "
+          f"{per_eval} batches x {L} layers forward)", flush=True)
+    expect(launches, "main", **want)
+    for r in recs:
+        print(f"  {json.dumps(r)}", flush=True)
+    logged = [r for r in recs if "loss" in r]
+    final = recs[-1]
+    if final.get("note") != "final" or not final.get("eval_ppl", 0) > 0:
+        fail(f"the run did not end with a final eval record: {final}")
+    if not all(r["loss"] == r["loss"] and r["loss"] < 1e9 for r in logged):
+        fail("a logged loss is not finite")
+    if not logged[-1]["loss"] < logged[0]["loss"]:
+        fail(f"the loss did not fall: {logged[0]['loss']} -> "
+             f"{logged[-1]['loss']}")
+    sps = sorted(r["steps_per_sec"] for r in logged[1:])
+    tps = sorted(r["tokens_per_sec"] for r in logged[1:])
+    print(f"  loss at step {logged[0]['step']} {logged[0]['loss']:.6f}, at "
+          f"step {logged[-1]['step']} {logged[-1]['loss']:.6f}; final "
+          f"eval_loss {final['eval_loss']:.6f}, eval_ppl "
+          f"{final['eval_ppl']:.4f}; steady state (median of the log windows "
+          f"after the first) {sps[len(sps) // 2]:.2f} steps/s, "
+          f"{tps[len(tps) // 2]:.1f} tokens/s", flush=True)
+
+    # device idle share over 20 steps under torch.profiler, through the same
+    # library calls the CLI makes
+    from lstm_tensorspark_torch.data import lm_batch_stream
+    from lstm_tensorspark_torch.models import lstm_lm as tlm
+    from lstm_tensorspark_torch.train import (init_train_state, make_optimizer,
+                                              make_train_step)
+    from lstm_tensorspark_torch.train.loop import device_batches
+
+    data = get_dataset("wikitext103")
+    cfg = tlm.LMConfig(vocab_size=len(data["vocab"]), hidden_size=CONFIG5["H"],
+                       num_layers=L, dropout=0.2)
+    params = tlm.params_to(tlm.init_lm(torch.Generator().manual_seed(0), cfg),
+                           device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    opt = make_optimizer("adam", 1e-3, clip_norm=1.0)
+    state = init_train_state(params, opt,
+                             carries=tlm.init_carries(cfg, B, device=device))
+    step = make_train_step(
+        lambda p, b, c=None: tlm.lm_loss(p, b, cfg, carries=c,
+                                         dropout_gen=gen), opt, stateful=True)
+    batches = device_batches(lm_batch_stream(data["train"], B, T), device)
+    for _ in range(5):
+        state, m = step(state, next(batches))
+    holder = [state]
+
+    def twenty():
+        s = holder[0]
+        for _ in range(20):
+            s, m = step(s, next(batches))
+        holder[0] = s
+        return m
+
+    prof = device_profile(torch, twenty)
+    if prof is None:
+        print("  20 steps under torch.profiler: no device time recorded "
+              "(idle share not measured)", flush=True)
+    else:
+        busy, wall, by_name, counts = prof
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"  20 config-5 steps under torch.profiler: device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms wall (idle share "
+              f"{1 - busy / wall:.3f}); top: "
+              + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top), flush=True)
+        # where a step's time goes: the tiled kernels, the products outside
+        # them (projections, head, dU, dW), everything else the device ran
+        # (optimizer, elementwise, embedding, copies), and host time the
+        # device work does not cover
+        parts = {"tiled kernels": 0.0, "matmuls": 0.0, "other": 0.0}
+        for k, v in by_name.items():
+            if "lstm_tiled_" in k:
+                parts["tiled kernels"] += v
+            elif any(w in k.lower() for w in ("gemm", "cutlass", "xmma")):
+                parts["matmuls"] += v
+            else:
+                parts["other"] += v
+        parts["host, uncovered"] = wall - busy
+        print("  a config-5 step, by part: " + "; ".join(
+            f"{k} {v / 20:.3f} ms" for k, v in parts.items()), flush=True)
+        per_launch = {}
+        for kind in ("fwd", "bwd"):
+            keys = [k for k in by_name if f"lstm_tiled_{kind}_kernel" in k]
+            n = sum(counts[k] for k in keys)
+            if n:
+                per_launch[kind] = round(sum(by_name[k] for k in keys) / n, 4)
+        print(f"  the tiled kernels' device ms a launch in these steps: "
+              f"{per_launch}", flush=True)
+    return {"fwd": launches["lstm_tiled_fwd"],
+            "bwd": launches["lstm_tiled_bwd"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1208,6 +1541,7 @@ def main() -> int:
         from lstm_tensorspark_torch.ops import cuda_decode as cd
         from lstm_tensorspark_torch.ops import cuda_lstm as cl
         from lstm_tensorspark_torch.ops import cuda_lstmx as cx
+        from lstm_tensorspark_torch.ops import cuda_lstm_tiled as ct
     except ImportError as e:
         fail(f"the port is not importable (run from the repo root): {e}")
 
@@ -1221,8 +1555,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     print("== phase 2: build the CUDA kernels", flush=True)
-    sources = ["decode_window", "lstm_fwd", "lstm_bwd", "lstmx_fwd",
-               "lstmx_bwd"]
+    sources = kernels.SOURCES
     secs = kernels.build(sources)
     print(f"  {', '.join(n + '.cu' for n in sources)} built in {secs:.2f} s",
           flush=True)
@@ -1239,7 +1572,9 @@ def main() -> int:
     lstm_timings = lstm_kernel_phase(torch, cl, device)
     train_launches = train_phase(torch, cli, cl, device)
     lstmx_timings = lstmx_kernel_phase(torch, cx, device)
-    config2_launches = config2_phase(torch, cli, cl, cx, device)
+    config2_launches = config2_phase(torch, cli, cl, cx, ct, device)
+    tiled_timings = tiled_kernel_phase(torch, cl, ct, device)
+    config5_launches = config5_phase(torch, cli, cl, cx, ct, device)
 
     main_path = timings["config1"]
     lstm_rows = [{
@@ -1277,6 +1612,21 @@ def main() -> int:
         "bound_by": lstmx_timings[role]["bound_by"],
         "library_ms": lstmx_timings[role]["library_ms"],
     } for role in replaces]
+    tiled_rows = [{
+        "name": f"lstm_tiled_{kind}",
+        "route": "cuda",
+        "source": f"lstm_tensorspark_torch/csrc/lstm_tiled_{kind}.cu",
+        "replaces": ("lstm_tensorspark_tpu/ops/pallas_lstm.py:670"
+                     if kind == "fwd"
+                     else "lstm_tensorspark_tpu/ops/pallas_lstm.py:744"),
+        "launches": config5_launches[kind],
+        "max_abs_err": tiled_timings[kind]["max_err"],
+        "ms": tiled_timings[kind]["kernel_ms"],
+        "plain_ms": tiled_timings[kind]["plain_ms"],
+        "bound_ms": tiled_timings[kind]["bound_ms"],
+        "bound_by": tiled_timings[kind]["bound_by"],
+        "library_ms": tiled_timings[kind]["library_ms"],
+    } for kind in ("fwd", "bwd")]
     print(json.dumps({"kernels": [{
         "name": "decode_window",
         "route": "cuda",
@@ -1289,7 +1639,7 @@ def main() -> int:
         "bound_ms": main_path["bound_ms"],
         "bound_by": main_path["bound_by"],
         "library_ms": None,
-    }] + lstm_rows + lstmx_rows}), flush=True)
+    }] + lstm_rows + lstmx_rows + tiled_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

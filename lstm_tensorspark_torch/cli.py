@@ -1,15 +1,18 @@
 """Command line of the port: ``python -m lstm_tensorspark_torch {train,serve}``.
 
 - ``train`` trains the LSTM LM on the char corpus (BASELINE.md config 1 by
-  its flags), as the JAX package's ``cli._run_lm`` does on one device with
+  its flags) or a word corpus (``--dataset wikitext2|wikitext103``, configs
+  3 and 5), as the JAX package's ``cli._run_lm`` does on one device with
   a host-fed stream: dataset → config → init → optimizer → batch stream →
-  ``train_loop`` (log, eval cadence) → a final eval record. ``--dataset
-  imdb`` trains the bi-LSTM classifier instead (BASELINE.md config 2,
-  ``tasks/classification.py``), with ``--dropout``. ``--remat-chunk``
-  takes the recompute backward (JAX's choice when it is set). Float32
-  only; ``--compute-dtype bfloat16``, ``--dropout`` > 0 for the LM and the
-  other datasets exit with ``USAGE_RC`` (not ported yet). A run of
-  ``--anomaly-limit`` consecutive non-finite steps exits with
+  ``train_loop`` (log, eval cadence) → a final eval record; ``--dropout``
+  between layers, its keep masks drawn from a seeded generator on the
+  run's device (training steps only). ``--dataset imdb`` trains the
+  bi-LSTM classifier instead (BASELINE.md config 2,
+  ``tasks/classification.py``). ``--remat-chunk`` takes the recompute
+  backward (JAX's choice when it is set). Float32 only;
+  ``--compute-dtype bfloat16``, ``--logits-dtype bfloat16`` and
+  ``--dataset uci_electricity`` exit with ``USAGE_RC`` (not ported yet). A
+  run of ``--anomaly-limit`` consecutive non-finite steps exits with
   ``ANOMALY_RC``.
 - ``serve --selftest`` decodes ``--sessions`` concurrent sessions through
   the full server path and checks that the greedy tokens equal the plain
@@ -206,8 +209,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", type=str, default="ptb_char",
                    choices=["ptb_char", "wikitext2", "wikitext103", "imdb",
                             "uci_electricity"],
-                   help="ptb_char (LM) and imdb (bi-LSTM classifier) so "
-                        "far; the others are not ported")
+                   help="ptb_char, wikitext2, wikitext103 (LM) and imdb "
+                        "(bi-LSTM classifier); uci_electricity is not "
+                        "ported")
     p.add_argument("--data-path", type=str, default=None,
                    help="corpus directory (falls back to the synthetic "
                         "stand-in)")
@@ -233,8 +237,8 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="cosine decay horizon in steps (enables the "
                         "warmup-cosine schedule)")
     p.add_argument("--dropout", type=float, default=0.0,
-                   help="classifier (imdb) only: dropout on the final "
-                        "states and between layers; refused for the LM")
+                   help="dropout between layers (the classifier, imdb: "
+                        "also on the final states); training steps only")
     p.add_argument("--remat-chunk", type=int, default=None,
                    help="checkpoint the recurrence in chunks of N steps: "
                         "the backward recomputes them (T % N == 0)")
@@ -242,6 +246,10 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="float32 only so far; bfloat16 is refused")
+    p.add_argument("--logits-dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="the LM head's dtype: float32 only so far; "
+                        "bfloat16 is refused")
     p.add_argument("--stateful", action="store_true",
                    help="carry recurrent state across contiguous windows")
     p.add_argument("--eval-every", type=int, default=0)
@@ -271,9 +279,11 @@ def _run_train(args) -> int:
     if args.compute_dtype != "float32":
         refused = (f"--compute-dtype {args.compute_dtype} is not ported yet "
                    "(float32 only)")
-    elif args.dropout > 0 and args.dataset != "imdb":
-        refused = ("--dropout > 0 is not ported yet for the LM (the "
-                   "classifier, --dataset imdb, takes it)")
+    elif args.logits_dtype != "float32":
+        refused = (f"--logits-dtype {args.logits_dtype} is not ported yet "
+                   "(float32 only)")
+    elif not 0.0 <= args.dropout < 1.0:
+        refused = f"--dropout must be in [0, 1), got {args.dropout}"
     elif args.eval_batches is not None and args.eval_batches < 1:
         refused = f"--eval-batches must be >= 1, got {args.eval_batches}"
     elif args.remat_chunk is not None and args.remat_chunk < 1:
@@ -303,9 +313,14 @@ def _run_train(args) -> int:
         cfg = LMConfig(vocab_size=len(vocab), hidden_size=args.hidden_units,
                        num_layers=args.num_layers,
                        tie_embeddings=args.tie_embeddings,
-                       remat_chunk=args.remat_chunk)
+                       remat_chunk=args.remat_chunk, dropout=args.dropout)
+        drop_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
-        def loss_fn(params, batch, carries=None):
+        def train_loss_fn(params, batch, carries=None):
+            return lm_loss(params, batch, cfg, carries=carries,
+                           dropout_gen=drop_gen)
+
+        def loss_fn(params, batch, carries=None):  # eval: deterministic
             return lm_loss(params, batch, cfg, carries=carries)
 
         params = params_to(init_lm(torch.Generator().manual_seed(args.seed),
@@ -345,7 +360,8 @@ def _run_train(args) -> int:
         batches = device_batches(lm_batch_stream(train_tokens, B, seq_len), dev)
         try:
             state = train_loop(
-                state, make_train_step(loss_fn, optimizer, stateful=stateful),
+                state, make_train_step(train_loss_fn, optimizer,
+                                       stateful=stateful),
                 batches, num_steps=total, log_every=args.log_every,
                 logger=logger,
                 eval_fn=eval_fn if args.eval_every else None,

@@ -3,13 +3,15 @@
 Port of ``lstm_tensorspark_tpu/data/corpus.py``: ``Vocab`` (char and word
 encoding), ``build_char_vocab``, ``build_word_vocab``, ``load_text``,
 ``synthetic_text`` and the seed paragraph it draws from,
+``synthetic_word_corpus`` (the word-level LMs' stand-in),
 ``resolve_split_files``. A copy, not an import: the JAX package's ``data``
 package imports jax.
 
 The real corpora are not in the repository, so every loader falls back to
 a deterministic synthetic stand-in (a bigram Markov chain over the seed
-paragraph, drawn from ``numpy.random.RandomState(seed)``) that is
-byte-for-byte the JAX package's.
+paragraph, or a Zipfian pseudo-word chain for the word-level LMs, drawn
+from ``numpy.random.RandomState(seed)``) that is byte-for-byte the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -103,6 +105,39 @@ def build_word_vocab(text: str, max_size: int | None = None) -> Vocab:
 def load_text(path: str) -> str:
     with open(path, "r", encoding="utf-8", errors="replace") as f:
         return f.read()
+
+
+def synthetic_word_corpus(n_tokens: int, vocab_size: int, seed: int = 0,
+                          *, noise: float = 0.05, branch: int = 20) -> str:
+    """Controlled-entropy pseudo-word stream, the word-level LMs' stand-in:
+    ``vocab_size`` pseudo-words ``w00000``... with a Zipfian unigram law;
+    each word has a ``branch``-wide successor table drawn from that law,
+    successors picked with a geometric bias, and with probability
+    ``noise`` the next word is a fresh unigram draw instead. Deterministic
+    per (n_tokens, vocab_size, seed, noise, branch): the same draws from
+    ``numpy.random.RandomState(seed)``, in the same order, as the JAX
+    package's."""
+    rng = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    uni = 1.0 / ranks
+    uni /= uni.sum()
+    succ = rng.choice(vocab_size, size=(vocab_size, branch), p=uni)
+    sp = 0.5 ** np.arange(branch, dtype=np.float64)
+    sp /= sp.sum()
+    choice_cols = rng.choice(branch, size=n_tokens, p=sp)
+    noise_mask = rng.rand(n_tokens) < noise
+    noise_draws = rng.choice(vocab_size, size=n_tokens, p=uni)
+    succ_rows = succ.tolist()  # python lists: fast scalar indexing
+    cols = choice_cols.tolist()
+    nmask = noise_mask.tolist()
+    ndraw = noise_draws.tolist()
+    out = [0] * n_tokens
+    cur = 0
+    for t in range(n_tokens):
+        cur = ndraw[t] if nmask[t] else succ_rows[cur][cols[t]]
+        out[t] = cur
+    words = [f"w{i:05d}" for i in range(vocab_size)]
+    return " ".join(words[i] for i in out)
 
 
 def synthetic_text(n_tokens: int, seed: int = 0) -> str:

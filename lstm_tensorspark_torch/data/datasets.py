@@ -1,11 +1,14 @@
-"""Dataset registry (host side): BASELINE.md config 1's char-level corpus
-and config 2's IMDB sentiment examples.
+"""Dataset registry (host side): BASELINE.md config 1's char-level corpus,
+config 2's IMDB sentiment examples and the word-level corpora of configs 3
+and 5.
 
-Port of ``lstm_tensorspark_tpu/data/datasets.py`` for ``ptb_char`` and
-``imdb``. Real files under ``data_path`` are used when present; otherwise
-the synthetic stand-in, whose splits, vocabulary and encoded arrays are
-byte-equal to the JAX package's. The other datasets of the JAX registry
-(wikitext2, wikitext103, uci_electricity) are not ported yet and raise.
+Port of ``lstm_tensorspark_tpu/data/datasets.py`` for ``ptb_char``,
+``imdb``, ``wikitext2`` and ``wikitext103``. Real files under
+``data_path`` are used when present; otherwise the synthetic stand-in,
+whose splits, vocabulary and encoded arrays are byte-equal to the JAX
+package's (the word-level stand-ins are regenerated in every process: the
+JAX package's on-disk cache of the stream is an optimisation the port
+does without). ``uci_electricity`` is not ported yet and raises.
 
 Returned dict: {"train", "valid", "test"} int32 token arrays (LM) or
 (sequences, labels) pairs (classification), "vocab", and "synthetic":
@@ -19,19 +22,32 @@ import os
 import numpy as np
 
 from .corpus import (build_char_vocab, build_word_vocab, load_text,
-                     resolve_split_files, synthetic_text)
+                     resolve_split_files, synthetic_text,
+                     synthetic_word_corpus)
 
 # the JAX registry's other names, refused with a clear message
-_NOT_PORTED = ("wikitext2", "wikitext103", "uci_electricity")
+_NOT_PORTED = ("uci_electricity",)
 
 
 def _lm_dataset(data_path: str | None, basenames: list[str], level: str, *,
-                synthetic_tokens: int, seed: int = 0):
-    if level != "char":
-        raise ValueError(f"{level!r}-level datasets are not ported yet")
+                synthetic_tokens: int, max_vocab: int | None = None,
+                seed: int = 0, synthetic_vocab: int | None = None,
+                synthetic_noise: float = 0.05):
     files = resolve_split_files(data_path or "", basenames)
     synthetic = files is None
-    if synthetic:
+    if synthetic and synthetic_vocab is not None:
+        # the word-level stand-in: one stream of one chain, sliced, so the
+        # valid and test splits are held-out samples of the same process
+        stream = synthetic_word_corpus(int(synthetic_tokens * 1.2),
+                                       synthetic_vocab, seed=seed,
+                                       noise=synthetic_noise).split()
+        n, tenth = synthetic_tokens, synthetic_tokens // 10
+        texts = {
+            "train": " ".join(stream[:n]),
+            "valid": " ".join(stream[n:n + tenth]),
+            "test": " ".join(stream[n + tenth:n + 2 * tenth]),
+        }
+    elif synthetic:
         texts = {
             "train": synthetic_text(synthetic_tokens, seed),
             "valid": synthetic_text(synthetic_tokens // 10, seed + 1),
@@ -39,7 +55,10 @@ def _lm_dataset(data_path: str | None, basenames: list[str], level: str, *,
         }
     else:
         texts = {s: load_text(p) for s, p in files.items()}
-    vocab = build_char_vocab(texts["train"])
+    if level == "char":
+        vocab = build_char_vocab(texts["train"])
+    else:
+        vocab = build_word_vocab(texts["train"], max_vocab)
     out = {s: vocab.encode_text(t, level) for s, t in texts.items()}
     out["vocab"] = vocab
     out["synthetic"] = synthetic
@@ -50,6 +69,24 @@ def ptb_char(data_path=None, **kw):
     """BASELINE.md config 1: Penn Treebank char-level."""
     return _lm_dataset(data_path, ["ptb", "ptb.char"], "char",
                        synthetic_tokens=200_000, **kw)
+
+
+def wikitext2_word(data_path=None, **kw):
+    """BASELINE.md config 3: WikiText-2 word-level. Stand-in: a
+    1,000-word controlled-entropy chain (``synthetic_word_corpus``)."""
+    kw.setdefault("synthetic_vocab", 1_000)
+    kw.setdefault("synthetic_noise", 0.05)
+    return _lm_dataset(data_path, ["wiki", "wikitext-2"], "word",
+                       synthetic_tokens=400_000, max_vocab=33_278, **kw)
+
+
+def wikitext103_word(data_path=None, **kw):
+    """BASELINE.md config 5: WikiText-103 word-level. Stand-in: a
+    5,000-word controlled-entropy chain, 2M training tokens."""
+    kw.setdefault("synthetic_vocab", 5_000)
+    kw.setdefault("synthetic_noise", 0.1)
+    return _lm_dataset(data_path, ["wiki", "wikitext-103"], "word",
+                       synthetic_tokens=2_000_000, max_vocab=50_000, **kw)
 
 
 def _resolve_imdb_root(data_path: str | None) -> str | None:
@@ -159,7 +196,8 @@ def imdb(data_path=None, *, num_examples: int | None = None,
     }
 
 
-DATASETS = {"ptb_char": ptb_char, "imdb": imdb}
+DATASETS = {"ptb_char": ptb_char, "wikitext2": wikitext2_word,
+            "wikitext103": wikitext103_word, "imdb": imdb}
 
 
 def get_dataset(name: str, data_path: str | None = None, **kw):

@@ -2,9 +2,9 @@
 
 Port of ``lstm_tensorspark_tpu/models/lstm_lm.py`` (float32): the forward,
 and :func:`lm_loss`, the next-token cross-entropy that training
-differentiates. The recurrence goes through ``ops/scan.stacked_lstm_scan``,
-so on the card every layer runs the hand-written recurrence kernels and on
-the CPU the plain loop. Params are a plain dict, as in the JAX package::
+differentiates, with dropout between layers. The recurrence goes through
+``ops/scan.stacked_lstm_scan``, so on the card every layer runs the
+hand-written recurrence kernels and on the CPU the plain loop. Params are a plain dict, as in the JAX package::
 
     {"embedding": [V, E],
      "layers": [LSTMParams, ...],
@@ -15,6 +15,7 @@ the CPU the plain loop. Params are a plain dict, as in the JAX package::
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import torch
 
@@ -39,6 +40,9 @@ class LMConfig:
     compute_dtype: str = "float32"
     # checkpoint chunks of the recurrence; the backward recomputes them
     remat_chunk: int | None = None
+    # inverted dropout between layers (training only: it needs a source of
+    # keep masks, see lm_backbone)
+    dropout: float = 0.0
 
     def __post_init__(self):
         if self.compute_dtype != "float32":
@@ -87,12 +91,21 @@ def init_carries(cfg: LMConfig, batch: int, device=None):
 
 
 def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig, *,
-                carries=None, mask: torch.Tensor | None = None):
+                carries=None, mask: torch.Tensor | None = None,
+                dropout_gen: torch.Generator | None = None,
+                dropout_keeps: Iterator[torch.Tensor] | None = None):
     """tokens [B, T] → (per-layer final carries, top-layer activations
-    [B, T, H]). ``mask`` [B, T] bool freezes the carries at False steps."""
+    [B, T, H]). ``mask`` [B, T] bool freezes the carries at False steps.
+    Dropout (``cfg.dropout``, between layers) is on only when a source of
+    keep masks is given: drawn from ``dropout_gen``, or taken in order from
+    ``dropout_keeps`` (the tests feed JAX's); without one the pass is
+    deterministic, as eval is."""
     xs = embed_lookup(params["embedding"], tokens)
     return stacked_lstm_scan(params["layers"], xs, carries, mask=mask,
-                             remat_chunk=cfg.remat_chunk)
+                             remat_chunk=cfg.remat_chunk,
+                             dropout_rate=cfg.dropout,
+                             dropout_gen=dropout_gen,
+                             dropout_keeps=dropout_keeps)
 
 
 def _head_kernel(params, cfg: LMConfig):
@@ -101,28 +114,37 @@ def _head_kernel(params, cfg: LMConfig):
     return kernel, head["bias"]
 
 
-def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig, *, carries=None):
+def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig, *, carries=None,
+               dropout_gen: torch.Generator | None = None,
+               dropout_keeps: Iterator[torch.Tensor] | None = None):
     """tokens [B, T] → (logits [B, T, V], final per-layer carries)."""
-    finals, ys = lm_backbone(params, tokens, cfg, carries=carries)
+    finals, ys = lm_backbone(params, tokens, cfg, carries=carries,
+                             dropout_gen=dropout_gen,
+                             dropout_keeps=dropout_keeps)
     kernel, bias = _head_kernel(params, cfg)
     return ys @ kernel + bias, finals
 
 
-def lm_loss(params, batch, cfg: LMConfig, *, carries=None):
+def lm_loss(params, batch, cfg: LMConfig, *, carries=None,
+            dropout_gen: torch.Generator | None = None,
+            dropout_keeps: Iterator[torch.Tensor] | None = None):
     """Next-token cross-entropy, the mean over B*T tokens of
     ``logsumexp(logits) - logits[target]``.
 
     ``batch``: dict with "inputs" and "targets" [B, T] integer tensors.
     Returns ``(loss, aux)`` with ``aux = {"loss", "tokens", "carries"}``
     (``tokens`` a host float; ``carries`` the final per-layer (h, c), still
-    attached to the graph).
+    attached to the graph). ``dropout_gen`` / ``dropout_keeps``: as in
+    :func:`lm_backbone`.
     """
     if cfg.vocab_size >= _CHUNKED_XENT_MIN_V:
         raise NotImplementedError(
             f"vocab {cfg.vocab_size} >= {_CHUNKED_XENT_MIN_V} takes the "
             "vocab-chunked cross-entropy in the JAX package; chunked xent "
             "is not ported yet")
-    logits, finals = lm_forward(params, batch["inputs"], cfg, carries=carries)
+    logits, finals = lm_forward(params, batch["inputs"], cfg, carries=carries,
+                                dropout_gen=dropout_gen,
+                                dropout_keeps=dropout_keeps)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = selected_logits(logits, batch["targets"])
     loss = torch.mean(lse - tgt)

@@ -18,7 +18,10 @@ Counterpart of ``lstm_tensorspark_tpu/ops/pallas_lstm.py`` on its
   T·B (as ``_pallas_backward`` does).
 - :func:`lstm_recurrence` runs the Function when a gradient is needed and
   otherwise the forward without residual writes (the ``_scan_core`` /
-  ``_scan_core_fwd`` split of the JAX package).
+  ``_scan_core_fwd`` split of the JAX package). The pieces it is built
+  from (:func:`recurrence_forward`, :func:`recurrence_backward`,
+  :func:`run_recurrence`) serve the tiled pair too
+  (``ops/cuda_lstm_tiled.py``), which keeps this contract.
 - :func:`cuda_lstm_scan` is the layer-level entry with ``lstm_scan``'s
   signature (mask and reverse; reverse is a flip outside the Function).
 - :data:`fwd_counts` / :data:`bwd_counts` count kernel launches and plain
@@ -303,6 +306,28 @@ def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
 # ---------------------------------------------------------------------------
 
 
+def recurrence_forward(ctx, forward, xproj, U, h0, c0, mask):
+    """The Function's forward over a kernel pair with this module's
+    contract: ``forward`` runs with residuals, which are saved for
+    :func:`recurrence_backward`."""
+    ys, hT, cT, z, cs = forward(xproj, U, h0, c0, mask, save_residuals=True)
+    ctx.save_for_backward(U, h0, c0, ys, z, cs, mask)
+    return ys, hT, cT
+
+
+def recurrence_backward(ctx, backward, dys, dhT, dcT):
+    """The Function's backward: ``backward`` gives dz (= dxproj), dh0 and
+    dc0; ``dU = h_prev^T dz`` is one matmul over T·B."""
+    U, h0, c0, ys, z, cs, mask = ctx.saved_tensors
+    dz, dh0, dc0 = backward(z, c0, cs, dys.contiguous(), U, dhT.contiguous(),
+                            dcT.contiguous(), mask)
+    T, B, G = dz.shape
+    H = G // 4
+    h_prev = torch.cat([h0[None], ys[:-1]], dim=0)
+    dU = h_prev.reshape(T * B, H).T @ dz.reshape(T * B, G)
+    return dz, dU, dh0, dc0, None
+
+
 class LSTMRecurrence(torch.autograd.Function):
     """``(xproj [T,B,4H], U [H,4H], h0, c0, mask [T,B] or None) -> (ys
     [T,B,H], hT, cT)`` with the fused backward. Saves z and cs (the
@@ -311,39 +336,37 @@ class LSTMRecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xproj, U, h0, c0, mask):
-        ys, hT, cT, z, cs = lstm_forward(xproj, U, h0, c0, mask,
-                                         save_residuals=True)
-        ctx.save_for_backward(U, h0, c0, ys, z, cs, mask)
-        return ys, hT, cT
+        return recurrence_forward(ctx, lstm_forward, xproj, U, h0, c0, mask)
 
     @staticmethod
     def backward(ctx, dys, dhT, dcT):
-        U, h0, c0, ys, z, cs, mask = ctx.saved_tensors
-        dz, dh0, dc0 = lstm_backward(z, c0, cs, dys.contiguous(), U,
-                                     dhT.contiguous(), dcT.contiguous(), mask)
-        T, B, G = dz.shape
-        H = G // 4
-        h_prev = torch.cat([h0[None], ys[:-1]], dim=0)
-        dU = h_prev.reshape(T * B, H).T @ dz.reshape(T * B, G)
-        return dz, dU, dh0, dc0, None
+        return recurrence_backward(ctx, lstm_backward, dys, dhT, dcT)
+
+
+def run_recurrence(function, forward, xproj, U, h0, c0, mask=None):
+    """``function`` (an autograd Function over a kernel pair) when autograd
+    needs it; ``forward`` alone, without residual writes, otherwise
+    (``torch.no_grad``, eval, prefill)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xproj, U, h0, c0)):
+        return function.apply(xproj, U, h0, c0, mask)
+    return forward(xproj, U, h0, c0, mask)
 
 
 def lstm_recurrence(xproj, U, h0, c0, mask=None):
-    """The recurrence with the fused backward when autograd needs it; the
-    forward alone, without residual writes, otherwise (``torch.no_grad``,
-    eval, prefill)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xproj, U, h0, c0)):
-        return LSTMRecurrence.apply(xproj, U, h0, c0, mask)
-    return lstm_forward(xproj, U, h0, c0, mask)
+    """The recurrence through the resident pair (:func:`run_recurrence`)."""
+    return run_recurrence(LSTMRecurrence, lstm_forward, xproj, U, h0, c0,
+                          mask)
 
 
 def cuda_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
-                   mask: torch.Tensor | None = None, reverse: bool = False):
-    """One LSTM layer over ``xs`` [B, T, D] through :func:`lstm_recurrence`:
-    the same contract as ``ops.scan.lstm_scan`` (``carry`` (h, c) each
-    [B, H] or None; ``mask`` bool [B, T]; ``reverse``). Returns ``((hT,
-    cT), ys [B, T, H])``."""
+                   mask: torch.Tensor | None = None, reverse: bool = False,
+                   recurrence=lstm_recurrence):
+    """One LSTM layer over ``xs`` [B, T, D] through ``recurrence`` (the
+    resident pair's :func:`lstm_recurrence` unless told otherwise): the
+    same contract as ``ops.scan.lstm_scan`` (``carry`` (h, c) each [B, H]
+    or None; ``mask`` bool [B, T]; ``reverse``). Returns ``((hT, cT), ys
+    [B, T, H])``."""
     B, T, _ = xs.shape
     fused = fuse_params(params)
     H = fused.hidden_size
@@ -358,7 +381,7 @@ def cuda_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
         h0, c0 = carry[0].contiguous(), carry[1].contiguous()
     xproj = torch.matmul(xs.transpose(0, 1), fused.kernel) + fused.bias
     m = None if mask is None else mask.transpose(0, 1).to(torch.float32).contiguous()
-    ys, hT, cT = lstm_recurrence(xproj.contiguous(), fused.recurrent, h0, c0, m)
+    ys, hT, cT = recurrence(xproj.contiguous(), fused.recurrent, h0, c0, m)
     ys = ys.transpose(0, 1)
     if reverse:
         ys = torch.flip(ys, dims=(1,))

@@ -16,28 +16,33 @@ Port of ``lstm_tensorspark_tpu/ops/scan.py``:
   ``bptt="assoc"`` raises; with ``remat_chunk`` the forward kernel runs
   and the backward is the plain recompute; at T >= ``FUSEDX_MIN_T`` the
   residentx pair (``ops/cuda_lstmx.py``) when its plan fits; otherwise the
-  resident pair (``ops/cuda_lstm.py``); no plan raises.
+  resident pair (``ops/cuda_lstm.py``) when its blocks keep their slice of
+  U in shared memory, else the tiled pair (``ops/cuda_lstm_tiled.py``)
+  when its plan fits, else the resident pair reading U through L2; no plan
+  raises.
 - :func:`bidir_lstm_scan` runs both directions of a bi-LSTM layer: the
   stacked-direction pair (``ops/cuda_bilstm.py``) when it applies, else
   two :func:`auto_lstm_scan` calls.
 - :func:`stacked_lstm_scan` runs layers one after another through the
-  dispatch.
+  dispatch, with inter-layer dropout.
 
 The parallel-scan backward (``bptt="assoc"``) is not ported and raises.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import cuda_lstm, cuda_lstmx
+from . import cuda_lstm, cuda_lstm_tiled, cuda_lstmx
 from .cuda_bilstm import bilstm_supported, cuda_bilstm_scan
 from .cuda_lstm import cuda_lstm_scan
+from .cuda_lstm_tiled import cuda_lstm_tiled_scan
 from .cuda_lstmx import cuda_lstmx_scan
 from .lstm_cell import LSTMParams, fuse_params, lstm_step_hoisted, zero_carry
+from .masking import dropout, dropout_with_keep
 
 BPTT_MODES = ("sequential", "auto", "assoc")
 
@@ -109,11 +114,20 @@ def lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
 
 def chosen_fwd_strategy(B: int, T: int, H: int, D: int, *,
                         num_sms: int = 132) -> str:
-    """The forward kernel a CUDA scan runs: ``"residentx"`` at T >=
-    ``FUSEDX_MIN_T`` when its plan fits, else ``"resident"``; raises
-    ``ValueError`` when neither fits."""
+    """The forward kernel a CUDA scan runs, in the JAX package's order:
+    ``"residentx"`` at T >= ``FUSEDX_MIN_T`` when its plan fits; then
+    ``"resident"`` when its blocks keep their slice of U in shared memory;
+    then ``"tiled"`` when the tiled pair's plan fits; then ``"resident"``
+    reading U through L2. The test is Hopper's shared memory, not the TPU's
+    VMEM budget. Raises ``ValueError`` when nothing fits."""
     if T >= cuda_lstmx.FUSEDX_MIN_T and cuda_lstmx.fits(B, H, D, 1, num_sms):
         return "residentx"
+    try:
+        keeps_u = cuda_lstm.plan("fwd", B, H, num_sms).smem_w
+    except ValueError:
+        keeps_u = False
+    if not keeps_u and cuda_lstm_tiled.fits(B, H, num_sms):
+        return "tiled"
     cuda_lstm.plan("fwd", B, H, num_sms)  # raises when it does not fit
     return "resident"
 
@@ -124,8 +138,9 @@ def chosen_bwd_strategy(B: int, T: int, H: int, D: int, *,
     """The gradient path a CUDA scan takes (JAX ``chosen_bwd_strategy``):
     ``"recompute"`` when ``remat_chunk`` is set or the residuals exceed
     their budget, else the backward kernel paired with
-    :func:`chosen_fwd_strategy`'s forward — ``"residentx"`` or
-    ``"resident"``. Raises ``ValueError`` when no plan fits."""
+    :func:`chosen_fwd_strategy`'s forward — ``"residentx"``,
+    ``"resident"`` or ``"tiled"``. Raises ``ValueError`` when no plan
+    fits."""
     fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms)
     if remat_chunk is not None:
         return "recompute"
@@ -137,6 +152,11 @@ def chosen_bwd_strategy(B: int, T: int, H: int, D: int, *,
     return fwd
 
 
+# the layer scan of each kernel route
+_SCANS = {"residentx": cuda_lstmx_scan, "resident": cuda_lstm_scan,
+          "tiled": cuda_lstm_tiled_scan}
+
+
 class _KernelForwardRecompute(torch.autograd.Function):
     """The forward kernel's values with the plain recompute backward (JAX
     ``_scan_core_bwd``'s recompute branch): the backward re-runs
@@ -146,7 +166,7 @@ class _KernelForwardRecompute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, xs, h0, c0, *gates):
         fwd, mask, remat_chunk = spec
-        scan = cuda_lstmx_scan if fwd == "residentx" else cuda_lstm_scan
+        scan = _SCANS[fwd]
         (hT, cT), ys = scan(LSTMParams(*gates), xs, (h0, c0), mask=mask)
         ctx.spec = spec
         ctx.save_for_backward(xs, h0, c0, *gates)
@@ -177,10 +197,8 @@ def kernel_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
     _check_remat(T, remat_chunk)
     bwd = chosen_bwd_strategy(B, T, H, D, remat_chunk=remat_chunk,
                               num_sms=num_sms)
-    if bwd == "residentx":
-        return cuda_lstmx_scan(params, xs, carry, mask=mask, reverse=reverse)
-    if bwd == "resident":
-        return cuda_lstm_scan(params, xs, carry, mask=mask, reverse=reverse)
+    if bwd in _SCANS:
+        return _SCANS[bwd](params, xs, carry, mask=mask, reverse=reverse)
     fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms)
     if reverse:
         xs = torch.flip(xs, dims=(1,))
@@ -253,15 +271,27 @@ def bidir_lstm_scan(params_fwd: LSTMParams, params_bwd: LSTMParams,
 def stacked_lstm_scan(layer_params: Sequence[LSTMParams], xs: torch.Tensor,
                       carries=None, *, mask: torch.Tensor | None = None,
                       reverse: bool = False, remat_chunk: int | None = None,
-                      bptt: str = "sequential"):
+                      bptt: str = "sequential", dropout_rate: float = 0.0,
+                      dropout_gen: torch.Generator | None = None,
+                      dropout_keeps: Iterator[torch.Tensor] | None = None):
     """Stack layers over the same time axis, each through
-    :func:`auto_lstm_scan`. Returns (per-layer final carries, top-layer
-    outputs [B, T, H])."""
+    :func:`auto_lstm_scan`. With ``dropout_rate`` > 0 and a source of keep
+    masks — drawn from ``dropout_gen``, or taken in order from
+    ``dropout_keeps`` (the tests feed JAX's) — inverted dropout is applied
+    to the full [B, T, H] output between layers, never after the top layer
+    (JAX ``stacked_lstm_scan``; no source is its ``deterministic``).
+    Returns (per-layer final carries, top-layer outputs [B, T, H])."""
     ys = xs
     finals = []
+    n = len(layer_params)
     for idx, p in enumerate(layer_params):
         c0 = None if carries is None else carries[idx]
         final, ys = auto_lstm_scan(p, ys, c0, mask=mask, reverse=reverse,
                                    remat_chunk=remat_chunk, bptt=bptt)
         finals.append(final)
+        if idx < n - 1 and dropout_rate > 0.0:
+            if dropout_keeps is not None:
+                ys = dropout_with_keep(next(dropout_keeps), dropout_rate, ys)
+            elif dropout_gen is not None:
+                ys = dropout(dropout_gen, dropout_rate, ys)
     return finals, ys

@@ -99,9 +99,10 @@ def test_remat_refuses_an_indivisible_T():
     (64, 64, 128, 128, 16, ("resident", "recompute")),
     (64, 256, 128, 128, None, ("residentx", "residentx")),  # LM at T=256
     (64, 255, 128, 128, None, ("resident", "resident")),
-    (32, 70, 650, 650, None, ("resident", "resident")),     # config 3
-    # the residentx plan does not fit (xs too wide): the resident pair
-    (64, 400, 1024, 8192, None, ("resident", "resident")),
+    # config 3's width: the resident blocks cannot keep U in shared memory
+    (32, 70, 650, 650, None, ("tiled", "tiled")),
+    # the residentx plan does not fit (xs too wide): the next rung, tiled
+    (64, 400, 1024, 8192, None, ("tiled", "tiled")),
 ])
 def test_strategy_lattice(B, T, H, D, remat, expect):
     got = (tscan.chosen_fwd_strategy(B, T, H, D),

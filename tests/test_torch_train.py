@@ -255,8 +255,8 @@ def test_anomaly_limit_exits_77(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--compute-dtype", "bfloat16"],
-                                   ["--dropout", "0.1"],
-                                   ["--dataset", "wikitext2"]])
+                                   ["--logits-dtype", "bfloat16"],
+                                   ["--dataset", "uci_electricity"]])
 def test_train_refuses_what_is_not_ported(flags, capsys):
     rc = tcli.main(["train", "--device", "cpu", "--num-steps", "1", *flags])
     assert rc == USAGE_RC
