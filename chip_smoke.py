@@ -74,7 +74,26 @@ Phases (each one fails the run):
    ``--dropout 0.2`` with an eval every 100, whose tiled launch counts must
    equal the prediction while every other recurrence counter stays at 0;
    steps/s, tokens/s, eval perplexity, and the device idle share over 20
-   steps under ``torch.profiler``.
+   steps under ``torch.profiler``;
+11. hold the speculative window kernel (``csrc/spec_window.cu``) against
+   its plain version at config 1 (target L=1, H=128, V=50; the
+   ``draft_config`` draft, H=32; B in {1, 8, 16}, k_draft in {1, 2, 4}; a
+   random, an all-reject and an all-accept draft; EOS, budget-end and dead
+   rows; a tied-head pair at B=8) and at config 3's width (L=2, H=650,
+   V=33,278, draft H=162, B=4, k_draft=4): tokens, next, alive and
+   remaining identical, the four carry arrays within 1e-5; time config 1
+   (B=16, k_draft=4) and config 3 in turns (plain, kernel, kernel, plain)
+   with CUDA events and under ``torch.profiler``, beside the bound and the
+   plain decode window of W = k_draft + 1 steps;
+12. speculative serving: boot the HTTP server at config 1 with seeded
+   weights, plain, then ``speculative=True`` (ladder 2, 4) with the random
+   ``draft_config`` draft and with the all-accept draft (the target
+   itself); send phase 4's 6 concurrent greedy requests to each and check
+   the tokens against the plain ``generate`` on the CPU, that the spec
+   kernel's launches equal the spec windows dispatched, that no window ran
+   the plain version, that the prefills launched ``lstm_fwd`` and that no
+   draft prefill failed; print the mean accepted length, tokens/s, TTFT,
+   max inter-token gap and the device idle share under ``torch.profiler``.
 
 The last lines are the kernel report (one JSON object), the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``. Exits
@@ -1526,6 +1545,364 @@ def config5_phase(torch, cli, cl, cx, ct, device):
             "bwd": launches["lstm_tiled_bwd"]}
 
 
+def weights_of(cd, tgen, params, cfg):
+    return cd.decode_weights(params, tgen.fuse_layers(params, cfg),
+                             cfg.tie_embeddings)
+
+
+def reject_draft(torch, tlm, dcfg, wrong, device):
+    """The all-reject draft: zero weights and one spiked head bias on token
+    ``wrong`` (one the target does not emit), so every proposal is
+    rejected."""
+    params = tlm.init_lm(torch.Generator().manual_seed(0), dcfg)
+    zero = {"embedding": torch.zeros_like(params["embedding"]),
+            "layers": [type(l)(*(torch.zeros_like(t) for t in l))
+                       for l in params["layers"]],
+            "head": {k: torch.zeros_like(v)
+                     for k, v in params["head"].items()}}
+    zero["head"]["bias"][wrong] = 10.0
+    return tlm.params_to(zero, device)
+
+
+def spec_inputs(torch, cfg, dcfg, B, K, seed, device, accept):
+    """Carries and latches of one spec window; with B >= 4 row 1 is dead on
+    entry and rows 2 and 3 end their budget inside the window (1 and 2
+    tokens left). The all-accept draft (the target itself) starts from the
+    target's carries."""
+    g = torch.Generator().manual_seed(seed)
+    L, H, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    h = (torch.randn((L, B, H), generator=g) * 0.5).to(device)
+    c = (torch.randn((L, B, H), generator=g) * 0.5).to(device)
+    if accept:
+        dh, dc = h.clone(), c.clone()
+    else:
+        shape = (dcfg.num_layers, B, dcfg.hidden_size)
+        dh = (torch.randn(shape, generator=g) * 0.5).to(device)
+        dc = (torch.randn(shape, generator=g) * 0.5).to(device)
+    tok = torch.randint(0, V, (B,), generator=g, dtype=torch.int32).to(device)
+    alive = torch.ones(B, dtype=torch.int32, device=device)
+    rem = torch.full((B,), K + 4, dtype=torch.int32, device=device)
+    eos = torch.full((B,), -1, dtype=torch.int32, device=device)
+    if B >= 4:
+        alive[1], rem[1] = 0, 0
+        rem[2], rem[3] = 1, 2
+    return [h, c, dh, dc, tok, alive, rem, eos]
+
+
+def compare_spec(torch, cs, tw, dw, inputs, K, label):
+    """Kernel vs plain version on the same inputs; returns the max abs
+    difference of the four carry arrays and the tokens each row emitted."""
+    got = cs.spec_window(tw, dw, *inputs, k_draft=K)
+    ref = cs.spec_window_reference(tw, dw, *inputs, k_draft=K)
+    torch.cuda.synchronize()
+    names = ("h", "c", "draft h", "draft c", "tokens", "next", "alive",
+             "remaining")
+    for name, a, b in zip(names[4:], got[4:], ref[4:]):
+        if not torch.equal(a, b):
+            fail(f"{label}: kernel {name} differ from the plain version:\n"
+                 f"kernel {a.tolist()}\nplain  {b.tolist()}")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:4], ref[:4]))
+    if err > TOL:
+        fail(f"{label}: carries differ by {err:.3e} > {TOL}")
+    return err, (got[4] != cs.PAD_TOKEN).sum(dim=0)
+
+
+def spec_bound(cfg, dcfg, B, K, live, emitted):
+    """Least time for one spec window: the larger of bytes over HBM
+    bandwidth (both models' weights read once, embedding rows as gathered,
+    carries in and out, the row vectors) and float32 FLOPs over the card's
+    peak, counted for this run's data: K draft steps with the head per row
+    live at entry, then, per emitted token, a target step with the head and
+    a draft step without."""
+
+    def cell(m):  # weights and products of the L fused cells
+        return sum(((m.embed if l == 0 else m.hidden_size) + m.hidden_size)
+                   * 4 * m.hidden_size for l in range(m.num_layers))
+
+    V = cfg.vocab_size
+    weights = sum(cell(m) + 4 * m.hidden_size * m.num_layers
+                  + m.hidden_size * V + V for m in (cfg, dcfg))
+    emb_rows = (min(emitted, V) * cfg.embed
+                + min(K * live + emitted, V) * dcfg.embed)
+    carries = 4 * B * (cfg.num_layers * cfg.hidden_size
+                       + dcfg.num_layers * dcfg.hidden_size)
+    ints = 4 * B + (K + 1) * B + 3 * B
+    nbytes = 4 * (weights + emb_rows + carries + ints)
+    flops = 2 * (K * live * (cell(dcfg) + dcfg.hidden_size * V)
+                 + emitted * (cell(cfg) + cfg.hidden_size * V + cell(dcfg)))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def spec_kernel_phase(torch, tlm, tgen, cd, cs, draft_config, device):
+    print("== phase 11: spec-window kernel vs plain version", flush=True)
+    max_err = 0.0
+    timings = {}
+    drafts = ("random", "reject", "accept")
+    for name, spec, cases, timed in (
+            ("config1", CONFIG1,
+             [(B, K, d, False) for B in (1, 8, 16) for K in (1, 2, 4)
+              for d in drafts]
+             + [(8, K, d, True) for K in (2, 4) for d in drafts], (16, 4)),
+            ("config3", CONFIG3, [(4, 4, d, False) for d in drafts], (4, 4))):
+        models = {}
+        for i, (B, K, draft, tied) in enumerate(cases):
+            if tied not in models:
+                cfg = tlm.LMConfig(vocab_size=spec["vocab"],
+                                   hidden_size=spec["hidden"],
+                                   num_layers=spec["layers"],
+                                   tie_embeddings=tied)
+                params = tlm.params_to(tlm.init_lm(
+                    torch.Generator().manual_seed(1), cfg), device)
+                dcfg = draft_config(cfg)
+                dparams = tlm.params_to(tlm.init_lm(
+                    torch.Generator().manual_seed(2), dcfg), device)
+                models[tied] = (cfg, weights_of(cd, tgen, params, cfg),
+                                dcfg, weights_of(cd, tgen, dparams, dcfg))
+            cfg, tw, dcfg, dw = models[tied]
+            accept = draft == "accept"
+            inputs = spec_inputs(torch, cfg, dcfg, B, K, 200 + i, device,
+                                 accept)
+            h, c, _, _, *rows = inputs
+            # the target's own greedy tokens over the window
+            own = cs.spec_window_reference(tw, tw, h, c, h, c, *rows,
+                                           k_draft=K)[4]
+            if accept:
+                ddcfg, ddw = cfg, tw
+            elif draft == "reject":
+                seen = set(own[own >= 0].tolist())
+                wrong = next(t for t in range(cfg.vocab_size)
+                             if t not in seen)
+                ddcfg = dcfg
+                ddw = weights_of(cd, tgen, reject_draft(
+                    torch, tlm, dcfg, wrong, device), dcfg)
+            else:
+                ddcfg, ddw = dcfg, dw
+            # row 0's EOS id: the last token this window emits for it
+            first = cs.spec_window_reference(tw, ddw, *inputs, k_draft=K)[4]
+            inputs[7][0] = first[first[:, 0] >= 0, 0][-1]
+            label = (f"{name} L={cfg.num_layers} H={cfg.hidden_size} "
+                     f"V={cfg.vocab_size} tied={tied} draft={draft} "
+                     f"(L={ddcfg.num_layers} H={ddcfg.hidden_size}) B={B} "
+                     f"k_draft={K}")
+            err, n_emit = compare_spec(torch, cs, tw, ddw, inputs, K, label)
+            # every row but the dead one emits exactly 1 token against the
+            # all-reject draft; the rows with no EOS and a budget past the
+            # window emit all W against the all-accept draft
+            live = [r for r in range(B) if B < 4 or r != 1]
+            if draft == "reject" and not bool((n_emit[live] == 1).all()):
+                fail(f"{label}: the all-reject draft's rows emitted "
+                     f"{n_emit.tolist()} tokens, not 1 each")
+            full = list(range(4, B))
+            if accept and not bool((n_emit[full] == K + 1).all()):
+                fail(f"{label}: the all-accept draft's rows emitted "
+                     f"{n_emit.tolist()} tokens, not W={K + 1} each")
+            max_err = max(max_err, err)
+            print(f"  {label}: tokens identical, emitted per row "
+                  f"{n_emit.tolist()}, max carry diff {err:.3e}", flush=True)
+        if timed is None:
+            continue
+        B, K = timed
+        cfg, tw, dcfg, dw = models[False]
+        inputs = spec_inputs(torch, cfg, dcfg, B, K, 7, device, False)
+        inputs[5].fill_(1)  # every row live, none at its budget end
+        inputs[6].fill_(K + 4)
+        _, n_emit = compare_spec(torch, cs, tw, dw, inputs, K, name)
+        iters = 200 if name == "config1" else 10
+
+        def kernel():
+            return cs.spec_window(tw, dw, *inputs, k_draft=K)
+
+        def plain():
+            return cs.spec_window_reference(tw, dw, *inputs, k_draft=K)
+
+        h, c, _, _, tok, alive, rem, eos = inputs
+
+        def window():  # the plain decode window of W steps: a reference
+            return cd.decode_window(tw, h, c, tok, alive, rem, eos, None,
+                                    window=K + 1, temperature=1.0,
+                                    greedy=True)
+
+        plain_ms, kernel_ms, (p1, k1, k2, p2) = in_turns(
+            torch, plain, kernel, iters)
+        window_ms = time_ms(torch, window, iters)
+        device_ms = profiled_ms(torch, kernel, "spec_window", 20)
+        emitted = int(n_emit.sum())
+        bound_ms, bound_by = spec_bound(cfg, dcfg, B, K, B, emitted)
+        timings[name] = dict(B=B, K=K, kernel_ms=kernel_ms,
+                             plain_ms=plain_ms, device_ms=device_ms,
+                             window_ms=window_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        if name == "config1":  # every proposal accepted: W steps a row
+            acc = spec_inputs(torch, cfg, cfg, B, K, 7, device, True)
+            acc[5].fill_(1)
+            acc[6].fill_(K + 4)
+            _, acc_emit = compare_spec(torch, cs, tw, tw, acc, K, name)
+            acc_ms = time_ms(torch, lambda: cs.spec_window(
+                tw, tw, *acc, k_draft=K), iters)
+            print(f"  {name} B={B} k_draft={K} all-accept draft (the target, "
+                  f"{int(acc_emit.sum())} tokens emitted): kernel_ms "
+                  f"{acc_ms:.4f}", flush=True)
+        dev = "not recorded" if device_ms is None else f"{device_ms:.4f}"
+        print(f"  {name} B={B} k_draft={K} (random draft, {emitted} tokens "
+              f"emitted, per row {n_emit.tolist()}): kernel_ms "
+              f"{kernel_ms:.4f} ({k1:.4f}, {k2:.4f}), device ms per launch "
+              f"{dev}, plain_ms {plain_ms:.4f} ({p1:.4f}, {p2:.4f}), "
+              f"bound_ms {bound_ms:.6f} ({bound_by}); the plain decode "
+              f"window at K={K + 1}: kernel {window_ms:.4f} ms", flush=True)
+    return max_err, timings
+
+
+def spec_serve_phase(torch, tlm, tgen, cd, cs, cl, serve, draft_config,
+                     device):
+    print("== phase 12: speculative serving of config 1 over HTTP",
+          flush=True)
+    import numpy as np
+
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG1)
+    dcfg = draft_config(cfg)
+    dparams_cpu = tlm.init_lm(torch.Generator().manual_seed(1), dcfg)
+    rng = np.random.RandomState(0)
+    lens = (3, 9, 17, 24, 33, 40)
+    prompts = [rng.randint(0, cfg.vocab_size, size=t).tolist() for t in lens]
+    n_new = 32
+    refs = [tgen.generate(params_cpu, [p], cfg, max_new_tokens=n_new,
+                          greedy=True, device="cpu")[0, len(p):].tolist()
+            for p in prompts]
+    eos_at = next((i for i in range(8, n_new) if refs[5][i] not in refs[5][:i]),
+                  None)
+    if eos_at is None:
+        fail(f"no token of {refs[5]} first appears at step 8 or later")
+    eos = refs[5][eos_at]
+    expect = [list(r) for r in refs]
+    expect[5] = refs[5][:eos_at + 1]
+    results = {}
+    spec_launches = None
+    for label, draft in (("plain", None), ("random draft", "random"),
+                         ("all-accept draft", "accept")):
+        engine = serve.ServeEngine(params_cpu, cfg, device=device,
+                                   num_slots=32, rng_seed=0)
+        kw = {}
+        if draft is not None:
+            if draft == "random":
+                engine.attach_draft(dparams_cpu, dcfg)
+            else:  # the target as its own draft
+                engine.attach_draft(params_cpu, cfg)
+            kw = dict(speculative=True, spec_ladder=(2, 4))
+        server = serve.ServeServer(engine, max_active=16, **kw)
+        server.warmup(prompt_lens=lens)
+        torch.cuda.synchronize()
+        httpd = serve.make_http_server(server, "127.0.0.1", 0)
+        port = httpd.server_address[1]
+        http_thread = threading.Thread(target=httpd.serve_forever,
+                                       daemon=True)
+        http_thread.start()
+
+        def burst():
+            out = [None] * len(prompts)
+
+            def run(i):
+                body = {"prompt": prompts[i], "max_new_tokens": n_new,
+                        "greedy": True}
+                if i == 5:
+                    body["eos_id"] = eos
+                out[i] = post(port, body)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            if any(t.is_alive() for t in threads):
+                fail(f"{label}: a request did not finish")
+            for i, r in enumerate(out):
+                if r is None or r[0] != 200:
+                    fail(f"{label}: request {i} failed: {r}")
+                if r[1]["tokens"] != expect[i]:
+                    fail(f"{label}: request {i}: served tokens "
+                         f"{r[1]['tokens']} != plain generate on the CPU "
+                         f"{expect[i]}")
+            return out, time.perf_counter() - t0
+
+        try:
+            with server:
+                before = server.stats()["batcher"]
+                for counts in (cd.counts, cs.counts, cl.fwd_counts):
+                    counts.reset()
+                out, wall = burst()
+                launches = {"spec_window": cs.counts.kernel,
+                            "decode_window": cd.counts.kernel,
+                            "lstm_fwd": cl.fwd_counts.kernel}
+                plain_runs = cs.counts.reference + cd.counts.reference
+                after = server.stats()["batcher"]
+                prof = device_profile(torch, burst)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            http_thread.join(30)
+        if plain_runs != 0:
+            fail(f"{label}: {plain_runs} windows ran the plain version on "
+                 "the card")
+        if launches["lstm_fwd"] < 1:
+            fail(f"{label}: the prefills launched the lstm_fwd kernel no time")
+        spec_windows = (sum(after["spec_windows_dispatched"].values())
+                        - sum(before["spec_windows_dispatched"].values()))
+        accepted = (after["spec_accepted_tokens"]
+                    - before["spec_accepted_tokens"])
+        rows = after["spec_rows_verified"] - before["spec_rows_verified"]
+        if draft is not None:
+            if spec_windows < 1:
+                fail(f"{label}: the burst dispatched no speculative window")
+            if launches["spec_window"] != spec_windows:
+                fail(f"{label}: {launches['spec_window']} spec kernel "
+                     f"launches != {spec_windows} spec windows dispatched")
+            if after["draft_prefill_failures"] != 0:
+                fail(f"{label}: {after['draft_prefill_failures']} draft "
+                     "prefills failed")
+            if spec_launches is None:
+                spec_launches = launches["spec_window"]
+        elif launches["spec_window"] != 0:
+            fail("the plain burst launched the spec kernel")
+        tokens = sum(len(r[1]["tokens"]) for r in out)
+        ttft = sorted(r[1]["ttft_ms"] for r in out)
+        itl = sorted(r[1]["max_itl_ms"] or 0.0 for r in out)
+        results[label] = tokens / wall
+        line = (f"  {label}: 6 requests, tokens identical to the plain "
+                f"generate on the CPU; {tokens} tokens in {wall:.3f} s = "
+                f"{tokens / wall:.1f} tokens/s; launches {launches}")
+        if draft is not None:
+            line += (f"; spec windows {spec_windows} (by K_draft "
+                     f"{after['spec_windows_dispatched']}), "
+                     f"mean accepted length "
+                     f"{accepted / max(rows, 1):.3f} ({accepted} accepted "
+                     f"over {rows} row-windows), draft prefills "
+                     f"{after['draft_prefills_dispatched']} "
+                     f"(failures {after['draft_prefill_failures']})")
+        print(line, flush=True)
+        print(f"  {label}: ttft_ms {ttft} (median {ttft[len(ttft) // 2]}); "
+              f"max_itl_ms {itl}", flush=True)
+        if prof is None:
+            print(f"  {label} under torch.profiler: no device time recorded "
+                  "(device idle share not measured)", flush=True)
+        else:
+            busy, pwall, by_name, _ = prof
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            print(f"  {label} burst under torch.profiler: device busy "
+                  f"{busy:.3f} ms of {pwall:.3f} ms wall (idle share "
+                  f"{1 - busy / pwall:.3f}); top: "
+                  + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top),
+                  flush=True)
+    print(f"  tokens/s: spec (random draft) / plain "
+          f"{results['random draft'] / results['plain']:.3f}, spec "
+          f"(all-accept draft) / plain "
+          f"{results['all-accept draft'] / results['plain']:.3f}",
+          flush=True)
+    return spec_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1542,6 +1919,8 @@ def main() -> int:
         from lstm_tensorspark_torch.ops import cuda_lstm as cl
         from lstm_tensorspark_torch.ops import cuda_lstmx as cx
         from lstm_tensorspark_torch.ops import cuda_lstm_tiled as ct
+        from lstm_tensorspark_torch.ops import cuda_spec as cs
+        from lstm_tensorspark_torch.train.distill import draft_config
     except ImportError as e:
         fail(f"the port is not importable (run from the repo root): {e}")
 
@@ -1575,6 +1954,10 @@ def main() -> int:
     config2_launches = config2_phase(torch, cli, cl, cx, ct, device)
     tiled_timings = tiled_kernel_phase(torch, cl, ct, device)
     config5_launches = config5_phase(torch, cli, cl, cx, ct, device)
+    spec_err, spec_timings = spec_kernel_phase(torch, tlm, tgen, cd, cs,
+                                               draft_config, device)
+    spec_launches = spec_serve_phase(torch, tlm, tgen, cd, cs, cl, serve,
+                                     draft_config, device)
 
     main_path = timings["config1"]
     lstm_rows = [{
@@ -1638,6 +2021,18 @@ def main() -> int:
         "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"],
         "bound_by": main_path["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "spec_window",
+        "route": "cuda",
+        "source": "lstm_tensorspark_torch/csrc/spec_window.cu",
+        "replaces": "lstm_tensorspark_tpu/ops/pallas_decode.py:367",
+        "launches": spec_launches,
+        "max_abs_err": spec_err,
+        "ms": spec_timings["config1"]["kernel_ms"],
+        "plain_ms": spec_timings["config1"]["plain_ms"],
+        "bound_ms": spec_timings["config1"]["bound_ms"],
+        "bound_by": spec_timings["config1"]["bound_by"],
         "library_ms": None,
     }] + lstm_rows + lstmx_rows + tiled_rows}), flush=True)
     print(card, flush=True)

@@ -17,7 +17,10 @@
 - ``serve --selftest`` decodes ``--sessions`` concurrent sessions through
   the full server path and checks that the greedy tokens equal the plain
   ``models/generate.generate`` on the CPU for the same weights (rc 0 on
-  PASS, 1 on a mismatch or a request error);
+  PASS, 1 on a mismatch or a request error); with ``--speculative`` the
+  sessions decode by speculative windows (a draft of ``draft_config``'s
+  shape proposes, the target verifies), and the run also fails when no
+  speculative window was dispatched;
 - ``serve --http`` warms the engine and serves ``POST /v1/generate``,
   ``GET /healthz`` and ``GET /v1/stats`` until interrupted.
 
@@ -40,6 +43,7 @@ from .exit_codes import ANOMALY_RC, FAIL_RC, OK_RC, USAGE_RC
 from .train.optimizer import OPTIMIZERS
 
 DEFAULT_WINDOW_LADDER = (1, 4, 8)
+DEFAULT_SPEC_LADDER = "2,4"
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -71,6 +75,20 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--decode-window", type=str, default="auto",
                    help="'auto' = window ladder 1/4/8; an int N caps the "
                         "ladder at N (1 pins one token per step)")
+    p.add_argument("--speculative", action="store_true",
+                   help="lossless speculative decoding of greedy requests: "
+                        "a draft LM (train/distill.draft_config of the "
+                        "target: 1 layer, H/4) proposes K_draft tokens and "
+                        "the target verifies them in one pass; output is "
+                        "the plain greedy sequence. The draft's weights are "
+                        "drawn from --seed + 1 (the JAX CLI's registry "
+                        "draft, --draft-model, is not ported)")
+    p.add_argument("--spec-ladder", type=str, default=DEFAULT_SPEC_LADDER,
+                   help="warmed K_draft rungs (comma list, each >= 1; rung "
+                        "0 = plain decode is always added)")
+    p.add_argument("--spec-k", type=int, default=None,
+                   help="initial K_draft (a --spec-ladder rung or 0; "
+                        "default: the top rung)")
     p.add_argument("--max-new-tokens", type=int, default=16)
     p.add_argument("--sessions", type=int, default=8,
                    help="--selftest: concurrent sessions")
@@ -103,10 +121,24 @@ def _parse_window_ladder(spec: str) -> tuple[int, ...]:
     return tuple(sorted({1, n} | {k for k in DEFAULT_WINDOW_LADDER if k < n}))
 
 
+def _parse_spec_ladder(spec: str) -> tuple[int, ...]:
+    """--spec-ladder → the warmed K_draft rungs (the Batcher adds 0)."""
+    try:
+        rungs = tuple(int(x) for x in spec.split(",") if x.strip())
+    except ValueError:
+        raise SystemExit(f"--spec-ladder: expected comma-separated ints, "
+                         f"got {spec!r}")
+    if not rungs or any(k < 1 for k in rungs):
+        raise SystemExit(f"--spec-ladder: need at least one rung >= 1, got "
+                         f"{spec!r}")
+    return rungs
+
+
 def _build_serve_stack(args):
     """(cpu params, cfg, server) from the serve flags."""
     from .models.lstm_lm import LMConfig, init_lm
     from .serve import ServeEngine, ServeServer
+    from .train.distill import draft_config
 
     cfg = LMConfig(vocab_size=args.vocab_size, hidden_size=args.hidden_units,
                    num_layers=args.num_layers,
@@ -119,9 +151,20 @@ def _build_serve_stack(args):
                                        "--prefill-buckets"),
         batch_buckets=_parse_buckets(args.batch_buckets, "--batch-buckets"),
         rng_seed=args.seed)
-    server = ServeServer(engine, max_active=args.max_active,
-                         queue_size=args.queue_size,
-                         window_ladder=_parse_window_ladder(args.decode_window))
+    spec_kw = {}
+    if args.speculative:
+        dcfg = draft_config(cfg)
+        engine.attach_draft(
+            init_lm(torch.Generator().manual_seed(args.seed + 1), dcfg), dcfg)
+        spec_kw = {"speculative": True,
+                   "spec_ladder": _parse_spec_ladder(args.spec_ladder),
+                   "spec_k": args.spec_k}
+    try:
+        server = ServeServer(
+            engine, max_active=args.max_active, queue_size=args.queue_size,
+            window_ladder=_parse_window_ladder(args.decode_window), **spec_kw)
+    except ValueError as e:  # e.g. --spec-k off the ladder
+        raise SystemExit(f"serve: {e}")
     return params, cfg, server
 
 
@@ -173,8 +216,14 @@ def _serve_selftest(args) -> int:
         "mismatches": bad,
         "decode_kernel": stats["engine"]["decode_kernel"],
         "kernel_launches": stats["engine"]["kernel_launches"],
+        "spec_kernel_launches": stats["engine"]["spec_kernel_launches"],
         **stats["batcher"],
     }))
+    if (args.speculative and n_new >= 3
+            and not sum(stats["batcher"]["spec_windows_dispatched"].values())):
+        # 3 new tokens leave 2 after prefill, the least a spec window takes
+        print("session decode dispatched no speculative window")
+        bad += 1
     print(f"serve selftest: {'PASS' if bad == 0 else 'FAIL'}")
     return OK_RC if bad == 0 else FAIL_RC
 

@@ -23,39 +23,16 @@
 //     kernel shares weight tiles across rows and steps).
 //   - The head strides threads over V; the block argmax keeps the lowest index
 //     among equal maxima, as jnp.argmax does.
-// Math is expf / tanhf (no fast-math intrinsics) with f32 accumulation, so
-// the kernel agrees with the plain PyTorch version to float32 rounding.
+// The step body (embedding row, cells, head, block argmax) is
+// decode_common.cuh's, shared with spec_window.cu. Math is expf / tanhf (no
+// fast-math intrinsics) with f32 accumulation, so the kernel agrees with the
+// plain PyTorch version to float32 rounding.
 //
 // Plain C interface for ctypes: decode_window_launch returns the CUDA error
 // code of the launch (0 = success). It allocates nothing and does not
 // synchronise; it runs on the stream it is given.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <limits.h>
-
-#define MAX_LAYERS 8
-#define THREADS 512
-#define PAD_TOKEN (-1)
-#define MAX_SMEM_BYTES 232448  // 227 KB: the most a block may opt in to
-
-struct LayerPtrs {
-  const float* W[MAX_LAYERS];  // [D_l, 4H]
-  const float* U[MAX_LAYERS];  // [H, 4H]
-  const float* b[MAX_LAYERS];  // [4H]
-};
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// argmax merge: larger value wins, equal values keep the lower index
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
+#include "decode_common.cuh"
 
 __global__ void __launch_bounds__(THREADS)
 decode_window_kernel(const float* __restrict__ emb, int V, int E,
@@ -81,7 +58,6 @@ decode_window_kernel(const float* __restrict__ emb, int V, int E,
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const int G = 4 * H;
   float* x_sh = smem;           // [E]     layer-0 input (embedding row)
   float* h_sh = x_sh + E;       // [L, H]  carries, resident for the window
   float* c_sh = h_sh + L * H;   // [L, H]
@@ -107,88 +83,15 @@ decode_window_kernel(const float* __restrict__ emb, int V, int E,
       tok = 0;
       continue;
     }
-    // embedding row: a plain row copy (bit-identical to the one-hot matmul;
-    // an out-of-range id gives the zero row, as the one-hot does)
-    const bool in_range = tok >= 0 && tok < V;
-    for (int e = tid; e < E; e += nthreads)
-      x_sh[e] = in_range ? emb[(size_t)tok * E + e] : 0.0f;
-    __syncthreads();
-
-    const float* x = x_sh;
-    int D = E;
-    for (int l = 0; l < L; ++l) {
-      const float* __restrict__ W = lp.W[l];
-      const float* __restrict__ U = lp.U[l];
-      const float* __restrict__ bias = lp.b[l];
-      float* hl = h_sh + l * H;
-      float* cl = c_sh + l * H;
-      for (int j = tid; j < G; j += nthreads) {
-        float zx = 0.0f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) zx = fmaf(x[d], W[(size_t)d * G + j], zx);
-        float zh = 0.0f;
-#pragma unroll 8
-        for (int d = 0; d < H; ++d) zh = fmaf(hl[d], U[(size_t)d * G + j], zh);
-        z_sh[j] = (zx + zh) + bias[j];
-      }
-      __syncthreads();
-      // the row is alive at step entry, so the update commits
-      for (int j = tid; j < H; j += nthreads) {
-        const float ig = sigmoid_f(z_sh[j]);
-        const float fg = sigmoid_f(z_sh[H + j]);
-        const float gg = tanhf(z_sh[2 * H + j]);
-        const float og = sigmoid_f(z_sh[3 * H + j]);
-        const float cn = fg * cl[j] + ig * gg;
-        cl[j] = cn;
-        hl[j] = og * tanhf(cn);
-      }
-      __syncthreads();
-      x = hl;
-      D = H;
-    }
-
-    // head + sampler; each thread walks its columns in ascending order, so a
-    // strict > keeps the lowest index among its own equal maxima
-    float best_v = -INFINITY;
-    int best_i = INT_MAX;
-    const float* nz = greedy ? nullptr : noise + ((size_t)k * B + row) * V;
-    for (int v = tid; v < V; v += nthreads) {
-      float acc = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < H; ++d) acc = fmaf(x[d], head_w[(size_t)d * V + v], acc);
-      float val = acc + head_b[v];
-      if (!greedy) {
-        if (scale) val = val / tdiv;
-        val = val + nz[v];
-      }
-      if (val > best_v || best_i == INT_MAX) {
-        best_v = val;
-        best_i = v;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best_v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-      argmax_merge(best_v, best_i, ov, oi);
-    }
-    if ((tid & 31) == 0) {
-      red_v[tid >> 5] = best_v;
-      red_i[tid >> 5] = best_i;
-    }
-    __syncthreads();
-    if (tid < 32) {
-      const int nwarps = nthreads >> 5;
-      best_v = tid < nwarps ? red_v[tid] : -INFINITY;
-      best_i = tid < nwarps ? red_i[tid] : INT_MAX;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best_v, off);
-        const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-        argmax_merge(best_v, best_i, ov, oi);
-      }
-      if (tid == 0) tok_sh = best_i;
-    }
-    __syncthreads();
-    const int nxt = tok_sh;
+    embed_row(emb, V, E, tok, x_sh);
+    // the row is alive at step entry, so the layers' updates commit
+    const float* x = lstm_layers(lp, L, H, E, x_sh, h_sh, c_sh, z_sh);
+    const int nxt =
+        greedy ? head_argmax<false>(x, H, head_w, head_b, V, nullptr, 0,
+                                    1.0f, red_v, red_i, &tok_sh)
+               : head_argmax<true>(x, H, head_w, head_b, V,
+                                   noise + ((size_t)k * B + row) * V, scale,
+                                   tdiv, red_v, red_i, &tok_sh);
 
     // the latch algebra of the JAX window, verbatim (emit == alive here)
     if (tid == 0) toks_out[(size_t)k * B + row] = nxt;
@@ -235,13 +138,8 @@ extern "C" int decode_window_launch(
     lp.b[l] = l < L ? (const float*)bs[l] : nullptr;
   }
   const size_t smem = smem_bytes(L, H, E);
-  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = opt_in_smem(decode_window_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   decode_window_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)emb, V, E, lp, L, H, (const float*)head_w,
       (const float*)head_b, (const float*)h_in, (const float*)c_in,

@@ -32,8 +32,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every kernel source of the port (csrc/<name>.cu), the set build() takes
-SOURCES = ("decode_window", "lstm_fwd", "lstm_bwd", "lstmx_fwd", "lstmx_bwd",
-           "lstm_tiled_fwd", "lstm_tiled_bwd")
+SOURCES = ("decode_window", "spec_window", "lstm_fwd", "lstm_bwd",
+           "lstmx_fwd", "lstmx_bwd", "lstm_tiled_fwd", "lstm_tiled_bwd")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -19,6 +19,19 @@ scheduler iteration (:meth:`Batcher.step`) does, in order:
    one token (K=1) per iteration, so a queued request is admitted at the
    next iteration.
 
+**Speculative scheduling** (``speculative=True``, a draft attached to the
+engine): every prefill is mirrored by a draft prefill, so the draft's
+state tracks each session's prompt (a failed mirror is counted in
+``draft_prefill_failures`` and otherwise ignored: draft state moves only
+acceptance, never a token). In steady state a greedy group then advances
+by **speculative windows** instead of decode windows: the draft proposes
+K_draft tokens (the largest ``spec_ladder`` rung, at most ``spec_k``,
+whose W = K_draft + 1 no session would overshoot; 0 below 2 tokens left)
+and the target verifies them in one pass, emitting 1..W tokens per row —
+the plain greedy sequence. Spec windows chain from device handles like
+decode windows while a rung is picked; a switch between spec and plain
+windows happens only at a scheduler tick.
+
 Backpressure: the submit queue is bounded, and a full queue raises
 :class:`QueueFullError` at once (HTTP 429). The active set is bounded by
 ``max_active`` (at most the cache's slots). The scheduler is
@@ -89,10 +102,16 @@ class _Session:
 
 class Batcher:
     DEFAULT_WINDOW_LADDER = (1, 4, 8)
+    #: default speculative K_draft ladder; rung 0 (plain decode) is always
+    #: present
+    DEFAULT_SPEC_LADDER = (0, 2, 4)
 
     def __init__(self, engine: ServeEngine, *, max_active: int = 16,
                  queue_size: int = 64,
-                 window_ladder: tuple[int, ...] = DEFAULT_WINDOW_LADDER):
+                 window_ladder: tuple[int, ...] = DEFAULT_WINDOW_LADDER,
+                 speculative: bool = False,
+                 spec_ladder: tuple[int, ...] = DEFAULT_SPEC_LADDER,
+                 spec_k: int | None = None):
         if max_active < 1:
             raise ValueError(f"max_active must be >= 1, got {max_active}")
         if max_active > engine.cache.num_slots:
@@ -105,6 +124,24 @@ class Batcher:
         if not window_ladder or any(k < 1 for k in window_ladder):
             raise ValueError(f"window_ladder needs positive window sizes, "
                              f"got {window_ladder!r}")
+        if any(int(k) < 0 for k in spec_ladder):
+            raise ValueError(f"spec_ladder needs K_draft >= 0, got "
+                             f"{spec_ladder!r}")
+        if speculative and not engine.has_draft:
+            raise ValueError("speculative=True needs a draft model attached "
+                             "to the engine (attach_draft)")
+        # rung 0 (plain decode) is always selectable
+        self.spec_ladder = tuple(sorted({0} | {int(k) for k in spec_ladder}))
+        self.speculative = bool(speculative)
+        if not self.speculative:
+            self.spec_k = 0
+        elif spec_k is None:
+            self.spec_k = self.spec_ladder[-1]
+        elif spec_k not in self.spec_ladder:
+            raise ValueError(f"spec_k {spec_k} is not a spec_ladder rung "
+                             f"{self.spec_ladder}")
+        else:
+            self.spec_k = int(spec_k)
         self.engine = engine
         self.max_active = max_active
         self.queue_size = queue_size
@@ -126,6 +163,14 @@ class Batcher:
         self.prefills_dispatched = 0
         self.windows_dispatched: dict[int, int] = {}  # K -> dispatches
         self.windows_pipelined = 0  # dispatched ahead of a pending fetch
+        # speculative accounting: spec windows per K_draft, accepted
+        # proposals (a live row emits accepted + 1 tokens a window) and the
+        # live rows verified, so accepted / rows is the mean accepted length
+        self.spec_windows_dispatched: dict[int, int] = {}
+        self.spec_accepted_tokens = 0
+        self.spec_rows_verified = 0
+        self.draft_prefills_dispatched = 0
+        self.draft_prefill_failures = 0
         self.last_heartbeat: float | None = None
 
     # ---- client side ---------------------------------------------------
@@ -148,6 +193,19 @@ class Batcher:
             self.submitted += 1
             self._queue.append(req)
             self._work.notify()
+
+    def set_spec_k(self, k: int) -> None:
+        """Move the speculative K_draft cap to spec-ladder rung ``k`` (0 =
+        plain decode until it moves back up); takes effect at the next
+        pick. Only warmed rungs are accepted."""
+        if not self.speculative:
+            raise ValueError("set_spec_k on a non-speculative scheduler "
+                             "(boot with speculative=True and a draft)")
+        if k not in self.spec_ladder:
+            raise ValueError(f"spec_k {k} is not a warmed spec-ladder rung "
+                             f"{self.spec_ladder}")
+        with self._lock:
+            self.spec_k = int(k)
 
     # ---- scheduler side ------------------------------------------------
 
@@ -202,6 +260,15 @@ class Batcher:
                 self._fail(s.req, f"prefill failed: {type(e).__name__}: {e}")
             return
         self.prefills_dispatched += 1
+        if self.speculative:
+            # the draft consumes the same prompts, from zero: the port has
+            # no chunked prefill, so this is always a session's first
+            # (and only) prompt fragment
+            try:
+                self.engine.draft_prefill(items)
+                self.draft_prefills_dispatched += 1
+            except Exception:  # noqa: BLE001 — acceptance-only state
+                self.draft_prefill_failures += 1
         now = time.perf_counter()
         for s, tok in zip(sessions, first):
             s.req.t_first_token = now
@@ -234,7 +301,12 @@ class Batcher:
             groups.setdefault(s.req.sampling.key(), []).append(s)
         if (queue_empty and len(groups) == 1
                 and len(active) <= self.engine.max_batch):
-            k = self._pick_window(min(s.remaining for s in active))
+            min_rem = min(s.remaining for s in active)
+            kd = self._spec_k_for(active, min_rem)
+            if kd > 0:
+                self._dispatch_spec_window(active, kd)
+                return True
+            k = self._pick_window(min_rem)
             if k > 1:
                 self._dispatch_window(active, k)
                 return True
@@ -265,6 +337,35 @@ class Batcher:
                 k = max(k, w)
         return k
 
+    def _spec_k_for(self, sessions: list[_Session], min_remaining: int) -> int:
+        """K_draft for a speculative window over ``sessions``, or 0 for
+        plain decode: speculation serves greedy groups only, needs at least
+        2 tokens left, and takes the largest rung under ``spec_k`` whose
+        window W = K_draft + 1 no session would overshoot."""
+        if not self.speculative or self.spec_k <= 0 or min_remaining < 2:
+            return 0
+        if not sessions[0].req.sampling.greedy:
+            return 0
+        k = 0
+        for r in self.spec_ladder:
+            if 0 < r <= self.spec_k and r + 1 <= min_remaining:
+                k = max(k, r)
+        return k
+
+    def _dispatch_spec_window(self, sessions: list[_Session], kd: int) -> None:
+        try:
+            win = self.engine.spec_window(
+                [s.slot for s in sessions], [s.last_token for s in sessions],
+                [s.remaining for s in sessions],
+                [-1 if s.req.eos_id is None else s.req.eos_id
+                 for s in sessions], k_draft=kd)
+        except Exception as e:  # noqa: BLE001 — keep serving
+            self._fail_chunk(sessions, f"decode failed: {type(e).__name__}: {e}")
+            return
+        self.spec_windows_dispatched[kd] = (
+            self.spec_windows_dispatched.get(kd, 0) + 1)
+        self._pending = (win, list(sessions))
+
     def _dispatch_window(self, sessions: list[_Session], k: int) -> None:
         try:
             win = self.engine.decode_window(
@@ -293,7 +394,23 @@ class Batcher:
             # (rows that hit EOS early are latched frozen on the device)
             live = [r for r in (s.remaining - win.window for s in sessions)
                     if r > 0]
-            if live:
+            if live and win.spec:
+                # a spec successor only while speculation still picks a
+                # rung; otherwise the next tick dispatches plain (spec <->
+                # plain switches happen at a tick, never in the pipeline)
+                kd = self._spec_k_for(sessions, min(live))
+                if kd > 0:
+                    try:
+                        nxt = self.engine.spec_window_next(win, k_draft=kd)
+                    except Exception as e:  # noqa: BLE001 — keep serving
+                        self._fail_chunk(sessions, f"decode failed: "
+                                                   f"{type(e).__name__}: {e}")
+                        return
+                    self.spec_windows_dispatched[kd] = (
+                        self.spec_windows_dispatched.get(kd, 0) + 1)
+                    self.windows_pipelined += 1
+                    self._pending = (nxt, list(sessions))
+            elif live:
                 try:
                     nxt = self.engine.decode_window_next(
                         win, window=self._pick_window(min(live)))
@@ -310,6 +427,17 @@ class Batcher:
         for i, (s, row) in enumerate(zip(sessions, toks)):
             if s.req.cancelled or s.req.done.is_set():
                 continue
+            if win.spec:
+                # a live row emits accepted + 1 tokens (the correction
+                # rides along); 0 emitted means dead at entry, not a reject
+                emitted = 0
+                for tok in row:
+                    if tok == PAD_TOKEN:
+                        break
+                    emitted += 1
+                if emitted > 0:
+                    self.spec_accepted_tokens += emitted - 1
+                    self.spec_rows_verified += 1
             for tok in row:
                 if tok == PAD_TOKEN or s.remaining == 0:
                     break
@@ -359,9 +487,11 @@ class Batcher:
                prompt_lens: tuple[int, ...] = (1,)) -> int:
         """Warm every program this scheduler can dispatch: the engine's
         prefill buckets covering ``prompt_lens`` and every window-ladder
-        rung, for every batch bucket."""
-        return self.engine.warmup(sampling, prompt_lens=prompt_lens,
-                                  windows=self.window_ladder)
+        rung, for every batch bucket; when speculative, the draft prefills
+        and every spec-ladder rung too."""
+        return self.engine.warmup(
+            sampling, prompt_lens=prompt_lens, windows=self.window_ladder,
+            spec_windows=self.spec_ladder if self.speculative else ())
 
     def drain(self) -> None:
         """Drive the scheduler until no work remains (tests, offline)."""
@@ -408,4 +538,12 @@ class Batcher:
             "window_ladder": list(self.window_ladder),
             "windows_dispatched": dict(self.windows_dispatched),
             "windows_pipelined": self.windows_pipelined,
+            "speculative": self.speculative,
+            "spec_ladder": list(self.spec_ladder),
+            "spec_k": self.spec_k,
+            "spec_windows_dispatched": dict(self.spec_windows_dispatched),
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_rows_verified": self.spec_rows_verified,
+            "draft_prefills_dispatched": self.draft_prefills_dispatched,
+            "draft_prefill_failures": self.draft_prefill_failures,
         }

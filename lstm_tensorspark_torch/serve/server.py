@@ -15,7 +15,8 @@ path both front-ends use:
     ...}``;
   - ``GET /healthz`` → scheduler liveness (200 ``ok``, 503 ``down``);
   - ``GET /v1/stats`` (alias ``/stats``) → engine, cache and batcher
-    counters, including the window kernel's launch count.
+    counters, including the window kernels' launch counts and, when
+    speculative, the spec windows and accepted proposals.
 
   A full queue gets 429; a bad body or an unsupported sampling config
   (top-k, top-p) gets 400; a scheduler-side failure 500; a client-side
@@ -42,11 +43,16 @@ class ServeServer:
 
     def __init__(self, engine: ServeEngine, *, max_active: int = 16,
                  queue_size: int = 64,
-                 window_ladder: tuple[int, ...] = Batcher.DEFAULT_WINDOW_LADDER):
+                 window_ladder: tuple[int, ...] = Batcher.DEFAULT_WINDOW_LADDER,
+                 speculative: bool = False,
+                 spec_ladder: tuple[int, ...] = Batcher.DEFAULT_SPEC_LADDER,
+                 spec_k: int | None = None):
         self.engine = engine
         self.batcher = Batcher(engine, max_active=max_active,
                                queue_size=queue_size,
-                               window_ladder=window_ladder)
+                               window_ladder=window_ladder,
+                               speculative=speculative,
+                               spec_ladder=spec_ladder, spec_k=spec_k)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 

@@ -43,7 +43,8 @@ def test_importing_every_module_loads_no_jax():
                 "data.datasets", "data.batching", "train.optimizer",
                 "train.loop", "train.metrics", "exit_codes",
                 "ops.cuda_lstmx", "ops.cuda_bilstm", "ops.masking",
-                "models.classifier", "tasks.classification"):
+                "models.classifier", "tasks.classification", "ops.cuda_spec",
+                "train.distill"):
         assert f"lstm_tensorspark_torch.{mod}" in report["modules"]
 
 
