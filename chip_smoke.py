@@ -23,15 +23,17 @@ Phases (each one fails the run):
    (prompt lengths 3-40, 32 new tokens, one with ``eos_id``) and check the
    tokens against the plain ``generate`` on the CPU, that the window
    kernel's launch count rose during the run and that no decode ran the
-   plain version on the card;
+   plain version on the card; then a prompt id outside the vocabulary
+   must get a 400, and the burst after it must be served identical;
 5. hold the LSTM recurrence kernels (``csrc/lstm_fwd.cu``,
    ``csrc/lstm_bwd.cu``) against their plain PyTorch versions at config 1
    (B=64, T=64, H=128) and config 3's width (B=32, T=70, H=650), with and
-   without a mask, from non-zero carries, the forward with and without
-   residuals; time config 1 in turns (plain, kernel, kernel, plain) with
-   CUDA events and under ``torch.profiler``, beside cuDNN's
-   ``torch.nn.LSTM`` on the same shapes (the yardstick; the port never
-   calls it) and the bound;
+   without a mask, and at a serve prefill batch (B=3, T=5, H=128, masked),
+   from non-zero carries, the forward with and without residuals; time
+   config 1 in turns (plain, kernel, kernel, plain) with CUDA events and
+   under ``torch.profiler``, beside cuDNN's ``torch.nn.LSTM`` on the same
+   shapes (the yardstick; the port never calls it) and the bound, each
+   time also per step;
 6. train config 1 through the CLI entry (``cli.main(["train", ...])``):
    the first 10 losses on the card against the same run on the CPU (plain
    versions, same seed and batches), and 5 of a 2-layer stack, then 300 steps with an eval every 100
@@ -46,8 +48,9 @@ Phases (each one fails the run):
    (B=64, T=256, D=H=128; one direction) and at an awkward shape (B=8,
    T=257, D=72, H=200); time each role at the shape its launches in phase
    8 come from in turns (plain, kernel, kernel, plain) with CUDA events and
-   under ``torch.profiler``, beside cuDNN's ``torch.nn.LSTM``
-   (bidirectional for the stacked roles) and the bound; and time the
+   under ``torch.profiler`` (the backward's chain and its z rebuild
+   apart), beside cuDNN's ``torch.nn.LSTM`` (bidirectional for the
+   stacked roles) and the bound, each time also per step; and time the
    stacked pair under the card's plan against the other row cut of each
    kernel;
 8. train config 2 through the CLI: the first 10 losses on the card at
@@ -123,6 +126,9 @@ CONFIG5_GATES = dict(vocab=1000, hidden=1024, layers=4)
 # width (a hidden size that is no multiple of a block's share)
 LSTM_CONFIG1 = dict(B=64, T=64, H=128)
 LSTM_CONFIG3 = dict(B=32, T=70, H=650)
+# a serve prefill batch at config 1's width: 3 prompts in a length bucket
+# of 5, right-padded (the resident forward alone, no residuals)
+LSTM_PREFILL = dict(B=3, T=5, H=128)
 # values (h, c, bounded by the gates) are held to 1e-5 absolute; the
 # pre-activations z and the gradients (dz, dh0, dc0) are sums of H or 4H
 # products, so their float32 rounding scales with their size: held to
@@ -445,6 +451,15 @@ def serve_phase(torch, tlm, tgen, cd, serve, device):
             # the same burst again under the profiler: where the serve
             # path's device time goes, and how idle the card is
             prof = device_profile(torch, burst)
+            # a prompt id outside the vocabulary is refused (400) before it
+            # reaches the card, where its gather would be a device-side
+            # assert; the server then serves the burst again
+            bad = post(port, {"prompt": [1, cfg.vocab_size, 2],
+                              "max_new_tokens": 4, "greedy": True})
+            if bad[0] != 400:
+                fail(f"an out-of-range prompt id got {bad}, not a 400")
+            burst()
+            torch.cuda.synchronize()
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -457,6 +472,8 @@ def serve_phase(torch, tlm, tgen, cd, serve, device):
         fail("the serve run dispatched no multi-token decode window")
     # the tokens matched expect[5], so request 5 stopped at its eos_id after
     # eos_at tokens that decode windows produced on the card
+    print(f"  an out-of-range prompt id got 400 ({bad[1]['error']}); the "
+          f"burst after it was served identical again", flush=True)
     print(f"  request 5 stopped on eos_id {eos} at step {eos_at} of {n_new}: "
           f"{eos_at} of its tokens came from decode windows", flush=True)
     tokens = sum(len(r[1]["tokens"]) for r in results)
@@ -602,9 +619,10 @@ def cudnn_yardstick(torch, forward, layer_scan, inputs, cots):
 def lstm_kernel_phase(torch, cl, device):
     print("== phase 5: LSTM recurrence kernels vs plain versions", flush=True)
     errs = {"fwd": 0.0, "bwd": 0.0}
-    for name, spec in (("config1", LSTM_CONFIG1), ("config3", LSTM_CONFIG3)):
+    for name, spec in (("config1", LSTM_CONFIG1), ("config3", LSTM_CONFIG3),
+                       ("prefill", LSTM_PREFILL)):
         B, T, H = spec["B"], spec["T"], spec["H"]
-        for masked in (False, True):
+        for masked in ((True,) if name == "prefill" else (False, True)):
             label = f"{name} B={B} T={T} H={H} mask={masked}"
             inputs, (dys, dhT, dcT) = lstm_inputs(torch, B, T, H, masked,
                                                   seed=H + masked,
@@ -680,12 +698,15 @@ def lstm_kernel_phase(torch, cl, device):
                              library_ms=lib_fwd if kind == "fwd" else lib_bwd,
                              max_err=errs[kind])
         print(f"  lstm_{kind} config1: kernel_ms {timings[kind]['kernel_ms']:.4f}"
-              f" ({k1:.4f}, {k2:.4f}), device_ms "
+              f" ({k1:.4f}, {k2:.4f}; "
+              f"{1e3 * timings[kind]['kernel_ms'] / T:.2f} us a step), "
+              f"device_ms "
               f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}, "
               f"plain_ms {timings[kind]['plain_ms']:.4f} ({p1:.4f}, {p2:.4f}),"
-              f" library_ms {timings[kind]['library_ms']:.4f}, bound_ms "
-              f"{bound_ms:.6f} ({bound_by}); the T={T} dependent steps are a "
-              "latency floor the bound does not see", flush=True)
+              f" library_ms {timings[kind]['library_ms']:.4f} "
+              f"({1e3 * timings[kind]['library_ms'] / T:.2f} us a step), "
+              f"bound_ms {bound_ms:.6f} ({bound_by}); the T={T} dependent "
+              "steps are a latency floor the bound does not see", flush=True)
     return timings
 
 
@@ -999,24 +1020,34 @@ def lstmx_kernel_phase(torch, cx, device):
         p2 = time_ms(torch, plain, 2)
         bound_ms, bound_by = lstmx_bound(B, T, D, H, nd, kind, masked, save_c)
         prof = device_profile(torch, lambda: [kernel() for _ in range(10)])
-        dev_ms = None
+        dev_ms = rebuild_ms = None
         if prof is not None:
             keys = [k for k in prof[2] if f"lstmx_{kind}_kernel" in k]
             n = sum(prof[3][k] for k in keys)
             if n:
                 dev_ms = sum(prof[2][k] for k in keys) / n
+            keys = [k for k in prof[2] if "lstmx_factors_kernel" in k]
+            n = sum(prof[3][k] for k in keys)
+            if n:
+                rebuild_ms = sum(prof[2][k] for k in keys) / n
         timings[role] = dict(
             kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
             bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms,
             library_ms=lib[name, nd][0 if kind == "fwd" else 1],
             max_err=errs[kind, nd])
+        both = "" if kind == "fwd" else (
+            " (the chain; its z rebuild beside it "
+            + ("not measured" if rebuild_ms is None else f"{rebuild_ms:.4f}")
+            + ")")
         print(f"  {role} {name} B={B} T={T} D={D} H={H} (mask={masked}, "
               f"cs={save_c if kind == 'fwd' else 'in'}): kernel_ms "
-              f"{timings[role]['kernel_ms']:.4f} ({k1:.4f}, {k2:.4f}), "
+              f"{timings[role]['kernel_ms']:.4f} ({k1:.4f}, {k2:.4f}; "
+              f"{1e3 * timings[role]['kernel_ms'] / T:.2f} us a step), "
               f"device_ms "
-              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}, "
-              f"plain_ms {timings[role]['plain_ms']:.4f} ({p1:.4f}, "
-              f"{p2:.4f}), library_ms {timings[role]['library_ms']:.4f}, "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}"
+              f"{both}, plain_ms {timings[role]['plain_ms']:.4f} ({p1:.4f}, "
+              f"{p2:.4f}), library_ms {timings[role]['library_ms']:.4f} "
+              f"({1e3 * timings[role]['library_ms'] / T:.2f} us a step), "
               f"bound_ms {bound_ms:.6f} ({bound_by})", flush=True)
     rows_ab(torch, cx, lens2, sms, device)
     return timings
@@ -1026,8 +1057,8 @@ def rows_ab(torch, cx, lens2, sms, device):
     """The stacked pair at config 2 under the card's plan and under the
     other row cut of each kernel, alternated with CUDA events: the forward
     with 4-row clusters (16 of them, more than the card keeps at once: the
-    plan for every cluster resident), the backward with 8-row clusters
-    (the plan for half the SMs: one wave, a one-step projection chunk).
+    plan for every cluster resident), and the same for the backward (its
+    card plan takes 8-row clusters, one wave).
     The forward's results must not change by a bit (none of its sums
     depends on the rows); the backward's dz @ Uᵀ split follows its rows,
     so under either cut its dz, dh0, dc0 are held against the plain
@@ -1037,8 +1068,9 @@ def rows_ab(torch, cx, lens2, sms, device):
                                            seed=7, device=device)
     xs, W, b, U, h0, c0, mask = inputs
     card = cx.card_plan(B2, H2, D2, 2, device)
-    alt = {"fwd": card._replace(fwd=cx.plan(B2, H2, D2, 2, sms).fwd),
-           "bwd": card._replace(bwd=cx.plan(B2, H2, D2, 2, sms // 2).bwd)}
+    alt = {kind: card._replace(**{kind: getattr(cx.plan(B2, H2, D2, 2, sms),
+                                                kind)})
+           for kind in ("fwd", "bwd")}
     ys, _, _, cs = cx.lstmx_forward(*inputs, save_c=True)
     bargs = (xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask)
     calls = {"fwd": lambda p: cx.lstmx_forward(*inputs, save_c=True, xplan=p),

@@ -26,40 +26,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cluster_common.cuh"
+
 #define THREADS 256
 #define MAX_CLUSTER 8
 #define MAX_SMEM_BYTES 232448  // 227 KB: the most a block may opt in to
 #define QMAX 8                 // float4 accumulators of one chunk_product item
 #define KB 16                  // weight loads chunk_product keeps in flight
 #define SB 8                   // loads a thread of stage_rows keeps in flight
-
-// Phase clocks: built with -DLSTMX_PHASE_CLOCKS (python -m
-// lstm_tensorspark_torch.phase_clocks), thread 0 of block 0 adds the SM
-// cycles since the previous mark to g_clk[i], and lstmx_phase_clocks copies
-// the sums out and clears them. Without the flag the marks are nothing.
-#ifdef LSTMX_PHASE_CLOCKS
-__device__ unsigned long long g_clk[16];
-#define CLK_START unsigned long long _clk_last = clock64();
-#define CLK_MARK(i)                                  \
-  if (threadIdx.x == 0 && blockIdx.x == 0) {         \
-    const unsigned long long _clk_now = clock64();   \
-    g_clk[i] += _clk_now - _clk_last;                \
-    _clk_last = _clk_now;                            \
-  }
-extern "C" int lstmx_phase_clocks(unsigned long long* host) {
-  cudaError_t e = cudaMemcpyFromSymbol(host, g_clk, sizeof(g_clk));
-  const unsigned long long zero[16] = {0};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_clk, zero, sizeof(zero));
-  return (int)e;
-}
-#else
-#define CLK_START
-#define CLK_MARK(i)
-#endif
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // Which rows, direction and hidden units a block owns. GPD is the number of
 // row groups (clusters) per direction.
@@ -157,14 +131,15 @@ __device__ __forceinline__ void load_w(float (&w)[KB],
 }
 
 // acc[j] += A[k + q][q0 + j] * w[q] for q = 0 .. KB-1 in order
-__device__ __forceinline__ void fma_w(float4 (&acc)[QMAX],
-                                      const float (&w)[KB], const float4* A4,
-                                      int lda4, int q0, int nq, int k) {
+template <int QM>
+__device__ __forceinline__ void fma_w(float4 (&acc)[QM], const float (&w)[KB],
+                                      const float4* A4, int lda4, int q0,
+                                      int nq, int k) {
 #pragma unroll
   for (int q = 0; q < KB; ++q) {
     const float4* ar = A4 + (size_t)(k + q) * lda4 + q0;
 #pragma unroll
-    for (int j = 0; j < QMAX; ++j) {
+    for (int j = 0; j < QM; ++j) {
       if (j < nq) {
         const float4 av = ar[j];
         acc[j].x = fmaf(av.x, w[q], acc[j].x);
@@ -172,42 +147,6 @@ __device__ __forceinline__ void fma_w(float4 (&acc)[QMAX],
         acc[j].z = fmaf(av.z, w[q], acc[j].z);
         acc[j].w = fmaf(av.w, w[q], acc[j].w);
       }
-    }
-  }
-}
-
-// Stage clen steps of the block's own units of src [T][BS][H] into
-// dst [clen*RB4][UPC] (dst[(c*RB4 + r)*UPC + u]), zeros outside the group's
-// rows and the block's units; with `first` set, step t reads src's step
-// t - 1 and step 0 reads first [BS][H] (c_prev from cs and c0).
-__device__ __forceinline__ void stage_own(float* dst,
-                                          const float* __restrict__ src,
-                                          const float* __restrict__ first,
-                                          int t0, int clen, int BS, int row0,
-                                          int nrows, int RB4, int H, int u0,
-                                          int UPC, int nu) {
-  const int n = clen * RB4 * UPC;
-  for (int i0 = threadIdx.x; i0 < n; i0 += THREADS * SB) {
-    float v[SB];
-#pragma unroll
-    for (int q = 0; q < SB; ++q) {
-      const int i = i0 + q * THREADS;
-      const int cr = i / UPC, u = i - cr * UPC;
-      const int c = cr / RB4, r = cr - c * RB4;
-      v[q] = 0.0f;
-      if (i < n && r < nrows && u < nu) {
-        const int t = t0 + c;
-        const size_t col = (size_t)(row0 + r) * H + u0 + u;
-        if (first == nullptr)
-          v[q] = src[(size_t)t * BS * H + col];
-        else
-          v[q] = t > 0 ? src[(size_t)(t - 1) * BS * H + col] : first[col];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < SB; ++q) {
-      const int i = i0 + q * THREADS;
-      if (i < n) dst[i] = v[q];
     }
   }
 }
@@ -230,13 +169,14 @@ __device__ __forceinline__ void stage_mask(float* dst,
 // with the sum in KS pieces as described at the top. The addend is
 // bias[col] when `bias` is given, else the value out holds already. Each
 // output is summed whole by one thread; how items spread over threads does
-// not change any bit.
+// not change any bit. An item holds up to QM float4 accumulators.
+template <int QM = QMAX>
 __device__ __forceinline__ void chunk_product(
     const float* A, int K, int NQ, const float* __restrict__ Wd, int ldw,
     int H, int UPC, int u0, int nu, int KS, const float* __restrict__ bias,
     float* out) {
   const int NC = 4 * UPC;
-  int QS = (NQ + QMAX - 1) / QMAX;
+  int QS = (NQ + QM - 1) / QM;
   const int spread = min(NQ, max(1, THREADS / NC));
   if (spread > QS) QS = spread;
   const int Qc = (NQ + QS - 1) / QS;
@@ -251,12 +191,12 @@ __device__ __forceinline__ void chunk_product(
     if (u >= nu || nq <= 0) continue;
     const int col = g * H + u0 + u;
     const float* wp = Wd + col;
-    float4 tot[QMAX];
+    float4 tot[QM];
     for (int ks = 0; ks < KS; ++ks) {
       const int k0 = ks * Kc, k1 = min(K, k0 + Kc);
-      float4 acc[QMAX];
+      float4 acc[QM];
 #pragma unroll
-      for (int j = 0; j < QMAX; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j = 0; j < QM; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
       // KB weight loads in flight while the previous KB feed their
       // products (one block per SM leaves few warps to hide L2 latency);
       // per output the products still run in increasing k
@@ -279,7 +219,7 @@ __device__ __forceinline__ void chunk_product(
         const float wv = __ldg(wp + (size_t)k * ldw);
         const float4* ar = A4 + (size_t)k * lda4 + q0;
 #pragma unroll
-        for (int j = 0; j < QMAX; ++j) {
+        for (int j = 0; j < QM; ++j) {
           if (j < nq) {
             const float4 av = ar[j];
             acc[j].x = fmaf(av.x, wv, acc[j].x);
@@ -290,7 +230,7 @@ __device__ __forceinline__ void chunk_product(
         }
       }
 #pragma unroll
-      for (int j = 0; j < QMAX; ++j) {
+      for (int j = 0; j < QM; ++j) {
         if (ks == 0) {
           tot[j] = acc[j];
         } else {
@@ -302,7 +242,7 @@ __device__ __forceinline__ void chunk_product(
       }
     }
 #pragma unroll
-    for (int j = 0; j < QMAX; ++j) {
+    for (int j = 0; j < QM; ++j) {
       if (j < nq) {
         float* o = out + (size_t)(q0 + j) * 4 * NC + lc;
         if (bias != nullptr) {

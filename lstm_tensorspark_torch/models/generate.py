@@ -9,6 +9,8 @@ drawn from an explicit ``torch.Generator``. Top-k and top-p are refused.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..device import resolve_device
@@ -87,6 +89,10 @@ def generate(params, prompt, cfg: LMConfig, *, max_new_tokens: int,
     ``device``). Params are moved to ``device`` first.
     """
     check_sampling(temperature, top_k, top_p, greedy)
+    # inference never rematerialises: remat_chunk is a training-memory
+    # device and would refuse prompt lengths it does not divide
+    if cfg.remat_chunk is not None:
+        cfg = dataclasses.replace(cfg, remat_chunk=None)
     dev = resolve_device(device)
     params = params_to(params, dev)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)

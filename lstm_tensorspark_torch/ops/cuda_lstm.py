@@ -54,9 +54,11 @@ bwd_counts = kernels.LaunchCounts()
 class Plan(NamedTuple):
     """How a kernel call is cut: clusters of ``cluster`` blocks, each block
     owning ``units`` hidden units, each cluster ``rows`` batch rows
-    (``rows4`` rounded up to 4), the product's sum split ``ksplit`` ways,
-    and ``smem_w`` whether the block's slice of U sits in shared memory.
-    ``smem_bytes`` is what one block asks for."""
+    (``rows4`` rounded up to 4), the product's sum split ``ksplit`` ways
+    (the forward: the lanes that share a unit's sum), ``smem_w`` whether
+    the block's slice of U sits in shared memory and ``u_regs`` whether the
+    forward's lanes keep their slices of U in registers (neither: read
+    through L2). ``smem_bytes`` is what one block asks for."""
 
     cluster: int
     units: int
@@ -65,6 +67,39 @@ class Plan(NamedTuple):
     ksplit: int
     smem_w: bool
     smem_bytes: int
+    u_regs: bool = False
+
+
+# rows of U a forward lane keeps in registers (csrc/lstm_fwd.cu KREG)
+KREG = 16
+
+
+def _lanes(items: int, cap: int) -> int:
+    """The largest power of two that is at most 32, at most ``cap`` and at
+    most THREADS // items: the lanes that share one item's sum."""
+    n = 1
+    while n * 2 <= min(32, cap, THREADS // items):
+        n *= 2
+    return n
+
+
+def _fwd_plan(B: int, H: int, cs: int, upc: int, clusters: int) -> Plan:
+    """The forward's plan (csrc/lstm_fwd.cu): a group of lanes owns one unit
+    and four rows, so a block takes at most THREADS // upc row quads."""
+    rows = -(-B // clusters)
+    rows = min(B, -(-rows // 4) * 4, 4 * max(1, THREADS // upc))
+    rows4 = -(-rows // 4) * 4
+    ks = _lanes(upc * (rows4 // 4), 32)
+    base = 2 * H * rows4 + 4  # h double buffer, two mbarriers
+    if 4 * base > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"lstm fwd kernel: B={B} H={H} needs {4 * base} bytes of "
+            f"shared memory per block (> {MAX_SMEM_BYTES})")
+    u_regs = -(-H // ks) <= KREG
+    w = 4 * H * upc
+    smem_w = not u_regs and 4 * (base + w) <= MAX_SMEM_BYTES
+    return Plan(cs, upc, rows, rows4, ks, smem_w,
+                4 * (base + (w if smem_w else 0)), u_regs)
 
 
 def plan(kind: str, B: int, H: int, num_sms: int = 132) -> Plan:
@@ -80,25 +115,22 @@ def plan(kind: str, B: int, H: int, num_sms: int = 132) -> Plan:
     upc = -(-H // cs)
     cs = -(-H // upc)  # no block without units
     clusters = max(1, num_sms // cs)
+    if kind == "fwd":
+        return _fwd_plan(B, H, cs, upc, clusters)
     rows = -(-B // clusters)
     rows = min(B, -(-rows // 4) * 4)
     rows4 = -(-rows // 4) * 4
     G = 4 * H
-    if kind == "fwd":
-        K, ncols = H, 4 * upc
-        base = 2 * H * rows4 + rows4 * ncols + rows4 * upc
-        w = H * ncols
-    else:
-        K, ncols = G, upc
-        base = 2 * G * rows4 + 3 * rows4 * upc
-        w = G * upc
+    K, ncols = G, upc
+    base = 2 * G * rows4 + 3 * rows4 * upc
+    w = G * upc
     items = ncols * (rows4 // 4)
     ks = max(1, min(THREADS // items, K // MIN_SPLIT))
     if ks > 1:
         base += ks * rows4 * ncols
     if 4 * base > MAX_SMEM_BYTES:
         raise ValueError(
-            f"lstm {kind} kernel: B={B} H={H} needs {4 * base} bytes of "
+            f"lstm bwd kernel: B={B} H={H} needs {4 * base} bytes of "
             f"shared memory per block (> {MAX_SMEM_BYTES})")
     smem_w = 4 * (base + w) <= MAX_SMEM_BYTES
     return Plan(cs, upc, rows, rows4, ks, smem_w,
@@ -256,7 +288,7 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
             xproj.data_ptr(), U.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             _ptr(mask), ys.data_ptr(), hT.data_ptr(), cT.data_ptr(), _ptr(z),
             _ptr(cs), T, B, H, pl.cluster, pl.units, pl.rows, pl.rows4,
-            pl.ksplit, int(pl.smem_w), stream)
+            pl.ksplit, 0 if pl.u_regs else 1 if pl.smem_w else 2, stream)
     if rc != 0:
         raise RuntimeError(f"lstm_fwd kernel launch failed: CUDA error {rc} "
                            f"(T={T} B={B} H={H}, {pl})")

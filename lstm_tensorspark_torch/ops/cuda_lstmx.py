@@ -67,10 +67,12 @@ class KernelPlan(NamedTuple):
     """How one kernel of the pair is cut: clusters of ``rows`` rows of one
     direction (``rows4`` rounded up to 4), ``groups`` clusters per
     direction, its product split ``ksplit`` (the forward's h @ U pieces,
-    which are the plan's ``zks``; the backward's dz @ Uᵀ split), the
-    projection chunk (steps), whether the block's slice of U (forward) or
-    Uᵀ (backward) sits in shared memory, and the bytes of shared memory one
-    block asks for."""
+    which are the plan's ``zks``; the backward's lanes that share a unit's
+    dz @ Uᵀ sum), the projection chunk (steps; the backward's z rebuild
+    takes one per block), whether the block's slice of U (forward) or Uᵀ
+    (backward) sits in shared memory or (backward) in its lanes'
+    registers, and the bytes of shared memory one block asks for (the
+    backward: its chain kernel)."""
 
     rows: int
     rows4: int
@@ -79,6 +81,7 @@ class KernelPlan(NamedTuple):
     chunk: int
     u_in_smem: bool
     smem_bytes: int
+    u_in_regs: bool = False
 
 
 class XPlan(NamedTuple):
@@ -98,6 +101,12 @@ class XPlan(NamedTuple):
 # a kernel takes clusters that all fit on the card at once only if that
 # leaves it a projection chunk of at least this many steps
 MIN_ONE_WAVE_CHUNK = 4
+# csrc/lstmx_bwd.cu: the threads of a chain block (the dependent steps),
+# the factors per element of the stream its z rebuild leaves, and the terms
+# of dz @ Uᵀ a lane keeps in registers
+BWD_THREADS = 256
+BWD_PLANES = 8
+BWD_UT_REG = 64
 
 
 def _fit(base: int, per_chunk: int, w: int, what: str, B, H, D, ndir):
@@ -112,6 +121,23 @@ def _fit(base: int, per_chunk: int, w: int, what: str, B, H, D, ndir):
         f"lstmx {what} kernel: B={B} H={H} D={D} ndir={ndir} needs "
         f"{4 * (base + per_chunk)} bytes of shared memory per block "
         f"(> {MAX_SMEM_BYTES})")
+
+
+def _rebuild_floats(H: int, D: int, upc: int, rows4: int, chunk: int) -> int:
+    """Shared memory of the backward's z rebuild (``csrc/lstmx_bwd.cu``
+    factors_smem_floats): a chunk's staged inputs (then its h_prev) and its
+    rebuilt z."""
+    e = chunk * rows4
+    return max(D, H) * (e + 4) + e * 4 * upc
+
+
+def factor_floats(T: int, ndir: int, xplan: "XPlan") -> int:
+    """Floats of the factor stream the backward's rebuild writes and its
+    chain reads: per step, row group and row quad, BWD_PLANES float4s of
+    four rows for each unit of a cluster."""
+    kp = xplan.bwd
+    return 4 * T * ndir * kp.groups * (kp.rows4 // 4) * BWD_PLANES \
+        * xplan.cluster * xplan.units
 
 
 def cluster_units(H: int) -> tuple[int, int]:
@@ -150,9 +176,6 @@ def plan(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
     # the h @ U pieces depend on H alone, so the forward and the backward
     # sum them alike whatever their rows
     zks = max(1, min(THREADS // NC, H // MIN_SPLIT))
-    fill = max(1, (num_sms // cs) // ndir)
-    wave = fill if max_clusters is None else max(1, min(
-        fill, max_clusters // ndir))
 
     def fwd(per_dir):
         rows, rows4, groups = _row_groups(B, per_dir)
@@ -166,17 +189,38 @@ def plan(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
 
     def bwd(per_dir):
         rows, rows4, groups = _row_groups(B, per_dir)
-        dks = max(1, min(THREADS // (upc * (rows4 // 4)), G // MIN_SPLIT))
-        base = 2 * G * rows4 + 3 * rows4 * upc
-        if dks > 1:
-            base += dks * rows4 * upc
-        K = max(D, H)  # one staging buffer: the inputs, then h_prev
-        base += 4 * K
-        # per step: staged rows, rebuilt z, dys and c_prev of the own
-        # units, mask
-        c, u, n = _fit(base, K * rows4 + rows4 * NC + 2 * rows4 * upc + rows4,
-                       G * upc, "bwd", B, H, D, ndir)
-        return KernelPlan(rows, rows4, groups, dks, c, u, n)
+        cap = 4 * max(1, BWD_THREADS // upc)  # a lane group per unit and
+        if rows4 > cap:                        # row quad
+            rows = rows4 = cap
+            groups = -(-B // rows)
+        lanes = 1
+        while lanes * 2 <= min(32, BWD_THREADS // (upc * (rows4 // 4)),
+                               G // MIN_SPLIT):
+            lanes *= 2
+        # the chain kernel: dz double buffer, two mbarriers, and Uᵀ's slice
+        # (a row of 4H + lanes of padding per unit) unless the lanes' terms
+        # fit their registers; the rebuild kernel: the staged rows and the
+        # rebuilt z of a chunk
+        base = 2 * G * rows4 + 4
+        regs = -(-G // lanes) <= BWD_UT_REG
+        smem = not regs and 4 * (base + (G + lanes) * upc) <= MAX_SMEM_BYTES
+        n = 4 * (base + ((G + lanes) * upc if smem else 0))
+        if n > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"lstmx bwd kernel: B={B} H={H} D={D} ndir={ndir} needs {n} "
+                f"bytes of shared memory per block (> {MAX_SMEM_BYTES})")
+        c = next((c for c in CHUNKS if 4 * _rebuild_floats(
+            H, D, upc, rows4, c) <= MAX_SMEM_BYTES), None)
+        if c is None:
+            raise ValueError(
+                f"lstmx bwd rebuild: B={B} H={H} D={D} ndir={ndir} needs "
+                f"{4 * _rebuild_floats(H, D, upc, rows4, 1)} bytes of shared "
+                f"memory per block (> {MAX_SMEM_BYTES})")
+        return KernelPlan(rows, rows4, groups, lanes, c, smem, n, regs)
+
+    fill = max(1, (num_sms // cs) // ndir)
+    wave = fill if max_clusters is None else max(1, min(
+        fill, max_clusters // ndir))
 
     def pick(make):
         if wave < fill:
@@ -325,10 +369,11 @@ def lstmx_backward(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask=None, *,
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # csrc/lstmx_fwd.cu::lstmx_fwd_launch: 11 tensor pointers, T, B, ND, D, H
-# and the eight plan ints, the stream; lstmx_bwd_launch: 16 pointers, the
-# five shape ints and nine plan ints, the stream
+# and the eight plan ints, the stream; lstmx_bwd_launch: 18 pointers (the
+# last two the factor scratch and its ready counts), the five shape ints
+# and nine plan ints, the rebuild's stream and the chain's
 _FWD_ARGTYPES = [_p] * 11 + [_i] * 13 + [_p]
-_BWD_ARGTYPES = [_p] * 16 + [_i] * 14 + [_p]
+_BWD_ARGTYPES = [_p] * 18 + [_i] * 14 + [_p] * 2
 
 
 def _shapes(xs, W, U):
@@ -382,6 +427,21 @@ def _launch_fwd(xs, W, b, U, h0, c0, mask, save_c, xplan):
     return (ys, hT, cT, cs) if save_c else (ys, hT, cT)
 
 
+# the backward's rebuild runs beside its chain only when the chain's
+# blocks leave at least this many SMs free
+REBUILD_MIN_SMS = 8
+_rebuild_streams: dict[int, torch.cuda.Stream] = {}
+
+
+def _rebuild_stream(dev) -> torch.cuda.Stream:
+    """The side stream of the backward's z rebuild on card ``dev``."""
+    key = dev.index or 0
+    s = _rebuild_streams.get(key)
+    if s is None:
+        s = _rebuild_streams[key] = torch.cuda.Stream(dev)
+    return s
+
+
 def _launch_bwd(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask, xplan):
     dev = xs.device
     T, B, ND, D, H = _shapes(xs, W, U)
@@ -400,17 +460,32 @@ def _launch_bwd(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask, xplan):
     dz = torch.empty((T, BS, 4 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((BS, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((BS, H), dtype=torch.float32, device=dev)
+    fac = torch.empty(factor_floats(T, ND, pl), dtype=torch.float32,
+                      device=dev)
+    ready = torch.zeros(-(-T // kp.chunk) * ND * kp.groups,
+                        dtype=torch.int32, device=dev)
     launch = kernels.launcher("lstmx_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cur = torch.cuda.current_stream(dev)
+        # the rebuild beside the chain when the chain leaves it SMs (its
+        # blocks wait for the chunks they need); else one after the other
+        side = None
+        if pl.cluster * kp.groups * ND <= _num_sms(dev) - REBUILD_MIN_SMS:
+            side = _rebuild_stream(dev)
+            side.wait_stream(cur)
+        stream = cur.cuda_stream
         rc = launch(
             xs.data_ptr(), ys.data_ptr(), h0.data_ptr(), cs.data_ptr(),
             c0.data_ptr(), dys.data_ptr(), _ptr(mask), W.data_ptr(),
             b.data_ptr(), U.data_ptr(), ut.data_ptr(), dhT.data_ptr(),
             dcT.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            T, B, ND, D, H, pl.cluster, pl.units, kp.rows, kp.rows4,
-            kp.groups, pl.zks, kp.ksplit, kp.chunk, int(kp.u_in_smem),
-            stream)
+            fac.data_ptr(), ready.data_ptr(), T, B, ND, D, H, pl.cluster,
+            pl.units, kp.rows, kp.rows4, kp.groups, pl.zks, kp.ksplit,
+            kp.chunk,
+            0 if kp.u_in_regs else 1 if kp.u_in_smem else 2,
+            (side or cur).cuda_stream, stream)
+        if side is not None:
+            cur.wait_stream(side)
     if rc != 0:
         raise RuntimeError(f"lstmx_bwd kernel launch failed: CUDA error {rc} "
                            f"(T={T} B={B} ND={ND} D={D} H={H}, {pl})")

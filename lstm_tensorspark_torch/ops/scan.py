@@ -17,7 +17,7 @@ Port of ``lstm_tensorspark_tpu/ops/scan.py``:
   and the backward is the plain recompute; at T >= ``FUSEDX_MIN_T`` the
   residentx pair (``ops/cuda_lstmx.py``) when its plan fits; otherwise the
   resident pair (``ops/cuda_lstm.py``) when its blocks keep their slice of
-  U in shared memory, else the tiled pair (``ops/cuda_lstm_tiled.py``)
+  U on chip, else the tiled pair (``ops/cuda_lstm_tiled.py``)
   when its plan fits, else the resident pair reading U through L2; no plan
   raises.
 - :func:`bidir_lstm_scan` runs both directions of a bi-LSTM layer: the
@@ -116,14 +116,16 @@ def chosen_fwd_strategy(B: int, T: int, H: int, D: int, *,
                         num_sms: int = 132) -> str:
     """The forward kernel a CUDA scan runs, in the JAX package's order:
     ``"residentx"`` at T >= ``FUSEDX_MIN_T`` when its plan fits; then
-    ``"resident"`` when its blocks keep their slice of U in shared memory;
+    ``"resident"`` when its blocks keep their slice of U on chip (shared
+    memory or registers);
     then ``"tiled"`` when the tiled pair's plan fits; then ``"resident"``
     reading U through L2. The test is Hopper's shared memory, not the TPU's
     VMEM budget. Raises ``ValueError`` when nothing fits."""
     if T >= cuda_lstmx.FUSEDX_MIN_T and cuda_lstmx.fits(B, H, D, 1, num_sms):
         return "residentx"
     try:
-        keeps_u = cuda_lstm.plan("fwd", B, H, num_sms).smem_w
+        p = cuda_lstm.plan("fwd", B, H, num_sms)
+        keeps_u = p.smem_w or p.u_regs
     except ValueError:
         keeps_u = False
     if not keeps_u and cuda_lstm_tiled.fits(B, H, num_sms):

@@ -177,12 +177,20 @@ class Batcher:
 
     def submit(self, req: Request) -> None:
         """Enqueue a request, or raise: ``ValueError`` for one the engine
-        cannot serve (prompt too long, unsupported sampling),
-        :class:`QueueFullError` when the bounded queue is full."""
+        cannot serve (prompt too long, a token id outside the vocabulary,
+        unsupported sampling), :class:`QueueFullError` when the bounded
+        queue is full. The id check keeps a bad id from reaching the
+        embedding gather, where on the card it would be a device-side
+        assert that leaves the CUDA context, and so the server, unusable."""
         if req.prompt.size > self.engine.max_prompt_len:
             raise ValueError(
                 f"prompt length {req.prompt.size} exceeds the engine's "
                 f"largest prefill bucket {self.engine.max_prompt_len}")
+        vocab = self.engine.cfg.vocab_size
+        lo, hi = int(req.prompt.min()), int(req.prompt.max())
+        if lo < 0 or hi >= vocab:
+            raise ValueError(f"prompt token id {lo if lo < 0 else hi} is "
+                             f"outside the vocabulary [0, {vocab})")
         self.engine.check_sampling(req.sampling)
         with self._lock:
             if len(self._queue) >= self.queue_size:

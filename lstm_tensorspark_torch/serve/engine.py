@@ -120,6 +120,9 @@ class ServeEngine:
                  rng_seed: int = 0):
         self.device = resolve_device(device)
         configure_precision()
+        # serving never rematerialises (the same override as generate())
+        if cfg.remat_chunk is not None:
+            cfg = dataclasses.replace(cfg, remat_chunk=None)
         self.cfg = cfg
         self.params = params_to(params, self.device)
         self.fused_layers = fuse_layers(self.params, cfg)  # once, at init

@@ -197,10 +197,38 @@ def test_launch_plan_fits_the_card(B, H):
         assert 1 <= p.rows <= p.rows4 and p.rows4 % 4 == 0
         assert -(-B // p.rows) * p.rows >= B
         assert p.smem_bytes <= cuda_lstm.MAX_SMEM_BYTES
-    # config 1 keeps each block's slice of U in shared memory
+    # config 1: the forward's lanes keep their slices of U in registers,
+    # the backward's blocks keep theirs in shared memory
     if (B, H) == (64, 128):
-        assert cuda_lstm.plan("fwd", B, H).smem_w
+        assert cuda_lstm.plan("fwd", B, H).u_regs
         assert cuda_lstm.plan("bwd", B, H).smem_w
+
+
+# csrc/lstm_fwd.cu: fwd_smem_floats, in floats
+def _fwd_smem(H, upc, rows4, where):
+    return 4 * (2 * H * rows4 + (4 * H * upc if where == "smem" else 0) + 4)
+
+
+@pytest.mark.parametrize("B,H,where", [
+    (64, 128, "regs"), (3, 128, "regs"), (16, 128, "regs"), (8, 16, "regs"),
+    (3, 5, "regs"), (64, 256, "smem"), (512, 128, "smem"), (32, 650, "l2"),
+    (64, 1024, "l2")])
+def test_forward_plan_lanes_and_where_u_lives(B, H, where):
+    """The forward's plan: a group of ``ksplit`` lanes (a power of two, at
+    most 32) owns one unit and four rows, the groups fit the block's 256
+    threads; U's slice sits in the lanes' registers exactly when a lane's
+    ceil(H / ksplit) rows fit KREG, else in shared memory when it fits,
+    else it is read through L2; the bytes asked for mirror the kernel's
+    layout."""
+    p = cuda_lstm.plan("fwd", B, H)
+    ks = p.ksplit
+    assert ks & (ks - 1) == 0 and 1 <= ks <= 32
+    assert ks * p.units * (p.rows4 // 4) <= cuda_lstm.THREADS
+    assert 2 * ks * p.units * (p.rows4 // 4) > cuda_lstm.THREADS or ks == 32
+    assert p.u_regs == (-(-H // ks) <= cuda_lstm.KREG)
+    got = "regs" if p.u_regs else "smem" if p.smem_w else "l2"
+    assert got == where
+    assert p.smem_bytes == _fwd_smem(H, p.units, p.rows4, got)
 
 
 def test_launch_plan_refuses_what_does_not_fit():

@@ -224,20 +224,95 @@ def test_plan_fits_the_card(B_, H_, D_, ndir):
             assert p.cluster * k.groups * ndir == 128
 
 
-@pytest.mark.parametrize("ndir,fwd_rows,bwd_rows", [(2, 8, 4), (1, 4, 4)])
+@pytest.mark.parametrize("ndir,fwd_rows,bwd_rows", [(2, 8, 8), (1, 4, 4)])
 def test_plan_rows_follow_resident_clusters(ndir, fwd_rows, bwd_rows):
     """On a card that keeps 15 clusters of 8 blocks (the H100 at 227 KB a
-    block), config 2's stacked forward takes 8-row clusters, 8 in one wave,
-    while the backward keeps 4-row clusters, since 8 rows would leave it a
-    one-step projection chunk; one direction fits in one wave either way."""
+    block), config 2's stacked pair takes 8-row clusters, 8 in one wave
+    (the backward's chain keeps only dz and Uᵀ in shared memory, so its
+    rebuild chunk does not shrink with the rows); one direction fits in
+    one wave either way."""
     p = cuda_lstmx.plan(32, 256, 256, ndir, 132, max_clusters=15)
     assert (p.fwd.rows, p.bwd.rows) == (fwd_rows, bwd_rows)
-    assert p.fwd.groups * ndir <= 15
+    assert p.fwd.groups * ndir <= 15 and p.bwd.groups * ndir <= 15
     assert p.fwd.chunk >= cuda_lstmx.MIN_ONE_WAVE_CHUNK
+    assert p.bwd.chunk >= cuda_lstmx.MIN_ONE_WAVE_CHUNK
     assert cuda_lstmx.plan(32, 256, 256, ndir, 132, max_clusters=16).bwd.rows == 4
-    assert cuda_lstmx.plan(32, 256, 256, 2, 132,
-                           max_clusters=15)._replace(fwd=None) == \
-        cuda_lstmx.plan(32, 256, 256, 2, 132)._replace(fwd=None)
+    assert cuda_lstmx.plan(32, 256, 256, 2, 132, max_clusters=16) == \
+        cuda_lstmx.plan(32, 256, 256, 2, 132)
+
+
+# csrc/lstmx_bwd.cu: bwd_smem_floats (the chain kernel) and
+# factors_smem_floats (the z rebuild), in floats
+def _bwd_smem(H, upc, rows4, lanes, smem_ut):
+    """``smem_ut``: Uᵀ's slice in shared memory (not in the lanes'
+    registers, nor read through L2)."""
+    G = 4 * H
+    return 4 * (2 * G * rows4 + 4 + ((G + lanes) * upc if smem_ut else 0))
+
+
+def _rebuild_smem(H, D, upc, rows4, chunk):
+    E = chunk * rows4
+    return 4 * (max(D, H) * (E + 4) + E * 4 * upc)
+
+
+@pytest.mark.parametrize("B_,H_,D_,ndir", [
+    (64, 128, 128, 1), (32, 256, 256, 2), (32, 256, 256, 1),
+    (8, 200, 72, 2), (8, 16, 12, 2), (3, 5, 7, 1), (512, 128, 128, 2),
+    (32, 256, 512, 2)])
+def test_backward_plan_mirrors_its_layout(B_, H_, D_, ndir):
+    """The backward's bytes mirror its chain kernel's layout (dz double
+    buffer, mbarriers, Uᵀ's slice unless the lanes hold it), its rebuild
+    takes the largest chunk whose staging fits, and its lane groups
+    (``ksplit`` lanes, a power of two, per unit and row quad) fit a block's
+    256 threads; the factor stream holds 8 float4s per step, row quad and
+    unit of a cluster."""
+    p = cuda_lstmx.plan(B_, H_, D_, ndir)
+    kp = p.bwd
+    assert kp.smem_bytes == _bwd_smem(H_, p.units, kp.rows4, kp.ksplit,
+                                      kp.u_in_smem)
+    assert kp.smem_bytes <= cuda_lstmx.MAX_SMEM_BYTES
+    assert _rebuild_smem(H_, D_, p.units, kp.rows4, kp.chunk) <= \
+        cuda_lstmx.MAX_SMEM_BYTES
+    for c in (c for c in cuda_lstmx.CHUNKS if c > kp.chunk):
+        assert _rebuild_smem(H_, D_, p.units, kp.rows4, c) > \
+            cuda_lstmx.MAX_SMEM_BYTES
+    ks = kp.ksplit
+    assert ks & (ks - 1) == 0 and 1 <= ks <= 32
+    assert ks * p.units * (kp.rows4 // 4) <= cuda_lstmx.BWD_THREADS
+    # Uᵀ's terms sit in the lanes' registers exactly when they fit
+    assert kp.u_in_regs == (-(-4 * H_ // ks) <= cuda_lstmx.BWD_UT_REG)
+    assert not (kp.u_in_regs and kp.u_in_smem)
+    T = 10
+    assert cuda_lstmx.factor_floats(T, ndir, p) == 4 * T * ndir * \
+        kp.groups * (kp.rows4 // 4) * 8 * p.cluster * p.units
+    if (B_, H_, D_, ndir) == (64, 128, 128, 1):  # the LM at T=256
+        assert (p.cluster, p.units, kp.rows, kp.groups, ks, kp.chunk) == \
+            (4, 32, 4, 16, 8, 8) and kp.u_in_regs
+    if (B_, H_, D_) == (32, 256, 256):  # config 2
+        assert (kp.rows, kp.chunk, ks) == (4, 8, 8) and kp.u_in_smem
+
+
+def _fwd_zks(H):
+    """The forward's pieces of h @ U (lstmx_fwd.cu): ceil(H / KS) terms a
+    piece, KS from the forward's own clusters."""
+    cs, upc = cuda_lstmx.cluster_units(H)
+    return max(1, min(cuda_lstmx.THREADS // (4 * upc),
+                      H // cuda_lstmx.MIN_SPLIT))
+
+
+@pytest.mark.parametrize("B_,H_,D_,ndir", [
+    (64, 128, 128, 1), (32, 256, 256, 2), (32, 256, 256, 1),
+    (8, 200, 72, 1), (8, 200, 72, 2)])
+def test_backward_rebuilds_in_the_forwards_pieces(B_, H_, D_, ndir):
+    """Whatever rows the backward takes, for every number of resident
+    clusters the card may report, its z rebuild sums h @ U in the
+    forward's pieces: the plan's ``zks``, which the backward kernel is
+    launched with, is the forward's own, set by the forward's clusters."""
+    want = _fwd_zks(H_)
+    for mc in range(1, 34):
+        p = cuda_lstmx.plan(B_, H_, D_, ndir, 132, max_clusters=mc)
+        assert p.zks == p.fwd.ksplit == want
+        assert (p.cluster, p.units) == cuda_lstmx.cluster_units(H_)
 
 
 def test_plan_refuses_what_does_not_fit():
@@ -264,11 +339,13 @@ def test_defined_macros_build_apart():
     assert kernels.library_path("lstmx_fwd") == plain
 
 
-@pytest.mark.parametrize("name", ["lstmx_fwd", "lstmx_bwd"])
+@pytest.mark.parametrize("name", ["lstmx_fwd", "lstmx_bwd", "lstm_fwd"])
 def test_phase_clock_marks_match_their_names(name):
-    """Each kernel has one clock start and marks 0, 1, ... in source order,
-    one per phase name that ``phase_clocks`` prints."""
+    """Each kernel source has marks 0, 1, ... in source order, one per
+    phase name that ``phase_clocks`` prints, and one clock start per clock
+    stream (one per marking thread), the streams covering every mark."""
     src = (kernels.CSRC / f"{name}.cu").read_text()
-    marks = [int(m) for m in re.findall(r"CLK_MARK\((\d+)\)", src)]
+    marks = [int(m) for m in re.findall(r"CLK_MARK(?:_AT)?\((\d+)", src)]
     assert marks == list(range(len(phase_clocks.PHASES[name])))
-    assert src.count("CLK_START") == 1
+    assert sum(n for _, n, _ in phase_clocks.streams(name)) == len(marks)
+    assert src.count("CLK_START") == len(phase_clocks.streams(name))
