@@ -5,6 +5,12 @@ Run from the root of a checkout on a machine with one NVIDIA card::
 
     python3 chip_smoke.py
 
+``python3 <this file> --tiled-pair LABEL``, run from the root of any
+checkout of the port (this one or another, e.g. a parent commit
+unpacked with ``git archive``), prints one line: that checkout's tiled
+pair at config 5's shard in CUDA-event ms, so two designs can be timed
+in turns on one card (parent, change, change, parent).
+
 Phases (each one fails the run):
 
 1. versions, and the card's name and power limit (``nvidia-smi``);
@@ -63,13 +69,18 @@ Phases (each one fails the run):
    ``torch.profiler``;
 9. hold the tiled kernels (``csrc/lstm_tiled_fwd.cu``,
    ``csrc/lstm_tiled_bwd.cu``) against their plain versions at config 5's
-   per-chip shard (B=16, T=128, H=1024), at B=64 with H=1024 and at config
-   3's width (B=32, T=70, H=650), masked and unmasked, from non-zero
-   carries, the forward with and without residuals; print their plans;
-   time both at config 5's shard in turns (plain, kernel, kernel, plain)
-   with CUDA events and under ``torch.profiler``, beside cuDNN's
-   ``torch.nn.LSTM`` and the bound; and time the tiled pair against the
-   resident pair at config 3's width, the route rule's boundary;
+   per-chip shard (B=16, T=128, H=1024), at B=64 and B=256 (the widest
+   tiled route) with H=1024, at config 3's width (B=32, T=70, H=650) and
+   at two awkward shapes (B=6, T=33, H=1030; B=3, T=5, H=40, where the
+   forward's plan takes more units a block to fit shared memory), masked
+   and unmasked, from non-zero carries, the forward with and without
+   residuals (bit-identical); print the card's resident clusters and each
+   plan (blocks, cluster size, units, registers and shared memory a
+   block); time both at config 5's shard in turns (plain, kernel, kernel,
+   plain) with CUDA events and under ``torch.profiler``, beside cuDNN's
+   ``torch.nn.LSTM``, the bound and the parent design's time; and time the
+   tiled pair against the resident pair at config 3's width, the route
+   rule's boundary;
 10. train config 5's model (4 x 1024 word LM on the WikiText-103
    stand-in, B=16, T=128, Adam 1e-3, clip 1.0, stateful, f32) through the
    CLI: the first 5 losses at ``--dropout 0`` on the card, without and
@@ -159,6 +170,18 @@ LM256 = dict(B=64, T=256, D=128, H=128)
 CONFIG5 = dict(B=16, T=128, H=1024, L=4)
 LSTM_CONFIG5 = dict(B=16, T=128, H=1024)
 LSTM_B64 = dict(B=64, T=128, H=1024)
+# the widest batch the tiled route takes at config 5's width, and an awkward
+# tiled shape: B no multiple of 4, H no multiple of a block's units, a lane's
+# rows of U past its registers, warps left out of the product
+LSTM_B256 = dict(B=256, T=128, H=1024)
+LSTM_TILED_AWKWARD = dict(B=6, T=33, H=1030)
+# a narrow tiled shape: the forward's plan takes more units a block than
+# cover H (its many slots' zero tail of h would not fit shared memory)
+LSTM_TILED_NARROW = dict(B=3, T=5, H=40)
+# the parent design of the tiled pair (one block an SM, a grid-wide barrier
+# a step), CUDA-event ms at config 5's shard on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md section 6): what the redesign is held against
+TILED_PARENT_MS = {"fwd": 1.5161, "bwd": 3.3631}
 CONFIG5_FLAGS = ["train", "--dataset", "wikitext103", "--hidden-units",
                  "1024", "--num-layers", "4", "--batch-size", "16",
                  "--seq-len", "128", "--optimizer", "adam", "--learning-rate",
@@ -1301,10 +1324,23 @@ def profiled_ms(torch, fn, name, calls):
 
 def tiled_kernel_phase(torch, cl, ct, device):
     print("== phase 9: tiled LSTM kernels vs plain versions", flush=True)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    from lstm_tensorspark_torch import kernels
+
     errs = {"fwd": 0.0, "bwd": 0.0}
+    print(f"  resident clusters at one block an SM: "
+          f"{ct.max_clusters(device)}", flush=True)
+    regs = {}
+    for name in ("lstm_tiled_fwd", "lstm_tiled_bwd"):
+        log = kernels.library_path(name).with_name(
+            kernels.library_path(name).name + ".log")
+        used = [ln.split("Used")[1].split(",")[0].strip()
+                for ln in (log.read_text().splitlines() if log.is_file()
+                           else []) if "Used" in ln]
+        regs[name] = used[0] if used else "not reported"
     for name, spec in (("config5", LSTM_CONFIG5), ("config5-b64", LSTM_B64),
-                       ("config3", LSTM_CONFIG3)):
+                       ("b256", LSTM_B256), ("config3", LSTM_CONFIG3),
+                       ("awkward", LSTM_TILED_AWKWARD),
+                       ("narrow", LSTM_TILED_NARROW)):
         B, T, H = spec["B"], spec["T"], spec["H"]
         for masked in (False, True):
             label = f"{name} B={B} T={T} H={H} mask={masked}"
@@ -1337,11 +1373,15 @@ def tiled_kernel_phase(torch, cl, ct, device):
             print(f"  {label}: max |d| " + ", ".join(
                 f"{n} {v:.2e}" for n, v in e.items()), flush=True)
         for kind in ("fwd", "bwd"):
-            p = ct.plan(kind, B, H, sms)
+            p = ct.card_plan(kind, B, H, device)
             print(f"  {name} tiled {kind} plan: {p.blocks} blocks of "
-                  f"{ct.THREADS} threads, {p.units} units a block, h tile "
-                  f"{p.ktile} rows, split {p.ksplit}, {p.smem_bytes} bytes of "
-                  "shared memory a block", flush=True)
+                  f"{ct.THREADS} threads in clusters of {p.cluster}, "
+                  f"{p.units} units a block, {p.row_tiles} row tiles, "
+                  f"{p.groups} groups of {p.group_lanes} lanes, {p.per_lane} "
+                  f"{'rows' if kind == 'fwd' else 'columns'} of U a lane "
+                  f"({p.u_regs} in registers), {regs[f'lstm_tiled_{kind}']} "
+                  f"a thread, {p.smem_bytes} bytes of shared memory a block",
+                  flush=True)
 
     # timing at config 5's shard, the training path's shapes (forward with
     # residuals, unmasked)
@@ -1379,12 +1419,14 @@ def tiled_kernel_phase(torch, cl, ct, device):
                              library_ms=lib_fwd if kind == "fwd" else lib_bwd,
                              max_err=errs[kind])
         print(f"  lstm_tiled_{kind} config5: kernel_ms {kernel_ms:.4f} "
-              f"({r[1]:.4f}, {r[2]:.4f}), device_ms "
+              f"({r[1]:.4f}, {r[2]:.4f}; {1e3 * kernel_ms / T:.2f} us a "
+              f"step), device_ms "
               f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}, "
               f"plain_ms {plain_ms:.4f} ({r[0]:.4f}, {r[3]:.4f}), library_ms "
               f"{timings[kind]['library_ms']:.4f}, bound_ms {bound_ms:.6f} "
-              f"({bound_by}); the T={T} dependent steps and grid barriers "
-              "are a latency floor the bound does not see", flush=True)
+              f"({bound_by}, {kernel_ms / bound_ms:.1f}x); the parent design "
+              f"{TILED_PARENT_MS[kind]:.4f} ms (PERF.md); the T={T} dependent "
+              "steps are a latency floor the bound does not see", flush=True)
 
     # the route at config 3's width: the tiled pair against the resident
     # pair (U read through L2 there), in turns
@@ -1403,6 +1445,7 @@ def tiled_kernel_phase(torch, cl, ct, device):
         parts.append(f"{kind} resident {res_ms:.4f} ms ({r[0]:.4f}, "
                      f"{r[3]:.4f}) vs tiled {til_ms:.4f} ms ({r[1]:.4f}, "
                      f"{r[2]:.4f})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     print(f"  route at config 3's width B={B} T={T} H={H} (resident plan "
           f"keeps U in shared memory: {cl.plan('fwd', B, H, sms).smem_w}): "
           + "; ".join(parts), flush=True)
@@ -2074,5 +2117,34 @@ def main() -> int:
     return 0
 
 
+def tiled_pair(label: str) -> int:
+    """The tiled pair of the checkout in the working directory at config
+    5's shard: the forward with residuals and the backward, CUDA-event ms
+    over 20 calls each, on one line tagged ``label``."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this timing needs an NVIDIA card")
+    from lstm_tensorspark_torch import configure_precision
+    from lstm_tensorspark_torch.ops import cuda_lstm_tiled as ct
+
+    configure_precision()
+    B, T, H = LSTM_CONFIG5["B"], LSTM_CONFIG5["T"], LSTM_CONFIG5["H"]
+    inputs, (dys, dhT, dcT) = lstm_inputs(torch, B, T, H, False, seed=1,
+                                          device=torch.device("cuda", 0))
+    _, _, _, z, cs = ct.lstm_tiled_forward(*inputs, save_residuals=True)
+    fwd = time_ms(torch, lambda: ct.lstm_tiled_forward(
+        *inputs, save_residuals=True), 20)
+    bwd = time_ms(torch, lambda: ct.lstm_tiled_backward(
+        z, inputs[3], cs, dys, inputs[1], dhT, dcT), 20)
+    print(f"tiled pair of {label} ({os.getcwd()}) at B={B} T={T} H={H}: "
+          f"forward {fwd:.4f} ms, backward {bwd:.4f} ms; {card_line()}",
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tiled-pair"] and len(sys.argv) == 3:
+        sys.exit(tiled_pair(sys.argv[2]))
     sys.exit(main())

@@ -4,65 +4,101 @@
 // Replaces lstm_tensorspark_tpu/ops/pallas_lstm.py::_lstm_tiled_kernel (the
 // "tiled" branch of _pallas_forward). The TPU kernel streams U from HBM in
 // [htile, 4H] row tiles every step because 16 MiB (H=1024, f32) does not fit
-// in VMEM. It does not fit one SM here either (227 KB a block), but it fits
-// in the card's shared memory taken together (132 x 227 KB), so this kernel
-// never re-reads U: one persistent block per SM owns UPB hidden units and
-// keeps U's four gate columns for them, [H][4*UPB], in shared memory for the
-// whole call (128 KiB at H=1024, UPB=8). Per step t every block:
-//   - stages h_{t-1} [B, H] from a double-buffered global array (it stays
-//     in L2), in tiles of KT rows of H when B*H does not fit, laid out
-//     [H][B4] so four rows load as one float4;
-//   - accumulates acc = h_{t-1} @ U[:, own columns] in float32 (the sum over
-//     each tile split KS ways over the threads), then for its own units
-//     z = xproj_t + acc (gate order i, f, g, o),
-//     c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g),
-//     h_t = sigmoid(o) * tanh(c_t), with the optional mask blend
-//     m * new + (1 - m) * old; c stays in shared memory;
-//   - writes ys, and z and cs when asked, for its units, and its slice of
-//     h_t into the other buffer;
-//   - waits at one grid-wide barrier (cooperative launch, grid.sync()).
+// in VMEM. Here U never moves after the first load: one persistent block per
+// SM owns UPB hidden units and holds U's four gate columns for them over all
+// of H, in registers (KREG rows a lane, two columns each) and any rest in
+// shared memory. The blocks run in clusters of C, which share the copy of h.
+// Per step t and tile of 16 batch rows every block:
+//   - waits until every block that owns units of its slice of H (rows
+//     [rank * Hq, ...)) has published h_{t-1} (a counter in global memory
+//     per slice: no grid-wide barrier), and copies that slice of h_{t-1}
+//     from L2 with one TMA bulk copy multicast into the shared memory of
+//     every block of its cluster, [k][16 rows], once the others have
+//     signalled (an mbarrier) that they have read the tile before; each
+//     block waits on an mbarrier for all of h (its slice and the others');
+//   - accumulates h_{t-1} @ U[:, own columns] in float32: a lane owns two
+//     columns and every slots-th row of H, so its four float4 loads of h
+//     (one k, 16 rows, shared by the lanes of its slot) feed 32 FMAs;
+//   - sums the slots' parts and runs the cell of its own units, z = xproj_t
+//     + acc (gate order i, f, g, o), c_t = sigmoid(f) * c_{t-1} + sigmoid(i)
+//     * tanh(g), h_t = sigmoid(o) * tanh(c_t), with the optional mask blend
+//     m * new + (1 - m) * old; c and h of its units stay in shared memory;
+//   - writes its units' h_t into the other half of a double-buffered global
+//     array [2][tiles][H][16] (it stays in L2) and adds one to the counter of
+//     each slice its units fall in; then ys, z and cs when asked, and the
+//     next step's xproj load, off the chain.
+// The cluster exchanges no sums: it shares the L2 reads of h (B * H floats
+// a cluster a step instead of a block).
 //
 // What bounds it on the card: at config 5's per-chip shard (B=16, T=128,
-// H=1024) the products are 2*T*B*H*4H = 17.2 GFLOP, 0.256 ms at the f32 peak,
-// and the bytes (xproj, U, ys, z, cs) about 0.030 ms: by operations. The T
-// dependent steps, each one product and one grid barrier, are a latency floor
-// the bound does not see; so is the L2 traffic of every block staging all of
-// h each step (B*H*4 bytes times the blocks).
+// H=1024) the products are 2*T*B*H*4H = 17.2 GFLOP, 0.256 ms at the H100's
+// float32 peak (67 TFLOP/s), and the bytes (xproj, U, ys, z, cs) about
+// 0.030 ms: by operations. The T dependent steps are a latency floor the
+// bound does not see: a step is the product (8 warps x 128 rows x (4 loads
+// + 32 FMAs) / 2 slots a warp, about 4,600 cycles of instructions an SM),
+// the copy of h, the cell and one counter's round trip through L2.
 // Math is expf / tanhf with float32 accumulation (no fast-math intrinsics).
 //
 // Plain C interface for ctypes: lstm_tiled_fwd_launch returns the CUDA error
-// code (0 = success). It allocates nothing (the caller passes the h scratch)
-// and does not synchronise; it runs on the stream it is given.
+// code (0 = success). It allocates nothing (the caller passes the h scratch
+// and the zeroed counters) and does not synchronise; it runs on the stream
+// it is given.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "cluster_common.cuh"
+#include "tiled_common.cuh"
 
 namespace cg = cooperative_groups;
 
-#define THREADS 256
-#define MAX_SMEM_BYTES 232448  // 227 KB: the most a block may opt in to
+// The block's lanes: a slot of CP = 2 * UPB lanes covers the own columns
+// (two a lane) at one row k of H; slots = THREADS / CP slots take every
+// slots-th row, per_lane rows each (the first regs of them in registers),
+// so the slots of a warp read neighbouring rows of h (no bank conflict).
+// ops/cuda_lstm_tiled.py::plan mirrors this.
+struct FwdGeom {
+  int NCB, CP, slots, per_lane, regs, KR, PS, Hq, BP, NT;
+};
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Row stride of the U slice in shared memory: 4 * UPB rounded to 4 (mod 8),
-// so the backward's float4 reads of rows d, d+1, ... hit distinct banks
-static __host__ __device__ int w_stride(int NC) {
-  return NC % 8 == 0 ? NC + 4 : NC;
+__host__ __device__ inline FwdGeom fwd_geom(int B, int H, int C, int UPB) {
+  FwdGeom g;
+  g.NCB = 4 * UPB;
+  g.CP = 2 * UPB;
+  g.slots = THREADS / g.CP;
+  g.per_lane = (H + g.slots - 1) / g.slots;
+  g.regs = g.per_lane < KREG ? g.per_lane : KREG;
+  g.KR = g.slots * (g.per_lane > KREG ? g.per_lane : KREG);
+  g.PS = g.NCB + 8;  // a row of the slots' sums, padded against conflicts
+  g.Hq = (H + C - 1) / C;
+  g.BP = (B + ROWS - 1) / ROWS * ROWS;
+  g.NT = g.BP / ROWS;
+  return g;
 }
 
 // Shared-memory layout, in floats (every piece a multiple of 4 floats):
-//   Ws   [H][S]         U[:, own gate columns], column lc = g * UPB + u
-//   hs   [KT][B4]       one tile of h_{t-1}, transposed
-//   red  [KS][B4][NC]   the product's partial sums (KS splits)
-//   cown [B4][UPB]      c of the block's own units
-//   hown [B4][UPB]      h of the block's own units (the mask blend's old h)
-static size_t fwd_smem_floats(int H, int UPB, int B4, int KT, int KS) {
-  const size_t NC = 4 * (size_t)UPB;
-  return (size_t)H * w_stride((int)NC) + (size_t)KT * B4 +
-         (size_t)KS * B4 * NC + 2 * (size_t)B4 * UPB;
+//   Us   [per_lane - regs][slots][NCB]  U rows past the lanes' registers
+//   hs   [KR][ROWS]                     h_{t-1} of one tile (zero tail, at
+//                                       least KREG rows a lane)
+//   part [slots][ROWS][PS]              each slot's sums
+//   cown [BP][UPB], hown [BP][UPB]      c and h of the own units
+//   bars 2 mbarriers                    full: h's copies have landed;
+//                                       free: the cluster's other blocks
+//                                       have read the tile before
+static size_t fwd_smem_floats(const FwdGeom& g, int UPB) {
+  return (size_t)(g.per_lane - g.regs) * g.slots * g.NCB +
+         (size_t)g.KR * ROWS + (size_t)g.slots * ROWS * g.PS +
+         2 * (size_t)g.BP * UPB + 4;
+}
+
+// xproj of (t, row) for one unit's four gates, and the row's mask (1 without
+// one); 0 for a cell thread with no unit or row
+__device__ __forceinline__ void load_x(float (&xp)[4], float& mk,
+                                       const float* __restrict__ xproj,
+                                       const float* __restrict__ mask, int t,
+                                       int row, int B, int H, int unit,
+                                       bool ok) {
+  const size_t xb = ((size_t)t * B + row) * 4 * H + unit;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) xp[g] = ok ? __ldg(xproj + xb + g * H) : 0.0f;
+  mk = (ok && mask != nullptr) ? __ldg(mask + (size_t)t * B + row) : 1.0f;
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -73,197 +109,262 @@ lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
                       const float* __restrict__ mask, float* __restrict__ ys,
                       float* __restrict__ hT, float* __restrict__ cT,
                       float* __restrict__ z_out, float* __restrict__ cs_out,
-                      float* hbuf, int T, int B, int H, int UPB, int KT,
-                      int KS) {
-  cg::grid_group grid = cg::this_grid();
+                      float* hx, int* flags, int T, int B, int H, int UPB) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const FwdGeom gm = fwd_geom(B, H, C, UPB);
   const int tid = threadIdx.x;
-  const int G = 4 * H, NC = 4 * UPB, S = w_stride(NC);
-  const int B4 = (B + 3) & ~3;
+  const int G = 4 * H, NCB = gm.NCB, BP = gm.BP;
   const int u0 = blockIdx.x * UPB;
-  const int nu = min(UPB, H - u0);
+  const int nu = max(0, min(UPB, H - u0));
+  const int k0 = rank * gm.Hq;
+  const int kn = max(0, min(gm.Hq, H - k0));
 
   extern __shared__ float4 smem4[];
-  float* Ws = reinterpret_cast<float*>(smem4);
-  float* hs = Ws + (size_t)H * S;
-  float* red = hs + (size_t)KT * B4;
-  float* cown = red + (size_t)KS * B4 * NC;
-  float* hown = cown + B4 * UPB;
+  float* Us = reinterpret_cast<float*>(smem4);
+  float* hs = Us + (size_t)(gm.per_lane - gm.regs) * gm.slots * NCB;
+  float* part = hs + (size_t)gm.KR * ROWS;
+  float* cown = part + (size_t)gm.slots * ROWS * gm.PS;
+  float* hown = cown + BP * UPB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(hown + BP * UPB);
+  uint64_t* freed = full + 1;
 
-  for (int i = tid; i < H * NC; i += THREADS) {
-    const int d = i / NC, lc = i - d * NC;
-    const int g = lc / UPB, u = lc - g * UPB;
-    Ws[(size_t)d * S + lc] = u < nu ? U[(size_t)d * G + g * H + u0 + u] : 0.0f;
-  }
-  for (int i = tid; i < B4 * UPB; i += THREADS) {
-    const int r = i / UPB, u = i - r * UPB;
-    const bool own = r < B && u < nu;
-    const float h = own ? h0[(size_t)r * H + u0 + u] : 0.0f;
-    hown[i] = h;
-    cown[i] = own ? c0[(size_t)r * H + u0 + u] : 0.0f;
-    if (u < nu) {  // both buffers: padded rows stay 0
-      hbuf[(size_t)(u0 + u) * B4 + r] = h;
-      hbuf[(size_t)(H + u0 + u) * B4 + r] = 0.0f;
-    }
-  }
-  // every block's h0 slice is in hbuf before any block reads it
-  grid.sync();
-
-  const int items = NC * (B4 / 4);
-  for (int t = 0; t < T; ++t) {
-    const float* hcur = hbuf + (size_t)(t & 1) * H * B4;
-    float* hnxt = hbuf + (size_t)((t + 1) & 1) * H * B4;
-
-    // red[ks][r][lc] = sum over the ks-th piece of each tile of
-    // h[r][d] * Ws[d][lc], four rows per thread so each weight read feeds
-    // four products
-    for (int k0 = 0; k0 < H; k0 += KT) {
-      const int kt = min(KT, H - k0);
-      __syncthreads();  // the previous tile's readers are done with hs
-      const float4* src =
-          reinterpret_cast<const float4*>(hcur + (size_t)k0 * B4);
-      float4* dst = reinterpret_cast<float4*>(hs);
-      for (int i = tid; i < kt * B4 / 4; i += THREADS) dst[i] = __ldcg(src + i);
-      __syncthreads();
-      const int chunk = (kt + KS - 1) / KS;
-      for (int w = tid; w < items * KS; w += THREADS) {
-        const int base = w % items, ks = w / items;
-        const int lc = base % NC, rg = base / NC;
-        if (lc % UPB >= nu) continue;
-        const int d0 = ks * chunk, d1 = min(kt, d0 + chunk);
-        const float* wp = Ws + (size_t)(k0 + d0) * S + lc;
-        const float* hp = hs + d0 * B4 + rg * 4;
-        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll 4
-        for (int d = d0; d < d1; ++d) {
-          const float wv = *wp;
-          const float4 hv = *reinterpret_cast<const float4*>(hp);
-          wp += S;
-          hp += B4;
-          a0 = fmaf(hv.x, wv, a0);
-          a1 = fmaf(hv.y, wv, a1);
-          a2 = fmaf(hv.z, wv, a2);
-          a3 = fmaf(hv.w, wv, a3);
-        }
-        float* o = red + (size_t)ks * B4 * NC + rg * 4 * NC + lc;
-        if (k0 == 0) {
-          o[0] = a0;
-          o[NC] = a1;
-          o[2 * NC] = a2;
-          o[3 * NC] = a3;
-        } else {
-          o[0] += a0;
-          o[NC] += a1;
-          o[2 * NC] += a2;
-          o[3 * NC] += a3;
-        }
-      }
-    }
-    __syncthreads();
-
-    // cell update of the block's own units
-    for (int i = tid; i < B * UPB; i += THREADS) {
-      const int r = i / UPB, u = i - r * UPB;
-      if (u >= nu) continue;
-      float acc[4];
+  // the lane's place in the product: slot sl (rows k = i * slots + sl),
+  // columns 2 * cp, 2 * cp + 1 of the own 4 * UPB (gate g = col / UPB,
+  // unit col % UPB); weights past H or nu are 0, and so are staged rows
+  // past H
+  const int sl = tid / gm.CP, cp = tid - sl * gm.CP;
+  const bool in_product = sl < gm.slots;
+  int ucol[2];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float* rp = red + r * NC + g * UPB + u;
-        float s = rp[0];
-        for (int ks = 1; ks < KS; ++ks) s += rp[(size_t)ks * B4 * NC];
-        acc[g] = s;
-      }
-      const size_t xb = ((size_t)t * B + r) * G + u0 + u;
-      const float zi = xproj[xb] + acc[0];
-      const float zf = xproj[xb + H] + acc[1];
-      const float zg = xproj[xb + 2 * H] + acc[2];
-      const float zo = xproj[xb + 3 * H] + acc[3];
-      if (z_out != nullptr) {
-        z_out[xb] = zi;
-        z_out[xb + H] = zf;
-        z_out[xb + 2 * H] = zg;
-        z_out[xb + 3 * H] = zo;
-      }
-      const float ig = sigmoid_f(zi);
-      const float fg = sigmoid_f(zf);
-      const float gg = tanhf(zg);
-      const float og = sigmoid_f(zo);
-      const int o = r * UPB + u;
-      const float c_old = cown[o];
-      float c_new = fg * c_old + ig * gg;
-      float h_new = og * tanhf(c_new);
-      if (mask != nullptr) {
-        const float m = mask[(size_t)t * B + r];
-        c_new = m * c_new + (1.0f - m) * c_old;
-        h_new = m * h_new + (1.0f - m) * hown[o];
-      }
-      cown[o] = c_new;
-      hown[o] = h_new;
-      const size_t ob = ((size_t)t * B + r) * H + u0 + u;
-      ys[ob] = h_new;
-      if (cs_out != nullptr) cs_out[ob] = c_new;
-      hnxt[(size_t)(u0 + u) * B4 + r] = h_new;
+  for (int e = 0; e < 2; ++e) {
+    const int col = 2 * cp + e, g = col / UPB, uu = col - g * UPB;
+    ucol[e] = (in_product && uu < nu) ? g * H + u0 + uu : -1;
+  }
+  float ureg[KREG][2];
+#pragma unroll
+  for (int i = 0; i < KREG; ++i) {
+    const int k = i * gm.slots + sl;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      ureg[i][e] = (i < gm.regs && k < H && ucol[e] >= 0)
+                       ? U[(size_t)k * G + ucol[e]]
+                       : 0.0f;
+  }
+  for (int i = tid; i < (gm.per_lane - gm.regs) * gm.slots * NCB;
+       i += THREADS) {
+    const int col = i % NCB, rr = i / NCB;
+    const int s = rr % gm.slots, k = (gm.regs + rr / gm.slots) * gm.slots + s;
+    const int g = col / UPB, uu = col - g * UPB;
+    Us[i] = (k < H && uu < nu) ? U[(size_t)k * G + g * H + u0 + uu] : 0.0f;
+  }
+  for (int i = tid; i < gm.KR * ROWS; i += THREADS) hs[i] = 0.0f;
+  float* hx0 = hx;
+  float* hx1 = hx + (size_t)gm.NT * H * ROWS;
+  for (int i = tid; i < BP * UPB; i += THREADS) {
+    const int r = i / UPB, uu = i - r * UPB;
+    const bool own = r < B && uu < nu;
+    const float h = own ? h0[(size_t)r * H + u0 + uu] : 0.0f;
+    hown[i] = h;
+    cown[i] = own ? c0[(size_t)r * H + u0 + uu] : 0.0f;
+    if (uu < nu) {  // both buffers: padded rows stay 0
+      const size_t o = ((size_t)(r / ROWS) * H + u0 + uu) * ROWS + r % ROWS;
+      hx0[o] = h;
+      hx1[o] = 0.0f;
     }
-    // publishes this step's h to every block (and orders shared memory)
-    grid.sync();
+  }
+  if (tid == 0) {
+    mbar_init(full, 1);
+    mbar_init(freed, C - 1);
+    mbar_init_fence();
+  }
+  // the slices of H the own units fall in, and how many blocks publish the
+  // own slice each step
+  const int qlo = nu > 0 ? u0 / gm.Hq : 0;
+  const int qhi = nu > 0 ? (u0 + nu - 1) / gm.Hq : -1;
+  const int need = kn > 0 ? (k0 + kn - 1) / UPB - k0 / UPB + 1 : 0;
+  __syncthreads();
+  if (tid == 0)  // h0 published: step -1
+    for (int q = qlo; q <= qhi; ++q) arrive_count(flags + q);
+  // every block of the cluster runs (and has its mbarrier set) before any
+  // copy lands in another's shared memory
+  cluster.sync();
+
+  // cell thread: row cr of a tile, unit cu
+  const int cr = tid / UPB, cu = tid - cr * UPB;
+  const bool cell = tid < ROWS * UPB && cu < nu;
+  float xp[4], mk;
+  load_x(xp, mk, xproj, mask, 0, cr, B, H, u0 + cu, cell && cr < B);
+  // the cell thread's last z, c and h, and their stores
+  float zo[4] = {0.0f, 0.0f, 0.0f, 0.0f}, co = 0.0f, ho = 0.0f;
+  auto store_out = [&](int ts, int row) {
+    const size_t ob = ((size_t)ts * B + row) * H + u0 + cu;
+    ys[ob] = ho;
+    if (z_out != nullptr) {
+      cs_out[ob] = co;
+      const size_t zb = ((size_t)ts * B + row) * G + u0 + cu;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) z_out[zb + g * H] = zo[g];
+    }
+  };
+  const uint16_t everyone = (uint16_t)((1u << C) - 1);
+  CLK_START
+
+  for (int t = 0; t < T; ++t) {
+    const float* hcur = (t & 1) ? hx1 : hx0;
+    float* hnxt = (t & 1) ? hx0 : hx1;
+    for (int j = 0; j < gm.NT; ++j) {
+      const int s = t * gm.NT + j;
+      // the slice's h_{t-1} into every block of the cluster, once the
+      // counter says it is published (a step's first tile) and the other
+      // blocks have read the tile before
+      if (tid == 0) {
+        if (j == 0 && need > 0) wait_count(flags + rank, need * (t + 1));
+        if (s > 0) mbar_wait_bounded(freed, (s - 1) & 1);
+        bulk_expect(full, (uint32_t)H * ROWS * 4);
+        if (kn > 0)
+          bulk_copy_multicast(hs + (size_t)k0 * ROWS,
+                              hcur + ((size_t)j * H + k0) * ROWS,
+                              (uint32_t)kn * ROWS * 4, full, everyone);
+      }
+      mbar_wait_bounded(full, s & 1);
+      CLK_MARK(0)
+
+      // the lane's part of h_{t-1} @ U for two columns and 16 rows
+      if (in_product) {
+        float acc[ROWS][2];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) acc[r][0] = acc[r][1] = 0.0f;
+        const float4* hp = reinterpret_cast<const float4*>(hs) + sl * 4;
+        // every lane runs all KREG register rows: past its share the
+        // weights and the staged rows are 0 (one unrolled copy to schedule)
+        lane_product<true>(acc, hp, ureg, KREG, gm.slots * 4);
+        const float* up = Us + (size_t)sl * NCB + 2 * cp;
+        for (int i = gm.regs; i < gm.per_lane; ++i) {
+          const float2 w = *reinterpret_cast<const float2*>(
+              up + (size_t)(i - gm.regs) * gm.slots * NCB);
+          const float4* hv = hp + (size_t)i * gm.slots * 4;
+          float x[ROWS];
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4) {
+            const float4 f = hv[q4];
+            x[4 * q4] = f.x, x[4 * q4 + 1] = f.y;
+            x[4 * q4 + 2] = f.z, x[4 * q4 + 3] = f.w;
+          }
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            acc[r][0] = fmaf(x[r], w.x, acc[r][0]);
+            acc[r][1] = fmaf(x[r], w.y, acc[r][1]);
+          }
+        }
+        float* pp = part + (size_t)sl * ROWS * gm.PS + 2 * cp;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+          *reinterpret_cast<float2*>(pp + r * gm.PS) =
+              make_float2(acc[r][0], acc[r][1]);
+      }
+      __syncthreads();
+      // h of this tile is read: the other blocks may copy the next one here
+      if (tid < C && tid != rank) mbar_arrive_remote(freed, tid);
+      CLK_MARK(1)
+
+      // cell update of the own units for this tile's rows: h_t first; the
+      // outputs of a step's last tile wait until h_t is published
+      const int row = j * ROWS + cr;
+      if (cell && row < B) {
+        // the four gates' sums over the slots side by side
+        const float* rp = part + (size_t)cr * gm.PS + cu;
+        float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+        for (int q = 0; q < gm.slots; ++q) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            a[g] += rp[(size_t)q * ROWS * gm.PS + g * UPB];
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) zo[g] = xp[g] + a[g];
+        const float ig = sigmoid_f(zo[0]);
+        const float fg = sigmoid_f(zo[1]);
+        const float gg = tanhf(zo[2]);
+        const float og = sigmoid_f(zo[3]);
+        const int o = row * UPB + cu;
+        const float c_old = cown[o];
+        co = fg * c_old + ig * gg;
+        ho = og * tanhf(co);
+        if (mask != nullptr) {
+          co = mk * co + (1.0f - mk) * c_old;
+          ho = mk * ho + (1.0f - mk) * hown[o];
+        }
+        cown[o] = co;
+        hown[o] = ho;
+        hnxt[((size_t)j * H + u0 + cu) * ROWS + cr] = ho;
+        if (j + 1 < gm.NT) store_out(t, row);
+      }
+      // the next tile's xproj, loaded while the next product runs (a step's
+      // last tile: after h_t is published, off the fence)
+      if (j + 1 < gm.NT)
+        load_x(xp, mk, xproj, mask, t, row + ROWS, B, H, u0 + cu,
+               cell && row + ROWS < B);
+      // the slots' sums are read before the next tile's product writes them
+      if (j + 1 < gm.NT) __syncthreads();
+    }
+    // every thread's h_t is stored: publish it, then the last tile's
+    // outputs and the next step's xproj
+    __syncthreads();
+    if (tid == 0)
+      for (int q = qlo; q <= qhi; ++q) arrive_count(flags + q);
+    const int row = (gm.NT - 1) * ROWS + cr;
+    if (cell && row < B) store_out(t, row);
+    if (t + 1 < T)
+      load_x(xp, mk, xproj, mask, t + 1, cr, B, H, u0 + cu, cell && cr < B);
+    CLK_MARK(2)
   }
 
   for (int i = tid; i < B * UPB; i += THREADS) {
-    const int r = i / UPB, u = i - r * UPB;
-    if (u >= nu) continue;
-    const size_t ob = (size_t)r * H + u0 + u;
+    const int r = i / UPB, uu = i - r * UPB;
+    if (uu >= nu) continue;
+    const size_t ob = (size_t)r * H + u0 + uu;
     hT[ob] = hown[i];
     cT[ob] = cown[i];
   }
+  // no block leaves while a copy or an arrival may still reach its shared
+  // memory
+  cluster.sync();
 }
 
 // Plan arguments (chosen by the Python wrapper, ops/cuda_lstm_tiled.py::plan):
-// UPB hidden units per block (the grid is ceil(H / UPB) blocks, one per SM),
-// KT rows of H per staged h tile, KS splits of each tile's sum. hbuf is a
-// scratch of 2 * H * B4 floats (B4 = B rounded up to 4). mask, z and cs may
-// be null.
+// C blocks a cluster (they share the copy of h), UPB hidden units a block;
+// the grid is blocks = C * ceil(H / (C * UPB)). hx is a scratch of 2 * H *
+// BP floats (BP = B rounded up to 16), flags C zeroed ints. mask, z and cs
+// may be null (z and cs together).
 extern "C" int lstm_tiled_fwd_launch(const void* xproj, const void* U,
                                      const void* h0, const void* c0,
                                      const void* mask, void* ys, void* hT,
-                                     void* cT, void* z, void* cs, void* hbuf,
-                                     int T, int B, int H, int UPB, int KT,
-                                     int KS, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || UPB < 1 || UPB > H || KT < 1 || KT > H ||
-      KS < 1 || ((z == nullptr) != (cs == nullptr)))
+                                     void* cT, void* z, void* cs, void* hx,
+                                     void* flags, int T, int B, int H,
+                                     int C, int UPB, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || C < 2 || C > MAX_CLUSTER || UPB < 1 ||
+      UPB > MAX_UNITS || ((z == nullptr) != (cs == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int B4 = (B + 3) & ~3;
-  const size_t smem = sizeof(float) * fwd_smem_floats(H, UPB, B4, KT, KS);
+  const FwdGeom g = fwd_geom(B, H, C, UPB);
+  const size_t smem = sizeof(float) * fwd_smem_floats(g, UPB);
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  const void* fn = (const void*)lstm_tiled_fwd_kernel;
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (H + UPB - 1) / UPB;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, lstm_tiled_fwd_kernel, THREADS, smem)) != cudaSuccess)
-    return (int)e;
-  // every block waits at the grid barrier: all of them must be resident
-  if (per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const float* a_xproj = (const float*)xproj;
-  const float* a_U = (const float*)U;
-  const float* a_h0 = (const float*)h0;
-  const float* a_c0 = (const float*)c0;
-  const float* a_mask = (const float*)mask;
-  float* a_ys = (float*)ys;
-  float* a_hT = (float*)hT;
-  float* a_cT = (float*)cT;
-  float* a_z = (float*)z;
-  float* a_cs = (float*)cs;
-  float* a_hbuf = (float*)hbuf;
-  void* args[] = {&a_xproj, &a_U, &a_h0, &a_c0, &a_mask, &a_ys, &a_hT,
-                  &a_cT,    &a_z, &a_cs, &a_hbuf, &T,    &B,    &H,
-                  &UPB,     &KT,  &KS};
-  e = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(THREADS), args, smem,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  const int blocks = C * ((H + C * UPB - 1) / (C * UPB));
+  return (int)launch_clusters(
+      lstm_tiled_fwd_kernel, blocks, C, smem, (cudaStream_t)stream,
+      (const float*)xproj, (const float*)U, (const float*)h0,
+      (const float*)c0, (const float*)mask, (float*)ys, (float*)hT,
+      (float*)cT, (float*)z, (float*)cs, (float*)hx, (int*)flags, T, B, H,
+      UPB);
+}
+
+// How many clusters of C blocks the card keeps resident at once when each
+// block asks for smem bytes (cudaOccupancyMaxActiveClusters), into *out.
+// ops/cuda_lstm_tiled.py::plan fits the pair's clusters into that many.
+// Returns the CUDA error code.
+extern "C" int lstm_tiled_fwd_max_clusters(int C, int smem, int* out) {
+  if (C < 2 || C > MAX_CLUSTER || smem < 0 || smem > MAX_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
+  return (int)max_clusters_of(lstm_tiled_fwd_kernel, C, smem, out);
 }

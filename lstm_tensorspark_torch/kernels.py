@@ -92,7 +92,8 @@ def build(names) -> float:
     library as ``<library>.log``."""
     t0 = time.perf_counter()
     with _lock:
-        todo = [n for n in names if not library_path(n).is_file()]
+        todo = [n for n in dict.fromkeys(names)  # each source once
+                if not library_path(n).is_file()]
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -5,10 +5,17 @@ memory, and the autograd Function that joins them.
 Counterpart of ``lstm_tensorspark_tpu/ops/pallas_lstm.py`` on its "tiled"
 path: ``csrc/lstm_tiled_fwd.cu`` replaces ``_lstm_tiled_kernel`` and
 ``csrc/lstm_tiled_bwd.cu`` replaces ``_lstm_bwd_tiled_kernel``. The TPU
-kernels stream U in row tiles every step; these keep it in the card's
-shared memory taken together — one persistent block per SM owns a slice
-of hidden units and U's gate columns for them — and join the blocks with
-one grid-wide barrier a step (a cooperative launch).
+kernels stream U in row tiles every step; these keep it on chip for the
+whole call — one persistent block per SM, in clusters (of 2 for the
+forward, of 4 or 2 for the backward), U in registers and shared memory.
+The forward's block holds its units' gate columns over all of H and
+its cluster shares the copy of h (TMA bulk copies multicast to every
+block of the cluster); the backward's cluster holds its units' columns,
+one slice of H a block, and sums a step's dz @ Uᵀ inside the cluster, so
+one partial a cluster crosses L2. Steps hand over through counters in
+global memory (no grid-wide barrier), so the launch is cooperative: CUDA
+runs every block at once or refuses it, and the launcher refuses first a
+grid whose clusters the card cannot keep resident at once.
 
 The contract and the residuals are the resident pair's
 (``ops/cuda_lstm.py``): the forward ``(xproj [T,B,4H], U [H,4H], h0, c0,
@@ -19,7 +26,10 @@ mask [T,B] float32 or None) -> (ys [T,B,H], hT, cT[, z [T,B,4H], cs
 CPU tensor runs; a CUDA tensor launches the kernel or raises.
 
 - :func:`plan` is the launch plan (testable on the CPU); it raises
-  ``ValueError`` for a shape whose shared memory does not fit a block.
+  ``ValueError`` for a shape no cluster size fits. :func:`card_plan` is
+  the plan for a card's SMs and resident clusters (:func:`max_clusters`);
+  :func:`fits` given the card reads the same plan, so the route and the
+  launch cannot disagree.
 - :class:`LSTMTiledRecurrence` is the autograd Function (dU one matmul
   outside, as ``_pallas_backward`` does); :func:`lstm_tiled_recurrence`
   and :func:`cuda_lstm_tiled_scan` are the entries ``ops/scan.py`` routes
@@ -40,10 +50,28 @@ from .cuda_lstm import (lstm_backward_reference, lstm_forward_reference,
                         recurrence_backward, recurrence_forward)
 from .lstm_cell import LSTMParams
 
-THREADS = 256  # csrc/lstm_tiled_*.cu THREADS
+THREADS = 256  # csrc/tiled_common.cuh THREADS
+WARPS = 8  # csrc WARPS
+ROWS = 16  # csrc ROWS: batch rows of a tile
+KREG = 64  # csrc KREG: U rows (fwd) / columns (bwd) a lane keeps in registers
+MAX_UNITS = 16  # csrc MAX_UNITS: ROWS * units cell threads at most
+RED_STRIDE = 20  # csrc/lstm_tiled_bwd.cu RED_STRIDE: a k's sums, padded
 MAX_SMEM_BYTES = 232448  # 227 KB per block (csrc MAX_SMEM_BYTES)
-MIN_SPLIT = 32  # fewest terms of a split sum
-MIN_KTILE = 32  # fewest rows of H in a staged h tile
+# the cluster sizes each kernel's plan tries, in order. The forward runs
+# clusters of 2: in clusters of 4 it measured slower at config 3's and
+# config 5's widths, and no shape fits 4 alone. The backward tries 4
+# first: faster at config 3's width (an H100, PERF.md; `python -m
+# lstm_tensorspark_torch.phase_clocks clusters` times both sizes)
+CLUSTERS = {"fwd": (2,), "bwd": (4, 2)}
+# clusters of 4 blocks an H100 keeps resident at once at one block an SM
+# (cudaOccupancyMaxActiveClusters; 66 of 2): the plan's default, scaled to
+# the SM count, when it is not given the card's counts
+H100_CLUSTERS_OF_4 = 30
+# the pair's reach: a step's state (H x rows rounded up to 16, float32)
+# under 2 MiB. That keeps the route where the parent design (U and a tile of
+# h in one block's shared memory) had it: its widest shapes (B=724 at
+# H=660, B=264 at H=1024) stay under, B=512 at H=1024 (2 MiB) does not
+MAX_STATE_BYTES = 2 << 20
 
 fwd_counts = kernels.LaunchCounts()
 bwd_counts = kernels.LaunchCounts()
@@ -51,64 +79,170 @@ bwd_counts = kernels.LaunchCounts()
 
 class TiledPlan(NamedTuple):
     """How a call is cut: ``blocks`` persistent blocks (at most one per
-    SM), each owning ``units`` hidden units and U's gate columns for them;
-    the forward stages h in tiles of ``ktile`` rows of H and splits each
-    tile's sum ``ksplit`` ways; the backward splits its sum of dh over the
-    blocks ``ksplit`` ways (``ktile`` = H). ``smem_bytes`` is what one
-    block asks for."""
+    SM) in clusters of ``cluster``, each block owning ``units`` hidden
+    units (their cell). The batch goes in ``row_tiles`` tiles of 16 rows.
+    Forward: a block holds U's gate columns of its units over all of H;
+    a group of ``group_lanes`` lanes (two columns a lane) covers them at
+    one row of H, ``groups`` groups take every ``groups``-th row,
+    ``per_lane`` rows a lane; the cluster shares the copy of h (each
+    block copies ``ceil(H / cluster)`` rows into all of them). Backward:
+    a cluster owns ``cluster * units`` units, each block one slice of H
+    (``ceil(H / cluster)`` rows) of their gate columns; a group of
+    ``group_lanes`` lanes (two rows a lane) covers the slice, ``groups``
+    groups split the columns, ``per_lane`` columns a lane. The first
+    ``u_regs`` rows or columns a lane stay in registers, the rest in
+    shared memory. ``smem_bytes`` is what one block asks for."""
 
     blocks: int
+    cluster: int
     units: int
-    ktile: int
-    ksplit: int
+    row_tiles: int
+    groups: int
+    group_lanes: int
+    per_lane: int
+    u_regs: int
     smem_bytes: int
 
 
-def plan(kind: str, B: int, H: int, num_sms: int = 132) -> TiledPlan:
+def _geometry(kind: str, B: int, H: int, C: int, units: int):
+    """(groups, group_lanes, per_lane, u_regs, row_tiles, smem_bytes) of
+    one block, or None when the warps cannot cover it. Mirrors
+    ``fwd_geom`` / ``bwd_geom`` and the shared-memory layouts of
+    ``csrc/lstm_tiled_fwd.cu`` / ``lstm_tiled_bwd.cu``."""
+    hq = -(-H // C)
+    bp = -(-B // ROWS) * ROWS
+    carries = 2 * bp * units + 4  # c and h (dc and the skip), mbarriers
+    if kind == "fwd":  # U rows past the registers, h, the groups' sums
+        lanes = 2 * units
+        groups = THREADS // lanes
+        per_lane = -(-H // groups)
+        regs = min(per_lane, KREG)
+        floats = ((per_lane - regs) * groups * 4 * units
+                  + groups * max(per_lane, KREG) * ROWS
+                  + groups * ROWS * (4 * units + 8))
+    else:  # U^T columns past the registers, dz, j-group sums, the gather
+        nc = 4 * C * units
+        span = -(-hq // 64)  # warps a group
+        if span > WARPS:
+            return None
+        groups, lanes = WARPS // span, 32 * span
+        per_lane = -(-nc // groups)
+        regs = min(per_lane, KREG)
+        ncl = -(-H // (C * units))
+        floats = (groups * (per_lane - regs) * lanes
+                  + 2 * groups * per_lane * ROWS + groups * lanes * RED_STRIDE
+                  + THREADS * 4 + ncl * units * ROWS)
+    return groups, lanes, per_lane, regs, bp // ROWS, 4 * (floats + carries)
+
+
+def plan(kind: str, B: int, H: int, num_sms: int = 132,
+         max_clusters: dict | None = None) -> TiledPlan:
     """The launch plan of the ``"fwd"`` or ``"bwd"`` kernel for B rows of
-    width H on a card with ``num_sms`` SMs. Mirrors the shared-memory
-    layouts at the top of ``csrc/lstm_tiled_fwd.cu`` / ``lstm_tiled_bwd.cu``.
-    Raises ``ValueError`` when the U slice and the buffers do not fit a
-    block's shared memory."""
+    width H on a card with ``num_sms`` SMs that keeps ``max_clusters[C]``
+    clusters of C blocks resident at once (default: an H100's counts
+    scaled to ``num_sms``). Tries the kind's cluster sizes of
+    :data:`CLUSTERS` in order: each takes as many clusters as the card
+    keeps, the fewest units a block that cover H with them and fit shared
+    memory; keeps the first plan whose U fits the lanes' registers, else
+    the first that fits shared memory. Raises ``ValueError`` when none
+    fits or the state of a step reaches :data:`MAX_STATE_BYTES`."""
     if kind not in ("fwd", "bwd"):
         raise ValueError(f"kind must be 'fwd' or 'bwd', got {kind!r}")
     if B < 1 or H < 1 or num_sms < 1:
         raise ValueError(f"need B, H, num_sms >= 1, got B={B}, H={H}, "
                          f"num_sms={num_sms}")
-    units = -(-H // num_sms)
-    blocks = -(-H // units)  # no block without units
-    nc, b4 = 4 * units, -(-B // 4) * 4
-    cap = MAX_SMEM_BYTES // 4
-    base = H * (nc + 4 if nc % 8 == 0 else nc)  # the U slice (csrc w_stride)
-    if kind == "fwd":
-        base += 2 * b4 * units  # c and h of the own units
-        items = nc * (b4 // 4)
-        for ks in range(max(1, THREADS // items), 0, -1):
-            kt = min(H, (cap - base - ks * b4 * nc) // b4)
-            if kt >= min(H, MIN_KTILE):
-                ks = min(ks, max(1, kt // MIN_SPLIT))
-                floats = base + kt * b4 + ks * b4 * nc
-                return TiledPlan(blocks, units, kt, ks, 4 * floats)
-        floats = base + min(H, MIN_KTILE) * b4 + b4 * nc
-    else:
-        pairs = B * units
-        ks = max(1, min(THREADS // pairs, blocks))
-        floats = base + nc * b4 + 3 * b4 * units + ks * pairs
-        if floats <= cap:
-            return TiledPlan(blocks, units, H, ks, 4 * floats)
-    raise ValueError(
-        f"lstm tiled {kind} kernel: B={B} H={H} needs {4 * floats} bytes of "
-        f"shared memory per block (> {MAX_SMEM_BYTES})")
+    state = 4 * H * -(-B // ROWS) * ROWS
+    if state >= MAX_STATE_BYTES:
+        raise ValueError(f"lstm tiled {kind} kernel: B={B} H={H} has a "
+                         f"{state} byte state a step (>= {MAX_STATE_BYTES}, "
+                         "the tiled route's reach)")
+    best, why = None, []
+    for C in CLUSTERS[kind]:
+        if max_clusters is None:
+            keep = (num_sms * H100_CLUSTERS_OF_4 // 132 if C == 4
+                    else num_sms // C)
+        else:
+            keep = max_clusters.get(C, 0)
+        keep = min(keep, num_sms // C)
+        if keep < 1:
+            why.append(f"the card keeps no cluster of {C}")
+            continue
+        units = -(-(-(-H // keep)) // C)
+        if units > MAX_UNITS:
+            why.append(f"{keep} resident clusters of {C} need {units} units "
+                       f"a block (> {MAX_UNITS})")
+            continue
+        # more units a block where the fewest do not fit shared memory (at
+        # a small H the forward's many slots stage a long zero tail of h)
+        geo = _geometry(kind, B, H, C, units)
+        while (geo is not None and geo[-1] > MAX_SMEM_BYTES
+               and units < MAX_UNITS):
+            units += 1
+            geo = _geometry(kind, B, H, C, units)
+        if geo is None:
+            why.append(f"clusters of {C}: the slice is too wide for the warps")
+            continue
+        groups, lanes, per_lane, regs, tiles, smem = geo
+        if smem > MAX_SMEM_BYTES:
+            why.append(f"clusters of {C}: {smem} bytes of shared memory a "
+                       f"block (> {MAX_SMEM_BYTES})")
+            continue
+        p = TiledPlan(C * -(-H // (C * units)), C, units, tiles, groups, lanes,
+                      per_lane, regs, smem)
+        if best is None or (p.per_lane <= KREG < best.per_lane):
+            best = p
+    if best is None:
+        raise ValueError(f"lstm tiled {kind} kernel: no plan for B={B} H={H}: "
+                         + "; ".join(why))
+    return best
 
 
-def fits(B: int, H: int, num_sms: int = 132) -> bool:
-    """Whether both tiled kernels have a plan for B rows of width H."""
+def fits(B: int, H: int, num_sms: int = 132, dev=None) -> bool:
+    """Whether both tiled kernels have a plan for B rows of width H: on
+    the card ``dev`` (:func:`card_plan`, what the launch runs) when it is
+    given, else on ``num_sms`` SMs of an H100."""
     try:
-        plan("fwd", B, H, num_sms)
-        plan("bwd", B, H, num_sms)
+        for kind in ("fwd", "bwd"):
+            if dev is None:
+                plan(kind, B, H, num_sms)
+            else:
+                card_plan(kind, B, H, dev)
     except ValueError:
         return False
     return True
+
+
+_max_clusters_cache: dict[int, dict[int, int]] = {}
+
+
+def max_clusters(dev) -> dict[int, int]:
+    """How many clusters of 2 and of 4 blocks the card ``dev`` keeps
+    resident at once at one block an SM (asked of the CUDA runtime,
+    ``csrc/lstm_tiled_fwd.cu::lstm_tiled_fwd_max_clusters``, once per
+    card)."""
+    key = dev.index or 0
+    counts = _max_clusters_cache.get(key)
+    if counts is None:
+        fn = kernels.load("lstm_tiled_fwd").lstm_tiled_fwd_max_clusters
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        counts = {}
+        for C in (2, 4):
+            out = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                rc = fn(C, MAX_SMEM_BYTES, ctypes.byref(out))
+            if rc != 0:
+                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                                   f"CUDA error {rc} (cluster={C})")
+            counts[C] = out.value
+        _max_clusters_cache[key] = counts
+    return counts
+
+
+def card_plan(kind: str, B: int, H: int, dev) -> TiledPlan:
+    """:func:`plan` for the card ``dev``: its SM count and resident
+    clusters."""
+    return plan(kind, B, H, cuda_lstm._num_sms(dev), max_clusters(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +253,8 @@ def fits(B: int, H: int, num_sms: int = 132) -> bool:
 def lstm_tiled_forward(xproj, U, h0, c0, mask=None, *,
                        save_residuals: bool = False):
     """Forward recurrence with ``cuda_lstm.lstm_forward``'s contract. CUDA
-    tensors launch ``csrc/lstm_tiled_fwd.cu``; CPU tensors run the plain
-    version."""
+    tensors launch ``csrc/lstm_tiled_fwd.cu`` (the card plan); CPU tensors
+    run the plain version."""
     if xproj.device.type == "cuda":
         return _launch_fwd(xproj, U, h0, c0, mask, save_residuals)
     if xproj.device.type == "cpu":
@@ -133,7 +267,8 @@ def lstm_tiled_forward(xproj, U, h0, c0, mask=None, *,
 def lstm_tiled_backward(z, c0, cs, dys, U, dhT, dcT, mask=None):
     """Fused BPTT with ``cuda_lstm.lstm_backward``'s contract: returns
     ``(dz [T,B,4H], dh0, dc0)``. CUDA tensors launch
-    ``csrc/lstm_tiled_bwd.cu``; CPU tensors run the plain version."""
+    ``csrc/lstm_tiled_bwd.cu`` (the card plan); CPU tensors run the plain
+    version."""
     if z.device.type == "cuda":
         return _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask)
     if z.device.type == "cpu":
@@ -144,11 +279,11 @@ def lstm_tiled_backward(z, c0, cs, dys, U, dhT, dcT, mask=None):
 
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-# csrc/lstm_tiled_fwd.cu::lstm_tiled_fwd_launch: 11 pointers, T, B, H, UPB,
-# KT, KS, the stream; lstm_tiled_bwd_launch: 12 pointers, T, B, H, UPB, P,
-# the stream
-_FWD_ARGTYPES = [_p] * 11 + [_i] * 6 + [_p]
-_BWD_ARGTYPES = [_p] * 12 + [_i] * 5 + [_p]
+# csrc/lstm_tiled_fwd.cu::lstm_tiled_fwd_launch: 12 pointers, T, B, H, C,
+# UPB, the stream; lstm_tiled_bwd_launch: 13 pointers, T, B, H, C, UPB, the
+# stream
+_FWD_ARGTYPES = [_p] * 12 + [_i] * 5 + [_p]
+_BWD_ARGTYPES = [_p] * 13 + [_i] * 5 + [_p]
 
 
 def _shape(name, t):
@@ -167,12 +302,13 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     kernels.check_f32("h0", h0, (B, H), dev)
     kernels.check_f32("c0", c0, (B, H), dev)
     cuda_lstm._check_mask(mask, T, B, dev)
-    pl = plan("fwd", B, H, cuda_lstm._num_sms(dev))
+    pl = card_plan("fwd", B, H, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     ys = torch.empty((T, B, H), **f32)
     hT = torch.empty((B, H), **f32)
     cT = torch.empty((B, H), **f32)
-    hbuf = torch.empty((2, H, -(-B // 4) * 4), **f32)
+    hx = torch.empty((2, pl.row_tiles, H, ROWS), **f32)
+    flags = torch.zeros(pl.cluster, dtype=torch.int32, device=dev)
     z = cs = None
     if save_residuals:
         z = torch.empty((T, B, 4 * H), **f32)
@@ -183,8 +319,8 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
         rc = launch(
             xproj.data_ptr(), U.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             cuda_lstm._ptr(mask), ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-            cuda_lstm._ptr(z), cuda_lstm._ptr(cs), hbuf.data_ptr(), T, B, H,
-            pl.units, pl.ktile, pl.ksplit, stream)
+            cuda_lstm._ptr(z), cuda_lstm._ptr(cs), hx.data_ptr(),
+            flags.data_ptr(), T, B, H, pl.cluster, pl.units, stream)
     if rc != 0:
         raise RuntimeError(f"lstm_tiled_fwd kernel launch failed: CUDA error "
                            f"{rc} (T={T} B={B} H={H}, {pl})")
@@ -203,12 +339,14 @@ def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
     kernels.check_f32("dhT", dhT, (B, H), dev)
     kernels.check_f32("dcT", dcT, (B, H), dev)
     cuda_lstm._check_mask(mask, T, B, dev)
-    pl = plan("bwd", B, H, cuda_lstm._num_sms(dev))
+    pl = card_plan("bwd", B, H, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dz = torch.empty((T, B, 4 * H), **f32)
     dh0 = torch.empty((B, H), **f32)
     dc0 = torch.empty((B, H), **f32)
-    part = torch.empty((2, pl.blocks, B, H), **f32)
+    part = torch.empty((2, pl.blocks // pl.cluster, H, pl.row_tiles * ROWS),
+                       **f32)
+    flags = torch.zeros(pl.cluster, dtype=torch.int32, device=dev)
     launch = kernels.launcher("lstm_tiled_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -216,7 +354,8 @@ def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
             z.data_ptr(), dys.data_ptr(), cs.data_ptr(), c0.data_ptr(),
             cuda_lstm._ptr(mask), U.data_ptr(), dhT.data_ptr(),
             dcT.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            part.data_ptr(), T, B, H, pl.units, pl.ksplit, stream)
+            part.data_ptr(), flags.data_ptr(), T, B, H, pl.cluster, pl.units,
+            stream)
     if rc != 0:
         raise RuntimeError(f"lstm_tiled_bwd kernel launch failed: CUDA error "
                            f"{rc} (T={T} B={B} H={H}, {pl})")

@@ -113,14 +113,15 @@ def lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
 
 
 def chosen_fwd_strategy(B: int, T: int, H: int, D: int, *,
-                        num_sms: int = 132) -> str:
+                        num_sms: int = 132, dev=None) -> str:
     """The forward kernel a CUDA scan runs, in the JAX package's order:
     ``"residentx"`` at T >= ``FUSEDX_MIN_T`` when its plan fits; then
     ``"resident"`` when its blocks keep their slice of U on chip (shared
     memory or registers);
     then ``"tiled"`` when the tiled pair's plan fits; then ``"resident"``
     reading U through L2. The test is Hopper's shared memory, not the TPU's
-    VMEM budget. Raises ``ValueError`` when nothing fits."""
+    VMEM budget; the tiled pair's, on the card ``dev`` when it is given
+    (the plan its launch runs). Raises ``ValueError`` when nothing fits."""
     if T >= cuda_lstmx.FUSEDX_MIN_T and cuda_lstmx.fits(B, H, D, 1, num_sms):
         return "residentx"
     try:
@@ -128,7 +129,7 @@ def chosen_fwd_strategy(B: int, T: int, H: int, D: int, *,
         keeps_u = p.smem_w or p.u_regs
     except ValueError:
         keeps_u = False
-    if not keeps_u and cuda_lstm_tiled.fits(B, H, num_sms):
+    if not keeps_u and cuda_lstm_tiled.fits(B, H, num_sms, dev):
         return "tiled"
     cuda_lstm.plan("fwd", B, H, num_sms)  # raises when it does not fit
     return "resident"
@@ -136,14 +137,14 @@ def chosen_fwd_strategy(B: int, T: int, H: int, D: int, *,
 
 def chosen_bwd_strategy(B: int, T: int, H: int, D: int, *,
                         remat_chunk: int | None = None,
-                        num_sms: int = 132) -> str:
+                        num_sms: int = 132, dev=None) -> str:
     """The gradient path a CUDA scan takes (JAX ``chosen_bwd_strategy``):
     ``"recompute"`` when ``remat_chunk`` is set or the residuals exceed
     their budget, else the backward kernel paired with
     :func:`chosen_fwd_strategy`'s forward — ``"residentx"``,
     ``"resident"`` or ``"tiled"``. Raises ``ValueError`` when no plan
     fits."""
-    fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms)
+    fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms, dev=dev)
     if remat_chunk is not None:
         return "recompute"
     if fwd == "resident":
@@ -194,14 +195,15 @@ def kernel_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
     versions run, which is how the tests reach each route)."""
     B, T, D = xs.shape
     H = params.hidden_size
-    num_sms = (cuda_lstm._num_sms(xs.device) if xs.device.type == "cuda"
-               else 132)
+    on_card = xs.device.type == "cuda"
+    num_sms = cuda_lstm._num_sms(xs.device) if on_card else 132
+    dev = xs.device if on_card else None
     _check_remat(T, remat_chunk)
     bwd = chosen_bwd_strategy(B, T, H, D, remat_chunk=remat_chunk,
-                              num_sms=num_sms)
+                              num_sms=num_sms, dev=dev)
     if bwd in _SCANS:
         return _SCANS[bwd](params, xs, carry, mask=mask, reverse=reverse)
-    fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms)
+    fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms, dev=dev)
     if reverse:
         xs = torch.flip(xs, dims=(1,))
         if mask is not None:

@@ -1,15 +1,23 @@
 """Where the recurrence kernels spend a step: phase clocks on the card.
 
-    python -m lstm_tensorspark_torch.phase_clocks
+    python -m lstm_tensorspark_torch.phase_clocks [resident] [residentx] [tiled] [clusters]
 
-Builds ``csrc/lstm_fwd.cu``, ``csrc/lstmx_fwd.cu`` and ``csrc/lstmx_bwd.cu``
-with ``-DPHASE_CLOCKS`` (libraries of their own beside the plain ones): the
+Builds ``csrc/lstm_fwd.cu``, ``csrc/lstmx_fwd.cu``, ``csrc/lstmx_bwd.cu``
+and the tiled pair ``csrc/lstm_tiled_fwd.cu`` / ``lstm_tiled_bwd.cu`` with
+``-DPHASE_CLOCKS`` (libraries of their own beside the plain ones): the
 ``CLK_MARK`` / ``CLK_MARK_AT`` points in the sources then make one thread
 of block 0 add ``clock64()`` deltas per phase into a device array
 (``csrc/cluster_common.cuh``). Runs the resident forward at config 1
 (B=64, T=64, H=128), and the residentx pair through its wrappers at config
 2's shapes (one direction unmasked, two directions masked) and the LM's at
-``--seq-len 256``, and prints the SM cycles per step of each phase. The
+``--seq-len 256``, and the tiled pair at config 5's per-chip shard (B=16,
+T=128, H=1024), and prints the SM cycles per step of each phase (the
+groups named on the command line, or all). ``clusters`` is a design
+probe of the tiled pair's cluster size: at config 5's shard and config
+3's width (B=32, T=70, H=650) it runs each kernel in clusters of 2 and
+of 4 (the plan narrowed to one size, where that size fits), holds each
+against the plain version, and prints its CUDA-event ms in turns (2, 4,
+4, 2; the instrumented build) and its phases. The
 marks sit after the barriers and waits that end each phase, so a phase's
 count includes waiting for the slowest thread (and, at an exchange, the
 slowest block). The backward has two clocks: its z rebuild's (block 0
@@ -20,6 +28,7 @@ Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import sys
 
@@ -27,6 +36,7 @@ import torch
 
 from . import kernels
 from .ops import cuda_lstm as cl
+from .ops import cuda_lstm_tiled as ct
 from .ops import cuda_lstmx as cx
 
 MACRO = "PHASE_CLOCKS"
@@ -35,7 +45,14 @@ MACRO = "PHASE_CLOCKS"
 PHASES = {"lstm_fwd": ("h@U", "cell+stores", "h exchange"),
           "lstmx_fwd": ("stage", "projection", "h@U", "cell", "cluster.sync"),
           "lstmx_bwd": ("stage x", "x@W, stage h", "h@U", "factors",
-                        "gate algebra", "dz exchange", "dz@U^T")}
+                        "gate algebra", "dz exchange", "dz@U^T"),
+          "lstm_tiled_fwd": ("wait+copy h", "h@U", "cell+stores"),
+          "lstm_tiled_bwd": ("wait", "gather dh", "gate algebra+dz exchange",
+                             "dz@U^T+slab")}
+# the kernels each group of the command line runs
+GROUPS = {"resident": ("lstm_fwd",), "residentx": ("lstmx_fwd", "lstmx_bwd"),
+          "tiled": ("lstm_tiled_fwd", "lstm_tiled_bwd"),
+          "clusters": ("lstm_tiled_fwd", "lstm_tiled_bwd")}
 # the marks' streams, in mark order: (name, number of marks, what one
 # pass is); a stream's marks are kept by one thread of block 0 of one
 # kernel (lstmx_bwd.cu: its z rebuild, one block per chunk of steps, then
@@ -119,7 +136,109 @@ def _case(B, T, D, H, ndir, masked, dev):
     _print("lstmx_bwd", bwd, T, plan.bwd.chunk)
 
 
-def main() -> int:
+def _tiled(B, T, H, dev):
+    g = torch.Generator().manual_seed(0)
+    xproj = torch.randn(T, B, 4 * H, generator=g).to(dev)
+    U = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev)
+    h0 = torch.zeros(B, H, device=dev)
+    dys = torch.randn(T, B, H, generator=g).to(dev)
+    _, _, _, z, cs = ct.lstm_tiled_forward(xproj, U, h0, h0,
+                                           save_residuals=True)
+    _read("lstm_tiled_fwd")  # the first launch's clocks are not kept
+    ct.lstm_tiled_forward(xproj, U, h0, h0, save_residuals=True)
+    fwd = _read("lstm_tiled_fwd")
+    args = (z, h0, cs, dys, U, h0, h0)
+    ct.lstm_tiled_backward(*args)
+    _read("lstm_tiled_bwd")
+    ct.lstm_tiled_backward(*args)
+    bwd = _read("lstm_tiled_bwd")
+    sms = cl._num_sms(dev)
+    print(f"B={B} T={T} H={H} fwd {ct.plan('fwd', B, H, sms)} bwd "
+          f"{ct.plan('bwd', B, H, sms)}")
+    _print("lstm_tiled_fwd", fwd, T)
+    _print("lstm_tiled_bwd", bwd, T)
+
+
+def _ms(fn, iters: int) -> float:
+    """Mean CUDA-event ms of ``fn`` over ``iters`` calls after one."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def _only(kind: str, C: int):
+    """Inside the block the tiled ``kind`` kernel's plan tries clusters of
+    C alone."""
+    saved = ct.CLUSTERS[kind]
+    ct.CLUSTERS[kind] = (C,)
+    try:
+        yield
+    finally:
+        ct.CLUSTERS[kind] = saved
+
+
+def _clusters(B, T, H, dev):
+    g = torch.Generator().manual_seed(1)
+    xproj = torch.randn(T, B, 4 * H, generator=g).to(dev)
+    U = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev)
+    h0 = (0.5 * torch.randn(B, H, generator=g)).to(dev)
+    c0 = (0.5 * torch.randn(B, H, generator=g)).to(dev)
+    dys = torch.randn(T, B, H, generator=g).to(dev)
+    ys, _, _, z, cs = cl.lstm_forward_reference(xproj, U, h0, c0,
+                                                save_residuals=True)
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    zero = torch.zeros_like(h0)
+    dz = cl.lstm_backward_reference(z, c_prev, dys, U, zero, zero)[0]
+    runs = {"fwd": (lambda: ct.lstm_tiled_forward(xproj, U, h0, c0,
+                                                  save_residuals=True)[0], ys),
+            "bwd": (lambda: ct.lstm_tiled_backward(z, c0, cs, dys, U, zero,
+                                                   zero)[0], dz)}
+    card = {kind: ct.card_plan(kind, B, H, dev).cluster for kind in runs}
+    for kind, (run, ref) in runs.items():
+        sizes = []
+        for C in (2, 4):
+            with _only(kind, C):
+                try:
+                    p = ct.card_plan(kind, B, H, dev)
+                except ValueError:
+                    continue
+                sizes.append(C)
+                d = (run() - ref).abs().max().item()
+                tol = 1e-5 * max(1.0, ref.abs().max().item())
+                if d > tol:
+                    raise RuntimeError(f"tiled {kind} in clusters of {C} at "
+                                       f"B={B} T={T} H={H}: max |d| {d:.2e} "
+                                       f"> {tol:.2e}")
+                _read(f"lstm_tiled_{kind}")
+                run()
+                print(f"B={B} T={T} H={H} {kind} clusters of {C} (max |d| "
+                      f"{d:.2e}): {p}")
+                _print(f"lstm_tiled_{kind}", _read(f"lstm_tiled_{kind}"), T)
+        if sizes == [2, 4]:
+            ms = {2: [], 4: []}
+            for C in (2, 4, 4, 2):
+                with _only(kind, C):
+                    ms[C].append(_ms(run, 10))
+            print(f"B={B} T={T} H={H} {kind} ms in turns: clusters of 2 "
+                  f"{sum(ms[2]) / 2:.4f} ({ms[2][0]:.4f}, {ms[2][1]:.4f}), of "
+                  f"4 {sum(ms[4]) / 2:.4f} ({ms[4][0]:.4f}, {ms[4][1]:.4f}); "
+                  f"the card plan takes {card[kind]}", flush=True)
+
+
+def main(argv=None) -> int:
+    groups = list(sys.argv[1:] if argv is None else argv) or list(GROUPS)
+    unknown = [g for g in groups if g not in GROUPS]
+    if unknown:
+        print(f"phase_clocks: unknown group(s) {unknown}; choose from "
+              f"{list(GROUPS)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("phase_clocks: needs a CUDA card", file=sys.stderr)
         return 1
@@ -128,11 +247,18 @@ def main() -> int:
     configure_precision()
     dev = torch.device("cuda", 0)
     with kernels.defined(MACRO):
-        kernels.build(list(PHASES))
-        _resident(64, 64, 128, dev)
-        _case(32, 400, 256, 256, 1, False, dev)
-        _case(32, 400, 256, 256, 2, True, dev)
-        _case(64, 256, 128, 128, 1, False, dev)
+        kernels.build([n for g in groups for n in GROUPS[g]])
+        if "resident" in groups:
+            _resident(64, 64, 128, dev)
+        if "residentx" in groups:
+            _case(32, 400, 256, 256, 1, False, dev)
+            _case(32, 400, 256, 256, 2, True, dev)
+            _case(64, 256, 128, 128, 1, False, dev)
+        if "tiled" in groups:
+            _tiled(16, 128, 1024, dev)
+        if "clusters" in groups:
+            _clusters(16, 128, 1024, dev)
+            _clusters(32, 70, 650, dev)
     return 0
 
 

@@ -9,7 +9,8 @@ case first checking that the JAX planner picks ``"tiled"`` for both
 kernels there, so the reference is the tiled pair: values to atol 1e-5,
 the gradients of every per-gate parameter, xs, h0 and c0 to atol 1e-5 /
 rtol 1e-4 (the tolerances of the JAX tests; float32 sums in another
-order). Also: the launch plan at the configs' shapes, and the routes of
+order). Also: the launch plan at the configs' shapes and awkward ones,
+with an H100's resident clusters and without, and the routes of
 ``ops/scan.py`` — the tiled pair where the resident pair cannot keep U in
 shared memory, the tiled forward with the plain recompute backward under
 ``remat_chunk``, and configs 1, 2 and the LM at T=256 unchanged.
@@ -112,29 +113,120 @@ def test_tiled_function_matches_pallas_tiled(masked, reverse, carry):
                                    rtol=GRAD_RTOL, err_msg=name)
 
 
-@pytest.mark.parametrize("B,H", [(16, 1024), (64, 1024), (32, 650)])
+# the resident clusters an H100 keeps at one block an SM
+# (cudaOccupancyMaxActiveClusters: 30 of 4 blocks, 66 of 2)
+H100 = {4: 30, 2: 66}
+
+
+@pytest.mark.parametrize("B,H", [
+    (16, 1024), (64, 1024), (256, 1024),   # config 5 at B=16, 64, 256
+    (32, 650),                             # config 3's width
+    (1, 1024), (3, 1000), (6, 1030), (5, 650), (264, 1024),  # awkward
+    (3, 40), (16, 64), (8, 300),           # narrow: more units to fit
+])
 def test_tiled_plan_covers_h_and_fits(B, H):
+    """The plan mirrors ``fwd_geom`` / ``bwd_geom`` and the
+    shared-memory layouts of ``csrc/lstm_tiled_*.cu``: every cluster owns
+    units and every block a non-empty slice of H (a block of the last
+    cluster may own no units and still copy its slice of h, or hold its
+    slice of U for the cluster's backward product); the forward's lanes
+    cover the own columns at every row of H, the backward's warps the
+    slice; the rows go in 16-row tiles; a block fits 227 KB of shared
+    memory and a lane keeps at most KREG rows or columns of U, two of the
+    other each, in registers."""
+    for max_clusters in (None, H100):
+        for kind in ("fwd", "bwd"):
+            p = cuda_lstm_tiled.plan(kind, B, H, max_clusters=max_clusters)
+            C, ncl = p.cluster, p.blocks // p.cluster
+            assert p.blocks <= 132 and p.blocks % C == 0
+            assert C in cuda_lstm_tiled.CLUSTERS[kind]
+            if max_clusters is not None:
+                assert ncl <= max_clusters[C]
+            assert 1 <= p.units <= cuda_lstm_tiled.MAX_UNITS
+            upc, hq = C * p.units, -(-H // C)
+            assert ncl * upc >= H > (ncl - 1) * upc
+            assert (C - 1) * hq < H
+            assert p.row_tiles * cuda_lstm_tiled.ROWS >= B > \
+                (p.row_tiles - 1) * cuda_lstm_tiled.ROWS
+            ROWS, KREG = cuda_lstm_tiled.ROWS, cuda_lstm_tiled.KREG
+            assert p.groups * p.group_lanes <= cuda_lstm_tiled.THREADS
+            if kind == "fwd":  # a group: the own columns at one row of H
+                assert p.group_lanes == 2 * p.units
+                assert p.groups * p.per_lane >= H
+                rest = (p.per_lane - p.u_regs) * p.groups * 4 * p.units
+            else:  # a group: the slice of H, two rows a lane, in warps
+                assert p.group_lanes % 32 == 0
+                assert 2 * p.group_lanes >= hq > 2 * p.group_lanes - 64
+                assert p.groups * p.per_lane >= 4 * upc
+                rest = (p.per_lane - p.u_regs) * p.groups * p.group_lanes
+            assert p.u_regs == min(p.per_lane, KREG)
+            # U's registers (two columns or rows of each) and the sums
+            assert 2 * p.u_regs + 2 * ROWS <= 160
+            assert p.smem_bytes <= cuda_lstm_tiled.MAX_SMEM_BYTES == 227 * 1024
+            # U past the registers stays in shared memory
+            assert p.smem_bytes >= 4 * rest
+
+
+@pytest.mark.parametrize("B", [16, 64, 256])
+def test_tiled_plan_keeps_u_in_registers_at_config5(B):
+    """At config 5's width on an H100 the pair runs clusters of 2 (the card
+    keeps 30 clusters of 4, too few for 8 units a block), 128 blocks of 8
+    units, and every lane's part of U in registers. At config 3's width
+    the forward runs clusters of 2 and the backward of 4, U in registers
+    (the sizes measured faster there)."""
     for kind in ("fwd", "bwd"):
-        p = cuda_lstm_tiled.plan(kind, B, H)
-        assert p.blocks <= 132
-        assert p.blocks * p.units >= H > (p.blocks - 1) * p.units
-        assert p.smem_bytes <= cuda_lstm_tiled.MAX_SMEM_BYTES == 227 * 1024
-        assert 1 <= p.ksplit and 1 <= p.ktile <= H
-        # U's gate columns for the block's units stay in shared memory
-        assert p.smem_bytes >= 4 * H * 4 * p.units
-    # config 5's shard stages all of h at once
-    assert cuda_lstm_tiled.plan("fwd", 16, 1024).ktile == 1024
-    assert cuda_lstm_tiled.plan("fwd", 64, 1024).ktile < 1024
+        p = cuda_lstm_tiled.plan(kind, B, 1024, max_clusters=H100)
+        assert (p.blocks, p.cluster, p.units) == (128, 2, 8)
+        assert p.per_lane == p.u_regs == cuda_lstm_tiled.KREG
+        assert p.row_tiles == B // 16
+    p = cuda_lstm_tiled.plan("fwd", 32, 650, max_clusters=H100)
+    assert (p.cluster, p.units, p.per_lane <= p.u_regs) == (2, 5, True)
+    p = cuda_lstm_tiled.plan("bwd", 32, 650, max_clusters=H100)
+    assert (p.cluster, p.units, p.per_lane <= p.u_regs) == (4, 6, True)
+
+
+def test_tiled_plan_refuses_clusters_the_card_cannot_keep():
+    """A cluster size whose clusters cannot all be resident at the given
+    count raises, as the launcher would (``launch_clusters``); the
+    backward falls back to the other size when the card keeps enough of
+    it."""
+    with pytest.raises(ValueError, match="8 resident clusters of 4 need 32"):
+        cuda_lstm_tiled.plan("bwd", 16, 1024, max_clusters={4: 8})
+    with pytest.raises(ValueError, match="keeps no cluster of 2"):
+        cuda_lstm_tiled.plan("fwd", 16, 1024, max_clusters={4: 30, 2: 0})
+    with pytest.raises(ValueError, match="10 resident clusters of 2"):
+        cuda_lstm_tiled.plan("fwd", 16, 1024, max_clusters={4: 30, 2: 10})
+    # the backward at config 3's width takes clusters of 2 without 4
+    p = cuda_lstm_tiled.plan("bwd", 32, 650, max_clusters={4: 0, 2: 66})
+    assert (p.cluster, p.blocks) == (2, 130)
+
+
+def test_tiled_route_reads_the_card_plan(monkeypatch):
+    """Given the card, ``fits`` and the route read :func:`card_plan` (the
+    card's SMs and resident clusters), the plan the launch runs: a card
+    that keeps too few clusters takes no tiled route."""
+    monkeypatch.setattr(cuda_lstm_tiled, "max_clusters",
+                        lambda dev: {4: 30, 2: 10})
+    monkeypatch.setattr(cuda_lstm, "_num_sms", lambda dev: 132)
+    assert cuda_lstm_tiled.fits(16, 1024)
+    assert not cuda_lstm_tiled.fits(16, 1024, dev="card")
+    assert tscan.chosen_fwd_strategy(16, 128, 1024, 1024) == "tiled"
+    assert tscan.chosen_fwd_strategy(16, 128, 1024, 1024,
+                                     dev="card") == "resident"
+    monkeypatch.setattr(cuda_lstm_tiled, "max_clusters", lambda dev: H100)
+    assert tscan.chosen_bwd_strategy(16, 128, 1024, 1024,
+                                     dev="card") == "tiled"
 
 
 def test_tiled_plan_raises_when_it_does_not_fit():
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="tiled route's reach"):
         cuda_lstm_tiled.plan("fwd", 512, 1024)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="no plan"):
         cuda_lstm_tiled.plan("bwd", 16, 4096)
     with pytest.raises(ValueError, match="kind"):
         cuda_lstm_tiled.plan("both", 16, 1024)
     assert not cuda_lstm_tiled.fits(512, 1024)
+    assert cuda_lstm_tiled.fits(264, 1024)
 
 
 @pytest.mark.parametrize("B,T,H,D,remat,expect", [
