@@ -10,6 +10,8 @@ checkout of the port (this one or another, e.g. a parent commit
 unpacked with ``git archive``), prints one line: that checkout's tiled
 pair at config 5's shard in CUDA-event ms, so two designs can be timed
 in turns on one card (parent, change, change, parent).
+``python3 <this file> --residentx-fwd LABEL`` does the same for the
+residentx forward at config 2: two directions with cs, one without.
 
 Phases (each one fails the run):
 
@@ -51,19 +53,26 @@ Phases (each one fails the run):
    stacked two directions of a bi-LSTM layer, forward and backward — at
    config 2 (B=32 per direction, T=400, D=H=256), masked with the IMDB
    stand-in's lengths and unmasked, at the LM's ``--seq-len 256`` shape
-   (B=64, T=256, D=H=128; one direction) and at an awkward shape (B=8,
-   T=257, D=72, H=200); time each role at the shape its launches in phase
+   (B=64, T=256, D=H=128; one direction), at an awkward shape (B=8,
+   T=257, D=72, H=200), at two shapes whose forward runs 8-row clusters
+   (B=40, T=64, D=72, H=200 masked; B=96, T=64, D=H=128; two directions)
+   and at four that reach the forward's other builds (H=300: U in shared
+   memory; H=650: through L2; H=5 and H=16: one block a cluster);
+   time each role at the shape its launches in phase
    8 come from in turns (plain, kernel, kernel, plain) with CUDA events and
-   under ``torch.profiler`` (the backward's chain and its z rebuild
-   apart), beside cuDNN's ``torch.nn.LSTM`` (bidirectional for the
-   stacked roles) and the bound, each time also per step; and time the
-   stacked pair under the card's plan against the other row cut of each
-   kernel;
+   under ``torch.profiler`` (each kernel's chain and its side kernel —
+   the forward's projection, the backward's z rebuild — apart), beside
+   cuDNN's ``torch.nn.LSTM`` (bidirectional for the stacked roles) and
+   the bound, each time also per step; the backward runs from the plain
+   forward's ys and cs and from the kernel's own; and time the stacked
+   pair under the card's plan against the other row cut of each kernel;
 8. train config 2 through the CLI: the first 10 losses on the card at
    ``--dropout 0``, without and with ``--remat-chunk 50``, against the same
    run on the CPU (without remat: the plain scan's values do not depend
-   on it); 300 steps at ``--dropout 0.2`` with an eval every 100,
-   whose launch counts must equal the prediction; the LM at
+   on it), with the steps/s of each (with remat: the residentx forward,
+   then the plain recompute backward); 300 steps at ``--dropout 0.2``
+   with an eval every 100, whose launch counts must equal the
+   prediction; the LM at
    ``--seq-len 256`` (the single-direction residentx pair) for 10 steps
    against the CPU; and the device idle share over 20 config-2 steps under
    ``torch.profiler``;
@@ -162,6 +171,18 @@ CONFIG2_FLAGS = ["train", "--dataset", "imdb", "--hidden-units", "256",
                  "--clip-norm", "1.0", "--compute-dtype", "float32"]
 CONFIG2_STEPS, CONFIG2_EVAL_EVERY = 300, 100
 AWKWARD = dict(B=8, T=257, D=72, H=200)
+# the residentx forward's 8-row clusters (two columns a thread) at an
+# awkward width (58 column pairs of 64) and at the LM's width (64 terms a
+# piece)
+AWKWARD8 = dict(B=40, T=64, D=72, H=200)
+LM8 = dict(B=96, T=64, D=128, H=128)
+# the forward's other builds: U's slice in shared memory (a piece of 300
+# terms), read through L2 (H=650, more (unit, row) items than threads),
+# and narrow widths (one block a cluster)
+LSTMX_SMEM = dict(B=32, T=64, D=256, H=300)
+LSTMX_L2 = dict(B=8, T=40, D=64, H=650)
+LSTMX_TINY = dict(B=3, T=5, D=7, H=5)
+LSTMX_SMALL = dict(B=8, T=9, D=12, H=16)
 # config 1's LM at --seq-len 256 (E=H=128): the single-direction
 # residentx pair
 LM256 = dict(B=64, T=256, D=128, H=128)
@@ -946,6 +967,9 @@ def cudnn_bi_yardstick(torch, B, T, D, H, ndir, device):
 # --remat-chunk 50 (inside the recompute Function, so without cs), the
 # one-direction backward in the LM at --seq-len 256, the stacked pair in
 # config 2's main run (the forward of a training step, with cs).
+# each kernel's side kernel, timed apart from its chain: the forward's
+# projection (zx), the backward's z rebuild
+LSTMX_SIDE = {"fwd": "lstmx_proj_kernel", "bwd": "lstmx_factors_kernel"}
 LSTMX_ROLES = {  # role: (shape, ndir, kind, masked, save_c)
     "lstmx_fwd": ("config2", 1, "fwd", True, False),
     "lstmx_bwd": ("lm256", 1, "bwd", False, True),
@@ -963,16 +987,22 @@ def lstmx_kernel_phase(torch, cx, device):
     print(f"  IMDB stand-in lengths of the first config-2 batch: min "
           f"{int(lens2.min())}, max {int(lens2.max())}, mean "
           f"{float(lens2.mean()):.1f}", flush=True)
-    shapes = {"config2": CONFIG2, "lm256": LM256, "awkward": AWKWARD}
+    shapes = {"config2": CONFIG2, "lm256": LM256, "awkward": AWKWARD,
+              "awkward8": AWKWARD8, "lm8": LM8, "smem": LSTMX_SMEM,
+              "l2": LSTMX_L2, "tiny": LSTMX_TINY, "small": LSTMX_SMALL}
     aw = AWKWARD
     lens_aw = [aw["T"] - 3 * i for i in range(aw["B"])]
     lens_aw[-1] = 1
+    lens_aw8 = [AWKWARD8["T"] - i for i in range(AWKWARD8["B"])]
     cases = []
     for ndir in (1, 2):
         cases += [("config2", ndir, lens2), ("config2", ndir, None)]
         if ndir == 1:
             cases.append(("lm256", 1, None))
         cases.append(("awkward", ndir, lens_aw))
+    cases += [("awkward8", 2, lens_aw8), ("lm8", 2, None),
+              ("smem", 2, None), ("l2", 1, None), ("tiny", 1, [5, 1, 3]),
+              ("small", 2, [9, 1, 5, 9, 7, 2, 6, 3])]
     errs = {("fwd", 1): 0.0, ("bwd", 1): 0.0, ("fwd", 2): 0.0, ("bwd", 2): 0.0}
     for i, (name, ndir, lens) in enumerate(cases):
         B, T, D, H = (shapes[name][k] for k in ("B", "T", "D", "H"))
@@ -992,18 +1022,21 @@ def lstmx_kernel_phase(torch, cx, device):
             if not torch.equal(a, r):
                 fail(f"{label}: the forward without cs gives other {n} than "
                      "with it")
-        ys, cs = ref[0], ref[3]
-        bgot = cx.lstmx_backward(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT,
-                                 mask)
-        bref = cx.lstmx_backward_reference(xs, ys, h0, cs, c0, dys, W, b, U,
-                                           dhT, dcT, mask)
-        torch.cuda.synchronize()
-        for n, a, r in zip(("dz", "dh0", "dc0"), bgot, bref):
-            e[n] = held(torch, n, a, r, label, scaled=True)
+        # the backward from the plain forward's ys and cs, then from the
+        # kernel's own
+        for fed, (ys, cs) in (("", (ref[0], ref[3])),
+                              (" (own)", (got[0], got[3]))):
+            bgot = cx.lstmx_backward(xs, ys, h0, cs, c0, dys, W, b, U, dhT,
+                                     dcT, mask)
+            bref = cx.lstmx_backward_reference(xs, ys, h0, cs, c0, dys, W, b,
+                                               U, dhT, dcT, mask)
+            torch.cuda.synchronize()
+            for n, a, r in zip(("dz", "dh0", "dc0"), bgot, bref):
+                e[n + fed] = held(torch, n, a, r, label + fed, scaled=True)
         errs["fwd", ndir] = max(errs["fwd", ndir],
                                 *(e[n] for n in ("ys", "hT", "cT", "cs")))
-        errs["bwd", ndir] = max(errs["bwd", ndir], e["dz"], e["dh0"],
-                                e["dc0"])
+        errs["bwd", ndir] = max(errs["bwd", ndir], *(
+            v for n, v in e.items() if n.split()[0] in ("dz", "dh0", "dc0")))
         print(f"  {label}: max |d| " + ", ".join(
             f"{n} {v:.2e}" for n, v in e.items()), flush=True)
         print(f"    plan {cx.card_plan(B, H, D, ndir, device)}", flush=True)
@@ -1043,25 +1076,25 @@ def lstmx_kernel_phase(torch, cx, device):
         p2 = time_ms(torch, plain, 2)
         bound_ms, bound_by = lstmx_bound(B, T, D, H, nd, kind, masked, save_c)
         prof = device_profile(torch, lambda: [kernel() for _ in range(10)])
-        dev_ms = rebuild_ms = None
+        dev_ms = side_ms = None
         if prof is not None:
             keys = [k for k in prof[2] if f"lstmx_{kind}_kernel" in k]
             n = sum(prof[3][k] for k in keys)
             if n:
                 dev_ms = sum(prof[2][k] for k in keys) / n
-            keys = [k for k in prof[2] if "lstmx_factors_kernel" in k]
+            keys = [k for k in prof[2] if LSTMX_SIDE[kind] in k]
             n = sum(prof[3][k] for k in keys)
             if n:
-                rebuild_ms = sum(prof[2][k] for k in keys) / n
+                side_ms = sum(prof[2][k] for k in keys) / n
         timings[role] = dict(
             kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
             bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms,
             library_ms=lib[name, nd][0 if kind == "fwd" else 1],
             max_err=errs[kind, nd])
-        both = "" if kind == "fwd" else (
-            " (the chain; its z rebuild beside it "
-            + ("not measured" if rebuild_ms is None else f"{rebuild_ms:.4f}")
-            + ")")
+        both = (f" (the chain; its "
+                f"{'projection' if kind == 'fwd' else 'z rebuild'} "
+                + ("not measured" if side_ms is None else f"{side_ms:.4f}")
+                + ")")
         print(f"  {role} {name} B={B} T={T} D={D} H={H} (mask={masked}, "
               f"cs={save_c if kind == 'fwd' else 'in'}): kernel_ms "
               f"{timings[role]['kernel_ms']:.4f} ({k1:.4f}, {k2:.4f}; "
@@ -1079,9 +1112,10 @@ def lstmx_kernel_phase(torch, cx, device):
 def rows_ab(torch, cx, lens2, sms, device):
     """The stacked pair at config 2 under the card's plan and under the
     other row cut of each kernel, alternated with CUDA events: the forward
-    with 4-row clusters (16 of them, more than the card keeps at once: the
-    plan for every cluster resident), and the same for the backward (its
-    card plan takes 8-row clusters, one wave).
+    with 4-row clusters (16 of them: more than the card keeps at once, and
+    their 128 SMs leave the projection too few, so it runs first), and
+    the backward with the cut for every SM (its card plan takes 8-row
+    clusters, one wave).
     The forward's results must not change by a bit (none of its sums
     depends on the rows); the backward's dz @ Uᵀ split follows its rows,
     so under either cut its dz, dh0, dc0 are held against the plain
@@ -1091,9 +1125,8 @@ def rows_ab(torch, cx, lens2, sms, device):
                                            seed=7, device=device)
     xs, W, b, U, h0, c0, mask = inputs
     card = cx.card_plan(B2, H2, D2, 2, device)
-    alt = {kind: card._replace(**{kind: getattr(cx.plan(B2, H2, D2, 2, sms),
-                                                kind)})
-           for kind in ("fwd", "bwd")}
+    alt = {"fwd": card._replace(fwd=cx.forward_plan(B2, H2, 8)),
+           "bwd": card._replace(bwd=cx.plan(B2, H2, D2, 2, sms).bwd)}
     ys, _, _, cs = cx.lstmx_forward(*inputs, save_c=True)
     bargs = (xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask)
     calls = {"fwd": lambda p: cx.lstmx_forward(*inputs, save_c=True, xplan=p),
@@ -1160,7 +1193,7 @@ def config2_phase(torch, cli, cl, cx, ct, device):
     # the CPU reference runs once, without remat: with --remat-chunk the
     # plain scan gives the same values (tests/test_torch_scan_routes.py), so
     # both card runs are held against it
-    first = {}
+    first, rate = {}, {}
     for remat, devs in ((None, ("cuda", "cpu")), (50, ("cuda",))):
         extra = [] if remat is None else ["--remat-chunk", str(remat)]
         for dev in devs:
@@ -1170,6 +1203,10 @@ def config2_phase(torch, cli, cl, cx, ct, device):
                 "--num-steps", "10", "--log-every", "1", "--dropout", "0",
                 "--eval-batches", "1", "--device", dev])
             first[remat, dev] = [r["loss"] for r in recs if "loss" in r]
+            # steps/s a step (log-every 1), the median of steps 2-10
+            sps = sorted(r["steps_per_sec"] for r in recs
+                         if "loss" in r and r["step"] > 1)
+            rate[remat, dev] = sps[len(sps) // 2] if sps else float("nan")
             if len(first[remat, dev]) != 10:
                 fail(f"{name} logged {len(first[remat, dev])} losses, not 10")
             if dev == "cuda":
@@ -1184,9 +1221,13 @@ def config2_phase(torch, cli, cl, cx, ct, device):
                   f"{launches}", flush=True)
         a, b = first[remat, "cuda"], first[None, "cpu"]
         gap = max(abs(x - y) for x, y in zip(a, b))
+        route = ("the stacked pair" if remat is None else
+                 "the residentx forward a direction, then the plain "
+                 "recompute backward")
         print(f"  remat_chunk={remat}, first 10 losses: card "
               f"{[round(x, 6) for x in a]}; CPU {[round(x, 6) for x in b]}; "
-              f"max |d| {gap:.2e}", flush=True)
+              f"max |d| {gap:.2e}; {rate[remat, 'cuda']:.2f} steps/s on the "
+              f"card (median of steps 2-10, {route})", flush=True)
         if not gap <= TRAIN_LOSS_TOL:
             fail(f"config 2 (remat_chunk={remat}) card losses differ from "
                  f"the CPU run by {gap:.3e} > {TRAIN_LOSS_TOL}")
@@ -2144,7 +2185,54 @@ def tiled_pair(label: str) -> int:
     return 0
 
 
+def residentx_fwd(label: str) -> int:
+    """The residentx forward of the checkout in the working directory at
+    config 2, masked with the IMDB stand-in's lengths: two directions with
+    cs (the stacked bi-LSTM layer of a training step) and one direction
+    without (the forward under ``--remat-chunk 50``), CUDA-event ms over
+    20 calls each, on one line tagged ``label``; and beside them the
+    residentx backward where phase 8 launches it (config 2's two
+    directions, the LM's one at T=256), from the same checkout."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this timing needs an NVIDIA card")
+    from lstm_tensorspark_torch import configure_precision
+    from lstm_tensorspark_torch.ops import cuda_lstmx as cx
+
+    configure_precision()
+    B, T, D, H = (CONFIG2[k] for k in ("B", "T", "D", "H"))
+    lens = imdb_lengths(B, T)
+    dev = torch.device("cuda", 0)
+    ms = {}
+    for nd, save_c in ((2, True), (1, False)):
+        inputs, _ = lstmx_inputs(torch, B, T, D, H, nd, lens, seed=7,
+                                 device=dev)
+        ms[nd] = time_ms(torch, lambda: cx.lstmx_forward(
+            *inputs, save_c=save_c), 20)
+    bwd = {}
+    for name, (Bb, Tb, Db, Hb), nd, lb in (
+            ("config2", (B, T, D, H), 2, lens),
+            ("lm256", (LM256["B"], LM256["T"], LM256["D"], LM256["H"]), 1,
+             None)):
+        inputs, (dys, dhT, dcT) = lstmx_inputs(torch, Bb, Tb, Db, Hb, nd, lb,
+                                               seed=7, device=dev)
+        xs, W, b, U, h0, c0, mask = inputs
+        ys, _, _, cs = cx.lstmx_forward_reference(*inputs, save_c=True)
+        bwd[name] = time_ms(torch, lambda: cx.lstmx_backward(
+            xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask), 20)
+    print(f"residentx forward of {label} ({os.getcwd()}) at config 2 B={B} "
+          f"T={T} D={D} H={H}, masked: two directions with cs "
+          f"{ms[2]:.4f} ms, one without {ms[1]:.4f} ms; backward two "
+          f"directions {bwd['config2']:.4f} ms, one at the LM's T=256 "
+          f"{bwd['lm256']:.4f} ms; {card_line()}", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--tiled-pair"] and len(sys.argv) == 3:
-        sys.exit(tiled_pair(sys.argv[2]))
+    for flag, fn in (("--tiled-pair", tiled_pair),
+                     ("--residentx-fwd", residentx_fwd)):
+        if sys.argv[1:2] == [flag] and len(sys.argv) == 3:
+            sys.exit(fn(sys.argv[2]))
     sys.exit(main())

@@ -1,7 +1,10 @@
 // Pieces shared by the cluster recurrence kernels (lstm_fwd.cu, lstmx_fwd.cu,
-// lstmx_bwd.cu), for Hopper (sm_90a): the gate sigmoid, the phase clocks,
-// and the mbarriers that signal a step's slices pushed into a block's shared
-// memory by the other blocks of its cluster.
+// lstmx_bwd.cu, lstm_tiled_fwd.cu, lstm_tiled_bwd.cu), for Hopper (sm_90a):
+// the gate sigmoid, the phase clocks, the mbarriers that signal a step's
+// slices pushed into a block's shared memory by the other blocks of its
+// cluster (by remote arrivals, or by the bytes st.async stores count), the
+// counters in global memory that hand work from one block (or kernel) to
+// another, and cp.async copies.
 
 #pragma once
 
@@ -91,3 +94,105 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+
+// Counters in global memory (zeroed by the wrapper before the launch). A
+// block publishes its data with plain stores, a block barrier, then one
+// thread's fence and atomic add; a reader's one thread spins on an acquiring
+// load until the count is reached, then a block barrier, and the block reads
+// the data through L2 (L1 is not coherent with the other SMs' stores). (A
+// flag a block, polled by many threads at once, measured slower: the polls
+// crowd L2.) A spin needs its producer to run: the tiled pair's cooperative
+// launch keeps every block resident, lstmx_fwd.cu's projection never waits
+// on its chain. As a backstop the spins trap after about two seconds; a trap
+// is fatal to the CUDA context (every later call in the process fails), so it
+// must never be the way a grid that cannot be resident is turned away.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void wait_count(const int* p, int target) {
+  const long long t0 = clock64();
+  while (ld_acquire(p) < target) {
+    if (clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+
+__device__ __forceinline__ void arrive_count(int* p) {
+  __threadfence();
+  atomicAdd(p, 1);
+}
+
+// mbar_wait, trapping after about two seconds
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1LL << 32)) __trap();
+  } while (!done);
+}
+
+// The next phase of the local mbarrier `bar` expects `bytes` of bulk copies
+// or st.async stores (this thread's arrival: the barrier counts one a phase)
+__device__ __forceinline__ void bulk_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Four floats to `dst`'s offset in the shared memory of block `rank` of the
+// cluster (this block's own rank too), counted as 16 bytes on the mbarrier
+// at `bar`'s offset there (st.async: the receiver waits on its mbarrier, no
+// arrival or barrier needed)
+__device__ __forceinline__ void st_async_v4(float* dst, float4 v,
+                                            uint64_t* bar, int rank) {
+  uint32_t d, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(d)
+               : "r"(smem_addr(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(b)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(d),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(b)
+      : "memory");
+}
+
+// 16 bytes global -> shared through L2 (cp.async.cg: L1 is not coherent
+// with the other SMs' stores)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes global -> shared (data no kernel of the call writes)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// this thread's cp.async copies have landed (a block barrier then shows
+// them to the other threads)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}

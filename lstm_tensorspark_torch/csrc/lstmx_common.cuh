@@ -1,5 +1,5 @@
 // Pieces shared by lstmx_fwd.cu and lstmx_bwd.cu, the "residentx" LSTM
-// recurrence kernels (the input projection computed inside the kernel, z
+// recurrence kernels (the input projection computed by the pair itself, z
 // recomputed in the backward), for Hopper (sm_90a), float32.
 //
 // Both kernels cut the work the same way: a cluster of CS blocks owns a group
@@ -16,13 +16,13 @@
 //   hU = h_{t-1} . U[:, col]          KS pieces of ceil(H/KS) terms, each an
 //                                     fmaf chain from 0, folded left
 //   z  = zx + hU
-// The forward computes hU on the dependent chain with the same pieces (one
-// piece per thread, folded in order), so KS is part of the launch plan that
-// both kernels receive (ops/cuda_lstmx.py::plan).
+// The forward's projection kernel runs one fmaf chain over k per output and
+// adds the bias last; its chain sums one piece of hU per thread and folds the
+// pieces in order, so KS is part of the launch plan that both kernels
+// receive (ops/cuda_lstmx.py::plan).
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -56,25 +56,6 @@ __device__ __forceinline__ Geo block_geo(int CS, int rank, int B, int H,
   g.u0 = rank * UPC;
   g.nu = max(0, min(UPC, H - g.u0));
   return g;
-}
-
-// Copy nslices slices of n floats each (n a multiple of 4, slice s at
-// buf + s*stride, 16-byte aligned) from this block's shared memory to the
-// same place in every other block of the cluster, as float4 stores spread
-// over all threads. The caller barriers before (the slices are complete)
-// and after (cluster.sync publishes them).
-__device__ __forceinline__ void push_slices(
-    cooperative_groups::cluster_group& cluster, float* buf, int n,
-    int stride, int nslices, int CS, int rank) {
-  const int n4 = n / 4, per = (CS - 1) * n4;
-  for (int i = threadIdx.x; i < nslices * per; i += THREADS) {
-    const int s = i / per, rem = i - s * per;
-    const int k = rem / n4, j = rem - k * n4;
-    float* src = buf + (size_t)s * stride;
-    float4* dst = reinterpret_cast<float4*>(
-        cluster.map_shared_rank(src, k + (k >= rank)));
-    dst[j] = reinterpret_cast<const float4*>(src)[j];
-  }
 }
 
 // Stage clen steps of the group's rows of src [T][BS][K] transposed into
@@ -148,18 +129,6 @@ __device__ __forceinline__ void fma_w(float4 (&acc)[QM], const float (&w)[KB],
         acc[j].w = fmaf(av.w, w[q], acc[j].w);
       }
     }
-  }
-}
-
-// Stage clen steps of the group's mask [T][BS] into dst [clen*RB4]
-// (dst[c*RB4 + r], 0 outside the group's rows).
-__device__ __forceinline__ void stage_mask(float* dst,
-                                           const float* __restrict__ mask,
-                                           int t0, int clen, int BS, int row0,
-                                           int nrows, int RB4) {
-  for (int i = threadIdx.x; i < clen * RB4; i += THREADS) {
-    const int c = i / RB4, r = i - c * RB4;
-    dst[i] = r < nrows ? mask[(size_t)(t0 + c) * BS + row0 + r] : 0.0f;
   }
 }
 

@@ -1,8 +1,9 @@
 // Pieces shared by the tiled LSTM pair (lstm_tiled_fwd.cu, lstm_tiled_bwd.cu),
-// for Hopper (sm_90a): the step counters in global memory that replace a
-// grid-wide barrier, the product of a lane's register-held weights, the asynchronous
-// copies (cp.async and TMA bulk, multicast to a cluster), and the cooperative
-// cluster launch with its co-residency check.
+// for Hopper (sm_90a): the product of a lane's register-held weights, TMA
+// bulk copies multicast to a cluster, and the cooperative cluster launch with
+// its co-residency check. The step counters in global memory that replace a
+// grid-wide barrier (wait_count, arrive_count), the bounded mbarrier wait,
+// bulk_expect and cp.async are in cluster_common.cuh.
 //
 // The pair runs one persistent block per SM in clusters of C = 2 or 4
 // blocks; block b owns UPB hidden units (their cell state), and rank q of a
@@ -15,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_common.cuh"
+
 #define THREADS 256
 #define WARPS 8
 #define ROWS 16                // batch rows of a tile
@@ -22,64 +25,6 @@
 #define MAX_UNITS 16           // ROWS * UPB cell threads at most
 #define MAX_CLUSTER 4
 #define MAX_SMEM_BYTES 232448  // 227 KB: the most a block may opt in to
-
-// Step counters in global memory, one a slice of H (zeroed by the wrapper
-// before the launch). A block publishes a step's data with plain stores, a
-// block barrier, then one thread's fence and atomic add; a reader's one
-// thread spins on an acquiring load until the count is reached, then a block
-// barrier. (A flag a block, polled by many threads at once, measured slower:
-// the polls crowd L2.) The spins need every block of the grid running at
-// once, which the cooperative launch guarantees (launch_clusters). As a
-// backstop they trap after about two seconds; a trap is fatal to the CUDA
-// context (every later call in the process fails), so it must never be the
-// way a grid that cannot be resident is turned away.
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void wait_count(const int* p, int target) {
-  const long long t0 = clock64();
-  while (ld_acquire(p) < target) {
-    if (clock64() - t0 > (1LL << 32)) __trap();
-  }
-}
-
-__device__ __forceinline__ void arrive_count(int* p) {
-  __threadfence();
-  atomicAdd(p, 1);
-}
-
-// cluster_common.cuh's mbar_wait, trapping after about two seconds
-__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
-                                                  uint32_t parity) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(bar);
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1LL << 32)) __trap();
-  } while (!done);
-}
-
-// The next phase of the local mbarrier `bar` expects `bytes` of bulk copies
-// (this thread's arrival: the barrier counts one a phase)
-__device__ __forceinline__ void bulk_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          (uint32_t)__cvta_generic_to_shared(bar)),
-      "r"(bytes)
-      : "memory");
-}
 
 // A TMA bulk copy of `bytes` (a multiple of 16) from global `src` to `dst`
 // in the shared memory of every block of the cluster in `mask` (the same
@@ -98,19 +43,6 @@ __device__ __forceinline__ void bulk_copy_multicast(float* dst, const float* src
       ".multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(d),
       "l"(src), "r"(bytes), "r"(b), "h"(mask)
       : "memory");
-}
-
-// 16 bytes global -> shared through L2 (cp.async.cg: L1 is not coherent
-// with the other SMs' stores)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // acc[r][e] += v[k][r] * w[k][e] over the lane's first `regs` rows k of

@@ -24,7 +24,10 @@ rows ``[d*B, (d+1)*B)`` belonging to direction d, ``W`` [ND, D, 4H], ``b``
 - :func:`cuda_lstmx_scan` is the single-direction layer entry with
   ``lstm_scan``'s signature; ``ops/cuda_bilstm.py`` stacks two directions.
 - :func:`plan` cuts the work (testable on the CPU); :func:`card_plan`
-  gives it a card's SM count and resident clusters (:func:`max_clusters`).
+  gives it a card's SM count and resident clusters (:func:`max_clusters`);
+  :func:`forward_plan` is the forward's cut for a given number of clusters
+  per direction, :func:`projection_sms` the SMs its chain leaves to its
+  projection kernel.
 - Launch counters: :data:`fwdx_counts` / :data:`bwdx_counts` (one
   direction), :data:`bi_fwdx_counts` / :data:`bi_bwdx_counts` (two).
 """
@@ -49,7 +52,7 @@ FUSEDX_MIN_T = 256
 # Above this many bytes of saved residuals the JAX package trains with the
 # recompute backward instead (pallas_lstm._RESIDUAL_HBM_BUDGET's default).
 RESIDUAL_BUDGET_BYTES = 4096 * 2**20
-CHUNKS = (8, 4, 2, 1)  # projection chunk lengths, largest first
+CHUNKS = (8, 4, 2, 1)  # the z rebuild's chunk lengths, largest first
 
 fwdx_counts = kernels.LaunchCounts()
 bwdx_counts = kernels.LaunchCounts()
@@ -68,11 +71,11 @@ class KernelPlan(NamedTuple):
     direction (``rows4`` rounded up to 4), ``groups`` clusters per
     direction, its product split ``ksplit`` (the forward's h @ U pieces,
     which are the plan's ``zks``; the backward's lanes that share a unit's
-    dz @ Uᵀ sum), the projection chunk (steps; the backward's z rebuild
-    takes one per block), whether the block's slice of U (forward) or Uᵀ
-    (backward) sits in shared memory or (backward) in its lanes'
-    registers, and the bytes of shared memory one block asks for (the
-    backward: its chain kernel)."""
+    dz @ Uᵀ sum), the chunk of steps of its side kernel (the forward's
+    projection tile, the backward's z rebuild block), whether the block's
+    slice of U (forward) or Uᵀ (backward) sits in shared memory or in its
+    threads' registers (else it is read through L2), and the bytes of
+    shared memory the chain kernel's layout takes a block."""
 
     rows: int
     rows4: int
@@ -98,29 +101,27 @@ class XPlan(NamedTuple):
     bwd: KernelPlan
 
 
-# a kernel takes clusters that all fit on the card at once only if that
-# leaves it a projection chunk of at least this many steps
+# the backward takes clusters that all fit on the card at once only if that
+# leaves its z rebuild a chunk of at least this many steps
 MIN_ONE_WAVE_CHUNK = 4
+# a side kernel (the forward's projection, the backward's z rebuild) runs
+# beside its chain only when the chain's blocks leave it at least this many
+# SMs; else the two run one after the other
+REBUILD_MIN_SMS = 8
+# csrc/lstmx_fwd.cu: the rows of a projection tile (a chunk's steps times a
+# group's rows), the most rows a cluster of the chain takes (two float4s of
+# h a term), the terms of a piece of h @ U a thread keeps in registers (and
+# the zero rows past H its h buffers then carry)
+PROJ_ROWS = 64
+FWD_MAX_ROWS = 8
+FWD_U_REG = 128
+FWD_UB_PAIRS = 64  # column pairs of the 8-row chain's shared second columns
 # csrc/lstmx_bwd.cu: the threads of a chain block (the dependent steps),
 # the factors per element of the stream its z rebuild leaves, and the terms
 # of dz @ Uᵀ a lane keeps in registers
 BWD_THREADS = 256
 BWD_PLANES = 8
 BWD_UT_REG = 64
-
-
-def _fit(base: int, per_chunk: int, w: int, what: str, B, H, D, ndir):
-    """(chunk, u_in_smem, bytes): the U or Uᵀ slice in shared memory if any
-    chunk allows it, else read through L2; the largest chunk that fits."""
-    for u_in_smem in (True, False):
-        for c in CHUNKS:
-            n = 4 * (base + c * per_chunk + (w if u_in_smem else 0))
-            if n <= MAX_SMEM_BYTES:
-                return c, u_in_smem, n
-    raise ValueError(
-        f"lstmx {what} kernel: B={B} H={H} D={D} ndir={ndir} needs "
-        f"{4 * (base + per_chunk)} bytes of shared memory per block "
-        f"(> {MAX_SMEM_BYTES})")
 
 
 def _rebuild_floats(H: int, D: int, upc: int, rows4: int, chunk: int) -> int:
@@ -140,6 +141,13 @@ def factor_floats(T: int, ndir: int, xplan: "XPlan") -> int:
         * xplan.cluster * xplan.units
 
 
+def zx_floats(T: int, H: int, ndir: int, xplan: "XPlan") -> int:
+    """Floats of the zx stream the forward's projection writes and its
+    chain reads: per step, row group, unit and row, the unit's four gates."""
+    kp = xplan.fwd
+    return 4 * T * ndir * kp.groups * H * kp.rows4
+
+
 def cluster_units(H: int) -> tuple[int, int]:
     """(blocks per cluster, hidden units per block) for hidden size H."""
     cs = min(MAX_CLUSTER, -(-H // UNITS_PER_BLOCK))
@@ -155,16 +163,77 @@ def _row_groups(B: int, per_dir: int) -> tuple[int, int, int]:
     return rows, -(-rows // 4) * 4, -(-B // rows)
 
 
+def _zks(H: int, upc: int) -> int:
+    """The pieces of h @ U; they depend on H alone, so the forward and the
+    backward sum them alike whatever their rows."""
+    return max(1, min(THREADS // (4 * upc), H // MIN_SPLIT))
+
+
+def chain_floats(H: int, upc: int, rows4: int, zks: int,
+                 u_in_smem: bool, u_in_regs: bool) -> int:
+    """Shared memory of the forward's chain kernel (``csrc/lstmx_fwd.cu``
+    chain_smem_floats): h double-buffered (with ``FWD_U_REG`` zero rows when
+    U sits in registers), the pieces of h @ U (the block's columns rounded
+    up to a warp, rows + 1 a column), a step's zx double-buffered, c, the
+    mask, two mbarriers, and U's slice when it sits in shared memory (or,
+    with U in registers and two row quads, the second column of each
+    thread's pair)."""
+    ncp = -(-4 * upc // 32) * 32
+    red = -(-(zks * ncp * (rows4 + 1)) // 4) * 4
+    pad = FWD_U_REG if u_in_regs else 0
+    # two row quads: each thread's second column from shared memory, a
+    # piece's FWD_U_REG terms (zeros past it) a column of the pairs
+    ub = zks * FWD_U_REG * FWD_UB_PAIRS if u_in_regs and rows4 == 8 else 0
+    return (2 * (H + pad) * rows4 + red + 9 * upc * rows4 + 2 * rows4 + 4
+            + (H * ncp if u_in_smem else 0) + ub)
+
+
+def forward_plan(B: int, H: int, per_dir: int) -> KernelPlan:
+    """The forward's cut with at most ``per_dir`` clusters a direction (more
+    when a cluster would take more than ``FWD_MAX_ROWS`` rows): each
+    thread's piece of h @ U in its registers when a piece has at most
+    ``FWD_U_REG`` terms, else the block's slice of U in shared memory when
+    it fits, else read through L2; the projection's chunk fills its tile of
+    ``PROJ_ROWS`` rows. Raises ``ValueError`` when the chain's buffers do
+    not fit a block."""
+    _, upc = cluster_units(H)
+    zks = _zks(H, upc)
+    rows, rows4, groups = _row_groups(B, per_dir)
+    for cap in (FWD_MAX_ROWS, 4):
+        if rows4 > cap:
+            rows = rows4 = cap
+            groups = -(-B // rows)
+        regs = -(-H // zks) <= FWD_U_REG
+        smem = not regs and 4 * chain_floats(
+            H, upc, rows4, zks, True, False) <= MAX_SMEM_BYTES
+        n = 4 * chain_floats(H, upc, rows4, zks, smem, regs)
+        if n <= MAX_SMEM_BYTES:
+            return KernelPlan(rows, rows4, groups, zks, PROJ_ROWS // rows4,
+                              smem, n, regs)
+    raise ValueError(
+        f"lstmx fwd kernel: B={B} H={H} needs {n} bytes of shared memory "
+        f"per block (> {MAX_SMEM_BYTES})")
+
+
+def projection_sms(xplan: XPlan, ndir: int, num_sms: int) -> int:
+    """The SMs the forward's chain leaves to its projection kernel (its
+    blocks take an SM each); the two overlap when these are at least
+    ``REBUILD_MIN_SMS``."""
+    return num_sms - xplan.cluster * xplan.fwd.groups * ndir
+
+
 def plan(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
          max_clusters: int | None = None) -> XPlan:
     """The launch plan of the pair for ``ndir`` directions of B rows each,
     hidden size H and input width D, on a card with ``num_sms`` SMs that
     keeps ``max_clusters`` clusters resident at once (default: every
-    cluster of ``num_sms // cluster``). Each kernel takes the rows that
-    fit all its clusters in one wave when that leaves it a projection
-    chunk of ``MIN_ONE_WAVE_CHUNK`` steps, else the rows that spread it
-    over ``num_sms // cluster`` clusters (a second wave when the card keeps
-    fewer). Mirrors the shared-memory layouts at the top of
+    cluster of ``num_sms // cluster``). The forward takes the fewest rows
+    whose clusters all fit on the card at once and leave its projection
+    ``REBUILD_MIN_SMS`` SMs (:func:`forward_plan`). The backward takes the
+    rows that fit all its clusters in one wave when that leaves its z
+    rebuild a chunk of ``MIN_ONE_WAVE_CHUNK`` steps, else the rows that
+    spread it over ``num_sms // cluster`` clusters (a second wave when the
+    card keeps fewer). Mirrors the shared-memory layouts in
     ``csrc/lstmx_fwd.cu`` and ``csrc/lstmx_bwd.cu``. Raises ``ValueError``
     for a shape whose buffers do not fit a block."""
     if ndir not in (1, 2):
@@ -172,20 +241,8 @@ def plan(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
     if B < 1 or H < 1 or D < 1:
         raise ValueError(f"need B, H, D >= 1, got B={B}, H={H}, D={D}")
     cs, upc = cluster_units(H)
-    G, NC = 4 * H, 4 * upc
-    # the h @ U pieces depend on H alone, so the forward and the backward
-    # sum them alike whatever their rows
-    zks = max(1, min(THREADS // NC, H // MIN_SPLIT))
-
-    def fwd(per_dir):
-        rows, rows4, groups = _row_groups(B, per_dir)
-        base = 2 * H * rows4 + rows4 * NC + rows4 * upc
-        if zks > 1:
-            base += zks * rows4 * NC
-        base += 4 * D  # the staged inputs' row pad
-        c, u, n = _fit(base, D * rows4 + rows4 * NC + rows4, H * NC, "fwd",
-                       B, H, D, ndir)
-        return KernelPlan(rows, rows4, groups, zks, c, u, n)
+    G = 4 * H
+    zks = _zks(H, upc)
 
     def bwd(per_dir):
         rows, rows4, groups = _row_groups(B, per_dir)
@@ -232,7 +289,9 @@ def plan(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
                 pass
         return make(fill)
 
-    return XPlan(cs, upc, zks, pick(fwd), pick(bwd))
+    free = max(1, ((num_sms - REBUILD_MIN_SMS) // cs) // ndir)
+    return XPlan(cs, upc, zks, forward_plan(B, H, min(wave, free)),
+                 pick(bwd))
 
 
 def fits(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132) -> bool:
@@ -368,11 +427,12 @@ def lstmx_backward(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask=None, *,
 
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-# csrc/lstmx_fwd.cu::lstmx_fwd_launch: 11 tensor pointers, T, B, ND, D, H
-# and the eight plan ints, the stream; lstmx_bwd_launch: 18 pointers (the
-# last two the factor scratch and its ready counts), the five shape ints
-# and nine plan ints, the rebuild's stream and the chain's
-_FWD_ARGTYPES = [_p] * 11 + [_i] * 13 + [_p]
+# csrc/lstmx_fwd.cu::lstmx_fwd_launch: 13 pointers (the last two the zx
+# scratch and its ready counts), T, B, ND, D, H and the eight plan ints,
+# the projection's stream and the chain's; lstmx_bwd_launch: 18 pointers
+# (the last two the factor scratch and its ready counts), the five shape
+# ints and nine plan ints, the rebuild's stream and the chain's
+_FWD_ARGTYPES = [_p] * 13 + [_i] * 13 + [_p] * 2
 _BWD_ARGTYPES = [_p] * 18 + [_i] * 14 + [_p] * 2
 
 
@@ -411,15 +471,29 @@ def _launch_fwd(xs, W, b, U, h0, c0, mask, save_c, xplan):
     cT = torch.empty((BS, H), dtype=torch.float32, device=dev)
     cs = (torch.empty((T, BS, H), dtype=torch.float32, device=dev)
           if save_c else None)
+    zx = torch.empty(zx_floats(T, H, ND, pl), dtype=torch.float32,
+                     device=dev)
+    ready = torch.zeros(-(-T // kp.chunk) * ND * kp.groups,
+                        dtype=torch.int32, device=dev)
     launch = kernels.launcher("lstmx_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cur = torch.cuda.current_stream(dev)
+        # the projection beside the chain when the chain leaves it SMs (the
+        # chain's blocks wait for the chunks they need); else first
+        side = None
+        if projection_sms(pl, ND, _num_sms(dev)) >= REBUILD_MIN_SMS:
+            side = _side_stream(dev)
+            side.wait_stream(cur)
         rc = launch(
             xs.data_ptr(), W.data_ptr(), b.data_ptr(), U.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), _ptr(mask), ys.data_ptr(),
-            hT.data_ptr(), cT.data_ptr(), _ptr(cs), T, B, ND, D, H,
-            pl.cluster, pl.units, kp.rows, kp.rows4, kp.groups, pl.zks,
-            kp.chunk, int(kp.u_in_smem), stream)
+            hT.data_ptr(), cT.data_ptr(), _ptr(cs), zx.data_ptr(),
+            ready.data_ptr(), T, B, ND, D, H, pl.cluster, pl.units, kp.rows,
+            kp.rows4, kp.groups, pl.zks, kp.chunk,
+            0 if kp.u_in_regs else 1 if kp.u_in_smem else 2,
+            (side or cur).cuda_stream, cur.cuda_stream)
+        if side is not None:
+            cur.wait_stream(side)
     if rc != 0:
         raise RuntimeError(f"lstmx_fwd kernel launch failed: CUDA error {rc} "
                            f"(T={T} B={B} ND={ND} D={D} H={H}, {pl})")
@@ -427,18 +501,16 @@ def _launch_fwd(xs, W, b, U, h0, c0, mask, save_c, xplan):
     return (ys, hT, cT, cs) if save_c else (ys, hT, cT)
 
 
-# the backward's rebuild runs beside its chain only when the chain's
-# blocks leave at least this many SMs free
-REBUILD_MIN_SMS = 8
-_rebuild_streams: dict[int, torch.cuda.Stream] = {}
+_side_streams: dict[int, torch.cuda.Stream] = {}
 
 
-def _rebuild_stream(dev) -> torch.cuda.Stream:
-    """The side stream of the backward's z rebuild on card ``dev``."""
+def _side_stream(dev) -> torch.cuda.Stream:
+    """The side stream of the forward's projection and the backward's z
+    rebuild on card ``dev``."""
     key = dev.index or 0
-    s = _rebuild_streams.get(key)
+    s = _side_streams.get(key)
     if s is None:
-        s = _rebuild_streams[key] = torch.cuda.Stream(dev)
+        s = _side_streams[key] = torch.cuda.Stream(dev)
     return s
 
 
@@ -471,7 +543,7 @@ def _launch_bwd(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask, xplan):
         # blocks wait for the chunks they need); else one after the other
         side = None
         if pl.cluster * kp.groups * ND <= _num_sms(dev) - REBUILD_MIN_SMS:
-            side = _rebuild_stream(dev)
+            side = _side_stream(dev)
             side.wait_stream(cur)
         stream = cur.cuda_stream
         rc = launch(

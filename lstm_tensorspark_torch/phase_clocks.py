@@ -1,6 +1,6 @@
 """Where the recurrence kernels spend a step: phase clocks on the card.
 
-    python -m lstm_tensorspark_torch.phase_clocks [resident] [residentx] [tiled] [clusters]
+    python -m lstm_tensorspark_torch.phase_clocks [resident] [residentx] [forward] [tiled] [clusters]
 
 Builds ``csrc/lstm_fwd.cu``, ``csrc/lstmx_fwd.cu``, ``csrc/lstmx_bwd.cu``
 and the tiled pair ``csrc/lstm_tiled_fwd.cu`` / ``lstm_tiled_bwd.cu`` with
@@ -12,7 +12,10 @@ of block 0 add ``clock64()`` deltas per phase into a device array
 2's shapes (one direction unmasked, two directions masked) and the LM's at
 ``--seq-len 256``, and the tiled pair at config 5's per-chip shard (B=16,
 T=128, H=1024), and prints the SM cycles per step of each phase (the
-groups named on the command line, or all). ``clusters`` is a design
+groups named on the command line, or all). ``forward`` clocks the
+residentx forward alone as ``chip_smoke.py`` phase 7 times it: config
+2 masked with the IMDB stand-in's first batch, two directions with cs
+and one without. ``clusters`` is a design
 probe of the tiled pair's cluster size: at config 5's shard and config
 3's width (B=32, T=70, H=650) it runs each kernel in clusters of 2 and
 of 4 (the plan narrowed to one size, where that size fits), holds each
@@ -20,9 +23,9 @@ against the plain version, and prints its CUDA-event ms in turns (2, 4,
 4, 2; the instrumented build) and its phases. The
 marks sit after the barriers and waits that end each phase, so a phase's
 count includes waiting for the slowest thread (and, at an exchange, the
-slowest block). The backward has two clocks: its z rebuild's (block 0
-runs one chunk of steps, printed per step of it) and its dependent
-steps'.
+slowest block). Each residentx kernel has two clocks: its side kernel's
+(the forward's projection, the backward's z rebuild: block 0 runs one
+chunk of steps, printed per step of it) and its dependent steps'.
 Nothing here runs at import time.
 """
 
@@ -43,7 +46,8 @@ MACRO = "PHASE_CLOCKS"
 # each kernel's phases in the order of their marks (CLK_MARK(i) /
 # CLK_MARK_AT(i, thread) in the source)
 PHASES = {"lstm_fwd": ("h@U", "cell+stores", "h exchange"),
-          "lstmx_fwd": ("stage", "projection", "h@U", "cell", "cluster.sync"),
+          "lstmx_fwd": ("x@W", "zx stores", "h@U", "cell+send h",
+                        "copy zx+wait h"),
           "lstmx_bwd": ("stage x", "x@W, stage h", "h@U", "factors",
                         "gate algebra", "dz exchange", "dz@U^T"),
           "lstm_tiled_fwd": ("wait+copy h", "h@U", "cell+stores"),
@@ -51,13 +55,15 @@ PHASES = {"lstm_fwd": ("h@U", "cell+stores", "h exchange"),
                              "dz@U^T+slab")}
 # the kernels each group of the command line runs
 GROUPS = {"resident": ("lstm_fwd",), "residentx": ("lstmx_fwd", "lstmx_bwd"),
+          "forward": ("lstmx_fwd",),
           "tiled": ("lstm_tiled_fwd", "lstm_tiled_bwd"),
           "clusters": ("lstm_tiled_fwd", "lstm_tiled_bwd")}
 # the marks' streams, in mark order: (name, number of marks, what one
 # pass is); a stream's marks are kept by one thread of block 0 of one
-# kernel (lstmx_bwd.cu: its z rebuild, one block per chunk of steps, then
-# its dependent steps)
-STREAMS = {"lstmx_bwd": (("rebuild", 4, "chunk"), ("chain", 3, "step"))}
+# kernel (lstmx_fwd.cu: its projection, one block per chunk of steps, then
+# its dependent steps; lstmx_bwd.cu: its z rebuild, then its chain)
+STREAMS = {"lstmx_fwd": (("projection", 2, "chunk"), ("chain", 3, "step")),
+           "lstmx_bwd": (("rebuild", 4, "chunk"), ("chain", 3, "step"))}
 
 
 def streams(name: str) -> tuple[tuple[str, int, str], ...]:
@@ -132,8 +138,38 @@ def _case(B, T, D, H, ndir, masked, dev):
     bwd = _read("lstmx_bwd")
     plan = cx.card_plan(B, H, D, ndir, dev)
     print(f"B={B} T={T} D={D} H={H} ndir={ndir} mask={masked} {plan}")
-    _print("lstmx_fwd", fwd, T)
+    _print("lstmx_fwd", fwd, T, plan.fwd.chunk)
     _print("lstmx_bwd", bwd, T, plan.bwd.chunk)
+
+
+def _forward(dev):
+    """The residentx forward at config 2 (B=32, T=400, D=H=256), masked
+    with the lengths of the IMDB stand-in's first training batch: two
+    directions with cs, then one without (phase 7's roles)."""
+    from .data import get_dataset, padded_batches
+
+    B, T, D, H = 32, 400, 256, 256
+    seqs, labels = get_dataset("imdb", max_len=T)["train"]
+    lens = torch.as_tensor(next(padded_batches(
+        seqs, labels, B, T, shuffle_seed=0))["lengths"])
+    m = (torch.arange(T)[:, None] < lens[None, :]).float()
+    for ndir, save_c in ((2, True), (1, False)):
+        g = torch.Generator().manual_seed(7)
+        BS, G = ndir * B, 4 * H
+        xs, W, b, U = (torch.randn(T, BS, D, generator=g),
+                       torch.randn(ndir, D, G, generator=g) / D ** 0.5,
+                       torch.randn(ndir, G, generator=g) * 0.1,
+                       torch.randn(ndir, H, G, generator=g) / H ** 0.5)
+        mask = m if ndir == 1 else torch.cat([m, torch.flip(m, (0,))], 1)
+        args = [a.to(dev) for a in (xs, W, b, U, torch.zeros(BS, H),
+                                    torch.zeros(BS, H), mask)]
+        cx.lstmx_forward(*args, save_c=save_c)
+        _read("lstmx_fwd")  # the first launch's clocks are not kept
+        cx.lstmx_forward(*args, save_c=save_c)
+        plan = cx.card_plan(B, H, D, ndir, dev)
+        print(f"B={B} T={T} D={D} H={H} ndir={ndir} IMDB mask, cs={save_c} "
+              f"{plan.fwd}")
+        _print("lstmx_fwd", _read("lstmx_fwd"), T, plan.fwd.chunk)
 
 
 def _tiled(B, T, H, dev):
@@ -254,6 +290,8 @@ def main(argv=None) -> int:
             _case(32, 400, 256, 256, 1, False, dev)
             _case(32, 400, 256, 256, 2, True, dev)
             _case(64, 256, 128, 128, 1, False, dev)
+        if "forward" in groups:
+            _forward(dev)
         if "tiled" in groups:
             _tiled(16, 128, 1024, dev)
         if "clusters" in groups:

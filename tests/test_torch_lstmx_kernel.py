@@ -206,8 +206,10 @@ def test_plan_fits_the_card(B_, H_, D_, ndir):
     """Every shape gets a plan whose clusters of at most 8 blocks cover H
     without an empty block, whose row groups cover each direction's rows,
     and whose buffers fit a block's 227 KB of shared memory; at config 2
-    each block keeps its slices of U and Uᵀ in shared memory, and its
-    clusters (4 rows each) fill 128 of the 132 SMs."""
+    the backward keeps its slice of Uᵀ in shared memory in clusters of 4
+    rows that fill 128 of the 132 SMs, and the forward's chain keeps U in
+    its threads' registers in clusters of 8 rows on 64 SMs, leaving 68 to
+    its projection."""
     p = cuda_lstmx.plan(B_, H_, D_, ndir)
     assert 1 <= p.cluster <= cuda_lstmx.MAX_CLUSTER
     assert (p.cluster - 1) * p.units < H_ <= p.cluster * p.units
@@ -215,13 +217,15 @@ def test_plan_fits_the_card(B_, H_, D_, ndir):
         assert 1 <= k.rows <= k.rows4 and k.rows4 % 4 == 0
         assert (k.groups - 1) * k.rows < B_ <= k.groups * k.rows
         assert k.smem_bytes <= cuda_lstmx.MAX_SMEM_BYTES
-        assert k.chunk in cuda_lstmx.CHUNKS
+    assert p.bwd.chunk in cuda_lstmx.CHUNKS
+    assert p.fwd.chunk * p.fwd.rows4 == cuda_lstmx.PROJ_ROWS
     assert p.fwd.ksplit == p.zks
     if (B_, H_, D_, ndir) == (32, 256, 256, 2):
         assert (p.cluster, p.units) == (8, 32)
-        for k in (p.fwd, p.bwd):
-            assert (k.rows, k.groups) == (4, 8) and k.u_in_smem
-            assert p.cluster * k.groups * ndir == 128
+        assert (p.bwd.rows, p.bwd.groups) == (4, 8) and p.bwd.u_in_smem
+        assert p.cluster * p.bwd.groups * ndir == 128
+        assert (p.fwd.rows, p.fwd.groups) == (8, 4) and p.fwd.u_in_regs
+        assert cuda_lstmx.projection_sms(p, ndir, 132) == 68
 
 
 @pytest.mark.parametrize("ndir,fwd_rows,bwd_rows", [(2, 8, 8), (1, 4, 4)])
@@ -290,6 +294,78 @@ def test_backward_plan_mirrors_its_layout(B_, H_, D_, ndir):
             (4, 32, 4, 16, 8, 8) and kp.u_in_regs
     if (B_, H_, D_) == (32, 256, 256):  # config 2
         assert (kp.rows, kp.chunk, ks) == (4, 8, 8) and kp.u_in_smem
+
+
+# csrc/lstmx_fwd.cu: chain_smem_floats (the chain kernel), in floats
+def _chain_smem(H, upc, rows4, zks, where):
+    """h double-buffered (128 zero rows each when U sits in registers), the
+    pieces of h @ U, a step's zx double-buffered, c, the mask, mbarriers,
+    U's slice in shared memory, or with U in registers and 8 rows the
+    second column of each thread's pair (128 terms a piece)."""
+    ncp = -(-4 * upc // 32) * 32  # the block's columns, a warp's multiple
+    red = -(-zks * ncp * (rows4 + 1) // 4) * 4
+    pad = 128 if where == "regs" else 0
+    ub = zks * 128 * 64 if where == "regs" and rows4 == 8 else 0
+    return 4 * (2 * (H + pad) * rows4 + red + 8 * upc * rows4 + upc * rows4
+                + 2 * rows4 + 4 + (H * ncp if where == "smem" else 0) + ub)
+
+
+@pytest.mark.parametrize("B_,H_,D_,ndir,want", [
+    (32, 256, 256, 2, (8, 4, 8, "regs", 68)),
+    (32, 256, 256, 1, (4, 8, 16, "regs", 68)),
+    (64, 128, 128, 1, (4, 16, 16, "regs", 68)),
+    (8, 200, 72, 2, (4, 2, 16, "regs", 104)),
+    (8, 16, 12, 2, (4, 2, 16, "regs", 128)),
+    (3, 5, 7, 1, (3, 1, 16, "regs", 131)),
+    (512, 128, 128, 2, (8, 64, 8, "regs", -380)),
+    (32, 300, 256, 2, (8, 4, 8, "smem", 68)),
+    (64, 650, 256, 1, (8, 8, 8, "l2", 68)),
+    (32, 1024, 1024, 1, (4, 8, 16, "l2", 68))])
+def test_forward_plan_mirrors_its_layout(B_, H_, D_, ndir, want):
+    """The forward's chain: its bytes a block mirror its layout (h double-
+    buffered, the pieces of h @ U, a step's zx double-buffered, c, the
+    mask, mbarriers, and U's slice when it sits in shared memory); U sits
+    in the threads' registers when a piece of h @ U has at most 128 terms
+    (a thread a column and piece; with 8 rows a pair of columns and a row
+    quad, the second column's terms in shared memory), else in shared
+    memory when it fits, else is read through L2; a cluster takes at most
+    8 rows,
+    and on an H100 (132 SMs, 15 resident clusters of 8, 30 of 4) the
+    fewest rows whose clusters all run at once and leave the projection
+    at least 8 SMs; the projection's chunk fills its 64-row tile.
+    ``want``: rows, clusters a direction, chunk, where U lives, and the
+    SMs left to the projection (negative: the chain runs in waves and
+    the projection goes first)."""
+    cs, upc = cuda_lstmx.cluster_units(H_)
+    mc = {8: 15, 4: 30}.get(cs)
+    p = cuda_lstmx.plan(B_, H_, D_, ndir, 132, max_clusters=mc)
+    kp = p.fwd
+    where = "regs" if kp.u_in_regs else "smem" if kp.u_in_smem else "l2"
+    assert (kp.rows, kp.groups, kp.chunk, where,
+            cuda_lstmx.projection_sms(p, ndir, 132)) == want
+    assert kp.smem_bytes == _chain_smem(H_, upc, kp.rows4, p.zks, where)
+    assert kp.smem_bytes <= cuda_lstmx.MAX_SMEM_BYTES
+    assert kp.rows4 <= cuda_lstmx.FWD_MAX_ROWS
+    assert kp.chunk * kp.rows4 == cuda_lstmx.PROJ_ROWS
+    kc = -(-H_ // p.zks)  # terms of a piece
+    assert kp.u_in_regs == (kc <= cuda_lstmx.FWD_U_REG)
+    if kp.u_in_regs:  # a thread a piece of one column (4 rows) or of two
+        # (8 rows: a row quad each, 64 pairs)
+        groups = 64 if kp.rows4 == 8 else -(-4 * upc // 32) * 32
+        assert p.zks * groups <= cuda_lstmx.THREADS // (kp.rows4 // 4)
+        assert kp.rows4 == 4 or 4 * upc <= 128
+    else:
+        fits = _chain_smem(H_, upc, kp.rows4, p.zks, "smem") <= \
+            cuda_lstmx.MAX_SMEM_BYTES
+        assert kp.u_in_smem == fits
+    # the fewest rows (a multiple of 4) whose clusters all run at once and
+    # leave the projection its SMs, unless a cluster would take more than
+    # 8 rows
+    limit = min(mc or 132 // cs, (132 - 8) // cs) // ndir * ndir
+    assert kp.groups * ndir <= limit or kp.rows4 == cuda_lstmx.FWD_MAX_ROWS
+    assert kp.rows4 == 4 or -(-B_ // (kp.rows4 - 4)) * ndir > limit
+    assert cuda_lstmx.zx_floats(10, H_, ndir, p) == \
+        4 * 10 * ndir * kp.groups * H_ * kp.rows4
 
 
 def _fwd_zks(H):
