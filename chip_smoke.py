@@ -11,7 +11,9 @@ unpacked with ``git archive``), prints one line: that checkout's tiled
 pair at config 5's shard in CUDA-event ms, so two designs can be timed
 in turns on one card (parent, change, change, parent).
 ``python3 <this file> --residentx-fwd LABEL`` does the same for the
-residentx forward at config 2: two directions with cs, one without.
+residentx forward at config 2: two directions with cs, one without;
+``--resident-pair LABEL`` for the resident pair at config 1 (the forward
+with residuals, the backward from them).
 
 Phases (each one fails the run):
 
@@ -36,8 +38,13 @@ Phases (each one fails the run):
 5. hold the LSTM recurrence kernels (``csrc/lstm_fwd.cu``,
    ``csrc/lstm_bwd.cu``) against their plain PyTorch versions at config 1
    (B=64, T=64, H=128) and config 3's width (B=32, T=70, H=650), with and
-   without a mask, and at a serve prefill batch (B=3, T=5, H=128, masked),
-   from non-zero carries, the forward with and without residuals; time
+   without a mask, at a serve prefill batch (B=3, T=5, H=128, masked) and
+   at two shapes that reach the backward's other builds (B=64, T=33,
+   H=256: U^T in shared memory; B=512, T=9, H=128: more than four slots a
+   warp),
+   from non-zero carries, the forward with and without residuals, the
+   backward from the plain forward's residuals and from the kernel's own
+   (printing the plan each launched); time
    config 1 in turns (plain, kernel, kernel, plain) with CUDA events and
    under ``torch.profiler``, beside cuDNN's ``torch.nn.LSTM`` on the same
    shapes (the yardstick; the port never calls it) and the bound, each
@@ -149,6 +156,11 @@ LSTM_CONFIG3 = dict(B=32, T=70, H=650)
 # a serve prefill batch at config 1's width: 3 prompts in a length bucket
 # of 5, right-padded (the resident forward alone, no residuals)
 LSTM_PREFILL = dict(B=3, T=5, H=128)
+# the backward's other builds (csrc/lstm_bwd.cu): U^T's slice in shared
+# memory (H=256), and a warp taking more than four (unit quad, row quad)
+# slots (B=512 over the card's resident clusters of 4)
+LSTM_UT_SMEM = dict(B=64, T=33, H=256)
+LSTM_SLOTS = dict(B=512, T=9, H=128)
 # values (h, c, bounded by the gates) are held to 1e-5 absolute; the
 # pre-activations z and the gradients (dz, dh0, dc0) are sums of H or 4H
 # products, so their float32 rounding scales with their size: held to
@@ -663,8 +675,10 @@ def cudnn_yardstick(torch, forward, layer_scan, inputs, cots):
 def lstm_kernel_phase(torch, cl, device):
     print("== phase 5: LSTM recurrence kernels vs plain versions", flush=True)
     errs = {"fwd": 0.0, "bwd": 0.0}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for name, spec in (("config1", LSTM_CONFIG1), ("config3", LSTM_CONFIG3),
-                       ("prefill", LSTM_PREFILL)):
+                       ("prefill", LSTM_PREFILL), ("ut_smem", LSTM_UT_SMEM),
+                       ("slots", LSTM_SLOTS)):
         B, T, H = spec["B"], spec["T"], spec["H"]
         for masked in ((True,) if name == "prefill" else (False, True)):
             label = f"{name} B={B} T={T} H={H} mask={masked}"
@@ -682,22 +696,26 @@ def lstm_kernel_phase(torch, cl, device):
                 if not torch.equal(a, r):
                     fail(f"{label}: the forward without residuals gives "
                          f"other {n} than with them")
-            ys, hT, cT, z, cs = ref
-            c_prev = torch.cat([inputs[3][None], cs[:-1]])
-            bgot = cl.lstm_backward(z, inputs[3], cs, dys, inputs[1], dhT,
-                                    dcT, inputs[4])
-            bref = cl.lstm_backward_reference(z, c_prev, dys, inputs[1], dhT,
-                                              dcT, inputs[4])
-            torch.cuda.synchronize()
-            for n, a, r in zip(("dz", "dh0", "dc0"), bgot, bref):
-                e[n] = held(torch, n, a, r, label, scaled=True)
+            # the backward from the plain forward's residuals and from the
+            # kernel's own (what training feeds it)
+            for src, (z, cs) in (("", ref[3:]), (" (kernel z, cs)", got[3:])):
+                c_prev = torch.cat([inputs[3][None], cs[:-1]])
+                bgot = cl.lstm_backward(z, inputs[3], cs, dys, inputs[1],
+                                        dhT, dcT, inputs[4])
+                bref = cl.lstm_backward_reference(z, c_prev, dys, inputs[1],
+                                                  dhT, dcT, inputs[4])
+                torch.cuda.synchronize()
+                for n, a, r in zip(("dz", "dh0", "dc0"), bgot, bref):
+                    e[n + src] = held(torch, n, a, r, label + src,
+                                      scaled=True)
             errs["fwd"] = max(errs["fwd"], *(e[n] for n in
                                              ("ys", "hT", "cT", "z", "cs")))
-            errs["bwd"] = max(errs["bwd"], e["dz"], e["dh0"], e["dc0"])
+            errs["bwd"] = max(errs["bwd"], *(v for n, v in e.items()
+                                             if n[:2] in ("dz", "dh", "dc")))
             print(f"  {label}: max |d| " + ", ".join(
                 f"{n} {v:.2e}" for n, v in e.items()), flush=True)
-        print(f"  {name} plans: fwd {cl.plan('fwd', B, H)}; "
-              f"bwd {cl.plan('bwd', B, H)}", flush=True)
+        print(f"  {name} plans: fwd {cl.plan('fwd', B, H, sms)}; bwd "
+              f"(launched) {cl.card_plan('bwd', B, H, device)}", flush=True)
 
     # timing at config 1, the training path's shapes (forward with
     # residuals, no mask)
@@ -835,12 +853,32 @@ def train_phase(torch, cli, cl, device):
 
     # device idle share over 20 steps under torch.profiler, through the same
     # library calls the CLI makes
-    from lstm_tensorspark_torch.data import lm_batch_stream
+    prof = device_profile(torch, config1_steps(torch, device))
+    idle = None
+    if prof is None:
+        print("  20 steps under torch.profiler: no device time recorded "
+              "(idle share not measured)", flush=True)
+    else:
+        busy, wall, by_name, _ = prof
+        idle = 1 - busy / wall
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"  20 steps under torch.profiler: device busy {busy:.3f} ms "
+              f"of {wall:.3f} ms wall (idle share {idle:.3f}); top: "
+              + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top), flush=True)
+    return launches
+
+
+def config1_steps(torch, device, n=20):
+    """Config 1's training step through the library calls the CLI makes
+    (SGD 0.5, stateful, B=64, T=64, the PTB char stand-in), warmed up by 5
+    steps: returns a function that takes ``n`` more steps."""
+    from lstm_tensorspark_torch.data import get_dataset, lm_batch_stream
     from lstm_tensorspark_torch.models import lstm_lm as tlm
     from lstm_tensorspark_torch.train import (init_train_state, make_optimizer,
                                               make_train_step)
     from lstm_tensorspark_torch.train.loop import device_batches
 
+    data = get_dataset("ptb_char")
     cfg = tlm.LMConfig(vocab_size=len(data["vocab"]), hidden_size=128)
     params = tlm.params_to(tlm.init_lm(torch.Generator().manual_seed(0), cfg),
                            device)
@@ -855,26 +893,14 @@ def train_phase(torch, cli, cl, device):
         state, m = step(state, next(batches))
     holder = [state]
 
-    def twenty():
+    def steps():
         s = holder[0]
-        for _ in range(20):
+        for _ in range(n):
             s, m = step(s, next(batches))
         holder[0] = s
         return m
 
-    prof = device_profile(torch, twenty)
-    idle = None
-    if prof is None:
-        print("  20 steps under torch.profiler: no device time recorded "
-              "(idle share not measured)", flush=True)
-    else:
-        busy, wall, by_name, _ = prof
-        idle = 1 - busy / wall
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"  20 steps under torch.profiler: device busy {busy:.3f} ms "
-              f"of {wall:.3f} ms wall (idle share {idle:.3f}); top: "
-              + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top), flush=True)
-    return launches
+    return steps
 
 
 def imdb_lengths(B, T):
@@ -2158,6 +2184,49 @@ def main() -> int:
     return 0
 
 
+def resident_pair(label: str) -> int:
+    """The resident pair of the checkout in the working directory at config
+    1 (B=64, T=64, H=128, no mask): the forward with residuals and the
+    backward from them, CUDA-event ms over 100 calls each, and config 1's
+    training (steps/s, the device's busy ms a step), on one line tagged
+    ``label`` with the backward's plan."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this timing needs an NVIDIA card")
+    from lstm_tensorspark_torch import configure_precision
+    from lstm_tensorspark_torch.ops import cuda_lstm as cl
+
+    configure_precision()
+    B, T, H = LSTM_CONFIG1["B"], LSTM_CONFIG1["T"], LSTM_CONFIG1["H"]
+    inputs, (dys, dhT, dcT) = lstm_inputs(torch, B, T, H, False, seed=1,
+                                          device=torch.device("cuda", 0))
+    _, _, _, z, cs = cl.lstm_forward(*inputs, save_residuals=True)
+    fwd = time_ms(torch, lambda: cl.lstm_forward(
+        *inputs, save_residuals=True), 100)
+    bwd = time_ms(torch, lambda: cl.lstm_backward(
+        z, inputs[3], cs, dys, inputs[1], dhT, dcT), 100)
+    # config 1's training: steps/s over 300 steps (host clock, synchronised)
+    # and the device's busy ms a step over 20 under torch.profiler
+    dev = torch.device("cuda", 0)
+    run = config1_steps(torch, dev, 300)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    sps = 300 / (time.perf_counter() - t0)
+    prof = device_profile(torch, config1_steps(torch, dev))
+    busy = "not measured" if prof is None else f"{prof[0] / 20:.4f} ms"
+    idle = "" if prof is None else f", idle share {1 - prof[0] / prof[1]:.3f}"
+    print(f"resident pair of {label} ({os.getcwd()}) at B={B} T={T} H={H}: "
+          f"forward {fwd:.4f} ms, backward {bwd:.4f} ms "
+          f"({1e3 * bwd / T:.2f} us a step; {cl.plan('bwd', B, H)}); config "
+          f"1 training {sps:.1f} steps/s, device busy {busy} a step{idle}; "
+          f"{card_line()}", flush=True)
+    return 0
+
+
 def tiled_pair(label: str) -> int:
     """The tiled pair of the checkout in the working directory at config
     5's shard: the forward with residuals and the backward, CUDA-event ms
@@ -2231,7 +2300,8 @@ def residentx_fwd(label: str) -> int:
 
 
 if __name__ == "__main__":
-    for flag, fn in (("--tiled-pair", tiled_pair),
+    for flag, fn in (("--resident-pair", resident_pair),
+                     ("--tiled-pair", tiled_pair),
                      ("--residentx-fwd", residentx_fwd)):
         if sys.argv[1:2] == [flag] and len(sys.argv) == 3:
             sys.exit(fn(sys.argv[2]))

@@ -1,10 +1,10 @@
-// Pieces shared by the cluster recurrence kernels (lstm_fwd.cu, lstmx_fwd.cu,
-// lstmx_bwd.cu, lstm_tiled_fwd.cu, lstm_tiled_bwd.cu), for Hopper (sm_90a):
-// the gate sigmoid, the phase clocks, the mbarriers that signal a step's
-// slices pushed into a block's shared memory by the other blocks of its
-// cluster (by remote arrivals, or by the bytes st.async stores count), the
-// counters in global memory that hand work from one block (or kernel) to
-// another, and cp.async copies.
+// Pieces shared by the cluster recurrence kernels (lstm_fwd.cu, lstm_bwd.cu,
+// lstmx_fwd.cu, lstmx_bwd.cu, lstm_tiled_fwd.cu, lstm_tiled_bwd.cu), for
+// Hopper (sm_90a): the gate sigmoid, the phase clocks, the mbarriers that
+// signal a step's slices pushed into a block's shared memory by the other
+// blocks of its cluster (by remote arrivals, or by the bytes st.async stores
+// count), the counters in global memory that hand work from one block (or
+// kernel) to another, and cp.async copies.
 
 #pragma once
 
@@ -16,14 +16,16 @@
 // lstm_tensorspark_torch.phase_clocks), thread `thread` of block 0 adds the
 // SM cycles since its previous mark to g_clk[i] at CLK_MARK_AT(i, thread)
 // (CLK_MARK(i): thread 0), and kernel_phase_clocks copies the sums out and
-// clears them. Without the flag the marks are nothing.
+// clears them. The add is a reduction nothing waits for (a read-modify-write
+// would stall the marking thread on its load inside the next phase).
+// Without the flag the marks are nothing.
 #ifdef PHASE_CLOCKS
 __device__ unsigned long long g_clk[16];
 #define CLK_START unsigned long long _clk_last = clock64();
 #define CLK_MARK_AT(i, thread)                       \
   if (threadIdx.x == (thread) && blockIdx.x == 0) {  \
     const unsigned long long _clk_now = clock64();   \
-    g_clk[i] += _clk_now - _clk_last;                \
+    atomicAdd(&g_clk[i], _clk_now - _clk_last);      \
     _clk_last = _clk_now;                            \
   }
 extern "C" int kernel_phase_clocks(unsigned long long* host) {
@@ -66,13 +68,20 @@ __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
+// the shared::cluster address of `addr` (this block's shared memory) in
+// block `rank` of the cluster
+__device__ __forceinline__ uint32_t mapa_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
 // one arrival on the mbarrier at the same place in block `rank`'s shared
 // memory
 __device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(remote)
-               : "r"(smem_addr(bar)), "r"(rank));
+  const uint32_t remote = mapa_addr(smem_addr(bar), rank);
   asm volatile(
       "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
           remote)
@@ -144,6 +153,28 @@ __device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
   } while (!done);
 }
 
+// mbar_wait_bounded with the acquire at CTA scope, for data that lands in
+// this block's shared memory by bytes the mbarrier counts (st.async) when
+// nothing after the wait reads global memory another block wrote: the
+// cluster scope costs an L1 invalidation a warp and wait
+__device__ __forceinline__ void mbar_wait_cta_bounded(uint64_t* bar,
+                                                      uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cta.shared::cta.b64 p, [%1], "
+        "%2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1LL << 32)) __trap();
+  } while (!done);
+}
+
 // The next phase of the local mbarrier `bar` expects `bytes` of bulk copies
 // or st.async stores (this thread's arrival: the barrier counts one a phase)
 __device__ __forceinline__ void bulk_expect(uint64_t* bar, uint32_t bytes) {
@@ -154,24 +185,25 @@ __device__ __forceinline__ void bulk_expect(uint64_t* bar, uint32_t bytes) {
       : "memory");
 }
 
-// Four floats to `dst`'s offset in the shared memory of block `rank` of the
-// cluster (this block's own rank too), counted as 16 bytes on the mbarrier
-// at `bar`'s offset there (st.async: the receiver waits on its mbarrier, no
-// arrival or barrier needed)
-__device__ __forceinline__ void st_async_v4(float* dst, float4 v,
-                                            uint64_t* bar, int rank) {
-  uint32_t d, b;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(d)
-               : "r"(smem_addr(dst)), "r"(rank));
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(b)
-               : "r"(smem_addr(bar)), "r"(rank));
+// Four floats to the shared::cluster address `dst`, counted as 16 bytes on
+// the mbarrier at the shared::cluster address `bar` of the same block
+// (st.async: the receiver waits on its mbarrier, no arrival or barrier
+// needed)
+__device__ __forceinline__ void st_async_v4_at(uint32_t dst, float4 v,
+                                               uint32_t bar) {
   asm volatile(
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];" ::"r"(d),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(b)
+      "{%1, %2, %3, %4}, [%5];" ::"r"(dst),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
       : "memory");
+}
+
+// st_async_v4_at to `dst`'s and `bar`'s offsets in the shared memory of
+// block `rank` of the cluster (this block's own rank too)
+__device__ __forceinline__ void st_async_v4(float* dst, float4 v,
+                                            uint64_t* bar, int rank) {
+  st_async_v4_at(mapa_addr(smem_addr(dst), rank), v,
+                 mapa_addr(smem_addr(bar), rank));
 }
 
 // 16 bytes global -> shared through L2 (cp.async.cg: L1 is not coherent

@@ -26,6 +26,11 @@ Counterpart of ``lstm_tensorspark_tpu/ops/pallas_lstm.py`` on its
   signature (mask and reverse; reverse is a flip outside the Function).
 - :data:`fwd_counts` / :data:`bwd_counts` count kernel launches and plain
   runs, so a run can show its recurrence went through the kernels.
+- :func:`plan` cuts a call (testable on the CPU); :func:`card_plan` hands
+  it a card's SMs and, for the backward, the card's resident clusters.
+- :func:`lstm_backward_factored` is the plain backward in the kernel's
+  order of the algebra (the tests hold it against the plain version and
+  the JAX pair).
 
 Layouts are time-major inside (``[T, B, ·]``), float32, gate order i, f, g,
 o. The mask here is float32 ``[T, B]`` (1 = step, 0 = frozen carry).
@@ -55,10 +60,12 @@ class Plan(NamedTuple):
     """How a kernel call is cut: clusters of ``cluster`` blocks, each block
     owning ``units`` hidden units, each cluster ``rows`` batch rows
     (``rows4`` rounded up to 4), the product's sum split ``ksplit`` ways
-    (the forward: the lanes that share a unit's sum), ``smem_w`` whether
-    the block's slice of U sits in shared memory and ``u_regs`` whether the
-    forward's lanes keep their slices of U in registers (neither: read
-    through L2). ``smem_bytes`` is what one block asks for."""
+    (the lanes that share a sum: the forward's a unit's, the backward's a
+    warp's, over a unit quad), ``smem_w`` whether the block's slice of U
+    (the backward: of Uᵀ) sits in shared memory and ``u_regs`` whether the
+    lanes keep their slices in registers (neither: read through L2).
+    ``smem_bytes`` is what one block asks for; ``slots`` the (unit quad,
+    row quad) slots a warp of the backward takes."""
 
     cluster: int
     units: int
@@ -68,10 +75,16 @@ class Plan(NamedTuple):
     smem_w: bool
     smem_bytes: int
     u_regs: bool = False
+    slots: int = 1
 
 
 # rows of U a forward lane keeps in registers (csrc/lstm_fwd.cu KREG)
 KREG = 16
+# csrc/lstm_bwd.cu: its warps; the terms of each of a unit quad's four
+# units a lane keeps in registers; the most slots a warp takes
+WARPS = THREADS // 32
+UT_TERMS = 16
+MAX_SLOTS = 8
 
 
 def _lanes(items: int, cap: int) -> int:
@@ -102,11 +115,72 @@ def _fwd_plan(B: int, H: int, cs: int, upc: int, clusters: int) -> Plan:
                 4 * (base + (w if smem_w else 0)), u_regs)
 
 
-def plan(kind: str, B: int, H: int, num_sms: int = 132) -> Plan:
+def bwd_slots(units: int, rows4: int) -> int:
+    """The (unit quad, row quad) slots a warp of the backward takes
+    (``csrc/lstm_bwd.cu``): eight warps over the block's unit quads, the
+    warps of a quad (when it has more than one) dealing out the row
+    quads."""
+    uq = -(-units // 4)
+    per_quad = max(1, WARPS // uq)
+    return -(-uq // WARPS) * -(-(rows4 // 4) // per_quad)
+
+
+def _bwd_smem(H: int, units: int, rows4: int, where: str) -> int:
+    """Bytes of the backward's layout (``csrc/lstm_bwd.cu``
+    bwd_smem_floats): dz double-buffered over 4H columns padded to the
+    lanes' terms, two mbarriers, and Uᵀ's slice when it sits in shared
+    memory."""
+    G = 4 * H
+    gp = 32 * UT_TERMS if where == "regs" else -(-G // 128) * 128
+    n = 2 * rows4 * gp + 4
+    if where == "smem":
+        n += -(-units // 4) * gp * 4
+    return 4 * n
+
+
+def _bwd_plan(B: int, H: int, cs: int, upc: int, clusters: int) -> Plan:
+    """The backward's plan (csrc/lstm_bwd.cu): a warp a unit quad and row
+    quad, Uᵀ's slice in the lanes' registers when a lane's 16 terms of four
+    units cover 4H and a warp's slots share one unit quad (at most four of
+    them), else in shared memory when it fits, else read through L2. The
+    rows are cut down when a warp would take more than ``MAX_SLOTS``
+    slots; a shape whose dz buffers then do not fit a block raises."""
+    rows = -(-B // clusters)
+    rows = min(B, -(-rows // 4) * 4)
+    rows4 = -(-rows // 4) * 4
+    uq = -(-upc // 4)
+    nuq = -(-uq // WARPS)
+    per_quad = max(1, WARPS // uq)
+    rq = min(rows4 // 4, (MAX_SLOTS // nuq) * per_quad)
+    need = _bwd_smem(H, upc, 4 * max(rq, 1), "l2")
+    if rq < 1 or need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"lstm bwd kernel: B={B} H={H} needs {need} bytes of shared "
+            f"memory per block (> {MAX_SMEM_BYTES}) or more than "
+            f"{MAX_SLOTS} slots a warp")
+    if 4 * rq < rows4:
+        rows = rows4 = 4 * rq
+    slots = bwd_slots(upc, rows4)
+    where = "l2"
+    if (nuq == 1 and 4 * H <= 32 * UT_TERMS and slots <= 4
+            and _bwd_smem(H, upc, rows4, "regs") <= MAX_SMEM_BYTES):
+        where = "regs"
+    elif _bwd_smem(H, upc, rows4, "smem") <= MAX_SMEM_BYTES:
+        where = "smem"
+    return Plan(cs, upc, rows, rows4, 32, where == "smem",
+                _bwd_smem(H, upc, rows4, where), where == "regs", slots)
+
+
+def plan(kind: str, B: int, H: int, num_sms: int = 132,
+         max_clusters: int | None = None) -> Plan:
     """The launch plan of the ``"fwd"`` or ``"bwd"`` kernel for B rows of
-    width H on a card with ``num_sms`` SMs. Mirrors the shared-memory
-    layouts at the top of ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu``.
-    Raises ``ValueError`` for a shape whose buffers do not fit a block."""
+    width H on a card with ``num_sms`` SMs; the backward's rows spread over
+    at most ``max_clusters`` clusters (the card's resident clusters,
+    :func:`card_plan`) when their buffers fit, else over every cluster the
+    SMs hold (a second wave). Mirrors the
+    shared-memory layouts at the top of ``csrc/lstm_fwd.cu`` /
+    ``csrc/lstm_bwd.cu``. Raises ``ValueError`` for a shape whose buffers
+    do not fit a block."""
     if kind not in ("fwd", "bwd"):
         raise ValueError(f"kind must be 'fwd' or 'bwd', got {kind!r}")
     if B < 1 or H < 1:
@@ -117,24 +191,25 @@ def plan(kind: str, B: int, H: int, num_sms: int = 132) -> Plan:
     clusters = max(1, num_sms // cs)
     if kind == "fwd":
         return _fwd_plan(B, H, cs, upc, clusters)
-    rows = -(-B // clusters)
-    rows = min(B, -(-rows // 4) * 4)
-    rows4 = -(-rows // 4) * 4
-    G = 4 * H
-    K, ncols = G, upc
-    base = 2 * G * rows4 + 3 * rows4 * upc
-    w = G * upc
-    items = ncols * (rows4 // 4)
-    ks = max(1, min(THREADS // items, K // MIN_SPLIT))
-    if ks > 1:
-        base += ks * rows4 * ncols
-    if 4 * base > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"lstm bwd kernel: B={B} H={H} needs {4 * base} bytes of "
-            f"shared memory per block (> {MAX_SMEM_BYTES})")
-    smem_w = 4 * (base + w) <= MAX_SMEM_BYTES
-    return Plan(cs, upc, rows, rows4, ks, smem_w,
-                4 * (base + (w if smem_w else 0)))
+    if max_clusters is not None and max_clusters < clusters:
+        try:  # rows for the resident clusters, when their buffers fit
+            return _bwd_plan(B, H, cs, upc, max(1, max_clusters))
+        except ValueError:
+            pass
+    return _bwd_plan(B, H, cs, upc, clusters)
+
+
+def card_plan(kind: str, B: int, H: int, dev) -> Plan:
+    """:func:`plan` for the card ``dev``: its SM count and, for the
+    backward, the clusters it keeps resident at once (asked of the CUDA
+    runtime once per card and cluster size)."""
+    from .cuda_lstmx import max_clusters
+
+    sms = _num_sms(dev)
+    if kind == "fwd":
+        return plan(kind, B, H, sms)
+    cs = plan(kind, B, H, sms).cluster
+    return plan(kind, B, H, sms, max_clusters(dev, cs))
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +282,35 @@ def lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask=None):
     return torch.stack(dzs), dh, dc
 
 
+def lstm_backward_factored(z, c_prev, dys, U, dhT, dcT, mask=None):
+    """:func:`lstm_backward_reference` in ``csrc/lstm_bwd.cu``'s order: the
+    algebra's factors of every step first (they depend on the residuals
+    alone), then the reverse walk with one multiply a term (no mask: m =
+    1). The kernel sums dz @ Uᵀ in another order still; this twin pins the
+    re-association of the algebra."""
+    i, f, g, o = _gates(z)
+    tc = torch.tanh(f * c_prev + i * g)
+    A = o * (1.0 - tc * tc)
+    Bo = tc * o * (1.0 - o)
+    Ci = g * i * (1.0 - i)
+    Cf = c_prev * f * (1.0 - f)
+    Cg = i * (1.0 - g * g)
+    ms = torch.ones_like(dys[..., :1]) if mask is None else mask[..., None]
+    dh, dc = dhT, dcT
+    dzs = [None] * z.shape[0]
+    for t in range(z.shape[0] - 1, -1, -1):
+        m = ms[t]
+        dh_tot = dh + dys[t]
+        dh_eff = m * dh_tot
+        dc_new = m * dc + dh_eff * A[t]
+        dz = torch.cat([dc_new * Ci[t], dc_new * Cf[t], dc_new * Cg[t],
+                        dh_eff * Bo[t]], dim=-1)
+        dzs[t] = dz
+        dh = dz @ U.T + (1.0 - m) * dh_tot
+        dc = dc_new * f[t] + (1.0 - m) * dc
+    return torch.stack(dzs), dh, dc
+
+
 # ---------------------------------------------------------------------------
 # dispatch and the kernel launches
 # ---------------------------------------------------------------------------
@@ -242,7 +346,8 @@ def lstm_backward(z, c0, cs, dys, U, dhT, dcT, mask=None):
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # csrc/lstm_fwd.cu::lstm_fwd_launch: 10 tensor pointers, T, B, H and the six
-# plan ints, the stream; lstm_bwd_launch the same with 11 pointers
+# plan ints, the stream; csrc/lstm_bwd.cu::lstm_bwd_launch the same with 11
+# pointers
 _FWD_ARGTYPES = [_p] * 10 + [_i] * 9 + [_p]
 _BWD_ARGTYPES = [_p] * 11 + [_i] * 9 + [_p]
 
@@ -312,8 +417,7 @@ def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
     kernels.check_f32("dhT", dhT, (B, H), dev)
     kernels.check_f32("dcT", dcT, (B, H), dev)
     _check_mask(mask, T, B, dev)
-    pl = plan("bwd", B, H, _num_sms(dev))
-    ut = U.T.contiguous()  # [4H, H]: the block's U rows as contiguous columns
+    pl = card_plan("bwd", B, H, dev)
     dz = torch.empty((T, B, G), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -322,10 +426,10 @@ def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
             z.data_ptr(), dys.data_ptr(), cs.data_ptr(), c0.data_ptr(),
-            _ptr(mask), ut.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+            _ptr(mask), U.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
             dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), T, B, H,
-            pl.cluster, pl.units, pl.rows, pl.rows4, pl.ksplit,
-            int(pl.smem_w), stream)
+            pl.cluster, pl.units, pl.rows, pl.rows4, pl.slots,
+            0 if pl.u_regs else 1 if pl.smem_w else 2, stream)
     if rc != 0:
         raise RuntimeError(f"lstm_bwd kernel launch failed: CUDA error {rc} "
                            f"(T={T} B={B} H={H}, {pl})")

@@ -2,30 +2,32 @@
 
     python -m lstm_tensorspark_torch.phase_clocks [resident] [residentx] [forward] [tiled] [clusters]
 
-Builds ``csrc/lstm_fwd.cu``, ``csrc/lstmx_fwd.cu``, ``csrc/lstmx_bwd.cu``
-and the tiled pair ``csrc/lstm_tiled_fwd.cu`` / ``lstm_tiled_bwd.cu`` with
+Builds the resident pair ``csrc/lstm_fwd.cu`` / ``lstm_bwd.cu``, the
+residentx pair ``csrc/lstmx_fwd.cu`` / ``lstmx_bwd.cu`` and the tiled
+pair ``csrc/lstm_tiled_fwd.cu`` / ``lstm_tiled_bwd.cu`` with
 ``-DPHASE_CLOCKS`` (libraries of their own beside the plain ones): the
 ``CLK_MARK`` / ``CLK_MARK_AT`` points in the sources then make one thread
 of block 0 add ``clock64()`` deltas per phase into a device array
-(``csrc/cluster_common.cuh``). Runs the resident forward at config 1
-(B=64, T=64, H=128), and the residentx pair through its wrappers at config
-2's shapes (one direction unmasked, two directions masked) and the LM's at
-``--seq-len 256``, and the tiled pair at config 5's per-chip shard (B=16,
-T=128, H=1024), and prints the SM cycles per step of each phase (the
-groups named on the command line, or all). ``forward`` clocks the
-residentx forward alone as ``chip_smoke.py`` phase 7 times it: config
-2 masked with the IMDB stand-in's first batch, two directions with cs
-and one without. ``clusters`` is a design
-probe of the tiled pair's cluster size: at config 5's shard and config
-3's width (B=32, T=70, H=650) it runs each kernel in clusters of 2 and
-of 4 (the plan narrowed to one size, where that size fits), holds each
-against the plain version, and prints its CUDA-event ms in turns (2, 4,
-4, 2; the instrumented build) and its phases. The
-marks sit after the barriers and waits that end each phase, so a phase's
-count includes waiting for the slowest thread (and, at an exchange, the
-slowest block). Each residentx kernel has two clocks: its side kernel's
-(the forward's projection, the backward's z rebuild: block 0 runs one
-chunk of steps, printed per step of it) and its dependent steps'.
+(``csrc/cluster_common.cuh``). Runs the resident pair at config 1 (B=64,
+T=64, H=128; the backward from the forward's residuals), the residentx
+pair through its wrappers at config 2's shapes (one direction unmasked,
+two directions masked) and the LM's at ``--seq-len 256``, and the tiled
+pair at config 5's per-chip shard (B=16, T=128, H=1024), and prints
+the SM cycles per step of each phase (the groups named on the command
+line, or all). ``forward`` clocks the residentx forward alone as
+``chip_smoke.py`` phase 7 times it: config 2 masked with the IMDB
+stand-in's first batch, two directions with cs and one without.
+``clusters`` is a design probe of the tiled pair's cluster size: at
+config 5's shard and config 3's width (B=32, T=70, H=650) it runs each
+kernel in clusters of 2 and of 4 (the plan narrowed to one size, where
+that size fits), holds each against the plain version, and prints its
+CUDA-event ms in turns (2, 4, 4, 2; the instrumented build) and its
+phases. The marks sit after the barriers and waits that end each phase,
+so a phase's count includes waiting for the slowest thread (and, at an
+exchange, the slowest block). Each residentx kernel has two clocks: its
+side kernel's (the forward's projection, the backward's z rebuild: block
+0 runs one chunk of steps, printed per step of it) and its dependent
+steps'.
 Nothing here runs at import time.
 """
 
@@ -46,6 +48,8 @@ MACRO = "PHASE_CLOCKS"
 # each kernel's phases in the order of their marks (CLK_MARK(i) /
 # CLK_MARK_AT(i, thread) in the source)
 PHASES = {"lstm_fwd": ("h@U", "cell+stores", "h exchange"),
+          "lstm_bwd": ("gate algebra+send dz", "factors+prefetch",
+                       "dz wait", "dz@U^T+fold"),
           "lstmx_fwd": ("x@W", "zx stores", "h@U", "cell+send h",
                         "copy zx+wait h"),
           "lstmx_bwd": ("stage x", "x@W, stage h", "h@U", "factors",
@@ -54,7 +58,7 @@ PHASES = {"lstm_fwd": ("h@U", "cell+stores", "h exchange"),
           "lstm_tiled_bwd": ("wait", "gather dh", "gate algebra+dz exchange",
                              "dz@U^T+slab")}
 # the kernels each group of the command line runs
-GROUPS = {"resident": ("lstm_fwd",), "residentx": ("lstmx_fwd", "lstmx_bwd"),
+GROUPS = {"resident": ("lstm_fwd", "lstm_bwd"), "residentx": ("lstmx_fwd", "lstmx_bwd"),
           "forward": ("lstmx_fwd",),
           "tiled": ("lstm_tiled_fwd", "lstm_tiled_bwd"),
           "clusters": ("lstm_tiled_fwd", "lstm_tiled_bwd")}
@@ -104,11 +108,21 @@ def _resident(B, T, H, dev):
     xproj = torch.randn(T, B, 4 * H, generator=g).to(dev)
     U = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev)
     h0 = torch.zeros(B, H, device=dev)
-    cl.lstm_forward(xproj, U, h0, h0, save_residuals=True)
+    dys = torch.randn(T, B, H, generator=g).to(dev)
+    _, _, _, z, cs = cl.lstm_forward(xproj, U, h0, h0, save_residuals=True)
     _read("lstm_fwd")  # the first launch's clocks are not kept
     cl.lstm_forward(xproj, U, h0, h0, save_residuals=True)
-    print(f"B={B} T={T} H={H} {cl.plan('fwd', B, H, cl._num_sms(dev))}")
-    _print("lstm_fwd", _read("lstm_fwd"), T)
+    fwd = _read("lstm_fwd")
+    args = (z, h0, cs, dys, U, h0, h0)
+    cl.lstm_backward(*args)
+    _read("lstm_bwd")
+    cl.lstm_backward(*args)
+    bwd = _read("lstm_bwd")
+    sms = cl._num_sms(dev)
+    print(f"B={B} T={T} H={H} fwd {cl.plan('fwd', B, H, sms)} bwd "
+          f"{cl.card_plan('bwd', B, H, dev)}")
+    _print("lstm_fwd", fwd, T)
+    _print("lstm_bwd", bwd, T)
 
 
 def _case(B, T, D, H, ndir, masked, dev):

@@ -71,7 +71,8 @@ def _jax(jp, xs, h0, c0, mask, w, reverse):
     return outs, grads
 
 
-def _port(jp, xs, h0, c0, mask, w, reverse):
+def _port(jp, xs, h0, c0, mask, w, reverse,
+          recurrence=cuda_lstm.lstm_recurrence):
     tp = tcell.LSTMParams(*(_t(getattr(jp, f)).requires_grad_()
                             for f in tcell.LSTMParams._fields))
     x = _t(xs).requires_grad_()
@@ -80,7 +81,8 @@ def _port(jp, xs, h0, c0, mask, w, reverse):
         carry = (_t(h0).requires_grad_(), _t(c0).requires_grad_())
     m = None if mask is None else torch.from_numpy(mask)
     (hT, cT), ys = cuda_lstm.cuda_lstm_scan(tp, x, carry, mask=m,
-                                            reverse=reverse)
+                                            reverse=reverse,
+                                            recurrence=recurrence)
     wy, wh, wc = (_t(a) for a in w)
     loss = (ys * wy).sum() + (hT * wh).sum() + (cT * wc).sum()
     inputs = [*tp, x] + ([] if carry is None else list(carry))
@@ -197,11 +199,11 @@ def test_launch_plan_fits_the_card(B, H):
         assert 1 <= p.rows <= p.rows4 and p.rows4 % 4 == 0
         assert -(-B // p.rows) * p.rows >= B
         assert p.smem_bytes <= cuda_lstm.MAX_SMEM_BYTES
-    # config 1: the forward's lanes keep their slices of U in registers,
-    # the backward's blocks keep theirs in shared memory
+    # config 1: the forward's and the backward's lanes keep their slices of
+    # U (of Uᵀ) in registers
     if (B, H) == (64, 128):
         assert cuda_lstm.plan("fwd", B, H).u_regs
-        assert cuda_lstm.plan("bwd", B, H).smem_w
+        assert cuda_lstm.plan("bwd", B, H).u_regs
 
 
 # csrc/lstm_fwd.cu: fwd_smem_floats, in floats
@@ -234,6 +236,126 @@ def test_forward_plan_lanes_and_where_u_lives(B, H, where):
 def test_launch_plan_refuses_what_does_not_fit():
     with pytest.raises(ValueError, match="shared memory"):
         cuda_lstm.plan("bwd", 64, 4096)
+
+
+# the clusters an H100 keeps resident at one block an SM
+# (cudaOccupancyMaxActiveClusters on the card: PERF.md)
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+
+
+# csrc/lstm_bwd.cu: bwd_smem_floats, in bytes (4H padded to the lanes' 16
+# terms in registers, else to 128 columns)
+def _bwd_smem(H, upc, rows4, where):
+    gp = 32 * 16 if where == "regs" else -(-4 * H // 128) * 128
+    ut = -(-upc // 4) * gp * 4 if where == "smem" else 0
+    return 4 * (2 * rows4 * gp + ut + 4)
+
+
+@pytest.mark.parametrize("B,H,where", [
+    (64, 128, "regs"), (32, 650, "l2"), (64, 1024, "l2"), (8, 16, "regs"),
+    (3, 5, "regs"), (3, 128, "regs"), (64, 256, "smem"), (512, 128, "smem"),
+    (16, 40, "regs")])
+def test_backward_plan_slots_and_where_ut_lives(B, H, where):
+    """The backward's plan on an H100: a warp sums a (unit quad, row quad)
+    slot over 32 lanes, and the warps' slots cover every quad pair; Uᵀ's
+    slice sits in the lanes' registers exactly when a lane's 16 terms of
+    four units cover 4H and a warp's slots share one unit quad (at most
+    four), else in shared memory when it fits, else it is read through L2;
+    the bytes asked for mirror the kernel's layout and fit 227 KB; the
+    clusters fit the card's resident clusters unless four rows are the
+    most whose dz buffers fit a block."""
+    cs = cuda_lstm.plan("bwd", B, H).cluster
+    p = cuda_lstm.plan("bwd", B, H, max_clusters=H100_CLUSTERS[cs])
+    assert p.cluster == cs and p.ksplit == 32
+    uq, rq = -(-p.units // 4), p.rows4 // 4
+    assert p.slots == cuda_lstm.bwd_slots(p.units, p.rows4)
+    assert 1 <= p.slots <= cuda_lstm.MAX_SLOTS
+    warps = min(cuda_lstm.WARPS, uq * max(1, cuda_lstm.WARPS // uq))
+    assert warps * p.slots >= uq * rq
+    got = "regs" if p.u_regs else "smem" if p.smem_w else "l2"
+    assert got == where
+    assert p.u_regs == (uq <= cuda_lstm.WARPS and 4 * H <= 32 * 16
+                        and p.slots <= 4)
+    assert p.smem_bytes == _bwd_smem(H, p.units, p.rows4, got)
+    assert p.smem_bytes <= cuda_lstm.MAX_SMEM_BYTES
+    assert -(-B // p.rows) <= H100_CLUSTERS[cs] or (
+        p.rows4 == 4 and _bwd_smem(H, p.units, 8, "l2")
+        > cuda_lstm.MAX_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("B,H", [(64, 4096), (1, 1900), (512, 2048)])
+def test_backward_plan_refuses_what_does_not_fit(B, H):
+    """A width whose dz buffers of four rows exceed a block's shared memory
+    raises, whatever the batch."""
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_lstm.plan("bwd", B, H)
+
+
+class _FactoredRecurrence(torch.autograd.Function):
+    """The resident Function with ``lstm_backward_factored`` (the kernel's
+    order of the algebra) in place of the plain backward."""
+
+    @staticmethod
+    def forward(ctx, xproj, U, h0, c0, mask):
+        return cuda_lstm.recurrence_forward(ctx, cuda_lstm.lstm_forward,
+                                            xproj, U, h0, c0, mask)
+
+    @staticmethod
+    def backward(ctx, dys, dhT, dcT):
+        def factored(z, c0, cs, dys, U, dhT, dcT, mask):
+            c_prev = torch.cat([c0[None], cs[:-1]])
+            return cuda_lstm.lstm_backward_factored(z, c_prev, dys, U, dhT,
+                                                    dcT, mask)
+
+        return cuda_lstm.recurrence_backward(ctx, factored, dys, dhT, dcT)
+
+
+def _factored(xproj, U, h0, c0, mask=None):
+    return cuda_lstm.run_recurrence(_FactoredRecurrence,
+                                    cuda_lstm.lstm_forward, xproj, U, h0, c0,
+                                    mask)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_factored_matches_pallas_kernels(masked, reverse):
+    """The kernel's order of the algebra (factors first, one multiply a
+    term) through the Function against the JAX pair in interpret mode."""
+    args = _inputs(16, 9, masked, True)
+    touts, tgrads = _port(*args, reverse, recurrence=_factored)
+    jouts, jgrads = _jax(*args, reverse)
+    expect = [getattr(jgrads[0], f) for f in tcell.LSTMParams._fields]
+    expect += [jgrads[1], *jgrads[2]]
+    names = list(tcell.LSTMParams._fields) + ["xs", "h0", "c0"]
+    for name, a, b in zip(names, tgrads, expect):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("H", [5, 40])
+def test_backward_factored_matches_reference(masked, H):
+    """``lstm_backward_factored`` against ``lstm_backward_reference`` on
+    the same residuals: dz, dh0, dc0 within 1e-5 of max(1, their size)
+    (chip_smoke.py's tolerance for the kernel)."""
+    rng = np.random.RandomState(13 + H)
+    xproj = _t(rng.randn(T, B, 4 * H))
+    U = _t(rng.randn(H, 4 * H) / np.sqrt(H))
+    h0, c0 = _t(rng.randn(B, H) * 0.5), _t(rng.randn(B, H) * 0.5)
+    mask = None
+    if masked:
+        lens = np.array([8, 3, 5, 1, 8, 6, 2, 7])
+        mask = _t(np.arange(T)[:, None] < lens[None, :])
+    _, _, _, z, cs = cuda_lstm.lstm_forward_reference(
+        xproj, U, h0, c0, mask, save_residuals=True)
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    dys = _t(rng.randn(T, B, H))
+    dhT, dcT = _t(rng.randn(B, H)), _t(rng.randn(B, H))
+    ref = cuda_lstm.lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask)
+    got = cuda_lstm.lstm_backward_factored(z, c_prev, dys, U, dhT, dcT, mask)
+    for name, a, r in zip(("dz", "dh0", "dc0"), got, ref):
+        tol = 1e-5 * max(1.0, float(r.abs().max()))
+        assert float((a - r).abs().max()) <= tol, name
 
 
 def test_dispatch_routes_cpu_to_plain_scan():
