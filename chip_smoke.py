@@ -146,9 +146,24 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32, outside the tensor cores
 CONFIG1 = dict(vocab=50, hidden=128, layers=1)
 CONFIG3 = dict(vocab=33278, hidden=650, layers=2)
-# config 5's width (4 x 1024) with a small head: its 53 KB of shared memory
-# takes the kernel's opt-in path above the 48 KB default
+# config 5's width (4 x 1024) with a small head: a grid launch whose layers
+# stream through L2 while the head's slices stay on chip
 CONFIG5_GATES = dict(vocab=1000, hidden=1024, layers=4)
+# a wide model with config 1's vocabulary at B=1: more blocks (one an SM)
+# than head columns, so most blocks own none
+WIDE_NARROW_HEAD = dict(vocab=50, hidden=1024, layers=2)
+# a mid-size model: a grid launch whose layer slices stay in shared memory
+# (the head's slices stream); its draft (H=128) likewise
+MID_LAYERS_ON_CHIP = dict(vocab=10000, hidden=512, layers=2)
+# a tiny model at a batch of thousands of rows: the rows' latches go to
+# global scratch, a copy a block (decode B=14,000; spec B=6,000, k_draft=2)
+MANY_ROWS = dict(vocab=50, hidden=8, layers=1)
+# what the plan of those two must be, else the case drives another path
+PLAN_WANTED = {
+    "mid-layers-on-chip": ("a grid with the layer slices in shared memory",
+                           lambda p: not p.cluster and p.layers_smem),
+    "many-rows": ("the rows' latches in global scratch",
+                  lambda p: not p.cluster and not p.rows_smem)}
 # the recurrence kernels' shapes: config 1's training window, and config 3's
 # width (a hidden size that is no multiple of a block's share)
 LSTM_CONFIG1 = dict(B=64, T=64, H=128)
@@ -358,6 +373,48 @@ def bound(cfg, B, K, row_steps, sampled):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def step_floor_ms(nbytes):
+    """The per-step floor: weight bytes that the plan cannot keep on chip,
+    read once per step, over HBM bandwidth."""
+    return 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def tie_weights(torch, cd, weights, pairs, boost):
+    """``weights`` with head column j made a copy of column i (weights and
+    bias, plus ``boost`` on both biases) for each (i, j) in ``pairs``: the
+    two logits are then equal however the sums are ordered, so the argmax
+    must keep the lower index, whichever block or lane holds each."""
+    hw = weights.head_kernel.clone()
+    hb = weights.head_bias.clone()
+    for i, j in pairs:
+        hb[i] += boost
+        hw[:, j] = hw[:, i]
+        hb[j] = hb[i]
+    return cd.DecodeWeights(weights.embedding, weights.layers, hw, hb)
+
+
+def tie_cases(cd, cfg, B, K, device):
+    """Head-column ties for the plan this shape takes: across two blocks'
+    slices (the last column of block 0's slice and the first of block
+    1's) in a grid launch, and inside one block (two lanes' columns, and
+    two columns of one lane's stride) in a one-cluster launch."""
+    V = cfg.vocab_size
+    p = cd.card_plan(((cfg.num_layers, cfg.hidden_size, cfg.embed),), V, B,
+                     K, device)
+    if p.cluster:
+        return [(31, 32), (5, 37)]
+    # the first column whose block differs from its left neighbour's
+    # (csrc split_at: block j owns [V j / blocks, V (j + 1) / blocks))
+    b = max(1, V // p.blocks)
+    return [(b - 1, b)]
+
+
+def check_plan(name, plan):
+    """Fail unless case ``name`` takes the plan it is there to drive."""
+    if name in PLAN_WANTED and not PLAN_WANTED[name][1](plan):
+        fail(f"{name}: the plan is not {PLAN_WANTED[name][0]}: {plan}")
+
+
 def kernel_phase(torch, tlm, tgen, cd, device):
     print("== phase 3: decode-window kernel vs plain version", flush=True)
     max_err = 0.0
@@ -367,11 +424,18 @@ def kernel_phase(torch, tlm, tgen, cd, device):
              [(B, K, g) for B in (1, 8, 16) for K in (1, 4, 8)
               for g in (True, False)], (16, 8)),
             ("config3", CONFIG3, [(4, 4, True), (4, 4, False)], (4, 4)),
-            ("config5-gates", CONFIG5_GATES, [(2, 2, True)], None)):
+            ("config5-gates", CONFIG5_GATES, [(2, 2, True)], None),
+            ("wide-narrow-head", WIDE_NARROW_HEAD, [(1, 3, True)], None),
+            ("mid-layers-on-chip", MID_LAYERS_ON_CHIP,
+             [(4, 4, True), (4, 4, False)], None),
+            ("many-rows", MANY_ROWS, [(14000, 2, True)], None)):
         cfg, _, params = make_model(torch, tlm, 1, device=device, **spec)
         weights = cd.decode_weights(params, tgen.fuse_layers(params, cfg),
                                     cfg.tie_embeddings)
+        shape = ((cfg.num_layers, cfg.hidden_size, cfg.embed),)
         for i, (B, K, greedy) in enumerate(cases):
+            check_plan(name, cd.card_plan(shape, cfg.vocab_size, B, None,
+                                          device))
             inputs = window_inputs(torch, cd, weights, cfg, B, K, greedy,
                                    seed=100 + i, device=device,
                                    edge_rows=B > 1)
@@ -380,7 +444,25 @@ def kernel_phase(torch, tlm, tgen, cd, device):
             max_err = max(max_err, err)
             print(f"  {name} L={cfg.num_layers} H={cfg.hidden_size} "
                   f"V={cfg.vocab_size} B={B} K={K} greedy={greedy}: tokens "
-                  f"identical, max |dh|,|dc| = {err:.3e}", flush=True)
+                  f"identical, max |dh|,|dc| = {err:.3e}; "
+                  f"{cd.card_plan(shape, cfg.vocab_size, B, None, device)}",
+                  flush=True)
+        # exact ties in the head, where the blocks or lanes split it
+        B, K = cases[-1][0], cases[-1][1]
+        for pair in tie_cases(cd, cfg, B, None, device):
+            tied = tie_weights(torch, cd, weights, [pair], 50.0)
+            inputs = window_inputs(torch, cd, tied, cfg, B, K, True, seed=99,
+                                   device=device, edge_rows=False)
+            err, _ = compare(torch, cd, tied, inputs, K, True,
+                             f"{name} tied columns {pair}")
+            toks = cd.decode_window(tied, *inputs, window=K, temperature=1.0,
+                                    greedy=True)[2]
+            if not bool((toks == pair[0]).any()):
+                fail(f"{name}: the tied columns {pair} never won the argmax")
+            max_err = max(max_err, err)
+            print(f"  {name} B={B} K={K} with head columns {pair} tied: "
+                  f"tokens identical (the lower index wins), max |dh|,|dc| "
+                  f"= {err:.3e}", flush=True)
         if timed is None:
             continue
         B, K = timed
@@ -402,14 +484,19 @@ def kernel_phase(torch, tlm, tgen, cd, device):
         k2 = time_ms(torch, kernel, iters)
         p2 = time_ms(torch, plain, iters)
         bound_ms, bound_by = bound(cfg, B, K, row_steps, sampled=False)
+        plan = cd.card_plan(shape, cfg.vocab_size, B, None, device)
+        floor = step_floor_ms(sum(plan.offchip_bytes[0]))
         timings[name] = dict(B=B, K=K, kernel_ms=(k1 + k2) / 2,
                              plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
-                             bound_by=bound_by, row_steps=row_steps)
+                             bound_by=bound_by, row_steps=row_steps,
+                             floor_ms=floor * K)
         print(f"  {name} B={B} K={K} greedy: kernel_ms "
               f"{timings[name]['kernel_ms']:.4f} ({k1:.4f}, {k2:.4f}), "
               f"plain_ms {timings[name]['plain_ms']:.4f} ({p1:.4f}, "
-              f"{p2:.4f}), bound_ms {bound_ms:.6f} ({bound_by}), launches "
-              f"so far {cd.counts.kernel}", flush=True)
+              f"{p2:.4f}), bound_ms {bound_ms:.6f} ({bound_by}); per-step "
+              f"floor {floor:.6f} ms ({sum(plan.offchip_bytes[0])} weight "
+              f"bytes off chip a step), {floor * K:.6f} ms a window; "
+              f"launches so far {cd.counts.kernel}", flush=True)
         for label, fn in (("kernel", kernel), ("plain", plain)):
             prof = device_profile(torch, lambda: [fn() for _ in range(20)])
             if prof is None:
@@ -1787,7 +1874,10 @@ def spec_kernel_phase(torch, tlm, tgen, cd, cs, draft_config, device):
              [(B, K, d, False) for B in (1, 8, 16) for K in (1, 2, 4)
               for d in drafts]
              + [(8, K, d, True) for K in (2, 4) for d in drafts], (16, 4)),
-            ("config3", CONFIG3, [(4, 4, d, False) for d in drafts], (4, 4))):
+            ("config3", CONFIG3, [(4, 4, d, False) for d in drafts], (4, 4)),
+            ("mid-layers-on-chip", MID_LAYERS_ON_CHIP,
+             [(4, 4, d, False) for d in drafts], None),
+            ("many-rows", MANY_ROWS, [(6000, 2, "random", False)], None)):
         models = {}
         for i, (B, K, draft, tied) in enumerate(cases):
             if tied not in models:
@@ -1841,8 +1931,30 @@ def spec_kernel_phase(torch, tlm, tgen, cd, cs, draft_config, device):
                 fail(f"{label}: the all-accept draft's rows emitted "
                      f"{n_emit.tolist()} tokens, not W={K + 1} each")
             max_err = max(max_err, err)
+            plan = cd.card_plan(
+                ((cfg.num_layers, cfg.hidden_size, cfg.embed),
+                 (ddcfg.num_layers, ddcfg.hidden_size, ddcfg.embed)),
+                cfg.vocab_size, B, K, device)
+            if draft != "accept":  # the all-accept draft is the target
+                check_plan(name, plan)
             print(f"  {label}: tokens identical, emitted per row "
-                  f"{n_emit.tolist()}, max carry diff {err:.3e}", flush=True)
+                  f"{n_emit.tolist()}, max carry diff {err:.3e}; {plan}",
+                  flush=True)
+        # exact ties in the target's head, where the blocks or lanes split it
+        cfg, tw, dcfg, dw = models[False]
+        B, K = cases[-1][0], cases[-1][1]
+        for pair in tie_cases(cd, cfg, B, None, device):
+            ttw = tie_weights(torch, cd, tw, [pair], 50.0)
+            inputs = spec_inputs(torch, cfg, dcfg, B, K, 98, device, False)
+            err, n_emit = compare_spec(torch, cs, ttw, dw, inputs, K,
+                                       f"{name} tied columns {pair}")
+            toks = cs.spec_window(ttw, dw, *inputs, k_draft=K)[4]
+            if not bool((toks == pair[0]).any()):
+                fail(f"{name}: the tied columns {pair} never won the argmax")
+            max_err = max(max_err, err)
+            print(f"  {name} B={B} k_draft={K} with the target's head columns "
+                  f"{pair} tied: tokens identical (the lower index wins), "
+                  f"max carry diff {err:.3e}", flush=True)
         if timed is None:
             continue
         B, K = timed
@@ -1872,6 +1984,14 @@ def spec_kernel_phase(torch, tlm, tgen, cd, cs, draft_config, device):
         device_ms = profiled_ms(torch, kernel, "spec_window", 20)
         emitted = int(n_emit.sum())
         bound_ms, bound_by = spec_bound(cfg, dcfg, B, K, B, emitted)
+        plan = cd.card_plan(((cfg.num_layers, cfg.hidden_size, cfg.embed),
+                             (dcfg.num_layers, dcfg.hidden_size, dcfg.embed)),
+                            cfg.vocab_size, B, K, device)
+        (t_lay, t_head), (d_lay, d_head) = plan.offchip_bytes
+        propose = step_floor_ms(d_lay + d_head)
+        verify = step_floor_ms(t_lay + t_head + d_lay)
+        steps = int(n_emit.max())  # verify steps run: the longest row's
+        floor = K * propose + steps * verify
         timings[name] = dict(B=B, K=K, kernel_ms=kernel_ms,
                              plain_ms=plain_ms, device_ms=device_ms,
                              window_ms=window_ms, bound_ms=bound_ms,
@@ -1891,8 +2011,11 @@ def spec_kernel_phase(torch, tlm, tgen, cd, cs, draft_config, device):
               f"emitted, per row {n_emit.tolist()}): kernel_ms "
               f"{kernel_ms:.4f} ({k1:.4f}, {k2:.4f}), device ms per launch "
               f"{dev}, plain_ms {plain_ms:.4f} ({p1:.4f}, {p2:.4f}), "
-              f"bound_ms {bound_ms:.6f} ({bound_by}); the plain decode "
-              f"window at K={K + 1}: kernel {window_ms:.4f} ms", flush=True)
+              f"bound_ms {bound_ms:.6f} ({bound_by}); per-step floor "
+              f"propose {propose:.6f} ms, verify {verify:.6f} ms, "
+              f"{floor:.6f} ms for this window ({K} + {steps} steps); the "
+              f"plain decode window at K={K + 1}: kernel {window_ms:.4f} ms",
+              flush=True)
     return max_err, timings
 
 
@@ -2045,6 +2168,108 @@ def spec_serve_phase(torch, tlm, tgen, cd, cs, cl, serve, draft_config,
     return spec_launches
 
 
+def config3_burst(torch, tlm, tgen, cd, serve, device):
+    """Phase 4's 6-request greedy burst (32 new tokens, request 5 with an
+    eos_id) over HTTP at config 3's width (L=2, H=650, V=33,278, seeded
+    weights), where the decode window sets the pace: tokens against the
+    plain ``generate`` on the CPU, the window kernel's launches, no plain
+    window on the card; returns tokens/s, TTFT, the largest gap between
+    tokens, the device's idle share and the launches."""
+    import numpy as np
+
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG3)
+    rng = np.random.RandomState(0)
+    lens = (3, 9, 17, 24, 33, 40)
+    prompts = [rng.randint(0, cfg.vocab_size, size=t).tolist() for t in lens]
+    n_new = 32
+    refs = [tgen.generate(params_cpu, [q], cfg, max_new_tokens=n_new,
+                          greedy=True, device="cpu")[0, len(q):].tolist()
+            for q in prompts]
+    eos_at = next((i for i in range(8, n_new) if refs[5][i] not in refs[5][:i]),
+                  None)
+    if eos_at is None:
+        fail(f"config 3: no token of {refs[5]} first appears at step 8 or "
+             "later")
+    expect = [list(r) for r in refs]
+    expect[5] = refs[5][:eos_at + 1]
+    engine = serve.ServeEngine(params_cpu, cfg, device=device, num_slots=32,
+                               rng_seed=0)
+    server = serve.ServeServer(engine, max_active=16)
+    server.warmup(prompt_lens=lens)
+    torch.cuda.synchronize()
+    httpd = serve.make_http_server(server, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+
+    def burst():
+        out = [None] * len(prompts)
+
+        def run(i):
+            body = {"prompt": prompts[i], "max_new_tokens": n_new,
+                    "greedy": True}
+            if i == 5:
+                body["eos_id"] = refs[5][eos_at]
+            out[i] = post(port, body)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        if any(t.is_alive() for t in threads):
+            fail("config 3: a request did not finish")
+        for i, r in enumerate(out):
+            if r is None or r[0] != 200:
+                fail(f"config 3: request {i} failed: {r}")
+            if r[1]["tokens"] != expect[i]:
+                fail(f"config 3: request {i}: served tokens {r[1]['tokens']} "
+                     f"!= plain generate on the CPU {expect[i]}")
+        return out, time.perf_counter() - t0
+
+    try:
+        with server:
+            cd.counts.reset()
+            out, wall = burst()
+            launches, plain = cd.counts.kernel, cd.counts.reference
+            prof = device_profile(torch, burst)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        http_thread.join(30)
+    if launches < 1:
+        fail("config 3: the burst launched the decode-window kernel no time")
+    if plain != 0:
+        fail(f"config 3: {plain} decode windows ran the plain version on the "
+             "card")
+    tokens = sum(len(r[1]["tokens"]) for r in out)
+    ttft = sorted(r[1]["ttft_ms"] for r in out)
+    itl = sorted(r[1]["max_itl_ms"] or 0.0 for r in out)
+    idle = None if prof is None else 1 - prof[0] / prof[1]
+    return dict(tokens=tokens, wall=wall, tokens_per_s=tokens / wall,
+                ttft_ms=ttft, max_itl_ms=itl, idle=idle, launches=launches)
+
+
+def burst_line(r):
+    idle = ("not measured" if r["idle"] is None
+            else f"{r['idle']:.3f}")
+    return (f"{r['tokens']} tokens in {r['wall']:.3f} s = "
+            f"{r['tokens_per_s']:.1f} tokens/s; ttft_ms {r['ttft_ms']} "
+            f"(median {r['ttft_ms'][len(r['ttft_ms']) // 2]}); max_itl_ms "
+            f"{r['max_itl_ms']}; device idle share {idle}; window launches "
+            f"{r['launches']}")
+
+
+def config3_phase(torch, tlm, tgen, cd, serve, device):
+    print("== phase 13: serve config 3's width over HTTP", flush=True)
+    r = config3_burst(torch, tlm, tgen, cd, serve, device)
+    print(f"  6 concurrent requests at L=2 H=650 V=33278: tokens identical "
+          f"to the plain generate on the CPU; {burst_line(r)}", flush=True)
+    return r
+
+
 def main() -> int:
     try:
         import torch
@@ -2100,6 +2325,7 @@ def main() -> int:
                                                draft_config, device)
     spec_launches = spec_serve_phase(torch, tlm, tgen, cd, cs, cl, serve,
                                      draft_config, device)
+    config3_phase(torch, tlm, tgen, cd, serve, device)
 
     main_path = timings["config1"]
     lstm_rows = [{
@@ -2299,8 +2525,92 @@ def residentx_fwd(label: str) -> int:
     return 0
 
 
+def _checkout(label: str):
+    """torch and the port of the checkout in the working directory, on the
+    card (for the parent/change turns)."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this timing needs an NVIDIA card")
+    from lstm_tensorspark_torch import configure_precision
+
+    configure_precision()
+    return torch, torch.device("cuda", 0)
+
+
+def windows(label: str) -> int:
+    """The decode and spec windows of the checkout in the working directory
+    at config 1 (decode B=16 and B=1, K=8; spec B=16 and B=1, k_draft=4,
+    the draft_config draft) and at config 3's width (B=4, K=4 and
+    k_draft=4, its H=162 draft), greedy, every row live: CUDA-event ms
+    over 50 calls and device ms per launch under torch.profiler over 20,
+    on one line tagged ``label``."""
+    torch, dev = _checkout(label)
+    from lstm_tensorspark_torch.models import generate as tgen
+    from lstm_tensorspark_torch.models import lstm_lm as tlm
+    from lstm_tensorspark_torch.ops import cuda_decode as cd
+    from lstm_tensorspark_torch.ops import cuda_spec as cs
+    from lstm_tensorspark_torch.train.distill import draft_config
+
+    out = []
+    for name, spec, B, K in (("config1", CONFIG1, 16, 8),
+                             ("config1", CONFIG1, 1, 8),
+                             ("config3", CONFIG3, 4, 4)):
+        cfg, _, params = make_model(torch, tlm, 1, device=dev, **spec)
+        w = weights_of(cd, tgen, params, cfg)
+        inputs = window_inputs(torch, cd, w, cfg, B, K, True, seed=7,
+                               device=dev, edge_rows=False)
+        fn = lambda: cd.decode_window(w, *inputs, window=K, temperature=1.0,
+                                      greedy=True)
+        dms = profiled_ms(torch, fn, "decode_window", 20)
+        dev_ms = "not recorded" if dms is None else f"{dms:.4f}"
+        out.append(f"decode {name} B={B} K={K} {time_ms(torch, fn, 50):.4f} "
+                   f"ms (device {dev_ms})")
+    for name, spec, B, K in (("config1", CONFIG1, 16, 4),
+                             ("config1", CONFIG1, 1, 4),
+                             ("config3", CONFIG3, 4, 4)):
+        cfg = tlm.LMConfig(vocab_size=spec["vocab"], hidden_size=spec["hidden"],
+                           num_layers=spec["layers"])
+        params = tlm.params_to(tlm.init_lm(torch.Generator().manual_seed(1),
+                                           cfg), dev)
+        dcfg = draft_config(cfg)
+        dparams = tlm.params_to(tlm.init_lm(
+            torch.Generator().manual_seed(2), dcfg), dev)
+        tw, dw = weights_of(cd, tgen, params, cfg), weights_of(cd, tgen,
+                                                               dparams, dcfg)
+        inputs = spec_inputs(torch, cfg, dcfg, B, K, 7, dev, False)
+        inputs[5].fill_(1)
+        inputs[6].fill_(K + 4)
+        fn = lambda: cs.spec_window(tw, dw, *inputs, k_draft=K)
+        dms = profiled_ms(torch, fn, "spec_window", 20)
+        dev_ms = "not recorded" if dms is None else f"{dms:.4f}"
+        out.append(f"spec {name} B={B} k_draft={K} "
+                   f"{time_ms(torch, fn, 50):.4f} ms (device {dev_ms})")
+    print(f"windows of {label} ({os.getcwd()}): " + "; ".join(out)
+          + f"; {card_line()}", flush=True)
+    return 0
+
+
+def config3_burst_turn(label: str) -> int:
+    """Phase 13's config-3 burst from the checkout in the working
+    directory, on one line tagged ``label``."""
+    torch, dev = _checkout(label)
+    from lstm_tensorspark_torch import serve
+    from lstm_tensorspark_torch.models import generate as tgen
+    from lstm_tensorspark_torch.models import lstm_lm as tlm
+    from lstm_tensorspark_torch.ops import cuda_decode as cd
+
+    r = config3_burst(torch, tlm, tgen, cd, serve, dev)
+    print(f"config 3 burst of {label} ({os.getcwd()}): {burst_line(r)}; "
+          f"{card_line()}", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    for flag, fn in (("--resident-pair", resident_pair),
+    for flag, fn in (("--windows", windows),
+                     ("--config3-burst", config3_burst_turn),
+                     ("--resident-pair", resident_pair),
                      ("--tiled-pair", tiled_pair),
                      ("--residentx-fwd", residentx_fwd)):
         if sys.argv[1:2] == [flag] and len(sys.argv) == 3:

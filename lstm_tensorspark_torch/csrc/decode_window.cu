@@ -10,112 +10,147 @@
 //
 // What bounds it on the card: at serving batch sizes the work is a chain of
 // matrix-vector products, far below the card's operations-per-byte ridge, so
-// the least time is the weight bytes over memory bandwidth (each weight read
-// once per window). This first design does not reach that: it is simple and
-// exact first.
-//   - One block per batch row (rows are independent during decode); the K
-//     steps loop inside the block, so carries, x, the 4H pre-activations and
-//     the latches never leave shared memory / registers during the window.
-//   - Threads own gate columns j and stream W[d, j] / U[d, j] from global
-//     memory, coalesced across the warp. Every row re-reads the weights each
-//     step; config 1's ~0.55 MB stays in the 50 MB L2, larger models pay L2 or
-//     HBM bandwidth per row-step (the known cost of this design; a later
-//     kernel shares weight tiles across rows and steps).
-//   - The head strides threads over V; the block argmax keeps the lowest index
-//     among equal maxima, as jnp.argmax does.
-// The step body (embedding row, cells, head, block argmax) is
-// decode_common.cuh's, shared with spec_window.cu. Math is expf / tanhf (no
-// fast-math intrinsics) with f32 accumulation, so the kernel agrees with the
-// plain PyTorch version to float32 rounding.
+// the least time is the weight bytes over memory bandwidth. The step body
+// (decode_common.cuh) spreads every step over the blocks of the launch, each
+// owning a slice of the hidden units and of the head's columns for all rows,
+// so each weight is read once per step for the whole batch (once per window
+// where the plan keeps the slices in shared memory). Each block keeps its own
+// copy of the rows' latches (tok, alive, rem; in shared memory where they
+// fit) and works out every row's token itself (the whole head in one
+// cluster, the merge of the blocks' partials in a grid), so the copies agree
+// and the loop ends in every block at the same step when no row is alive.
 //
 // Plain C interface for ctypes: decode_window_launch returns the CUDA error
 // code of the launch (0 = success). It allocates nothing and does not
-// synchronise; it runs on the stream it is given.
+// synchronise; it runs on the stream it is given. Scratch (h buffers, the
+// head's partials, the rows' latches) comes from the wrapper; the barrier's
+// two counters are zero before the launch and after it.
 
 #include "decode_common.cuh"
 
-__global__ void __launch_bounds__(THREADS)
-decode_window_kernel(const float* __restrict__ emb, int V, int E,
-                     LayerPtrs lp, int L, int H,
-                     const float* __restrict__ head_w,
-                     const float* __restrict__ head_b,
+// the rows' latches of a block: [4][B]
+#define R_TOK 0
+#define R_ALIVE 1
+#define R_REM 2
+#define R_NX 3
+#define R_FIELDS 4
+
+template <bool kC>
+__global__ void __launch_bounds__(THREADS, 1)
+decode_window_kernel(Model m, Plan p, int V, int B, int K,
                      const float* __restrict__ h_in,
                      const float* __restrict__ c_in,
                      const int* __restrict__ tok_in,
                      const int* __restrict__ alive_in,
                      const int* __restrict__ rem_in,
                      const int* __restrict__ eos_in,
-                     const float* __restrict__ noise,
-                     int B, int K, float tdiv, int scale, int greedy,
+                     const float* __restrict__ noise, float tdiv, int scale,
+                     int greedy, float* hbuf, float* part_v, int* part_i,
+                     int* rows, int* counters,
                      int* __restrict__ toks_out, int* __restrict__ next_out,
                      int* __restrict__ alive_out, int* __restrict__ rem_out,
                      float* __restrict__ h_out, float* __restrict__ c_out) {
-  extern __shared__ float smem[];
-  __shared__ float red_v[THREADS / 32];
-  __shared__ int red_i[THREADS / 32];
-  __shared__ int tok_sh;
-
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  float* x_sh = smem;           // [E]     layer-0 input (embedding row)
-  float* h_sh = x_sh + E;       // [L, H]  carries, resident for the window
-  float* c_sh = h_sh + L * H;   // [L, H]
-  float* z_sh = c_sh + L * H;   // [4H]    pre-activations of one layer
-
-  for (int i = tid; i < L * H; i += nthreads) {
-    const int l = i / H, j = i - l * H;
-    const size_t g = ((size_t)l * B + row) * H + j;
-    h_sh[i] = h_in[g];
-    c_sh[i] = c_in[g];
+  extern __shared__ float4 smem4[];
+  CLK_START
+  const int blk = blockIdx.x, tid = threadIdx.x;
+  const int L = m.L, H = m.H;
+  const size_t state = (size_t)L * B * H;
+  float* tail;
+  const Smem sm = carve((float*)smem4, p, &tail);
+  int* rs = p.rsm ? (int*)take(&tail, (size_t)R_FIELDS * B)
+                  : rows + (size_t)blk * R_FIELDS * B;
+  // h of two steps and c: in global memory, or in every block of a
+  // one-cluster launch
+  float* cst = c_out;
+  if (kC) {
+    hbuf = take(&tail, 2 * state);
+    cst = take(&tail, state);
   }
-  int tok = tok_in[row];
-  int alive = alive_in[row] != 0;
-  int rem = rem_in[row];
-  const int eos = eos_in[row];
-  __syncthreads();
+  Slice s = slice_of(m, p, V, blk, &tail);
+  place_head(m, p, V, s, &tail);
+  load_slices(m, s, V);
+  Sync sync{counters, counters + 1, p.blocks, p.cluster, 0};
+  int* tok = rs + R_TOK * B;
+  int* alive = rs + R_ALIVE * B;
+  int* rem = rs + R_REM * B;
+  int* nx = rs + R_NX * B;
 
-  for (int k = 0; k < K; ++k) {
-    if (!alive) {
-      // uniform across the block (one block = one row): a dead row emits
-      // PAD, commits nothing and feeds token 0 onward
-      if (tid == 0) toks_out[(size_t)k * B + row] = PAD_TOKEN;
-      tok = 0;
-      continue;
+  int any = 0;
+  for (int r = tid; r < B; r += THREADS) {
+    tok[r] = tok_in[r];
+    alive[r] = alive_in[r] != 0;
+    rem[r] = rem_in[r];
+    any |= alive[r];
+  }
+  copy_units(cst, c_in, m, s, B);
+  // a one-cluster launch reads h from its own copy: step 0's old h is
+  // buffer 1
+  if (kC) copy_in(hbuf + state, h_in, state);
+  cp_async_wait_all();
+  any = __syncthreads_or(any);
+  sync_start(sync);
+  CLK_MARK(0)
+
+  const float* hcur = kC ? hbuf + state : h_in;
+  int k = 0;
+  for (; k < K && any; ++k) {
+    float* hnew = hbuf + (size_t)(k & 1) * state;
+    for (int l = 0; l < L; ++l) {
+      const XSrc x = layer_x(m, s, l, V, tok,
+                             l > 0 ? hnew + (size_t)(l - 1) * B * H : nullptr,
+                             hcur + (size_t)l * B * H);
+      layer_rows<kC>(sm, m, s, l, x, hcur + (size_t)l * B * H, alive,
+                     cst + (size_t)l * B * H, hnew + (size_t)l * B * H, B);
+      CLK_MARK(1)
+      sync_blocks(sync);
+      CLK_MARK(2)
     }
-    embed_row(emb, V, E, tok, x_sh);
-    // the row is alive at step entry, so the layers' updates commit
-    const float* x = lstm_layers(lp, L, H, E, x_sh, h_sh, c_sh, z_sh);
-    const int nxt =
-        greedy ? head_argmax<false>(x, H, head_w, head_b, V, nullptr, 0,
-                                    1.0f, red_v, red_i, &tok_sh)
-               : head_argmax<true>(x, H, head_w, head_b, V,
-                                   noise + ((size_t)k * B + row) * V, scale,
-                                   tdiv, red_v, red_i, &tok_sh);
+    const float* top = hnew + (size_t)(L - 1) * B * H;
+    if (greedy)
+      head_rows<false, kC>(sm, m, s, top, V, nullptr, 0, 1.0f, part_v,
+                           part_i, nx, blk, p.blocks, B);
+    else
+      head_rows<true, kC>(sm, m, s, top, V, noise + (size_t)k * B * V, scale,
+                          tdiv, part_v, part_i, nx, blk, p.blocks, B);
+    CLK_MARK(3)
+    if (!kC) {  // each block holds a slice of the head: merge the slices
+      sync_blocks(sync);
+      merge_rows(part_v, part_i, p.blocks, B, nx);
+    }
+    CLK_MARK(4)
 
-    // the latch algebra of the JAX window, verbatim (emit == alive here)
-    if (tid == 0) toks_out[(size_t)k * B + row] = nxt;
-    rem -= 1;
-    const bool hit_eos = (eos >= 0) && (nxt == eos);
-    alive = (!hit_eos) && (rem > 0);
-    tok = alive ? nxt : 0;
+    // the latch algebra of the JAX window, verbatim (emit == alive)
+    any = 0;
+    for (int r = tid; r < B; r += THREADS) {
+      const int nxt = nx[r];
+      const int emit = alive[r];
+      if (blk == 0) toks_out[(size_t)k * B + r] = emit ? nxt : PAD_TOKEN;
+      if (emit) {
+        rem[r] -= 1;
+        const int hit_eos = eos_in[r] >= 0 && nxt == eos_in[r];
+        alive[r] = !hit_eos && rem[r] > 0;
+      }
+      tok[r] = alive[r] ? nxt : 0;
+      any |= alive[r];
+    }
+    any = __syncthreads_or(any);
+    CLK_MARK(5)
+    hcur = hnew;
   }
 
-  if (tid == 0) {
-    next_out[row] = tok;
-    alive_out[row] = alive;
-    rem_out[row] = rem;
+  if (blk == 0) {
+    // steps after every row died emit PAD
+    for (int i = tid; i < (K - k) * B; i += THREADS)
+      toks_out[(size_t)k * B + i] = PAD_TOKEN;
+    for (int r = tid; r < B; r += THREADS) {
+      next_out[r] = tok[r];
+      alive_out[r] = alive[r];
+      rem_out[r] = rem[r];
+    }
   }
-  for (int i = tid; i < L * H; i += nthreads) {
-    const int l = i / H, j = i - l * H;
-    const size_t g = ((size_t)l * B + row) * H + j;
-    h_out[g] = h_sh[i];
-    c_out[g] = c_sh[i];
-  }
-}
-
-static size_t smem_bytes(int L, int H, int E) {
-  return sizeof(float) * ((size_t)E + 2 * (size_t)L * H + 4 * (size_t)H);
+  copy_units(h_out, hcur, m, s, B);
+  if (kC) copy_units(c_out, cst, m, s, B);
+  sync_exit(sync);
 }
 
 extern "C" int decode_window_launch(
@@ -126,26 +161,36 @@ extern "C" int decode_window_launch(
     const void* tok_in, const void* alive_in, const void* rem_in,
     const void* eos_in, const void* noise,
     int B, int K, float tdiv, int scale, int greedy,
+    int blocks, int cluster, int wsm, int hsm, int stage, int rsm,
+    void* hbuf, void* part_v, void* part_i, void* rows, void* counters,
     void* toks_out, void* next_out, void* alive_out, void* rem_out,
     void* h_out, void* c_out, void* stream) {
-  if (L < 1 || L > MAX_LAYERS || B < 1 || K < 1 || H < 1 || E < 1 || V < 1)
+  if (L < 1 || L > MAX_LAYERS || B < 1 || K < 1 || H < 1 || E < 1 || V < 1 ||
+      stage < 8)
     return (int)cudaErrorInvalidValue;
   if (!greedy && noise == nullptr) return (int)cudaErrorInvalidValue;
-  LayerPtrs lp;
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    lp.W[l] = l < L ? (const float*)Ws[l] : nullptr;
-    lp.U[l] = l < L ? (const float*)Us[l] : nullptr;
-    lp.b[l] = l < L ? (const float*)bs[l] : nullptr;
-  }
-  const size_t smem = smem_bytes(L, H, E);
-  const cudaError_t e = opt_in_smem(decode_window_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  decode_window_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)emb, V, E, lp, L, H, (const float*)head_w,
-      (const float*)head_b, (const float*)h_in, (const float*)c_in,
-      (const int*)tok_in, (const int*)alive_in, (const int*)rem_in,
-      (const int*)eos_in, (const float*)noise, B, K, tdiv, scale, greedy,
+  const Model m = make_model(emb, E, L, H, Ws, Us, bs, head_w, head_b);
+  const Plan p = make_plan(blocks, cluster, wsm, hsm, stage, rsm);
+  const int copies = 3;  // h of two steps, c
+  const size_t smem = window_smem_bytes(p, &m, &copies, 1, V, B, R_FIELDS);
+  // the one-cluster launch and the grid launch are two builds of the kernel
+  auto kernel = p.cluster ? decode_window_kernel<true>
+                          : decode_window_kernel<false>;
+  static bool opted[2][64];  // by build (grid, one cluster) and device
+  return (int)launch_window(
+      kernel, p, smem, (cudaStream_t)stream, opted[p.cluster ? 1 : 0], m, p,
+      V, B, K,
+      (const float*)h_in, (const float*)c_in, (const int*)tok_in,
+      (const int*)alive_in, (const int*)rem_in, (const int*)eos_in,
+      (const float*)noise, tdiv, scale, greedy, (float*)hbuf,
+      (float*)part_v, (int*)part_i, (int*)rows, (int*)counters,
       (int*)toks_out, (int*)next_out, (int*)alive_out, (int*)rem_out,
       (float*)h_out, (float*)c_out);
-  return (int)cudaGetLastError();
+}
+
+// clusters of C blocks of the window kernel at `smem` bytes each that the
+// card keeps resident at once (the plan takes one-cluster launches only
+// where this is at least 1)
+extern "C" int decode_window_max_clusters(int C, int smem, int* out) {
+  return (int)window_max_clusters(decode_window_kernel<true>, C, smem, out);
 }

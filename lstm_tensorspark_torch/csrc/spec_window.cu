@@ -3,16 +3,17 @@
 // float32.
 //
 // Replaces lstm_tensorspark_tpu/ops/pallas_decode.py::_spec_window_kernel
-// (its per-model step is _model_step there, decode_common.cuh here). Per live
-// row, with k_draft = K and W = K + 1:
+// (its per-model step is _model_step there, decode_common.cuh here). For the
+// batch, with k_draft = K and W = K + 1:
 //   1. propose: the draft decodes K greedy tokens from a COPY of its
 //      committed carries, fed its own argmax each step. The copy is
 //      discarded at the end of the phase.
 //   2. verify: W joint teacher-forced steps on [token, proposals...]. The
 //      target steps with its head (t = argmax); the draft steps on the same
 //      input from its committed carries, without a head (the JAX kernel
-//      discards those logits). Both models' carries commit on the same emit
-//      mask, so the verify pass IS the draft's state commit. Latches:
+//      discards those logits). Both models' carries commit on the same
+//      per-row emit mask (the row's window latch), so the verify pass IS the
+//      draft's state commit. Latches:
 //        - window latch: a step emits while the window is alive; it stays
 //          alive only when the session lives on AND proposal i equals t;
 //          the last step (i == K) always closes it;
@@ -22,36 +23,42 @@
 //          next = session alive ? final_tok : 0.
 //      So a row emits the longest agreeing prefix of the proposals plus the
 //      target's own correction: the plain greedy sequence, whatever the
-//      draft. A row dead at entry emits PAD_TOKEN (-1) W times and leaves
-//      all four carry arrays bitwise unchanged.
+//      draft. Rows close their windows at different steps; the loop ends
+//      when no row's window is alive. A row dead at entry emits PAD_TOKEN
+//      (-1) W times and leaves all four carry arrays bitwise unchanged.
 //
 // What bounds it on the card: like the decode window, a chain of K + W
-// dependent matrix-vector steps per row, far below the card's
-// operations-per-byte ridge; the least time is both models' weight bytes
-// over memory bandwidth. This first design is simple and exact first: one
-// block per batch row, the whole window in the block, the carries (target
-// h, c; draft committed h, c; the draft's propose-phase copy), x, z, the
-// proposals and the latches never leave shared memory / registers. Weights
-// stream from global memory each row-step, as in decode_window.cu: config
-// 1's two models (~0.6 MB) stay in L2; at config 3's width every row-step
-// pays L2 / HBM bandwidth on one SM (the known cost of this design).
+// dependent matrix-vector steps, far below the card's operations-per-byte
+// ridge; the least time is both models' weight bytes over memory bandwidth.
+// The step body is decode_common.cuh's: every block owns a slice of both
+// models' units and of both heads' columns for all rows, so each weight is
+// read once per step for the whole batch (once per window where the plan
+// keeps the slices in shared memory: config 1 and its draft). A verify step
+// runs the target's and the draft's layer l in the same phase (they take
+// the same input), so it costs max(L, Ld) + 1 barriers; a propose step
+// Ld + 1.
 //
 // Plain C interface for ctypes: spec_window_launch returns the CUDA error
 // code of the launch (0 = success). It allocates nothing and does not
-// synchronise; it runs on the stream it is given.
+// synchronise; it runs on the stream it is given. Scratch comes from the
+// wrapper; the barrier's two counters are zero before the launch and after.
 
 #include "decode_common.cuh"
 
-struct ModelPtrs {
-  const float* emb;     // [V, E]
-  LayerPtrs lp;         // L fused layers
-  const float* head_w;  // [H, V]
-  const float* head_b;  // [V]
-  int E, L, H;
-};
+// the rows' latches of a block: [S_FIELDS + K][B]
+#define S_TOK 0    // the token at entry
+#define S_WIN 1    // the window latch (the verify step's emit mask)
+#define S_SESS 2   // the session latch
+#define S_REM 3
+#define S_FINAL 4  // the last emitted token
+#define S_PTOK 5   // the propose phase's input
+#define S_INP 6    // the verify step's input
+#define S_NX 7     // the merged argmax
+#define S_FIELDS 8  // then the K proposals
 
-__global__ void __launch_bounds__(THREADS)
-spec_window_kernel(ModelPtrs tm, ModelPtrs dm, int V, int B, int K,
+template <bool kC>
+__global__ void __launch_bounds__(THREADS, 1)
+spec_window_kernel(Model tm, Model dm, Plan p, int V, int B, int K,
                    const float* __restrict__ h_in,
                    const float* __restrict__ c_in,
                    const float* __restrict__ dh_in,
@@ -59,137 +66,191 @@ spec_window_kernel(ModelPtrs tm, ModelPtrs dm, int V, int B, int K,
                    const int* __restrict__ tok_in,
                    const int* __restrict__ alive_in,
                    const int* __restrict__ rem_in,
-                   const int* __restrict__ eos_in,
+                   const int* __restrict__ eos_in, float* hbuf, float* dbuf,
+                   float* pbuf, float* pc, float* part_v, int* part_i,
+                   int* rows, int* counters,
                    int* __restrict__ toks_out, int* __restrict__ next_out,
                    int* __restrict__ alive_out, int* __restrict__ rem_out,
                    float* __restrict__ h_out, float* __restrict__ c_out,
                    float* __restrict__ dh_out, float* __restrict__ dc_out) {
-  extern __shared__ float smem[];
-  __shared__ float red_v[THREADS / 32];
-  __shared__ int red_i[THREADS / 32];
-  __shared__ int tok_sh;
-
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
+  extern __shared__ float4 smem4[];
+  CLK_START
+  const int blk = blockIdx.x, tid = threadIdx.x;
   const int L = tm.L, H = tm.H, Ld = dm.L, Hd = dm.H;
+  const size_t tstate = (size_t)L * B * H, dstate = (size_t)Ld * B * Hd;
   const int W = K + 1;
-  const int Emax = tm.E > dm.E ? tm.E : dm.E;
-  const int Hmax = H > Hd ? H : Hd;
-  float* x_sh = smem;                      // [max(E, Ed)] a model's input
-  float* h_sh = x_sh + Emax;               // [L, H]   target carries
-  float* c_sh = h_sh + L * H;              // [L, H]
-  float* dh_sh = c_sh + L * H;             // [Ld, Hd] draft, committed
-  float* dc_sh = dh_sh + Ld * Hd;          // [Ld, Hd]
-  float* ph_sh = dc_sh + Ld * Hd;          // [Ld, Hd] draft, propose copy
-  float* pc_sh = ph_sh + Ld * Hd;          // [Ld, Hd]
-  float* z_sh = pc_sh + Ld * Hd;           // [4 max(H, Hd)]
-  int* props = (int*)(z_sh + 4 * Hmax);    // [K]      proposals
-
-  for (int i = tid; i < L * H; i += nthreads) {
-    const int l = i / H, j = i - l * H;
-    const size_t g = ((size_t)l * B + row) * H + j;
-    h_sh[i] = h_in[g];
-    c_sh[i] = c_in[g];
+  float* tail;
+  const Smem sm = carve((float*)smem4, p, &tail);
+  int* rs = p.rsm ? (int*)take(&tail, (size_t)(S_FIELDS + K) * B)
+                  : rows + (size_t)blk * (S_FIELDS + K) * B;
+  // the exchanged state: in global memory, or in every block of a
+  // one-cluster launch
+  float* cst = c_out;
+  float* dcst = dc_out;
+  if (kC) {
+    hbuf = take(&tail, 2 * tstate);
+    cst = take(&tail, tstate);
+    dbuf = take(&tail, 2 * dstate);
+    dcst = take(&tail, dstate);
+    pbuf = take(&tail, 2 * dstate);
+    pc = take(&tail, dstate);
   }
-  for (int i = tid; i < Ld * Hd; i += nthreads) {
-    const int l = i / Hd, j = i - l * Hd;
-    const size_t g = ((size_t)l * B + row) * Hd + j;
-    dh_sh[i] = ph_sh[i] = dh_in[g];
-    dc_sh[i] = pc_sh[i] = dc_in[g];
-  }
-  const int tok = tok_in[row];
-  const bool alive = alive_in[row] != 0;
-  int rem = rem_in[row];
-  const int eos = eos_in[row];
-  bool sess_alive = alive;
-  int final_tok = tok;
-  __syncthreads();
+  Slice ts = slice_of(tm, p, V, blk, &tail);
+  Slice ds = slice_of(dm, p, V, blk, &tail);
+  place_head(tm, p, V, ts, &tail);
+  place_head(dm, p, V, ds, &tail);
+  load_slices(tm, ts, V);
+  load_slices(dm, ds, V);
+  Sync sync{counters, counters + 1, p.blocks, p.cluster, 0};
+  int* tok = rs + S_TOK * B;
+  int* win = rs + S_WIN * B;
+  int* sess = rs + S_SESS * B;
+  int* rem = rs + S_REM * B;
+  int* fin = rs + S_FINAL * B;
+  int* ptok = rs + S_PTOK * B;
+  int* inp = rs + S_INP * B;
+  int* nx = rs + S_NX * B;
+  int* props = rs + S_FIELDS * B;  // [K][B]
 
-  if (alive) {  // uniform across the block (one block = one row)
+  int any = 0;
+  for (int r = tid; r < B; r += THREADS) {
+    tok[r] = fin[r] = ptok[r] = inp[r] = tok_in[r];
+    win[r] = sess[r] = alive_in[r] != 0;
+    rem[r] = rem_in[r];
+    any |= win[r];
+  }
+  copy_units(cst, c_in, tm, ts, B);
+  copy_units(dcst, dc_in, dm, ds, B);
+  copy_units(pc, dc_in, dm, ds, B);  // the propose phase's c
+  // a one-cluster launch reads h from its own copies: each phase's first
+  // old h is buffer 1
+  if (kC) {
+    copy_in(hbuf + tstate, h_in, tstate);
+    copy_in(dbuf + dstate, dh_in, dstate);
+    copy_in(pbuf + dstate, dh_in, dstate);
+  }
+  CLK_MARK(0)
+  cp_async_wait_all();
+  any = __syncthreads_or(any);
+  sync_start(sync);
+  CLK_MARK(1)
+
+  const float* hcur = kC ? hbuf + tstate : h_in;
+  const float* dcur = kC ? dbuf + dstate : dh_in;
+  int i = 0;  // verify steps run
+  if (any) {
     // phase 1: the draft proposes K tokens from the propose-phase copy
-    int ptok = tok;
-    for (int i = 0; i < K; ++i) {
-      embed_row(dm.emb, V, dm.E, ptok, x_sh);
-      const float* x = lstm_layers(dm.lp, Ld, Hd, dm.E, x_sh, ph_sh, pc_sh,
-                                   z_sh);
-      ptok = head_argmax<false>(x, Hd, dm.head_w, dm.head_b, V, nullptr, 0,
-                                1.0f, red_v, red_i, &tok_sh);
-      if (tid == 0) props[i] = ptok;
-    }
-    __syncthreads();
-
-    // phase 2: W joint teacher-forced verify steps; a step runs only while
-    // the window latch is alive, i.e. only steps that emit and commit
-    for (int i = 0; i < W; ++i) {
-      const int inp = i == 0 ? tok : props[i - 1];
-      embed_row(tm.emb, V, tm.E, inp, x_sh);
-      const float* x = lstm_layers(tm.lp, L, H, tm.E, x_sh, h_sh, c_sh, z_sh);
-      const int t = head_argmax<false>(x, H, tm.head_w, tm.head_b, V,
-                                       nullptr, 0, 1.0f, red_v, red_i,
-                                       &tok_sh);
-      embed_row(dm.emb, V, dm.E, inp, x_sh);
-      lstm_layers(dm.lp, Ld, Hd, dm.E, x_sh, dh_sh, dc_sh, z_sh);
-
-      if (tid == 0) toks_out[(size_t)i * B + row] = t;
-      rem -= 1;
-      const bool hit_eos = (eos >= 0) && (t == eos);
-      sess_alive = (!hit_eos) && (rem > 0);
-      final_tok = t;
-      // past the last proposal nothing can agree: the window closes
-      if (!(sess_alive && i < K && props[i] == t)) {
-        for (int j = i + 1 + tid; j < W; j += nthreads)
-          toks_out[(size_t)j * B + row] = PAD_TOKEN;
-        break;
+    const float* pcur = kC ? pbuf + dstate : dh_in;
+    for (int j = 0; j < K; ++j) {
+      float* pnew = pbuf + (size_t)(j & 1) * dstate;
+      for (int l = 0; l < Ld; ++l) {
+        const float* prev = l > 0 ? pnew + (size_t)(l - 1) * B * Hd : nullptr;
+        const XSrc x =
+            layer_x(dm, ds, l, V, ptok, prev, pcur + (size_t)l * B * Hd);
+        layer_rows<kC>(sm, dm, ds, l, x, pcur + (size_t)l * B * Hd, nullptr,
+                       pc + (size_t)l * B * Hd, pnew + (size_t)l * B * Hd,
+                       B);
+        CLK_MARK(2)
+        sync_blocks(sync);
+        CLK_MARK(3)
       }
+      head_rows<false, kC>(sm, dm, ds, pnew + (size_t)(Ld - 1) * B * Hd, V,
+                           nullptr, 0, 1.0f, part_v, part_i, nx, blk,
+                           p.blocks, B);
+      CLK_MARK(4)
+      if (!kC) {
+        sync_blocks(sync);
+        merge_rows(part_v, part_i, p.blocks, B, nx);
+      }
+      CLK_MARK(5)
+      for (int r = tid; r < B; r += THREADS)
+        ptok[r] = props[(size_t)j * B + r] = nx[r];
+      __syncthreads();
+      CLK_MARK(6)
+      pcur = pnew;
     }
-  } else {
-    for (int j = tid; j < W; j += nthreads)
-      toks_out[(size_t)j * B + row] = PAD_TOKEN;
+
+    // phase 2: W joint teacher-forced verify steps, while any row's window
+    // is alive; rows whose window closed keep their carries
+    for (; i < W && any; ++i) {
+      float* hnew = hbuf + (size_t)(i & 1) * tstate;
+      float* dnew = dbuf + (size_t)(i & 1) * dstate;
+      for (int l = 0; l < (L > Ld ? L : Ld); ++l) {
+        if (l < L) {
+          const float* prev = l > 0 ? hnew + (size_t)(l - 1) * B * H : nullptr;
+          const XSrc x =
+              layer_x(tm, ts, l, V, inp, prev, hcur + (size_t)l * B * H);
+          layer_rows<kC>(sm, tm, ts, l, x, hcur + (size_t)l * B * H, win,
+                         cst + (size_t)l * B * H, hnew + (size_t)l * B * H,
+                         B);
+        }
+        CLK_MARK(7)
+        if (l < Ld) {
+          const float* prev =
+              l > 0 ? dnew + (size_t)(l - 1) * B * Hd : nullptr;
+          const XSrc x =
+              layer_x(dm, ds, l, V, inp, prev, dcur + (size_t)l * B * Hd);
+          layer_rows<kC>(sm, dm, ds, l, x, dcur + (size_t)l * B * Hd, win,
+                         dcst + (size_t)l * B * Hd,
+                         dnew + (size_t)l * B * Hd, B);
+        }
+        CLK_MARK(8)
+        sync_blocks(sync);
+        CLK_MARK(9)
+      }
+      head_rows<false, kC>(sm, tm, ts, hnew + (size_t)(L - 1) * B * H, V,
+                           nullptr, 0, 1.0f, part_v, part_i, nx, blk,
+                           p.blocks, B);
+      CLK_MARK(10)
+      if (!kC) {
+        sync_blocks(sync);
+        merge_rows(part_v, part_i, p.blocks, B, nx);
+      }
+      CLK_MARK(11)
+
+      any = 0;
+      for (int r = tid; r < B; r += THREADS) {
+        const int t = nx[r];
+        const int emit = win[r];
+        if (blk == 0) toks_out[(size_t)i * B + r] = emit ? t : PAD_TOKEN;
+        if (emit) {
+          rem[r] -= 1;
+          const int hit_eos = eos_in[r] >= 0 && t == eos_in[r];
+          const int live_on = !hit_eos && rem[r] > 0;
+          sess[r] = live_on;
+          fin[r] = t;
+          // past the last proposal nothing can agree: the window closes
+          win[r] = i < K && live_on && props[(size_t)i * B + r] == t;
+        }
+        if (i < K) inp[r] = props[(size_t)i * B + r];
+        any |= win[r];
+      }
+      any = __syncthreads_or(any);
+      CLK_MARK(12)
+      hcur = hnew;
+      dcur = dnew;
+    }
   }
 
-  if (tid == 0) {
-    next_out[row] = sess_alive ? final_tok : 0;
-    alive_out[row] = sess_alive;
-    rem_out[row] = rem;
+  if (blk == 0) {
+    // steps after every window closed (or all of them, for a batch dead at
+    // entry) emit PAD
+    for (int j = tid; j < (W - i) * B; j += THREADS)
+      toks_out[(size_t)i * B + j] = PAD_TOKEN;
+    for (int r = tid; r < B; r += THREADS) {
+      next_out[r] = sess[r] ? fin[r] : 0;
+      alive_out[r] = sess[r];
+      rem_out[r] = rem[r];
+    }
   }
-  for (int i = tid; i < L * H; i += nthreads) {
-    const int l = i / H, j = i - l * H;
-    const size_t g = ((size_t)l * B + row) * H + j;
-    h_out[g] = h_sh[i];
-    c_out[g] = c_sh[i];
+  copy_units(h_out, hcur, tm, ts, B);
+  copy_units(dh_out, dcur, dm, ds, B);
+  if (kC) {
+    copy_units(c_out, cst, tm, ts, B);
+    copy_units(dc_out, dcst, dm, ds, B);
   }
-  for (int i = tid; i < Ld * Hd; i += nthreads) {
-    const int l = i / Hd, j = i - l * Hd;
-    const size_t g = ((size_t)l * B + row) * Hd + j;
-    dh_out[g] = dh_sh[i];
-    dc_out[g] = dc_sh[i];
-  }
-}
-
-static size_t smem_bytes(int E, int L, int H, int Ed, int Ld, int Hd, int K) {
-  const size_t floats = (size_t)(E > Ed ? E : Ed) + 2 * (size_t)L * H +
-                        4 * (size_t)Ld * Hd + 4 * (size_t)(H > Hd ? H : Hd);
-  return sizeof(float) * floats + sizeof(int) * (size_t)K;
-}
-
-static ModelPtrs model_ptrs(const void* emb, int E, int L, int H,
-                            const void* const* Ws, const void* const* Us,
-                            const void* const* bs, const void* head_w,
-                            const void* head_b) {
-  ModelPtrs m;
-  m.emb = (const float*)emb;
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    m.lp.W[l] = l < L ? (const float*)Ws[l] : nullptr;
-    m.lp.U[l] = l < L ? (const float*)Us[l] : nullptr;
-    m.lp.b[l] = l < L ? (const float*)bs[l] : nullptr;
-  }
-  m.head_w = (const float*)head_w;
-  m.head_b = (const float*)head_b;
-  m.E = E;
-  m.L = L;
-  m.H = H;
-  return m;
+  CLK_MARK(13)
+  sync_exit(sync);
 }
 
 extern "C" int spec_window_launch(
@@ -203,22 +264,33 @@ extern "C" int spec_window_launch(
     const void* h_in, const void* c_in, const void* dh_in, const void* dc_in,
     const void* tok_in, const void* alive_in, const void* rem_in,
     const void* eos_in, int B, int K,
+    int blocks, int cluster, int wsm, int hsm, int stage, int rsm,
+    void* hbuf, void* dbuf, void* pbuf, void* pc, void* part_v, void* part_i,
+    void* rows, void* counters,
     void* toks_out, void* next_out, void* alive_out, void* rem_out,
     void* h_out, void* c_out, void* dh_out, void* dc_out, void* stream) {
   if (L < 1 || L > MAX_LAYERS || Ld < 1 || Ld > MAX_LAYERS || B < 1 ||
-      K < 1 || H < 1 || E < 1 || Hd < 1 || Ed < 1 || V < 1)
+      K < 1 || H < 1 || E < 1 || Hd < 1 || Ed < 1 || V < 1 || stage < 8)
     return (int)cudaErrorInvalidValue;
-  const ModelPtrs tm = model_ptrs(emb, E, L, H, Ws, Us, bs, head_w, head_b);
-  const ModelPtrs dm = model_ptrs(demb, Ed, Ld, Hd, dWs, dUs, dbs, dhead_w,
-                                  dhead_b);
-  const size_t smem = smem_bytes(E, L, H, Ed, Ld, Hd, K);
-  const cudaError_t e = opt_in_smem(spec_window_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  spec_window_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
-      tm, dm, V, B, K, (const float*)h_in, (const float*)c_in,
+  const Model models[2] = {
+      make_model(emb, E, L, H, Ws, Us, bs, head_w, head_b),
+      make_model(demb, Ed, Ld, Hd, dWs, dUs, dbs, dhead_w, dhead_b)};
+  const Plan p = make_plan(blocks, cluster, wsm, hsm, stage, rsm);
+  // the target's h of two steps and c; the committed draft's and the
+  // propose copy's
+  const int copies[2] = {3, 6};
+  const size_t smem =
+      window_smem_bytes(p, models, copies, 2, V, B, S_FIELDS + K);
+  auto kernel =
+      p.cluster ? spec_window_kernel<true> : spec_window_kernel<false>;
+  static bool opted[2][64];  // by build (grid, one cluster) and device
+  return (int)launch_window(
+      kernel, p, smem, (cudaStream_t)stream, opted[p.cluster ? 1 : 0],
+      models[0], models[1], p, V, B, K, (const float*)h_in, (const float*)c_in,
       (const float*)dh_in, (const float*)dc_in, (const int*)tok_in,
       (const int*)alive_in, (const int*)rem_in, (const int*)eos_in,
-      (int*)toks_out, (int*)next_out, (int*)alive_out, (int*)rem_out,
-      (float*)h_out, (float*)c_out, (float*)dh_out, (float*)dc_out);
-  return (int)cudaGetLastError();
+      (float*)hbuf, (float*)dbuf, (float*)pbuf, (float*)pc, (float*)part_v,
+      (int*)part_i, (int*)rows, (int*)counters, (int*)toks_out,
+      (int*)next_out, (int*)alive_out, (int*)rem_out, (float*)h_out,
+      (float*)c_out, (float*)dh_out, (float*)dc_out);
 }

@@ -172,6 +172,31 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_clusters: dict[tuple, int] = {}
+
+
+def max_clusters(name: str, dev, cluster: int, smem: int) -> int:
+    """How many clusters of ``cluster`` blocks of kernel ``name``, each
+    block asking for ``smem`` bytes of shared memory, the card ``dev``
+    keeps resident at once: its C entry point ``<name>_max_clusters(C,
+    smem, &out)`` asks the CUDA runtime (once per kernel, card, size and
+    bytes). Raises if the runtime fails."""
+    key = (name, dev.index or 0, cluster, smem)
+    n = _clusters.get(key)
+    if n is None:
+        fn = getattr(load(name), f"{name}_max_clusters")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = fn(cluster, smem, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters "
+                               f"failed: CUDA error {rc} (cluster={cluster})")
+        n = _clusters[key] = out.value
+    return n
+
+
 def launcher(name: str, argtypes):
     """The C entry point ``<name>_launch`` of kernel ``name`` (built and
     loaded first if needed), with ``argtypes`` set and an int result: the

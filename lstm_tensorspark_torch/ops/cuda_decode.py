@@ -14,30 +14,45 @@ step's entry emit ``PAD_TOKEN``, keep their carries frozen and feed token 0.
 - :func:`decode_window_reference` is the same function in plain PyTorch;
   the CPU tests hold it against the JAX kernel (interpret mode), and
   ``chip_smoke.py`` holds the kernel against it on the card.
+- :func:`plan` is the launch plan of both window kernels (this one and
+  ``ops/cuda_spec.py``'s), testable on the CPU; :func:`card_plan` the plan
+  for a card. :func:`sliced_argmax` is the plain twin of the kernels'
+  argmax: per-block slices of V merged by value, then lower index.
 - :data:`counts` counts kernel launches (and reference dispatches), so a
   run can show its decode steps went through the kernel.
 
 On the card the kernel is bound by memory traffic, not arithmetic: decode
-at serving batch sizes is matrix-vector work (see the note at the top of
-the CUDA source for what the design does about it).
+at serving batch sizes is matrix-vector work. The kernel spreads each step
+over many blocks, each owning a slice of the hidden units and of the head's
+columns for every row, so each weight is read once per step for the whole
+batch (see the note at the top of ``csrc/decode_common.cuh``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
 from .. import kernels
 from ..ops.lstm_cell import FusedLSTMParams, lstm_step
+from . import cuda_lstm
 
 #: emitted for a dead row's steps (the serving wire contract)
 PAD_TOKEN = -1
-MAX_LAYERS = 8  # csrc/decode_window.cu MAX_LAYERS
-#: dynamic shared memory the kernel may use: the card's 227 KB per block,
-#: less room for the kernel's static reduction scratch
-MAX_SMEM_BYTES = 232448 - 1024
+MAX_LAYERS = 8  # csrc/decode_common.cuh MAX_LAYERS
+THREADS = 256  # csrc THREADS
+MAX_RT = 16  # csrc MAX_RT: batch rows of a tile
+MAX_SMEM_BYTES = 232448  # 227 KB per block (csrc MAX_SMEM_BYTES)
+#: the sizes of a one-cluster launch the plan tries, in order: when every
+#: weight slice of the models fits a block's shared memory over one cluster,
+#: the blocks meet at the cluster's hardware barrier
+CLUSTERS = (16, 8)
+#: the least staging room (d-rows of x at 16 batch rows) the plan leaves
+#: when it keeps weight slices in shared memory; a wider x goes in chunks
+MIN_STAGE = 256
+INT_MAX = 2**31 - 1
 
 
 def sampling_supported(temperature: float, top_k, top_p, greedy: bool) -> bool:
@@ -47,9 +62,200 @@ def sampling_supported(temperature: float, top_k, top_p, greedy: bool) -> bool:
     return greedy or (top_k is None and top_p is None)
 
 
-def smem_bytes(num_layers: int, hidden: int, embed: int) -> int:
-    """Shared memory of one block: x [E], h and c [L, H], z [4H] (f32)."""
-    return 4 * (embed + 2 * num_layers * hidden + 4 * hidden)
+class WindowPlan(NamedTuple):
+    """How a window launch is cut (``csrc/decode_common.cuh``). ``blocks``
+    blocks, each owning ``units[i]`` hidden units of model i at most (all
+    four gate columns of a unit) and ``head_cols`` of the V head columns.
+    ``cluster``: the launch is one cluster of ``blocks`` (1: every block
+    holds the whole head and embedding, so a step meets at one cluster
+    barrier per layer, and the state — h, c — lives in every block's
+    shared memory) or a cooperative grid, one block an SM (0: each block a
+    slice of the head, whose partial argmaxes meet at one more barrier;
+    counters in global memory, the state in global scratch).
+    ``layers_smem`` / ``head_smem``: the blocks keep their slices of every
+    model's layers / heads in shared memory for the window, else they read
+    them through L2 each step. ``rows_smem``: the rows' latches in shared
+    memory (else in global scratch, a copy a block: only for batches of
+    thousands of rows). ``stage`` is the d-rows of x a block stages at 16
+    batch rows (a wider x goes in chunks).
+    ``smem_bytes`` is what one block asks for. ``offchip_bytes[i]`` is
+    model i's (layers, head) weight bytes that do not stay on chip, read
+    once per step."""
+
+    blocks: int
+    cluster: int
+    units: tuple[int, ...]
+    head_cols: int
+    layers_smem: bool
+    head_smem: bool
+    rows_smem: bool
+    stage: int
+    smem_bytes: int
+    offchip_bytes: tuple[tuple[int, int], ...]
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _r4(n: int) -> int:
+    """n rounded up to 16 bytes of floats (csrc ``r4``: every piece of
+    shared memory starts on 16 bytes)."""
+    return -(-n // 4) * 4
+
+
+def _layer_floats(L: int, H: int, E: int, nu: int) -> int:
+    """A block's slice of a model's layers in shared memory (csrc
+    ``layers_floats``): [(D_l + H)][4nu] (unit-major: a unit's four gates
+    side by side) and the bias [4nu] a layer."""
+    return sum(((E if l == 0 else H) + H + 1) * 4 * nu for l in range(L))
+
+
+def _check_shapes(models, vocab: int) -> None:
+    for L, H, E in models:
+        if not 1 <= L <= MAX_LAYERS:
+            raise ValueError(f"window kernels take 1..{MAX_LAYERS} layers, "
+                             f"got {L}")
+        if H < 1 or E < 1:
+            raise ValueError(f"window kernels need hidden, embed >= 1, got "
+                             f"H={H} E={E}")
+    if vocab < 1:
+        raise ValueError(f"window kernels need a vocabulary, got {vocab}")
+
+
+def plan(models: Sequence[tuple[int, int, int]], vocab: int, batch: int,
+         k_draft: int | None = None, num_sms: int = 132,
+         clusters: dict[int, int] | None = None) -> WindowPlan:
+    """The launch plan of a window over ``models`` ((num_layers, hidden,
+    embed) each: the decode window's one model, or with ``k_draft`` the
+    spec window's target and draft) sharing a vocabulary of ``vocab``, for
+    ``batch`` rows. Mirrors ``window_smem_bytes`` of
+    ``csrc/decode_common.cuh``.
+
+    One cluster of ``CLUSTERS[i]`` blocks when every model's layer
+    slices, whole head and embedding, the rows' latches and the state fit
+    shared memory there (and ``clusters``, the card's resident clusters by size,
+    if given, keeps one); else one block per SM, keeping in shared memory
+    the latches and what fits of the weights (layers and heads, layers,
+    heads, or neither), the rest read through L2 each step. Rows go in
+    tiles of 16. Raises ``ValueError`` for more than ``MAX_LAYERS`` layers
+    or an empty width."""
+    _check_shapes(models, vocab)
+    # csrc: decode_window.cu R_FIELDS, spec_window.cu S_FIELDS + K; the
+    # state arrays of each model ([L, B, H] each): h of two steps and c,
+    # and for the draft its propose copy's too
+    fields = 4 if k_draft is None else 8 + k_draft
+    copies = (3,) if k_draft is None else (3, 6)
+    dtot = _ceil(max(max(E, H) + H for L, H, E in models), 8) * 8
+    weights = [((E + H) * 4 * H + (L - 1) * 8 * H * H + 4 * H * L,
+                H * vocab + vocab) for L, H, E in models]
+
+    def build(blocks, cluster, wsm, hsm, rsm):
+        units = tuple(_ceil(H, blocks) for _, H, _ in models)
+        cols = vocab if cluster else _ceil(vocab, blocks)
+        floats = THREADS * MAX_RT + 2 * MAX_RT
+        floats += _r4(fields * batch) if rsm else 0
+        if cluster:
+            floats += sum(n * _r4(L * batch * H) + _r4(vocab * E)
+                          for n, (L, H, E) in zip(copies, models))
+        if wsm:
+            floats += sum(_r4(_layer_floats(L, H, E, nu))
+                          for (L, H, E), nu in zip(models, units))
+        if hsm:
+            floats += sum(_r4((H + 1) * cols) for _, H, _ in models)
+        room = (MAX_SMEM_BYTES // 4 - floats) // MAX_RT // 8 * 8
+        stage = min(dtot, room)
+        if stage < (min(dtot, MIN_STAGE) if wsm or hsm or cluster else 8):
+            return None
+        offchip = tuple((0 if wsm else 4 * lw, 0 if hsm else 4 * hw)
+                        for lw, hw in weights)
+        return WindowPlan(blocks, cluster, units, cols, wsm, hsm, rsm, stage, 4 * (floats + stage * MAX_RT), offchip)
+
+    for C in CLUSTERS:
+        if clusters is None or clusters.get(C, 0) >= 1:
+            p = build(C, 1, True, True, True)
+            if p is not None:
+                return p
+    for rsm in (True, False):
+        for wsm, hsm in ((True, True), (True, False), (False, True),
+                         (False, False)):
+            p = build(num_sms, 0, wsm, hsm, rsm)
+            if p is not None:
+                return p
+    # the last option (the least shared memory) always fits
+    raise AssertionError("no window plan fits a block's shared memory")
+
+
+_plans: dict[tuple, WindowPlan] = {}
+
+
+def card_plan(models: Sequence[tuple[int, int, int]], vocab: int, batch: int,
+              k_draft: int | None, dev) -> WindowPlan:
+    """:func:`plan` for the card ``dev``: its SM count and the clusters of
+    window blocks it keeps resident, each block asking for the most shared
+    memory (``csrc/decode_window.cu::decode_window_max_clusters``; cached by
+    shape). Refuses a shape :func:`plan` refuses
+    before it asks the card anything."""
+    key = (dev.index or 0, tuple(models), vocab, batch, k_draft)
+    p = _plans.get(key)
+    if p is None:
+        _check_shapes(models, vocab)
+        p = _plans[key] = plan(
+            models, vocab, batch, k_draft, cuda_lstm._num_sms(dev),
+            {C: kernels.max_clusters("decode_window", dev, C, MAX_SMEM_BYTES)
+             for C in CLUSTERS})
+    return p
+
+
+_counters_cache: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def sync_counters(dev, stream: int) -> torch.Tensor:
+    """The two int32 counters of the window kernels' barrier on ``dev`` for
+    launches on ``stream``: zeroed once, and left at zero by every launch
+    (the last block out resets them), so no launch resets them from the
+    host."""
+    key = (dev.index or 0, stream)
+    t = _counters_cache.get(key)
+    if t is None:
+        t = _counters_cache[key] = torch.zeros(2, dtype=torch.int32,
+                                               device=dev)
+    return t
+
+
+def _split(n: int, parts: int, j: int) -> int:
+    return n * j // parts
+
+
+@torch.no_grad()
+def sliced_argmax(logits: torch.Tensor, blocks: int) -> torch.Tensor:
+    """The window kernels' argmax in plain PyTorch: V cut into ``blocks``
+    balanced slices; in a slice each of 32 lanes walks its columns (lane,
+    lane + 32, ...) in order keeping the first maximum (the first column
+    even when all are -inf), the lanes and then the slices merge by larger
+    value, then lower index; a slice with no columns gives (-inf,
+    INT_MAX). Rows of ``logits`` [B, V]; returns [B] int64, what
+    ``jnp.argmax`` / ``torch.argmax`` give on rows without NaN."""
+    B, V = logits.shape
+    neg = torch.full((B,), -float("inf"), dtype=logits.dtype,
+                     device=logits.device)
+    none = torch.full((B,), INT_MAX, dtype=torch.int64, device=logits.device)
+
+    def merge(bv, bi, v, i):
+        take = (v > bv) | ((v == bv) & (i < bi))
+        return torch.where(take, v, bv), torch.where(take, i, bi)
+
+    best_v, best_i = neg, none
+    for j in range(blocks):
+        lo, hi = _split(V, blocks, j), _split(V, blocks, j + 1)
+        sv, si = neg, none
+        for lane in range(min(32, hi - lo)):
+            cols = torch.arange(lo + lane, hi, 32, device=logits.device)
+            at = torch.argmax(logits[:, cols], dim=1)  # its first maximum
+            sv, si = merge(sv, si, logits[:, cols].gather(1, at[:, None])[:, 0],
+                           cols[at])
+        best_v, best_i = merge(best_v, best_i, sv, si)
+    return best_i
 
 
 class DecodeWeights(NamedTuple):
@@ -76,10 +282,13 @@ counts = kernels.LaunchCounts()
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _pp = ctypes.POINTER(ctypes.c_void_p)
-# csrc/decode_window.cu::decode_window_launch
-_ARGTYPES = [_p, _i, _i, _i, _i, _pp, _pp, _pp, _p, _p, _p, _p, _p, _p, _p,
-             _p, _p, _i, _i, ctypes.c_float, _i, _i, _p, _p, _p, _p, _p, _p,
-             _p]
+# csrc/decode_window.cu::decode_window_launch: the model, the carries and
+# rows, B, K, tdiv, scale, greedy, the plan (blocks, cluster, layers,
+# head and rows in shared memory, stage), the scratch,
+# the outputs, the stream
+_ARGTYPES = ([_p, _i, _i, _i, _i, _pp, _pp, _pp, _p, _p]
+             + [_p] * 7 + [_i, _i, ctypes.c_float, _i, _i]
+             + [_i] * 6 + [_p] * 5 + [_p] * 6 + [_p])
 
 
 def decode_window(weights: DecodeWeights, h, c, tokens, alive, remaining,
@@ -171,14 +380,10 @@ def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
     dev = h.device
     L, B, H = h.shape
     V, E = weights.embedding.shape
-    if not 1 <= L <= MAX_LAYERS or len(weights.layers) != L:
-        raise ValueError(f"kernel takes 1..{MAX_LAYERS} layers matching the "
-                         f"carries; got {len(weights.layers)} layers, "
-                         f"carries of {L}")
-    nbytes = smem_bytes(L, H, E)
-    if nbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"shape L={L} H={H} E={E} needs {nbytes} bytes of "
-                         f"shared memory per block (> {MAX_SMEM_BYTES})")
+    if len(weights.layers) != L:
+        raise ValueError(f"the carries have {L} layers, the weights "
+                         f"{len(weights.layers)}")
+    pl = card_plan(((L, H, E),), V, B, None, dev)
     kernels.check_f32("h", h, (L, B, H), dev)
     kernels.check_f32("c", c, (L, B, H), dev)
     kernels.check_f32("embedding", weights.embedding, (V, E), dev)
@@ -201,10 +406,23 @@ def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
         kernels.check_f32("noise", noise, (window, B, V), dev)
         noise_ptr = noise.data_ptr()
 
-    toks = torch.empty((window, B), dtype=torch.int32, device=dev)
-    row_out = torch.empty((3, B), dtype=torch.int32, device=dev)
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
+    hc = torch.empty((2, L, B, H), dtype=torch.float32, device=dev)
+    h_out, c_out = hc[0], hc[1]
+    # scratch: h of two steps and the head's partials (in shared memory in
+    # a one-cluster launch), each block's latches (unless on chip)
+    hbuf = part_v = None
+    if not pl.cluster:
+        fs = torch.empty(2 * L * B * H + B * pl.blocks, dtype=torch.float32,
+                         device=dev)
+        hbuf = fs.data_ptr()
+        part_v = hbuf + 4 * 2 * L * B * H
+    nrows = 0 if pl.rows_smem else pl.blocks * 4 * B
+    ints = torch.empty((window + 3) * B + B * pl.blocks + nrows,
+                       dtype=torch.int32, device=dev)
+    toks = ints[:window * B].view(window, B)
+    row_out = ints[window * B:(window + 3) * B].view(3, B)
+    part_i = ints.data_ptr() + 4 * (window + 3) * B
+    rows = part_i + 4 * B * pl.blocks
     ptrs = ctypes.c_void_p * L
     Ws = ptrs(*(f.kernel.data_ptr() for f in weights.layers))
     Us = ptrs(*(f.recurrent.data_ptr() for f in weights.layers))
@@ -218,12 +436,16 @@ def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
             weights.head_kernel.data_ptr(), weights.head_bias.data_ptr(),
             h.data_ptr(), c.data_ptr(), tok.data_ptr(), alv.data_ptr(),
             rem.data_ptr(), eos.data_ptr(), noise_ptr, B, window,
-            max(temperature, 1e-6), scale, int(greedy), toks.data_ptr(),
-            row_out[0].data_ptr(), row_out[1].data_ptr(),
-            row_out[2].data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+            max(temperature, 1e-6), scale, int(greedy), pl.blocks,
+            pl.cluster, int(pl.layers_smem), int(pl.head_smem), pl.stage,
+            int(pl.rows_smem), hbuf, part_v, part_i, rows,
+            sync_counters(dev, stream).data_ptr(),
+            toks.data_ptr(), row_out.data_ptr(), row_out.data_ptr() + 4 * B,
+            row_out.data_ptr() + 8 * B, h_out.data_ptr(), c_out.data_ptr(),
             stream)
     if rc != 0:
         raise RuntimeError(f"decode_window kernel launch failed: CUDA error "
-                           f"{rc} (L={L} B={B} H={H} E={E} V={V} K={window})")
+                           f"{rc} (L={L} B={B} H={H} E={E} V={V} K={window}, "
+                           f"{pl})")
     counts.bump("kernel")
     return h_out, c_out, toks, row_out[0], row_out[1], row_out[2]

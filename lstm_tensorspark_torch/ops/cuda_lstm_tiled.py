@@ -212,31 +212,12 @@ def fits(B: int, H: int, num_sms: int = 132, dev=None) -> bool:
     return True
 
 
-_max_clusters_cache: dict[int, dict[int, int]] = {}
-
-
 def max_clusters(dev) -> dict[int, int]:
     """How many clusters of 2 and of 4 blocks the card ``dev`` keeps
-    resident at once at one block an SM (asked of the CUDA runtime,
-    ``csrc/lstm_tiled_fwd.cu::lstm_tiled_fwd_max_clusters``, once per
-    card)."""
-    key = dev.index or 0
-    counts = _max_clusters_cache.get(key)
-    if counts is None:
-        fn = kernels.load("lstm_tiled_fwd").lstm_tiled_fwd_max_clusters
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        counts = {}
-        for C in (2, 4):
-            out = ctypes.c_int(0)
-            with torch.cuda.device(dev):
-                rc = fn(C, MAX_SMEM_BYTES, ctypes.byref(out))
-            if rc != 0:
-                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
-                                   f"CUDA error {rc} (cluster={C})")
-            counts[C] = out.value
-        _max_clusters_cache[key] = counts
-    return counts
+    resident at once at one block an SM
+    (``csrc/lstm_tiled_fwd.cu::lstm_tiled_fwd_max_clusters``)."""
+    return {C: kernels.max_clusters("lstm_tiled_fwd", dev, C, MAX_SMEM_BYTES)
+            for C in (2, 4)}
 
 
 def card_plan(kind: str, B: int, H: int, dev) -> TiledPlan:

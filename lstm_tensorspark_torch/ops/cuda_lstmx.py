@@ -304,28 +304,14 @@ def fits(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132) -> bool:
     return True
 
 
-_max_clusters_cache: dict[tuple[int, int], int] = {}
-
-
 def max_clusters(dev, cluster: int) -> int:
     """How many clusters of ``cluster`` blocks the card ``dev`` keeps
     resident at once when every block asks for the most shared memory (as
     the pair does at config-2 width; a smaller block may fit more, which
-    only makes the plan cautious). Asked of the CUDA runtime once per card
-    and cluster size."""
-    key = (dev.index or 0, cluster)
-    n = _max_clusters_cache.get(key)
-    if n is None:
-        fn = kernels.load("lstmx_fwd").lstmx_fwd_max_clusters
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        out = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            rc = fn(cluster, MAX_SMEM_BYTES, ctypes.byref(out))
-        if rc != 0 or out.value < 1:
-            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
-                               f"error {rc} (cluster={cluster}, {out.value})")
-        n = _max_clusters_cache[key] = out.value
+    only makes the plan cautious)."""
+    n = kernels.max_clusters("lstmx_fwd", dev, cluster, MAX_SMEM_BYTES)
+    if n < 1:
+        raise RuntimeError(f"no cluster of {cluster} blocks fits the card")
     return n
 
 

@@ -27,8 +27,9 @@ arrays unchanged.
 - :func:`spec_window_reference` is the same function in plain PyTorch; the
   CPU tests hold it against the JAX kernel (interpret mode), and
   ``chip_smoke.py`` holds the kernel against it on the card.
-- :func:`spec_smem_bytes` is the kernel's shared-memory plan; a shape over
-  the card's 227 KB per block is refused before launch.
+- The launch plan is ``cuda_decode.plan`` over both models (the two
+  kernels share their step body, ``csrc/decode_common.cuh``); a shape it
+  refuses is refused before launch.
 - :data:`counts` counts kernel launches (and reference dispatches).
 """
 
@@ -41,11 +42,11 @@ import torch
 from .. import kernels
 from ..ops.lstm_cell import lstm_step
 from .cuda_decode import (
-    MAX_LAYERS,
-    MAX_SMEM_BYTES,
     PAD_TOKEN,
     DecodeWeights,
     _int_row,
+    card_plan,
+    sync_counters,
 )
 
 counts = kernels.LaunchCounts()
@@ -57,40 +58,9 @@ _ARGTYPES = ([_i]
              + [_p, _i, _i, _i, _pp, _pp, _pp, _p, _p]      # target
              + [_p, _i, _i, _i, _pp, _pp, _pp, _p, _p]      # draft
              + [_p] * 8 + [_i, _i]                          # carries, rows
+             + [_i] * 6                                     # the plan
+             + [_p] * 8                                     # scratch
              + [_p] * 8 + [_p])                             # outputs, stream
-
-
-def spec_smem_bytes(num_layers: int, hidden: int, embed: int,
-                    draft_layers: int, draft_hidden: int, draft_embed: int,
-                    k_draft: int) -> int:
-    """Shared memory of one block (f32 unless said): x [max(E, Ed)], the
-    target's h and c [L, H], the draft's committed h and c and their
-    propose-phase copy (4 × [Ld, Hd]), z [4·max(H, Hd)], and the K
-    proposals (int32)."""
-    floats = (max(embed, draft_embed) + 2 * num_layers * hidden
-              + 4 * draft_layers * draft_hidden
-              + 4 * max(hidden, draft_hidden))
-    return 4 * floats + 4 * k_draft
-
-
-def check_plan(num_layers: int, hidden: int, embed: int, draft_layers: int,
-               draft_hidden: int, draft_embed: int, k_draft: int) -> int:
-    """Raise ``ValueError`` for a shape the kernel does not take (more
-    than ``MAX_LAYERS`` layers in either model, or more shared memory than
-    a block may have); return the plan's bytes otherwise."""
-    for who, n in (("target", num_layers), ("draft", draft_layers)):
-        if not 1 <= n <= MAX_LAYERS:
-            raise ValueError(f"spec_window kernel takes 1..{MAX_LAYERS} "
-                             f"{who} layers, got {n}")
-    nbytes = spec_smem_bytes(num_layers, hidden, embed, draft_layers,
-                             draft_hidden, draft_embed, k_draft)
-    if nbytes > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"spec_window shape L={num_layers} H={hidden} E={embed}, draft "
-            f"L={draft_layers} H={draft_hidden} E={draft_embed}, "
-            f"k_draft={k_draft} needs {nbytes} bytes of shared memory per "
-            f"block (> {MAX_SMEM_BYTES})")
-    return nbytes
 
 
 def spec_window(tw: DecodeWeights, dw: DecodeWeights, h, c, dh, dc, tokens,
@@ -220,10 +190,10 @@ def _launch(tw, dw, h, c, dh, dc, tokens, alive, remaining, eos_ids,
         raise ValueError(f"layers do not match the carries: target "
                          f"{len(tw.layers)} vs {L}, draft {len(dw.layers)} "
                          f"vs {Ld}")
-    check_plan(L, H, E, Ld, Hd, Ed, k_draft)
     if dw.embedding.shape[0] != V:
         raise ValueError(f"draft vocab {dw.embedding.shape[0]} != target "
                          f"vocab {V}")
+    pl = card_plan(((L, H, E), (Ld, Hd, Ed)), V, B, k_draft, dev)
     kernels.check_f32("h", h, (L, B, H), dev)
     kernels.check_f32("c", c, (L, B, H), dev)
     kernels.check_f32("draft h", dh, (Ld, B, Hd), dev)
@@ -236,10 +206,29 @@ def _launch(tw, dw, h, c, dh, dc, tokens, alive, remaining, eos_ids,
     eos = _int_row("eos_ids", eos_ids, B, dev)
 
     W = k_draft + 1
-    toks = torch.empty((W, B), dtype=torch.int32, device=dev)
-    row_out = torch.empty((3, B), dtype=torch.int32, device=dev)
-    h_out, c_out = torch.empty_like(h), torch.empty_like(c)
-    dh_out, dc_out = torch.empty_like(dh), torch.empty_like(dc)
+    hc = torch.empty((2, L, B, H), dtype=torch.float32, device=dev)
+    dhc = torch.empty((2, Ld, B, Hd), dtype=torch.float32, device=dev)
+    # scratch: the target's, the committed draft's and the propose copy's
+    # h of two steps, the propose copy's c, the head's partials (all in
+    # shared memory in a one-cluster launch), each block's latches and
+    # proposals (unless on chip)
+    hbuf = dbuf = pbuf = pc = part_v = None
+    if not pl.cluster:
+        ts, ds = L * B * H, Ld * B * Hd
+        fs = torch.empty(2 * ts + 5 * ds + B * pl.blocks, dtype=torch.float32,
+                         device=dev)
+        hbuf = fs.data_ptr()
+        dbuf = hbuf + 4 * 2 * ts
+        pbuf = dbuf + 4 * 2 * ds
+        pc = pbuf + 4 * 2 * ds
+        part_v = pc + 4 * ds
+    nrows = 0 if pl.rows_smem else pl.blocks * (8 + k_draft) * B
+    ints = torch.empty((W + 3) * B + B * pl.blocks + nrows,
+                       dtype=torch.int32, device=dev)
+    toks = ints[:W * B].view(W, B)
+    row_out = ints[W * B:(W + 3) * B].view(3, B)
+    part_i = ints.data_ptr() + 4 * (W + 3) * B
+    rows = part_i + 4 * B * pl.blocks
     Ws, Us, bs = _ptr_arrays(tw)
     dWs, dUs, dbs = _ptr_arrays(dw)
     launch = kernels.launcher("spec_window", _ARGTYPES)
@@ -253,14 +242,19 @@ def _launch(tw, dw, h, c, dh, dc, tokens, alive, remaining, eos_ids,
             dw.head_kernel.data_ptr(), dw.head_bias.data_ptr(),
             h.data_ptr(), c.data_ptr(), dh.data_ptr(), dc.data_ptr(),
             tok.data_ptr(), alv.data_ptr(), rem.data_ptr(), eos.data_ptr(),
-            B, k_draft, toks.data_ptr(), row_out[0].data_ptr(),
-            row_out[1].data_ptr(), row_out[2].data_ptr(), h_out.data_ptr(),
-            c_out.data_ptr(), dh_out.data_ptr(), dc_out.data_ptr(), stream)
+            B, k_draft, pl.blocks, pl.cluster, int(pl.layers_smem),
+            int(pl.head_smem), pl.stage, int(pl.rows_smem), hbuf, dbuf, pbuf,
+            pc, part_v, part_i, rows,
+            sync_counters(dev, stream).data_ptr(), toks.data_ptr(),
+            row_out.data_ptr(), row_out.data_ptr() + 4 * B,
+            row_out.data_ptr() + 8 * B, hc.data_ptr(),
+            hc.data_ptr() + 4 * L * B * H, dhc.data_ptr(),
+            dhc.data_ptr() + 4 * Ld * B * Hd, stream)
     if rc != 0:
         raise RuntimeError(
             f"spec_window kernel launch failed: CUDA error {rc} (L={L} "
             f"H={H} E={E} Ld={Ld} Hd={Hd} Ed={Ed} V={V} B={B} "
-            f"k_draft={k_draft})")
+            f"k_draft={k_draft}, {pl})")
     counts.bump("kernel")
-    return (h_out, c_out, dh_out, dc_out, toks, row_out[0], row_out[1],
+    return (hc[0], hc[1], dhc[0], dhc[1], toks, row_out[0], row_out[1],
             row_out[2])

@@ -1,6 +1,6 @@
 """Where the recurrence kernels spend a step: phase clocks on the card.
 
-    python -m lstm_tensorspark_torch.phase_clocks [resident] [residentx] [forward] [tiled] [clusters]
+    python -m lstm_tensorspark_torch.phase_clocks [resident] [residentx] [forward] [tiled] [clusters] [windows] [spec]
 
 Builds the resident pair ``csrc/lstm_fwd.cu`` / ``lstm_bwd.cu``, the
 residentx pair ``csrc/lstmx_fwd.cu`` / ``lstmx_bwd.cu`` and the tiled
@@ -27,7 +27,17 @@ so a phase's count includes waiting for the slowest thread (and, at an
 exchange, the slowest block). Each residentx kernel has two clocks: its
 side kernel's (the forward's projection, the backward's z rebuild: block
 0 runs one chunk of steps, printed per step of it) and its dependent
-steps'.
+steps'. ``windows`` clocks the decode window (``csrc/decode_window.cu``)
+at config 1 (B=16, K=8) and config 3's width (B=4, K=4): block 0's
+prologue, its layers, the waits at the layers' barriers, its head slice,
+the wait at the head's barrier, and the merge of the head's partials with
+the latches. ``spec`` clocks the spec window (``csrc/spec_window.cu``,
+greedy, a seeded random draft from ``draft_config``, every row live) at
+config 1 (k_draft=4, B=16 and B=1) and config 3's width (B=4), summed over
+the window: the prologue's copies as issued and as waited for, the propose
+phase's layers, their barriers, its head, the head's barrier and merge,
+its latches; the verify phase's target layers, draft layers, barriers,
+head, head barrier and merge, latches; the epilogue.
 Nothing here runs at import time.
 """
 
@@ -56,18 +66,29 @@ PHASES = {"lstm_fwd": ("h@U", "cell+stores", "h exchange"),
                         "gate algebra", "dz exchange", "dz@U^T"),
           "lstm_tiled_fwd": ("wait+copy h", "h@U", "cell+stores"),
           "lstm_tiled_bwd": ("wait", "gather dh", "gate algebra+dz exchange",
-                             "dz@U^T+slab")}
+                             "dz@U^T+slab"),
+          "decode_window": ("prologue", "layers", "layer barriers", "head",
+                            "head barrier", "merge+latches"),
+          "spec_window": ("prologue copies", "prologue wait",
+                          "propose layers", "propose barriers",
+                          "propose head", "propose head barrier+merge",
+                          "propose latches", "verify target layers",
+                          "verify draft layers", "verify barriers",
+                          "verify head", "verify head barrier+merge",
+                          "verify latches", "epilogue")}
 # the kernels each group of the command line runs
 GROUPS = {"resident": ("lstm_fwd", "lstm_bwd"), "residentx": ("lstmx_fwd", "lstmx_bwd"),
           "forward": ("lstmx_fwd",),
           "tiled": ("lstm_tiled_fwd", "lstm_tiled_bwd"),
-          "clusters": ("lstm_tiled_fwd", "lstm_tiled_bwd")}
+          "clusters": ("lstm_tiled_fwd", "lstm_tiled_bwd"),
+          "windows": ("decode_window",), "spec": ("spec_window",)}
 # the marks' streams, in mark order: (name, number of marks, what one
 # pass is); a stream's marks are kept by one thread of block 0 of one
 # kernel (lstmx_fwd.cu: its projection, one block per chunk of steps, then
 # its dependent steps; lstmx_bwd.cu: its z rebuild, then its chain)
 STREAMS = {"lstmx_fwd": (("projection", 2, "chunk"), ("chain", 3, "step")),
-           "lstmx_bwd": (("rebuild", 4, "chunk"), ("chain", 3, "step"))}
+           "lstmx_bwd": (("rebuild", 4, "chunk"), ("chain", 3, "step")),
+           "spec_window": (("block", 14, "window"),)}
 
 
 def streams(name: str) -> tuple[tuple[str, int, str], ...]:
@@ -90,14 +111,16 @@ def _read(name: str) -> list[int]:
 
 def _print(name: str, clk: list[int], T: int, chunk: int = 1) -> None:
     """Cycles per step of each phase; a stream that one block runs once
-    per chunk of ``chunk`` steps is divided by ``chunk``."""
+    per chunk of ``chunk`` steps is divided by ``chunk``; a ``window``
+    stream is printed per window."""
     i = 0
     for stream, n, unit in streams(name):
         names, vals = PHASES[name][i:i + n], clk[i:i + n]
         per = T if unit == "step" else chunk
         total = sum(vals)
         label = name if len(streams(name)) == 1 else f"{name} {stream}"
-        print(f"  {label}: {total / per:.0f} SM cycles per step: " + ", ".join(
+        what = "window" if unit == "window" else "step"
+        print(f"  {label}: {total / per:.0f} SM cycles per {what}: " + ", ".join(
             f"{p} {c / per:.0f} ({c / max(total, 1):.0%})"
             for p, c in zip(names, vals)), flush=True)
         i += n
@@ -222,6 +245,77 @@ def _ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _window(vocab, hidden, layers, B, K, dev):
+    """A greedy decode window of a seeded model (tokens from a plain
+    version's run are not checked here: chip_smoke.py phase 3 does)."""
+    from .models import generate as tgen
+    from .models import lstm_lm as tlm
+    from .ops import cuda_decode as cd
+
+    cfg = tlm.LMConfig(vocab_size=vocab, hidden_size=hidden,
+                       num_layers=layers)
+    params = tlm.params_to(tlm.init_lm(torch.Generator().manual_seed(1),
+                                       cfg), dev)
+    w = cd.decode_weights(params, tgen.fuse_layers(params, cfg),
+                          cfg.tie_embeddings)
+    g = torch.Generator().manual_seed(7)
+    h = (0.5 * torch.randn(layers, B, hidden, generator=g)).to(dev)
+    c = (0.5 * torch.randn(layers, B, hidden, generator=g)).to(dev)
+    rows = [torch.randint(0, vocab, (B,), generator=g).to(dev),
+            torch.ones(B, dtype=torch.int32, device=dev),
+            torch.full((B,), K + 3, dtype=torch.int32, device=dev),
+            torch.full((B,), -1, dtype=torch.int32, device=dev)]
+    run = lambda: cd.decode_window(w, h, c, *rows, None, window=K,
+                                   temperature=1.0, greedy=True)
+    run()
+    _read("decode_window")  # the first launch's clocks are not kept
+    run()
+    print(f"decode window V={vocab} H={hidden} L={layers} B={B} K={K}: "
+          f"{cd.card_plan(((layers, hidden, cfg.embed),), vocab, B, None, dev)}"
+          " (the prologue is once a window, printed per step)")
+    _print("decode_window", _read("decode_window"), K)
+
+
+def _spec(vocab, hidden, layers, B, K, dev):
+    """A spec window of a seeded target and a seeded random draft
+    (``draft_config``), every row live with budget past the window (tokens
+    are checked against the plain version by chip_smoke.py phase 11)."""
+    from .models import generate as tgen
+    from .models import lstm_lm as tlm
+    from .ops import cuda_decode as cd
+    from .ops import cuda_spec as cs
+    from .train.distill import draft_config
+
+    cfg = tlm.LMConfig(vocab_size=vocab, hidden_size=hidden,
+                       num_layers=layers)
+    dcfg = draft_config(cfg)
+    w = []
+    for seed, c in ((1, cfg), (2, dcfg)):
+        params = tlm.params_to(tlm.init_lm(torch.Generator().manual_seed(seed),
+                                           c), dev)
+        w.append(cd.decode_weights(params, tgen.fuse_layers(params, c),
+                                   c.tie_embeddings))
+    g = torch.Generator().manual_seed(7)
+    carries = [(0.5 * torch.randn(c.num_layers, B, c.hidden_size,
+                                  generator=g)).to(dev)
+               for c in (cfg, cfg, dcfg, dcfg)]
+    rows = [torch.randint(0, vocab, (B,), generator=g).to(dev),
+            torch.ones(B, dtype=torch.int32, device=dev),
+            torch.full((B,), K + 4, dtype=torch.int32, device=dev),
+            torch.full((B,), -1, dtype=torch.int32, device=dev)]
+    run = lambda: cs.spec_window(*w, *carries, *rows, k_draft=K)
+    run()
+    _read("spec_window")  # the first launch's clocks are not kept
+    toks = run()[4]
+    steps = int((toks >= 0).any(dim=1).sum())
+    models = ((layers, hidden, cfg.embed),
+              (dcfg.num_layers, dcfg.hidden_size, dcfg.embed))
+    print(f"spec window V={vocab} H={hidden} L={layers} draft H="
+          f"{dcfg.hidden_size} B={B} k_draft={K} ({steps} verify steps): "
+          f"{cd.card_plan(models, vocab, B, K, dev)}")
+    _print("spec_window", _read("spec_window"), 1)
+
+
 @contextlib.contextmanager
 def _only(kind: str, C: int):
     """Inside the block the tiled ``kind`` kernel's plan tries clusters of
@@ -311,6 +405,13 @@ def main(argv=None) -> int:
         if "clusters" in groups:
             _clusters(16, 128, 1024, dev)
             _clusters(32, 70, 650, dev)
+        if "windows" in groups:
+            _window(50, 128, 1, 16, 8, dev)  # config 1
+            _window(33278, 650, 2, 4, 4, dev)  # config 3's width
+        if "spec" in groups:
+            _spec(50, 128, 1, 16, 4, dev)  # config 1
+            _spec(50, 128, 1, 1, 4, dev)
+            _spec(33278, 650, 2, 4, 4, dev)  # config 3's width
     return 0
 
 

@@ -417,7 +417,8 @@ def test_defined_macros_build_apart():
 
 @pytest.mark.parametrize("name", ["lstmx_fwd", "lstmx_bwd", "lstm_fwd",
                                   "lstm_bwd", "lstm_tiled_fwd",
-                                  "lstm_tiled_bwd"])
+                                  "lstm_tiled_bwd", "decode_window",
+                                  "spec_window"])
 def test_phase_clock_marks_match_their_names(name):
     """Each kernel source has marks 0, 1, ... in source order, one per
     phase name that ``phase_clocks`` prints, and one clock start per clock

@@ -535,26 +535,42 @@ def test_cli_serve_selftest_speculative(capsys):
 
 
 def test_spec_shared_memory_plan_and_refusals():
-    # x + target h, c + 4 draft carry arrays + z, f32; the proposals int32
-    cfg1 = cuda_spec.spec_smem_bytes(1, 128, 128, 1, 32, 32, 4)
-    assert cfg1 == 4 * (128 + 2 * 128 + 4 * 32 + 4 * 128) + 16
-    cfg3 = cuda_spec.spec_smem_bytes(2, 650, 650, 1, 162, 162, 4)
-    assert cfg3 == 4 * (650 + 2 * 2 * 650 + 4 * 162 + 4 * 650) + 16
-    assert cfg1 < cfg3 < 48 * 1024 < cuda_spec.MAX_SMEM_BYTES
-    assert cuda_spec.check_plan(2, 650, 650, 1, 162, 162, 4) == cfg3
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_spec.check_plan(8, 3000, 3000, 1, 750, 750, 4)
+    # config 1's target and its H=32 draft: one cluster of 16 blocks, both
+    # models' units split (8 and 2 a block); both heads and embeddings in
+    # every block
+    cfg1 = cuda_decode.plan([(1, 128, 128), (1, 32, 32)], 50, 16, 4)
+    assert (cfg1.blocks, cfg1.cluster, cfg1.units) == (16, 1, (8, 2))
+    assert cfg1.offchip_bytes == ((0, 0), (0, 0))
+    # the rows' latches: 8 fields and the 4 proposals a row, 16 rows
+    assert cfg1.smem_bytes == 4 * (256 * 16 + 256 * 16 + 32 + 12 * 16
+                                   + 3 * 2048 + 6400 + 6 * 512 + 1600
+                                   + 257 * 4 * 8 + 65 * 4 * 2
+                                   + 6452 + 1652)
+    # config 3's width and its H=162 draft: one block an SM, both models
+    # split (5 and 2 units a block), read through L2 every step
+    cfg3 = cuda_decode.plan([(2, 650, 650), (1, 162, 162)], 33278, 4, 4)
+    assert (cfg3.blocks, cfg3.cluster, cfg3.units) == (132, 0, (5, 2))
+    assert cfg3.offchip_bytes == ((27060800, 86655912), (842400, 21697256))
+    assert cfg1.smem_bytes < cuda_decode.MAX_SMEM_BYTES
+    assert cfg3.smem_bytes < cuda_decode.MAX_SMEM_BYTES
+    # a shape the one-block-per-row design refused (its block held every
+    # carry): the split plan takes it, staging x in chunks
+    big = cuda_decode.plan([(8, 3000, 3000), (1, 750, 750)], 37, 1, 4)
+    assert big.cluster == 0 and big.stage < 6000
+    assert big.smem_bytes <= cuda_decode.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="layers"):
-        cuda_spec.check_plan(9, 16, 16, 1, 8, 8, 2)
-    # the launch path refuses an oversized shape before it touches a card
+        cuda_decode.plan([(9, 16, 16), (1, 8, 8)], 37, 1, 2)
+    with pytest.raises(ValueError, match="hidden"):
+        cuda_decode.plan([(1, 16, 16), (1, 0, 8)], 37, 1, 2)
+    # the launch path refuses a shape before it touches a card
     layer = FusedLSTMParams(torch.zeros(1), torch.zeros(1), torch.zeros(1))
-    tw = cuda_decode.DecodeWeights(torch.zeros(37, 3000), (layer,) * 8,
+    tw = cuda_decode.DecodeWeights(torch.zeros(37, 16), (layer,) * 9,
                                    torch.zeros(1), torch.zeros(1))
     dw = cuda_decode.DecodeWeights(torch.zeros(37, 8), (layer,),
                                    torch.zeros(1), torch.zeros(1))
     row = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_spec._launch(tw, dw, torch.zeros(8, 1, 3000),
-                          torch.zeros(8, 1, 3000), torch.zeros(1, 1, 8),
+    with pytest.raises(ValueError, match="layers"):
+        cuda_spec._launch(tw, dw, torch.zeros(9, 1, 16),
+                          torch.zeros(9, 1, 16), torch.zeros(1, 1, 8),
                           torch.zeros(1, 1, 8), row, row, row, row, 4)
     assert cuda_spec.PAD_TOKEN == pallas_decode.PAD_TOKEN
