@@ -123,7 +123,29 @@ Phases (each one fails the run):
    kernel's launches equal the spec windows dispatched, that no window ran
    the plain version, that the prefills launched ``lstm_fwd`` and that no
    draft prefill failed; print the mean accepted length, tokens/s, TTFT,
-   max inter-token gap and the device idle share under ``torch.profiler``.
+   max inter-token gap and the device idle share under ``torch.profiler``;
+13. serve phase 4's burst at config 3's width (L=2, H=650, V=33,278):
+   tokens against the CPU ``generate``, tokens/s, TTFT, gaps between
+   tokens and the idle share;
+14. train with K steps a call through the CLI, each run (captured as CUDA
+   graphs, the default) against the same run with ``graph=False``: config
+   1 at K=1, K=8 host-fed, K=8 ``--prefetch 2`` and K=8 ``--device-data
+   --fused-eval`` (40 steps: every logged loss within 1e-5, the fused eval
+   within 1e-6 of the host eval; a second eager run gives the floor of the
+   differences), config 5's shard at K=4 with dropout 0.2 and config 2 at
+   K=4 ``--device-data`` with dropout 0.2, each with and without remat;
+   the captured run's launches less its capture warm-up's equal the eager
+   run's; every run has a time limit (a hanging replay fails the phase).
+   Then the runs the CLI builds (``cli.training``), driven call by call:
+   under ``torch.profiler`` one ``cudaGraphLaunch`` a call and no kernel
+   launch from the host (config 1 at K=1, K=8 ``--device-data`` and K=8
+   ``--prefetch 2``); steps/s, device ms a step and the idle share of
+   configs 1, 5 and 2 (with and without remat), eager and captured in
+   turns. Phases 6, 8 and 10 run captured too: their launch counts are
+   checked with the warm-up launches taken out, and their profiled steps
+   are the runs the CLI builds.
+
+``python3 <this file> --train-calls LABEL`` runs phase 14 alone.
 
 The last lines are the kernel report (one JSON object), the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``. Exits
@@ -132,6 +154,7 @@ non-zero, printing no result, without a card or without the package.
 
 from __future__ import annotations
 
+import gc
 import http.client
 import json
 import os
@@ -237,6 +260,18 @@ CONFIG5_FLAGS = ["train", "--dataset", "wikitext103", "--hidden-units",
                  "--compute-dtype", "float32", "--logits-dtype", "float32"]
 CONFIG5_FIRST = 5
 CONFIG5_STEPS, CONFIG5_EVAL_EVERY, CONFIG5_EVAL_BATCHES = 200, 100, 8
+# phase 14: each CLI run captured (the default) against the same run with
+# graph=False; the losses differ only by the atomic float adds of the
+# embedding gradient (index_select's backward), which differ from one
+# eager run to the next as well
+CALLS_TOL = 1e-5
+# a fused eval against the host eval of the same params: float32 sums in
+# another order than the host's double accumulation
+FUSED_EVAL_TOL = 1e-6
+CALLS_STEPS = 40
+# a CLI run of phase 14 that has not ended by then hangs in a replay: the
+# phase fails (the kernels' own spins trap after about two seconds)
+CALL_RUN_LIMIT_S = 240
 
 
 def fail(msg: str) -> None:
@@ -322,17 +357,19 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(torch, fn, calls=None):
+def device_profile(torch, fn, calls=None, cpu=True):
     """Device-side view of ``fn()`` from ``torch.profiler``: (device busy
     ms summed over all kernels and copies, wall ms, {name: device ms},
     {name: events recorded}) — or None when the profiler records no device
     time. The profiler can miss the first launches of a window, so a
-    per-launch time divides by the events recorded, not by the calls."""
+    per-launch time divides by the events recorded, not by the calls.
+    ``cpu=False`` records the device alone (a step of many small host ops
+    otherwise takes the profiler long to sum)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -865,13 +902,18 @@ def train_phase(torch, cli, cl, device):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
 
+    counters = {"fwd": cl.fwd_counts, "bwd": cl.bwd_counts}
+
     def run(name, extra):
+        """One CLI run: its records and the launches of its capture
+        warm-ups (see warmup_launches)."""
         path = os.path.join(tmp, f"{name}.jsonl")
         rc = cli.main(TRAIN_FLAGS + extra + ["--jsonl", path])
         if rc != 0:
             fail(f"train run {name} exited {rc}")
         with open(path) as f:
-            return [json.loads(line) for line in f]
+            recs = [json.loads(line) for line in f]
+        return recs, warmup_launches(recs, counters)
 
     # the first steps on the card against the CPU's plain versions: 10 at
     # config 1, and 5 of a 2-layer stack (each layer through the kernels)
@@ -880,16 +922,18 @@ def train_phase(torch, cli, cl, device):
         for dev in ("cuda", "cpu"):
             cl.fwd_counts.reset()
             cl.bwd_counts.reset()
-            recs = run(f"first{n}_L{layers}_{dev}",
-                       ["--num-steps", str(n), "--log-every", "1",
-                        "--num-layers", str(layers), "--device", dev])
+            recs, warm = run(f"first{n}_L{layers}_{dev}",
+                             ["--num-steps", str(n), "--log-every", "1",
+                              "--num-layers", str(layers), "--device", dev])
             first[layers, dev] = [r["loss"] for r in recs if "loss" in r]
             if len(first[layers, dev]) != n:
                 fail(f"the {dev} run logged {len(first[layers, dev])} "
                      f"losses, not {n}")
-            if dev == "cuda" and cl.bwd_counts.kernel != n * layers:
+            if dev == "cuda" and (cl.bwd_counts.kernel - warm["bwd"]
+                                  != n * layers):
                 fail(f"{layers}-layer card run: {cl.bwd_counts.kernel} "
-                     f"backward launches, not {n * layers}")
+                     f"backward launches ({warm['bwd']} in the capture's "
+                     f"warm-up), not {n * layers} + the warm-up")
         a, b = first[layers, "cuda"], first[layers, "cpu"]
         gap = max(abs(x - y) for x, y in zip(a, b))
         print(f"  L={layers}, first {n} losses: card "
@@ -909,18 +953,22 @@ def train_phase(torch, cli, cl, device):
     layers = 1
     cl.fwd_counts.reset()
     cl.bwd_counts.reset()
-    recs = run("main", ["--num-steps", str(TRAIN_STEPS), "--log-every", "50",
-                        "--eval-every", str(EVAL_EVERY), "--eval-batches",
-                        str(EVAL_BATCHES), "--device", "cuda"])
+    recs, warm = run("main", ["--num-steps", str(TRAIN_STEPS), "--log-every",
+                              "50", "--eval-every", str(EVAL_EVERY),
+                              "--eval-batches", str(EVAL_BATCHES),
+                              "--device", "cuda"])
     launches = {"fwd": cl.fwd_counts.kernel, "bwd": cl.bwd_counts.kernel}
     plain = cl.fwd_counts.reference + cl.bwd_counts.reference
     expect = {"fwd": TRAIN_STEPS * layers + n_evals * per_eval * layers,
               "bwd": TRAIN_STEPS * layers}
-    print(f"  kernel launches {launches} (expected {expect}: {TRAIN_STEPS} "
-          f"steps x {layers} layer, + {n_evals} evals x {per_eval} batches "
-          f"forward); plain runs {plain}", flush=True)
-    if launches != expect or plain != 0:
-        fail(f"launch counts {launches} (plain {plain}) != {expect}")
+    replayed = {k: launches[k] - warm[k] for k in launches}
+    print(f"  kernel launches {launches}: {warm} in the capture's warm-up, "
+          f"{replayed} in the replayed steps and the evals (expected "
+          f"{expect}: {TRAIN_STEPS} steps x {layers} layer, + {n_evals} "
+          f"evals x {per_eval} batches forward); plain runs {plain}",
+          flush=True)
+    if replayed != expect or plain != 0:
+        fail(f"launch counts {replayed} (plain {plain}) != {expect}")
     for r in recs:
         print(f"  {json.dumps(r)}", flush=True)
     logged = [r for r in recs if "loss" in r]
@@ -938,9 +986,9 @@ def train_phase(torch, cli, cl, device):
           f"steady state (median of the log windows after the first) "
           f"{sps:.1f} steps/s, {tok:.1f} tokens/s", flush=True)
 
-    # device idle share over 20 steps under torch.profiler, through the same
-    # library calls the CLI makes
-    prof = device_profile(torch, config1_steps(torch, device))
+    # device idle share over 20 captured steps under torch.profiler, of the
+    # run the CLI builds
+    prof = device_profile(torch, config1_steps(cli))
     idle = None
     if prof is None:
         print("  20 steps under torch.profiler: no device time recorded "
@@ -955,39 +1003,36 @@ def train_phase(torch, cli, cl, device):
     return launches
 
 
-def config1_steps(torch, device, n=20):
-    """Config 1's training step through the library calls the CLI makes
-    (SGD 0.5, stateful, B=64, T=64, the PTB char stand-in), warmed up by 5
-    steps: returns a function that takes ``n`` more steps."""
-    from lstm_tensorspark_torch.data import get_dataset, lm_batch_stream
-    from lstm_tensorspark_torch.models import lstm_lm as tlm
-    from lstm_tensorspark_torch.train import (init_train_state, make_optimizer,
-                                              make_train_step)
-    from lstm_tensorspark_torch.train.loop import device_batches
+def cli_calls(cli, flags, *, graph=True):
+    """The run the CLI makes for ``flags`` (``cli.training``: the command's
+    own model, state, train call and feed, built but not started), driven
+    here call by call: ``calls(n)`` makes n more calls and returns the last
+    one's metrics; ``calls.k`` is the optimizer steps a call takes."""
+    run = cli.training(flags[1:], graph=graph)
+    state, feed = [run.state], iter(run.feed)
 
-    data = get_dataset("ptb_char")
-    cfg = tlm.LMConfig(vocab_size=len(data["vocab"]), hidden_size=128)
-    params = tlm.params_to(tlm.init_lm(torch.Generator().manual_seed(0), cfg),
-                           device)
-    opt = make_optimizer("sgd", 0.5)
-    state = init_train_state(params, opt,
-                             carries=tlm.init_carries(cfg, 64, device=device))
-    step = make_train_step(
-        lambda p, b, c=None: tlm.lm_loss(p, b, cfg, carries=c), opt,
-        stateful=True)
-    batches = device_batches(lm_batch_stream(data["train"], 64, 64), device)
-    for _ in range(5):
-        state, m = step(state, next(batches))
-    holder = [state]
-
-    def steps():
-        s = holder[0]
+    def calls(n):
+        m = None
         for _ in range(n):
-            s, m = step(s, next(batches))
-        holder[0] = s
+            state[0], m = run.step(state[0], next(feed))
         return m
 
-    return steps
+    calls.k = run.loop_kw["steps_per_call"]
+    return calls
+
+
+def cli_steps(cli, flags, n=20):
+    """A function that makes ``n`` more calls of the run the CLI makes for
+    ``flags`` (:func:`cli_calls`), after 5 (the first captures)."""
+    calls = cli_calls(cli, flags)
+    calls(5)
+    return lambda: calls(n)
+
+
+def config1_steps(cli, n=20):
+    """Config 1's training (``TRAIN_FLAGS`` on the card) as the CLI wires
+    it: :func:`cli_steps`."""
+    return cli_steps(cli, TRAIN_FLAGS + ["--device", "cuda"], n)
 
 
 def imdb_lengths(B, T):
@@ -1280,6 +1325,7 @@ def config2_phase(torch, cli, cl, cx, ct, device):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_config2_")
     counters = all_counters(cl, cx, ct)
+    warmups = {}
 
     def run(name, flags):
         """One CLI run with every count set to 0 just before it; returns
@@ -1291,10 +1337,17 @@ def config2_phase(torch, cli, cl, cx, ct, device):
         rc = cli.main(flags + ["--jsonl", path])
         if rc != 0:
             fail(f"train run {name} exited {rc}")
-        launches = {k: c.kernel for k, c in counters.items()}
-        launches["plain"] = sum(c.reference for c in counters.values())
         with open(path) as f:
-            return [json.loads(line) for line in f], launches
+            recs = [json.loads(line) for line in f]
+        # the replayed steps' and evals' launches: the capture's warm-up
+        # launches are taken out, kept in warmups and printed
+        warm = warmups[name] = warmup_launches(recs, counters)
+        launches = {k: c.kernel - warm[k] for k, c in counters.items()}
+        launches["plain"] = sum(c.reference for c in counters.values())
+        if any(warm.values()):
+            print(f"    {name}: capture warm-up launches "
+                  f"{ {k: v for k, v in warm.items() if v} }", flush=True)
+        return recs, launches
 
     def expect(got, name, **want):
         full = {k: 0 for k in counters}
@@ -1398,38 +1451,10 @@ def config2_phase(torch, cli, cl, cx, ct, device):
     if len(lm["cuda"]) != 10 or not gap <= TRAIN_LOSS_TOL:
         fail(f"LM at T=256: card losses differ from the CPU run by {gap:.3e}")
 
-    # device idle share over 20 config-2 steps under torch.profiler, through
-    # the same library calls the CLI makes
-    from lstm_tensorspark_torch.data import epoch_stream, padded_batches
-    from lstm_tensorspark_torch.models import classifier as tclf
-    from lstm_tensorspark_torch.train import (init_train_state, make_optimizer,
-                                              make_train_step)
-    from lstm_tensorspark_torch.train.loop import device_batches
-
-    data = get_dataset("imdb", max_len=CONFIG2["T"])
-    cfg = tclf.ClassifierConfig(vocab_size=len(data["vocab"]),
-                                hidden_size=CONFIG2["H"], dropout=0.2)
-    params = tclf.classifier_params_to(
-        tclf.init_classifier(torch.Generator().manual_seed(0), cfg), device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    opt = make_optimizer("adam", 1e-3, clip_norm=1.0)
-    state = init_train_state(params, opt)
-    step = make_train_step(
-        lambda p, b: tclf.classifier_loss(p, b, cfg, dropout_gen=gen), opt)
-    batches = device_batches(epoch_stream(
-        lambda e: padded_batches(*data["train"], CONFIG2["B"], CONFIG2["T"],
-                                 shuffle_seed=e), steps_per_epoch=50), device)
-    for _ in range(5):
-        state, m = step(state, next(batches))
-    holder = [state]
-
-    def twenty():
-        s = holder[0]
-        for _ in range(20):
-            s, m = step(s, next(batches))
-        holder[0] = s
-        return m
-
+    # device idle share over 20 config-2 steps under torch.profiler, of the
+    # run the CLI builds
+    twenty = cli_steps(cli, CONFIG2_FLAGS + ["--dropout", "0.2", "--device",
+                                             "cuda"])
     prof = device_profile(torch, twenty)
     if prof is None:
         print("  20 steps under torch.profiler: no device time recorded "
@@ -1441,10 +1466,15 @@ def config2_phase(torch, cli, cl, cx, ct, device):
               f"{busy:.3f} ms of {wall:.3f} ms wall (idle share "
               f"{1 - busy / wall:.3f}); top: "
               + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top), flush=True)
-    return {"lstmx_fwd": remat_launches["lstmx_fwd"],
-            "lstmx_bwd": lm_launches["lstmx_bwd"],
-            "bilstm_fwd": main_launches["bilstm_fwd"],
-            "bilstm_bwd": main_launches["bilstm_bwd"]}
+    # the launches each run made, its capture's warm-up included
+    return {"lstmx_fwd": (remat_launches["lstmx_fwd"]
+                          + warmups["first10_remat50_cuda"]["lstmx_fwd"]),
+            "lstmx_bwd": (lm_launches["lstmx_bwd"]
+                          + warmups["lm256_cuda"]["lstmx_bwd"]),
+            "bilstm_fwd": (main_launches["bilstm_fwd"]
+                           + warmups["main"]["bilstm_fwd"]),
+            "bilstm_bwd": (main_launches["bilstm_bwd"]
+                           + warmups["main"]["bilstm_bwd"])}
 
 
 def all_counters(cl, cx, ct):
@@ -1453,6 +1483,16 @@ def all_counters(cl, cx, ct):
             "lstmx_fwd": cx.fwdx_counts, "lstmx_bwd": cx.bwdx_counts,
             "bilstm_fwd": cx.bi_fwdx_counts, "bilstm_bwd": cx.bi_bwdx_counts,
             "lstm_tiled_fwd": ct.fwd_counts, "lstm_tiled_bwd": ct.bwd_counts}
+
+
+def warmup_launches(recs, counters):
+    """The launches the capture warm-ups of a CLI run made, by counter key:
+    each ``graph capture`` record's warm-up calls times the launches its
+    capture recorded (a warm-up call is the captured body run eagerly).
+    The rest of a run's launches are its replays' and its eager evals'."""
+    caps = [r for r in recs if r.get("note") == "graph capture"]
+    return {k: sum(r["warmup_calls"] * r["launches"].get(c.name, 0)
+                   for r in caps) for k, c in counters.items()}
 
 
 def in_turns(torch, first, second, iters):
@@ -1612,6 +1652,7 @@ def config5_phase(torch, cli, cl, cx, ct, device):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_config5_")
     counters = all_counters(cl, cx, ct)
+    warmups = {}
 
     def run(name, flags):
         """One CLI run with every count set to 0 just before it; returns
@@ -1624,11 +1665,16 @@ def config5_phase(torch, cli, cl, cx, ct, device):
         rc = cli.main(flags + ["--jsonl", path])
         if rc != 0:
             fail(f"train run {name} exited {rc}")
-        launches = {k: c.kernel for k, c in counters.items()}
-        launches["plain"] = sum(c.reference for c in counters.values())
         with open(path) as f:
             recs = [json.loads(line) for line in f]
-        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        # the replayed steps' and evals' launches: the capture's warm-up
+        # launches are taken out, kept in warmups and printed
+        warm = warmups[name] = warmup_launches(recs, counters)
+        launches = {k: c.kernel - warm[k] for k, c in counters.items()}
+        launches["plain"] = sum(c.reference for c in counters.values())
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s; capture warm-up "
+              f"launches { {k: v for k, v in warm.items() if v} }",
+              flush=True)
         return recs, launches
 
     def expect(got, name, **want):
@@ -1661,7 +1707,7 @@ def config5_phase(torch, cli, cl, cx, ct, device):
     for remat in (None, 32):
         a, b = first[remat, "cuda"], first[None, "cpu"]
         gap = max(abs(x - y) for x, y in zip(a, b))
-        print(f"  remat_chunk={remat}, first {n} losses: card "
+        print(f"  remat_chunk={remat}, first 10 losses: card "
               f"{[round(x, 6) for x in a]}; CPU {[round(x, 6) for x in b]}; "
               f"max |d| {gap:.2e}", flush=True)
         if not gap <= TRAIN_LOSS_TOL:
@@ -1704,38 +1750,10 @@ def config5_phase(torch, cli, cl, cx, ct, device):
           f"after the first) {sps[len(sps) // 2]:.2f} steps/s, "
           f"{tps[len(tps) // 2]:.1f} tokens/s", flush=True)
 
-    # device idle share over 20 steps under torch.profiler, through the same
-    # library calls the CLI makes
-    from lstm_tensorspark_torch.data import lm_batch_stream
-    from lstm_tensorspark_torch.models import lstm_lm as tlm
-    from lstm_tensorspark_torch.train import (init_train_state, make_optimizer,
-                                              make_train_step)
-    from lstm_tensorspark_torch.train.loop import device_batches
-
-    data = get_dataset("wikitext103")
-    cfg = tlm.LMConfig(vocab_size=len(data["vocab"]), hidden_size=CONFIG5["H"],
-                       num_layers=L, dropout=0.2)
-    params = tlm.params_to(tlm.init_lm(torch.Generator().manual_seed(0), cfg),
-                           device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    opt = make_optimizer("adam", 1e-3, clip_norm=1.0)
-    state = init_train_state(params, opt,
-                             carries=tlm.init_carries(cfg, B, device=device))
-    step = make_train_step(
-        lambda p, b, c=None: tlm.lm_loss(p, b, cfg, carries=c,
-                                         dropout_gen=gen), opt, stateful=True)
-    batches = device_batches(lm_batch_stream(data["train"], B, T), device)
-    for _ in range(5):
-        state, m = step(state, next(batches))
-    holder = [state]
-
-    def twenty():
-        s = holder[0]
-        for _ in range(20):
-            s, m = step(s, next(batches))
-        holder[0] = s
-        return m
-
+    # device idle share over 20 steps under torch.profiler, of the run the
+    # CLI builds
+    twenty = cli_steps(cli, CONFIG5_FLAGS + ["--dropout", "0.2", "--device",
+                                             "cuda"])
     prof = device_profile(torch, twenty)
     if prof is None:
         print("  20 steps under torch.profiler: no device time recorded "
@@ -1770,8 +1788,225 @@ def config5_phase(torch, cli, cl, cx, ct, device):
                 per_launch[kind] = round(sum(by_name[k] for k in keys) / n, 4)
         print(f"  the tiled kernels' device ms a launch in these steps: "
               f"{per_launch}", flush=True)
-    return {"fwd": launches["lstm_tiled_fwd"],
-            "bwd": launches["lstm_tiled_bwd"]}
+    # the launches the main run made, its capture's warm-up included
+    return {"fwd": launches["lstm_tiled_fwd"]
+            + warmups["main"]["lstm_tiled_fwd"],
+            "bwd": launches["lstm_tiled_bwd"]
+            + warmups["main"]["lstm_tiled_bwd"]}
+
+
+def rate_and_profile(torch, calls, n, m):
+    """(steps/s by the host's clock over ``n`` calls ending in a
+    synchronise, device busy ms a step, idle share) of a :func:`cli_calls`
+    run; the last two over ``m`` calls under torch.profiler (None when it
+    records no device time)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls(n)
+    torch.cuda.synchronize()
+    sps = n * calls.k / (time.perf_counter() - t0)
+    prof = device_profile(torch, lambda: calls(m), cpu=False)
+    if prof is None:
+        return sps, None, None
+    busy, wall = prof[0], prof[1]
+    return sps, busy / (m * calls.k), 1 - busy / wall
+
+
+def host_launches(torch, calls, n):
+    """The CUDA API calls the host makes over ``n`` calls of a
+    :func:`cli_calls` run under torch.profiler: {name: count} of the graph
+    launches, kernel launches and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        calls(n)
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if "Launch" in e.key or "Memcpy" in e.key or "Memset" in e.key}
+
+
+def train_calls_phase(torch, cli, cl, cx, ct, device):
+    print("== phase 14: train with K steps a call (every call a CUDA "
+          "graph on the card)", flush=True)
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_calls_")
+    counters = all_counters(cl, cx, ct)
+
+    def run(name, flags, graph):
+        """One CLI run, captured or eager, with every count set to 0 just
+        before it and a time limit: (records, launches, plain runs)."""
+        for c in counters.values():
+            c.reset()
+        path = os.path.join(tmp, f"{name}.jsonl")
+        out = {}
+
+        def target():
+            try:
+                out["rc"] = cli.main(flags + ["--jsonl", path], graph=graph)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                out["error"] = e
+
+        t0 = time.perf_counter()
+        th = threading.Thread(target=target, daemon=True)
+        th.start()
+        th.join(CALL_RUN_LIMIT_S)
+        if th.is_alive():
+            print(f"chip_smoke: FAIL: {name}: no end after "
+                  f"{CALL_RUN_LIMIT_S} s (a replay hangs)", flush=True)
+            os._exit(1)
+        if "error" in out:
+            fail(f"{name}: {type(out['error']).__name__}: {out['error']}")
+        if out["rc"] != 0:
+            fail(f"train run {name} exited {out['rc']}")
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+        launches = {k: c.kernel for k, c in counters.items()}
+        plain = sum(c.reference for c in counters.values())
+        return recs, launches, plain, time.perf_counter() - t0
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
+    def compare(label, flags):
+        """The run captured against the same run eager: the losses of every
+        logged window, and the launches (the captured run's, less its
+        warm-ups', equal the eager run's)."""
+        e_recs, e_l, e_plain, e_s = run(label + " eager", flags, False)
+        g_recs, g_l, g_plain, g_s = run(label + " captured", flags, True)
+        el = [r["loss"] for r in e_recs if "loss" in r]
+        gl = [r["loss"] for r in g_recs if "loss" in r]
+        if not el or len(el) != len(gl):
+            fail(f"{label}: {len(el)} eager and {len(gl)} captured losses")
+        gap = max(abs(a - b) for a, b in zip(el, gl))
+        caps = [r for r in g_recs if r.get("note") == "graph capture"]
+        warm = warmup_launches(g_recs, counters)
+        replayed = {k: g_l[k] - warm[k] for k in g_l}
+        print(f"  {label}: {len(el)} windows, max |d| of the losses "
+              f"{gap:.3e} (limit {CALLS_TOL}); eager {e_s:.1f} s, captured "
+              f"{g_s:.1f} s; launches eager {nonzero(e_l)}, captured "
+              f"{nonzero(g_l)} = warm-up {nonzero(warm)} + replays and "
+              f"evals {nonzero(replayed)}", flush=True)
+        for r in caps:
+            print(f"    capture {r['route']} do_eval={r['do_eval']} feed "
+                  f"{r['feed']}: {r['nodes']} nodes, capture "
+                  f"{r['capture_ms']:.1f} ms, warm-up {r['warmup_ms']:.1f} "
+                  f"ms, launches a replay {r['launches']}", flush=True)
+        if not caps or any(r["mid_run"] for r in caps):
+            fail(f"{label}: captures {caps} (none, or one mid-run)")
+        if not gap <= CALLS_TOL:
+            fail(f"{label}: captured losses differ from eager by {gap:.3e}")
+        if replayed != e_l or e_plain or g_plain:
+            fail(f"{label}: launches under replay {replayed} != eager {e_l} "
+                 f"(plain runs {e_plain}, {g_plain})")
+        return e_recs, g_recs
+
+    t_phase = time.perf_counter()
+    c1 = TRAIN_FLAGS + ["--num-steps", str(CALLS_STEPS), "--log-every", "1",
+                        "--device", "cuda"]
+    e1, _ = compare("config 1, K=1", c1)
+    # the floor of those differences: a second eager run against the first
+    again, _, _, _ = run("config 1, K=1 eager again", c1, False)
+    gap = max(abs(a["loss"] - b["loss"]) for a, b in zip(
+        [r for r in e1 if "loss" in r], [r for r in again if "loss" in r]))
+    print(f"  config 1, K=1, eager against eager: max |d| {gap:.3e} (the "
+          "embedding gradient's atomic adds run in another order each "
+          "time)", flush=True)
+    compare("config 1, K=8 host-fed", c1 + ["--steps-per-call", "8"])
+    compare("config 1, K=8 --prefetch 2", c1 + ["--steps-per-call", "8",
+                                                "--prefetch", "2"])
+    fused = compare("config 1, K=8 --device-data --fused-eval", c1 + [
+        "--steps-per-call", "8", "--device-data", "--fused-eval",
+        "--eval-every", "5", "--eval-batches", str(EVAL_BATCHES)])
+    for label, recs in zip(("eager", "captured"), fused):
+        ev = [r for r in recs if "eval_loss" in r]
+        if len(ev) != 2 or ev[-1].get("note") != "final":
+            fail(f"fused eval ({label}): eval records {ev}")
+        gap = abs(ev[0]["eval_loss"] - ev[1]["eval_loss"])
+        print(f"    {label}: fused eval_loss at step {ev[0]['step']} "
+              f"{ev[0]['eval_loss']:.7f}, host eval {ev[1]['eval_loss']:.7f}"
+              f", |d| {gap:.3e} (limit {FUSED_EVAL_TOL})", flush=True)
+        if not gap <= FUSED_EVAL_TOL:
+            fail(f"fused eval ({label}) differs from the host eval by {gap}")
+    c5 = CONFIG5_FLAGS + ["--num-steps", "8", "--log-every", "1",
+                          "--steps-per-call", "4", "--dropout", "0.2",
+                          "--eval-batches", "1"]
+    compare("config 5's shard, K=4, dropout 0.2", c5)
+    compare("config 5's shard, K=4, dropout 0.2, --remat-chunk 32",
+            c5 + ["--remat-chunk", "32"])
+    c2 = CONFIG2_FLAGS + ["--num-steps", "8", "--log-every", "1",
+                          "--steps-per-call", "4", "--device-data",
+                          "--dropout", "0.2", "--eval-batches", "1"]
+    compare("config 2, K=4 --device-data, dropout 0.2", c2)
+    compare("config 2, K=4 --device-data, dropout 0.2, --remat-chunk 50",
+            c2 + ["--remat-chunk", "50"])
+    print(f"  [the CLI runs: {time.perf_counter() - t_phase:.1f} s]",
+          flush=True)
+
+    # steps/s, device ms a step and the idle share of the runs the CLI
+    # builds, eager and captured, in turns (eager, captured, captured,
+    # eager): each run is built and warmed up once (its captures, then a
+    # replay) and measured twice
+    on = ["--device", "cuda"]
+    k8 = ["--steps-per-call", "8"]
+    cases = (
+        ("config 1", TRAIN_FLAGS + on, (300, 40),
+         (("captured K=1", []),
+          ("captured K=8 --device-data", k8 + ["--device-data"]),
+          ("captured K=8 --prefetch 2", k8 + ["--prefetch", "2"]))),
+        ("config 5's shard, dropout 0.2",
+         CONFIG5_FLAGS + on + ["--dropout", "0.2"], (20, 10),
+         (("captured K=1", []),)),
+        ("config 2, dropout 0.2", CONFIG2_FLAGS + on + ["--dropout", "0.2"],
+         (20, 10), (("captured K=1", []),)),
+        ("config 2, dropout 0.2, --remat-chunk 50",
+         CONFIG2_FLAGS + on + ["--dropout", "0.2", "--remat-chunk", "50"],
+         (4, 1), (("captured K=1", []),)),
+    )
+    for label, flags, (n, m), variants in cases:
+        runs = {"eager": cli_calls(cli, flags, graph=False)}
+        for name, extra in variants:
+            runs[name] = cli_calls(cli, flags + extra)
+        for calls in runs.values():
+            calls(2)  # the captures, then a replay
+        if label == "config 1":
+            # the host between replays: one graph launch a call, no kernel
+            # launch (the feed's copies are memcpys)
+            for name in list(runs)[1:]:
+                seen = host_launches(torch, runs[name], 20)
+                launched = sum(v for k, v in seen.items()
+                               if "LaunchKernel" in k)
+                api = {k: v for k, v in seen.items() if k.startswith("cu")}
+                on_dev = {k: v for k, v in seen.items() if k not in api}
+                print(f"  config 1 {name}, 20 calls under torch.profiler: "
+                      f"host calls {api}; on the device {on_dev}",
+                      flush=True)
+                if seen.get("cudaGraphLaunch") != 20 or launched:
+                    fail(f"config 1 {name}: {seen.get('cudaGraphLaunch')} "
+                         f"graph launches for 20 calls, {launched} kernel "
+                         "launches from the host")
+        order = ["eager"] + list(runs)[1:] + list(runs)[:0:-1] + ["eager"]
+        got = {}
+        for name in order:
+            calls = runs[name]
+            got.setdefault(name, []).append(rate_and_profile(
+                torch, calls, max(n // calls.k, 1), max(m // calls.k, 1)))
+        del runs, calls  # and the graphs' memory
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def fmt(r):
+            sps, ms, idle = r
+            dev = ("not recorded" if ms is None
+                   else f"{ms:.4f} ms a step, idle {idle:.3f}")
+            return f"{sps:.2f} steps/s ({dev})"
+
+        print(f"  {label} in turns: " + "; ".join(
+            f"{name} " + ", ".join(fmt(r) for r in rs)
+            for name, rs in got.items()) + f"; {card} "
+            f"[{time.perf_counter() - t_phase:.1f} s into the phase]",
+            flush=True)
 
 
 def weights_of(cd, tgen, params, cfg):
@@ -2326,6 +2561,7 @@ def main() -> int:
     spec_launches = spec_serve_phase(torch, tlm, tgen, cd, cs, cl, serve,
                                      draft_config, device)
     config3_phase(torch, tlm, tgen, cd, serve, device)
+    train_calls_phase(torch, cli, cl, cx, ct, device)
 
     main_path = timings["config1"]
     lstm_rows = [{
@@ -2435,14 +2671,15 @@ def resident_pair(label: str) -> int:
         z, inputs[3], cs, dys, inputs[1], dhT, dcT), 100)
     # config 1's training: steps/s over 300 steps (host clock, synchronised)
     # and the device's busy ms a step over 20 under torch.profiler
-    dev = torch.device("cuda", 0)
-    run = config1_steps(torch, dev, 300)
+    from lstm_tensorspark_torch import cli
+
+    run = config1_steps(cli, 300)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     sps = 300 / (time.perf_counter() - t0)
-    prof = device_profile(torch, config1_steps(torch, dev))
+    prof = device_profile(torch, config1_steps(cli))
     busy = "not measured" if prof is None else f"{prof[0] / 20:.4f} ms"
     idle = "" if prof is None else f", idle share {1 - prof[0] / prof[1]:.3f}"
     print(f"resident pair of {label} ({os.getcwd()}) at B={B} T={T} H={H}: "
@@ -2607,8 +2844,24 @@ def config3_burst_turn(label: str) -> int:
     return 0
 
 
+def train_calls(label: str) -> int:
+    """Phase 14 alone, from the checkout in the working directory (its
+    kernels built first), tagged ``label``."""
+    torch, dev = _checkout(label)
+    from lstm_tensorspark_torch import cli, kernels
+    from lstm_tensorspark_torch.ops import cuda_lstm as cl
+    from lstm_tensorspark_torch.ops import cuda_lstm_tiled as ct
+    from lstm_tensorspark_torch.ops import cuda_lstmx as cx
+
+    print(f"phase 14 of {label} ({os.getcwd()}); kernels built in "
+          f"{kernels.build(kernels.SOURCES):.1f} s", flush=True)
+    train_calls_phase(torch, cli, cl, cx, ct, dev)
+    return 0
+
+
 if __name__ == "__main__":
-    for flag, fn in (("--windows", windows),
+    for flag, fn in (("--train-calls", train_calls),
+                     ("--windows", windows),
                      ("--config3-burst", config3_burst_turn),
                      ("--resident-pair", resident_pair),
                      ("--tiled-pair", tiled_pair),

@@ -39,7 +39,7 @@ import threading
 import numpy as np
 import torch
 
-from .exit_codes import ANOMALY_RC, FAIL_RC, OK_RC, USAGE_RC
+from .exit_codes import ANOMALY_RC, FAIL_RC, OK_RC, USAGE_RC, UsageError
 from .train.optimizer import OPTIMIZERS
 
 DEFAULT_WINDOW_LADDER = (1, 4, 8)
@@ -301,6 +301,23 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "bfloat16 is refused")
     p.add_argument("--stateful", action="store_true",
                    help="carry recurrent state across contiguous windows")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="K optimizer steps per host call (one CUDA graph "
+                        "replay on the card); log and eval cadences then "
+                        "count K-step calls")
+    p.add_argument("--prefetch", type=int, default=0,
+                   help="prefetch depth of the host feed: a background "
+                        "thread pins and copies the next batches on a copy "
+                        "stream (0 = off)")
+    p.add_argument("--device-data", action="store_true",
+                   help="stage the dataset on the device once and cut the "
+                        "batches there (LM: window slices; imdb: row "
+                        "gather); a call's host feed shrinks to indices")
+    p.add_argument("--fused-eval", action="store_true",
+                   help="run the periodic eval inside the train call, on "
+                        "eval data staged on the device (with "
+                        "--device-data or the host feed; needs "
+                        "--eval-every)")
     p.add_argument("--eval-every", type=int, default=0)
     p.add_argument("--eval-batches", type=int, default=None,
                    help="cap each eval pass at N batches")
@@ -315,119 +332,204 @@ def build_train_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _run_train(args) -> int:
-    from .data import cap_batches, get_dataset, lm_batch_stream, lm_epoch_batches
-    from .device import configure_precision, resolve_device
-    from .models.lstm_lm import LMConfig, init_carries, init_lm, lm_loss, params_to
-    from .train import (AnomalousTrainingError, MetricsLogger, evaluate,
-                        init_train_state, make_eval_step, make_optimizer,
-                        make_train_step, train_loop)
-    from .train.loop import device_batches
-
-    refused = None
+def _refusal(args) -> str | None:
+    """What the train command refuses in ``args`` before it builds
+    anything, or None."""
     if args.compute_dtype != "float32":
-        refused = (f"--compute-dtype {args.compute_dtype} is not ported yet "
-                   "(float32 only)")
-    elif args.logits_dtype != "float32":
-        refused = (f"--logits-dtype {args.logits_dtype} is not ported yet "
-                   "(float32 only)")
-    elif not 0.0 <= args.dropout < 1.0:
-        refused = f"--dropout must be in [0, 1), got {args.dropout}"
-    elif args.eval_batches is not None and args.eval_batches < 1:
-        refused = f"--eval-batches must be >= 1, got {args.eval_batches}"
-    elif args.remat_chunk is not None and args.remat_chunk < 1:
-        refused = f"--remat-chunk must be >= 1, got {args.remat_chunk}"
+        return (f"--compute-dtype {args.compute_dtype} is not ported yet "
+                "(float32 only)")
+    if args.logits_dtype != "float32":
+        return (f"--logits-dtype {args.logits_dtype} is not ported yet "
+                "(float32 only)")
+    if not 0.0 <= args.dropout < 1.0:
+        return f"--dropout must be in [0, 1), got {args.dropout}"
+    if args.eval_batches is not None and args.eval_batches < 1:
+        return f"--eval-batches must be >= 1, got {args.eval_batches}"
+    if args.remat_chunk is not None and args.remat_chunk < 1:
+        return f"--remat-chunk must be >= 1, got {args.remat_chunk}"
+    if args.steps_per_call < 1:
+        return f"--steps-per-call must be >= 1, got {args.steps_per_call}"
+    if args.fused_eval and not args.eval_every:
+        return ("--fused-eval needs --eval-every > 0 (it fuses the "
+                "periodic eval pass into the train call)")
+    if args.device_data and args.prefetch:
+        return "--device-data has no host feed; drop --prefetch"
+    return None
+
+
+def training(argv, *, graph: bool = True, logger=None):
+    """The run ``train <argv>`` would make, built but not started (a
+    :class:`train.loop.Training`: state, train call, feed, final eval and
+    the loop's arguments), on the device the flags name: the command's own
+    wiring, for a caller that drives the calls itself (the card's smoke run
+    times and profiles them). ``logger`` receives the run's records (a
+    quiet one by default). Raises :class:`UsageError` for what the command
+    refuses."""
+    from .device import configure_precision, resolve_device
+    from .train import MetricsLogger
+
+    args = build_train_parser().parse_args(list(argv))
+    refused = _refusal(args)
+    if refused:
+        raise UsageError(refused)
+    dev = resolve_device(args.device)
+    configure_precision()
+    return _training(args, dev, logger or MetricsLogger(quiet=True), graph)
+
+
+def _training(args, dev, logger, graph):
+    if args.dataset == "imdb":
+        from .tasks.classification import classifier_training
+
+        return classifier_training(args, dev, logger, graph=graph)
+    return _lm_training(args, dev, logger, graph)
+
+
+def _run_train(args, graph: bool = True) -> int:
+    from .device import configure_precision, resolve_device
+    from .train import AnomalousTrainingError, MetricsLogger, train_loop
+
+    refused = _refusal(args)
     if refused:
         print(f"train: {refused}", file=sys.stderr)
         return USAGE_RC
     dev = resolve_device(args.device)
     configure_precision()
-    if args.dataset == "imdb":
-        from .tasks.classification import run_classifier
-
-        with MetricsLogger(args.jsonl) as logger:
-            return run_classifier(args, dev, logger)
-    seq_len = args.seq_len or 64
-    B = args.batch_size
-    try:
-        data = get_dataset(args.dataset, args.data_path)
-    except ValueError as e:
-        print(f"train: {e}", file=sys.stderr)
-        return USAGE_RC
     with MetricsLogger(args.jsonl) as logger:
-        if data["synthetic"]:
-            logger.log({"note": f"dataset {args.dataset}: no files at "
-                                "--data-path, using synthetic stand-in"})
-        vocab = data["vocab"]
-        cfg = LMConfig(vocab_size=len(vocab), hidden_size=args.hidden_units,
-                       num_layers=args.num_layers,
-                       tie_embeddings=args.tie_embeddings,
-                       remat_chunk=args.remat_chunk, dropout=args.dropout)
-        drop_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-
-        def train_loss_fn(params, batch, carries=None):
-            return lm_loss(params, batch, cfg, carries=carries,
-                           dropout_gen=drop_gen)
-
-        def loss_fn(params, batch, carries=None):  # eval: deterministic
-            return lm_loss(params, batch, cfg, carries=carries)
-
-        params = params_to(init_lm(torch.Generator().manual_seed(args.seed),
-                                   cfg), dev)
-        optimizer = make_optimizer(
-            args.optimizer, args.learning_rate, momentum=args.momentum,
-            clip_norm=args.clip_norm, weight_decay=args.weight_decay,
-            warmup_steps=args.warmup_steps, decay_steps=args.decay_steps)
-        stateful = args.stateful
-        state = init_train_state(
-            params, optimizer,
-            carries=init_carries(cfg, B, device=dev) if stateful else None)
-        train_tokens, valid_tokens = data["train"], data["valid"]
-        steps_per_epoch = max((len(train_tokens) - 1) // (B * seq_len), 1)
-        # the valid split can be smaller than one training-size window:
-        # evaluate with the largest batch that fits
-        eval_bs = min(B, max((len(valid_tokens) - 1) // seq_len, 0))
-        eval_step = make_eval_step(loss_fn, stateful=stateful)
-
-        def eval_fn(params):
-            if eval_bs <= 0:
-                return {"eval_skipped": 1}
-            ev = cap_batches(lm_epoch_batches(valid_tokens, eval_bs, seq_len),
-                             args.eval_batches)
-            carries = (init_carries(cfg, eval_bs, device=dev) if stateful
-                       else None)
-            return evaluate(eval_step, params, device_batches(ev, dev),
-                            carries=carries)
-
-        logger.log({"note": "start", "dataset": args.dataset,
-                    "vocab": len(vocab), "device": str(dev),
-                    "device_name": (torch.cuda.get_device_name(dev)
-                                    if dev.type == "cuda" else "cpu"),
-                    "steps_per_epoch": steps_per_epoch, "backend": "single"})
-        total = (args.num_steps if args.num_steps is not None
-                 else args.epochs * steps_per_epoch)
-        batches = device_batches(lm_batch_stream(train_tokens, B, seq_len), dev)
         try:
-            state = train_loop(
-                state, make_train_step(train_loss_fn, optimizer,
-                                       stateful=stateful),
-                batches, num_steps=total, log_every=args.log_every,
-                logger=logger,
-                eval_fn=eval_fn if args.eval_every else None,
-                eval_every=args.eval_every, tokens_per_batch=B * seq_len,
-                anomaly_limit=args.anomaly_limit)
+            run = _training(args, dev, logger, graph)
+        except UsageError as e:
+            print(f"train: {e}", file=sys.stderr)
+            return USAGE_RC
+        try:
+            state = train_loop(run.state, run.step, run.feed, logger=logger,
+                               **run.loop_kw)
         except AnomalousTrainingError as e:
             print(f"anomaly abort: {e} (exit {ANOMALY_RC})", file=sys.stderr)
             return ANOMALY_RC
-        logger.log({"step": state.step, **eval_fn(state.params),
+        logger.log({"step": state.step, **run.eval_fn(state.params),
                     "note": "final"})
     return OK_RC
 
 
-def main(argv=None) -> int:
+def _lm_training(args, dev, logger, graph):
+    """The LM's run (configs 1, 3 and 5), built but not started."""
+    from .data import (cap_batches, get_dataset, lm_batch_stream,
+                       lm_epoch_batches, stage_lm_data, window_index_stream)
+    from .models.lstm_lm import LMConfig, init_carries, init_lm, lm_loss, params_to
+    from .train import (evaluate, host_feed, init_train_state,
+                        make_device_lm_train_step, make_eval_step,
+                        make_multi_train_step, make_optimizer,
+                        make_train_step)
+    from .train.loop import Training, device_batches, eval_metrics
+
+    seq_len = args.seq_len or 64
+    B = args.batch_size
+    k = args.steps_per_call
+    try:
+        data = get_dataset(args.dataset, args.data_path)
+    except ValueError as e:
+        raise UsageError(str(e)) from e
+    if data["synthetic"]:
+        logger.log({"note": f"dataset {args.dataset}: no files at "
+                            "--data-path, using synthetic stand-in"})
+    vocab = data["vocab"]
+    cfg = LMConfig(vocab_size=len(vocab), hidden_size=args.hidden_units,
+                   num_layers=args.num_layers,
+                   tie_embeddings=args.tie_embeddings,
+                   remat_chunk=args.remat_chunk, dropout=args.dropout)
+    drop_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+
+    def train_loss_fn(params, batch, carries=None):
+        return lm_loss(params, batch, cfg, carries=carries,
+                       dropout_gen=drop_gen)
+
+    def loss_fn(params, batch, carries=None):  # eval: deterministic
+        return lm_loss(params, batch, cfg, carries=carries)
+
+    params = params_to(init_lm(torch.Generator().manual_seed(args.seed), cfg),
+                       dev)
+    optimizer = make_optimizer(
+        args.optimizer, args.learning_rate, momentum=args.momentum,
+        clip_norm=args.clip_norm, weight_decay=args.weight_decay,
+        warmup_steps=args.warmup_steps, decay_steps=args.decay_steps)
+    stateful = args.stateful
+    state = init_train_state(
+        params, optimizer,
+        carries=init_carries(cfg, B, device=dev) if stateful else None)
+    train_tokens, valid_tokens = data["train"], data["valid"]
+    steps_per_epoch = max((len(train_tokens) - 1) // (B * seq_len), 1)
+    # the valid split can be smaller than one training-size window:
+    # evaluate with the largest batch that fits
+    eval_bs = min(B, max((len(valid_tokens) - 1) // seq_len, 0))
+    eval_step = make_eval_step(loss_fn, stateful=stateful)
+
+    def eval_fn(params):
+        if eval_bs <= 0:
+            return {"eval_skipped": 1}
+        ev = cap_batches(lm_epoch_batches(valid_tokens, eval_bs, seq_len),
+                         args.eval_batches)
+        carries = (init_carries(cfg, eval_bs, device=dev) if stateful
+                   else None)
+        return evaluate(eval_step, params, device_batches(ev, dev),
+                        carries=carries)
+
+    fused_eval = args.fused_eval
+    if fused_eval and eval_bs <= 0:
+        logger.log({"note": "fused-eval: valid split smaller than one "
+                            "window; falling back to host-driven eval"})
+        fused_eval = False
+    kw = {"stateful": stateful, "graph": graph, "log": logger.log}
+    fused_kw = {}
+    if fused_eval:
+        fused_kw = {
+            "eval_data": stage_lm_data(valid_tokens, eval_bs, seq_len,
+                                       device=dev),
+            "eval_windows": args.eval_batches, "eval_loss_fn": loss_fn,
+            "eval_carries": (init_carries(cfg, eval_bs, device=dev)
+                             if stateful else None)}
+    if args.device_data:
+        ddata = stage_lm_data(train_tokens, B, seq_len, device=dev)
+        train_step = make_device_lm_train_step(
+            train_loss_fn, optimizer, ddata, steps_per_call=k, **fused_kw,
+            **kw)
+        feed = window_index_stream(ddata, k)
+    else:
+        stacked = k > 1 or fused_eval
+        train_step = (make_multi_train_step(train_loss_fn, optimizer,
+                                            **fused_kw, **kw) if stacked
+                      else make_train_step(train_loss_fn, optimizer, **kw))
+        feed = host_feed(lm_batch_stream(train_tokens, B, seq_len), dev,
+                         steps_per_call=k, stacked=stacked,
+                         prefetch=args.prefetch)
+
+    logger.log({"note": "start", "dataset": args.dataset,
+                "vocab": len(vocab), "device": str(dev),
+                "device_name": (torch.cuda.get_device_name(dev)
+                                if dev.type == "cuda" else "cpu"),
+                "steps_per_epoch": steps_per_epoch, "backend": "single"})
+    total = (args.num_steps if args.num_steps is not None
+             else args.epochs * steps_per_epoch)
+    return Training(
+        state, train_step, feed, eval_fn,
+        # each loop iteration is one K-step call: round up so the step
+        # budget is never undershot
+        dict(num_steps=-(-total // k), log_every=args.log_every,
+             eval_fn=(None if fused_eval
+                      else eval_fn if args.eval_every else None),
+             eval_every=args.eval_every, tokens_per_batch=B * seq_len,
+             anomaly_limit=args.anomaly_limit, steps_per_call=k,
+             fused_eval=((lambda ms: eval_metrics(float(ms["eval_loss"])))
+                         if fused_eval else None)))
+
+
+def main(argv=None, *, graph: bool = True) -> int:
+    """The command line. ``graph=False`` runs every train call eagerly on
+    the card too, instead of replaying its CUDA graph: the form the card's
+    smoke run compares the captured runs with (not a flag)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "train":
-        return _run_train(build_train_parser().parse_args(argv[1:]))
+        return _run_train(build_train_parser().parse_args(argv[1:]), graph)
     if not argv or argv[0] != "serve":
         print("usage: python -m lstm_tensorspark_torch {train,serve} [flags]; "
               "see train --help, serve --help", file=sys.stderr)

@@ -4,7 +4,9 @@ and variable-length examples → padded, length-bucketed batches.
 Port of the LM and classification parts of
 ``lstm_tensorspark_tpu/data/batching.py``. The LM stream is split into
 ``batch_size`` parallel row streams so window t's final recurrent state
-can seed window t+1 (stateful truncated BPTT).
+can seed window t+1 (stateful truncated BPTT). :func:`stacked_batches` and
+:func:`index_groups` feed the K-steps-per-call train steps
+(``train/multistep.py``, ``train/device_step.py``).
 """
 
 from __future__ import annotations
@@ -84,6 +86,44 @@ def lm_batch_stream(tokens: np.ndarray, batch_size: int, seq_len: int, *,
             it = itertools.islice(it, skip, None)
             skip = 0
         yield from it
+        epoch += 1
+
+
+def stacked_batches(batches: Iterator[dict], k: int) -> Iterator[dict]:
+    """Group ``k`` consecutive batches into one dict of [k, ...] arrays,
+    the host feed of a K-step call. Order is kept, so contiguous LM windows
+    stay contiguous across the stack; a trailing group smaller than ``k``
+    is dropped (it would need a call of another shape)."""
+    group: list[dict] = []
+    for b in batches:
+        group.append(b)
+        if len(group) == k:
+            yield {key: np.stack([g[key] for g in group]) for key in group[0]}
+            group = []
+
+
+def index_groups(order_fn, batch_size: int, steps_per_call: int, *,
+                 start_step: int = 0) -> Iterator[np.ndarray]:
+    """Epochs of example-index batches packed into [K, B] int32 groups, the
+    index feed of a device-data K-step call. ``order_fn(epoch)`` is that
+    epoch's 1-D example order; full batches only (as the host feed), and a
+    partial group carries over into the next epoch. ``start_step``
+    fast-forwards the epoch (so ``order_fn``'s per-epoch seed) and skips
+    the batches a resumed run has already taken."""
+    epoch, group, skip = 0, [], 0
+    if start_step:
+        per_epoch = max(len(order_fn(0)) // batch_size, 0)
+        if per_epoch:
+            epoch, skip = divmod(start_step, per_epoch)
+    while True:
+        order = order_fn(epoch)
+        for b0 in range(skip * batch_size, len(order) - batch_size + 1,
+                        batch_size):
+            group.append(order[b0:b0 + batch_size].astype(np.int32))
+            if len(group) == steps_per_call:
+                yield np.stack(group)
+                group = []
+        skip = 0
         epoch += 1
 
 

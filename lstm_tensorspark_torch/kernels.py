@@ -12,8 +12,9 @@ source, all at once. Inside :func:`defined` the kernels are built and
 launched with extra preprocessor macros (an instrumented build, e.g. the
 phase clocks of ``phase_clocks.py``), as libraries of their own beside the
 plain ones. Also here: what every wrapper shares — its launch counter
-(:class:`LaunchCounts`) and the check of a tensor it passes by pointer
-(:func:`check_f32`).
+(:class:`LaunchCounts`), the check of a tensor it passes by pointer
+(:func:`check_f32`), and the lock held while a CUDA graph is captured
+(:data:`CAPTURE_LOCK`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -35,6 +37,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_window", "spec_window", "lstm_fwd", "lstm_bwd",
            "lstmx_fwd", "lstmx_bwd", "lstm_tiled_fwd", "lstm_tiled_bwd")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+# Held while a CUDA graph is being captured (train/graphs.py). A thread
+# that allocates pinned memory or copies on another stream
+# (data/prefetch.py) takes it too: such calls from any thread invalidate a
+# capture in progress.
+CAPTURE_LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -124,16 +131,30 @@ def build(names) -> float:
 class LaunchCounts:
     """Plain integer counters of one kernel's wrapper: ``kernel`` counts
     CUDA launches, ``reference`` counts calls that ran the plain version
-    (CPU tensors). Increments are under a lock."""
+    (CPU tensors). Increments are under a lock. Every counter is listed in
+    :meth:`every` by its ``name``, so that a captured CUDA graph
+    (``train/graphs.py``) can record the launches its capture made and add
+    them again on each replay, where no wrapper runs."""
 
-    def __init__(self):
+    _every: "weakref.WeakSet[LaunchCounts]" = weakref.WeakSet()
+
+    def __init__(self, name: str):
+        self.name = name
         self._lock = threading.Lock()
         self.kernel = 0
         self.reference = 0
+        LaunchCounts._every.add(self)
+
+    @classmethod
+    def every(cls) -> list["LaunchCounts"]:
+        return list(cls._every)
 
     def bump(self, field: str) -> None:
+        self.add(field, 1)
+
+    def add(self, field: str, n: int) -> None:
         with self._lock:
-            setattr(self, field, getattr(self, field) + 1)
+            setattr(self, field, getattr(self, field) + n)
 
     def reset(self) -> None:
         with self._lock:

@@ -278,7 +278,7 @@ def decode_weights(params, fused_layers, tie_embeddings: bool) -> DecodeWeights:
                          params["head"]["bias"].contiguous())
 
 
-counts = kernels.LaunchCounts()
+counts = kernels.LaunchCounts("decode_window")
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _pp = ctypes.POINTER(ctypes.c_void_p)

@@ -52,8 +52,8 @@ MAX_SMEM_BYTES = 232448  # 227 KB per block (csrc MAX_SMEM_BYTES)
 UNITS_PER_BLOCK = 32  # hidden units a block aims to own
 MIN_SPLIT = 32  # fewest terms of a split sum
 
-fwd_counts = kernels.LaunchCounts()
-bwd_counts = kernels.LaunchCounts()
+fwd_counts = kernels.LaunchCounts("lstm_fwd")
+bwd_counts = kernels.LaunchCounts("lstm_bwd")
 
 
 class Plan(NamedTuple):

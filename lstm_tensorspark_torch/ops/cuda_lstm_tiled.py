@@ -73,8 +73,8 @@ H100_CLUSTERS_OF_4 = 30
 # H=660, B=264 at H=1024) stay under, B=512 at H=1024 (2 MiB) does not
 MAX_STATE_BYTES = 2 << 20
 
-fwd_counts = kernels.LaunchCounts()
-bwd_counts = kernels.LaunchCounts()
+fwd_counts = kernels.LaunchCounts("lstm_tiled_fwd")
+bwd_counts = kernels.LaunchCounts("lstm_tiled_bwd")
 
 
 class TiledPlan(NamedTuple):

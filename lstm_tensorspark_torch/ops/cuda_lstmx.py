@@ -54,10 +54,10 @@ FUSEDX_MIN_T = 256
 RESIDUAL_BUDGET_BYTES = 4096 * 2**20
 CHUNKS = (8, 4, 2, 1)  # the z rebuild's chunk lengths, largest first
 
-fwdx_counts = kernels.LaunchCounts()
-bwdx_counts = kernels.LaunchCounts()
-bi_fwdx_counts = kernels.LaunchCounts()
-bi_bwdx_counts = kernels.LaunchCounts()
+fwdx_counts = kernels.LaunchCounts("lstmx_fwd")
+bwdx_counts = kernels.LaunchCounts("lstmx_bwd")
+bi_fwdx_counts = kernels.LaunchCounts("bi_lstmx_fwd")
+bi_bwdx_counts = kernels.LaunchCounts("bi_lstmx_bwd")
 
 
 def _counts(kind: str, ndir: int) -> kernels.LaunchCounts:

@@ -49,7 +49,7 @@ from .cuda_decode import (
     sync_counters,
 )
 
-counts = kernels.LaunchCounts()
+counts = kernels.LaunchCounts("spec_window")
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _pp = ctypes.POINTER(ctypes.c_void_p)

@@ -103,7 +103,11 @@ def lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
         m = None if mask is None else mask[:, sl]
         carry, ys[i] = checkpoint(chunk, fused.kernel, fused.recurrent,
                                   fused.bias, carry[0], carry[1], xs[:, sl],
-                                  m, use_reentrant=False)
+                                  m, use_reentrant=False,
+                                  # the chunk draws no random numbers; and
+                                  # the RNG state cannot be read or set
+                                  # while a CUDA graph is being captured
+                                  preserve_rng_state=False)
     return carry, torch.cat(ys, dim=1)
 
 

@@ -1,11 +1,13 @@
 """Train step, eval step and the host loop that drives them.
 
-Port of the single-device, one-step-per-call part of
-``lstm_tensorspark_tpu/train/loop.py``. A step is forward, backward
-(``torch.autograd.grad``; on the card the recurrence's backward is the
-fused BPTT kernel) and the optimizer update, all queued on the device: the
-host reads nothing back unless the loop logs, evaluates, or watches for
-anomalies.
+Port of the single-device part of ``lstm_tensorspark_tpu/train/loop.py``.
+A step is forward, backward (``torch.autograd.grad``; on the card the
+recurrence's backward is the fused BPTT kernel) and the optimizer update,
+all queued on the device: the host reads nothing back unless the loop
+logs, evaluates, or watches for anomalies. On the card a train step is
+captured as a CUDA graph and replayed (``train/graphs.py``); K steps a
+call are ``train/multistep.py`` and ``train/device_step.py``, whose
+calls this loop drives too (``steps_per_call``).
 
 Non-finite guard (as ``step_body``): when the loss or the gradient norm is
 not finite, the step keeps the old params, optimizer state and carries —
@@ -142,15 +144,44 @@ def step_body(loss_fn: Callable, optimizer: Optimizer, state: TrainState,
                       opt_state, carries), metrics
 
 
+class Training(NamedTuple):
+    """A run as the train command wires it, before its loop: the first
+    ``state``, the train call ``step`` and its ``feed`` (what
+    :func:`train_loop` drives), the eval of the final record
+    (``eval_fn(params) -> record``) and :func:`train_loop`'s other keyword
+    arguments (``loop_kw``)."""
+
+    state: TrainState
+    step: Callable
+    feed: Iterable
+    eval_fn: Callable
+    loop_kw: dict
+
+
+def summarize_scan_metrics(ms: list[dict]) -> dict:
+    """The logging contract of a K-step call over its steps' metrics:
+    ``loss`` is the mean of the K losses, ``loss_last`` and ``grad_norm``
+    the last step's, ``anomalous`` the count of non-finite steps."""
+    out = {"loss": torch.stack([m["loss"] for m in ms]).mean(),
+           "loss_last": ms[-1]["loss"], "grad_norm": ms[-1]["grad_norm"]}
+    if "anomalous" in ms[0]:
+        out["anomalous"] = torch.stack([m["anomalous"] for m in ms]).sum()
+    return out
+
+
 def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
-                    stateful: bool = False):
+                    stateful: bool = False, graph: bool = True, log=None):
     """``train_step(state, batch) -> (state, metrics)`` (see
-    :func:`step_body`)."""
+    :func:`step_body`). On the card the step is captured as a CUDA graph
+    at its first call and replayed after (``train/graphs.py``; ``log``
+    receives the capture record); ``graph=False`` runs it eagerly, as the
+    CPU always does."""
+    from .graphs import graphed
 
-    def train_step(state: TrainState, batch):
-        return step_body(loss_fn, optimizer, state, batch, stateful=stateful)
+    def body(state: TrainState, feed, do_eval):
+        return step_body(loss_fn, optimizer, state, feed, stateful=stateful)
 
-    return train_step
+    return graphed(body, route="train_step", graph=graph, log=log)
 
 
 def make_eval_step(loss_fn: Callable, *, stateful: bool = False):
@@ -253,18 +284,29 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
                eval_every: int = 0, tokens_per_batch: int | None = None,
                examples_per_batch: int | None = None,
                anomaly_limit: int = 0,
-               best_metric: str | None = None) -> TrainState:
+               best_metric: str | None = None, steps_per_call: int = 1,
+               fused_eval: Callable[[dict], dict] | None = None
+               ) -> TrainState:
     """Drive ``train_step`` over ``batches``, logging every ``log_every``
-    steps (loss, grad_norm, steps_per_sec, tokens_per_sec and
+    calls (loss, grad_norm, steps_per_sec, tokens_per_sec and
     examples_per_sec when given per batch) and calling ``eval_fn(params)``
-    every ``eval_every`` steps. With ``best_metric`` (higher is better,
+    every ``eval_every`` calls. With ``best_metric`` (higher is better,
     e.g. ``eval_accuracy``), an eval that raises it (NaN never counts) is
     logged as a ``new best`` record.
 
-    Reading the logged loss is the only host sync of a logged step; with
-    ``anomaly_limit=K`` (off at 0) every step's ``anomalous`` flag is read
+    With ``steps_per_call=K`` each iteration is one K-step call
+    (``train/multistep.py``, ``train/device_step.py``): ``num_steps``,
+    ``log_every`` and ``eval_every`` count calls, and the rates are scaled
+    by K to stay in optimizer steps, tokens and examples per second. With
+    ``fused_eval`` the step is ``train_step(state, batch, do_eval)`` and
+    runs the eval itself on the calls of the eval cadence; the eval record
+    is ``fused_eval(metrics)`` in place of ``eval_fn``.
+
+    Reading the logged loss is the only host sync of a logged call; with
+    ``anomaly_limit=K`` (off at 0) every call's ``anomalous`` count is read
     too, and K consecutive anomalous steps raise
-    :class:`AnomalousTrainingError`."""
+    :class:`AnomalousTrainingError` (a call whose steps were all anomalous
+    extends the run, any other resets it)."""
     if num_steps is not None and num_steps <= 0:
         return state  # eval-only budget: never pull a batch from the feed
     window_start = time.perf_counter()
@@ -276,12 +318,19 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
         if num_steps is not None and i >= num_steps:
             break
         step = i + 1
-        state, metrics = train_step(state, batch)
+        if fused_eval is not None:
+            do_eval = bool(eval_every) and step % eval_every == 0
+            state, metrics = train_step(state, batch, do_eval)
+        else:
+            state, metrics = train_step(state, batch)
         last_metrics = metrics
         if anomaly_limit:
             bad = int(metrics["anomalous"].item())  # sync point (documented)
             anomalous_total += bad
-            anomalous_consec = anomalous_consec + 1 if bad else 0
+            if bad >= steps_per_call:
+                anomalous_consec += bad
+            else:
+                anomalous_consec = 0
             if anomalous_consec >= anomaly_limit:
                 if logger is not None:
                     logger.log({"step": state.step, "note": "anomaly abort",
@@ -294,9 +343,10 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
             now = time.perf_counter()
             dt = now - window_start
             window_start = now
+            window = log_every * steps_per_call
             record = {"step": state.step, "loss": loss,
                       "grad_norm": float(metrics["grad_norm"].item()),
-                      "steps_per_sec": log_every / dt}
+                      "steps_per_sec": window / dt}
             if anomaly_limit:
                 if anomalous_total:
                     record["anomalous_steps"] = anomalous_total
@@ -305,14 +355,15 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
                 if bad:
                     record["anomalous"] = bad
             if tokens_per_batch:
-                record["tokens_per_sec"] = tokens_per_batch * log_every / dt
+                record["tokens_per_sec"] = tokens_per_batch * window / dt
             if examples_per_batch:
-                record["examples_per_sec"] = (examples_per_batch * log_every
-                                              / dt)
+                record["examples_per_sec"] = examples_per_batch * window / dt
             if logger is not None:
                 logger.log(record)
-        if eval_every and step % eval_every == 0 and eval_fn is not None:
-            ev = eval_fn(state.params)
+        if eval_every and step % eval_every == 0 and (
+                fused_eval is not None or eval_fn is not None):
+            ev = (fused_eval(metrics) if fused_eval is not None
+                  else eval_fn(state.params))
             if logger is not None:
                 logger.log({"step": state.step, **ev})
             v = ev.get(best_metric) if best_metric else None
