@@ -48,7 +48,13 @@ Phases (each one fails the run):
    config 1 in turns (plain, kernel, kernel, plain) with CUDA events and
    under ``torch.profiler``, beside cuDNN's ``torch.nn.LSTM`` on the same
    shapes (the yardstick; the port never calls it) and the bound, each
-   time also per step;
+   time also per step; then the pair's bfloat16 forms (xproj, z, dz and U
+   bfloat16) against their plain twins at config 1, H=256 (U and U^T in
+   shared memory), config 3's width and an awkward shape, masked and not
+   (float32 values to 1e-3, the gradients dh0, dc0 to 3e-3 of their max,
+   each stored bfloat16 element within one ulp or 1e-3 of the stream's
+   scale), their plans and registers, timed at config 1 beside the twin,
+   cuDNN in bfloat16 and the bound;
 6. train config 1 through the CLI entry (``cli.main(["train", ...])``):
    the first 10 losses on the card against the same run on the CPU (plain
    versions, same seed and batches), and 5 of a 2-layer stack, then 300 steps with an eval every 100
@@ -96,7 +102,9 @@ Phases (each one fails the run):
    plain) with CUDA events and under ``torch.profiler``, beside cuDNN's
    ``torch.nn.LSTM``, the bound and the parent design's time; and time the
    tiled pair against the resident pair at config 3's width, the route
-   rule's boundary;
+   rule's boundary; then the pair's bfloat16 forms as in phase 5 at config
+   3 (B=32, T=70, H=650), config 5's shard and B=6, T=33, H=1030, timed at
+   config 5's shard;
 10. train config 5's model (4 x 1024 word LM on the WikiText-103
    stand-in, B=16, T=128, Adam 1e-3, clip 1.0, stateful, f32) through the
    CLI: the first 5 losses at ``--dropout 0`` on the card, without and
@@ -145,7 +153,22 @@ Phases (each one fails the run):
    checked with the warm-up launches taken out, and their profiled steps
    are the runs the CLI builds.
 
-``python3 <this file> --train-calls LABEL`` runs phase 14 alone.
+15. train the LM family in bf16 through the CLI, each run with its
+   script's flags (``configs/ptb_char.sh``: config 1, bf16 compute;
+   ``configs/wikitext2.sh``: config 3, 2x650, B=32, T=70, sgd 2.0, clip
+   0.25, dropout 0.5, bf16 compute and logits, on the WikiText-2
+   stand-in; ``configs/wikitext103_dp.sh`` at its per-chip batch of 16,
+   with and without ``--remat-chunk 32``), captured: the first 5 losses
+   at ``--dropout 0`` against the CPU run of the same command (within
+   2e-3 of the loss: the card's kernels round the streams to bf16, the
+   CPU's plain loop does not), the bf16 forms' launches (and no other
+   recurrence kernel, no plain twin), 60 steps at the script's dropout,
+   and steps/s, device ms a step and the idle share beside the float32
+   run of the same command, in turns (f32, bf16, bf16, f32).
+
+``python3 <this file> --train-calls LABEL`` runs phase 14 alone;
+``--bf16 train`` the bf16 parts of phases 5 and 9 and phase 15
+(``--bf16 kernels`` without phase 15).
 
 The last lines are the kernel report (one JSON object), the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``. Exits
@@ -1478,11 +1501,16 @@ def config2_phase(torch, cli, cl, cx, ct, device):
 
 
 def all_counters(cl, cx, ct):
-    """Every recurrence kernel's launch counter, by kernel name."""
+    """Every recurrence kernel's launch counter, by kernel name (the
+    bfloat16 forms' too)."""
     return {"lstm_fwd": cl.fwd_counts, "lstm_bwd": cl.bwd_counts,
             "lstmx_fwd": cx.fwdx_counts, "lstmx_bwd": cx.bwdx_counts,
             "bilstm_fwd": cx.bi_fwdx_counts, "bilstm_bwd": cx.bi_bwdx_counts,
-            "lstm_tiled_fwd": ct.fwd_counts, "lstm_tiled_bwd": ct.bwd_counts}
+            "lstm_tiled_fwd": ct.fwd_counts, "lstm_tiled_bwd": ct.bwd_counts,
+            "lstm_fwd_bf16": cl.fwd_bf16_counts,
+            "lstm_bwd_bf16": cl.bwd_bf16_counts,
+            "lstm_tiled_fwd_bf16": ct.fwd_bf16_counts,
+            "lstm_tiled_bwd_bf16": ct.bwd_bf16_counts}
 
 
 def warmup_launches(recs, counters):
@@ -1523,14 +1551,8 @@ def tiled_kernel_phase(torch, cl, ct, device):
     errs = {"fwd": 0.0, "bwd": 0.0}
     print(f"  resident clusters at one block an SM: "
           f"{ct.max_clusters(device)}", flush=True)
-    regs = {}
-    for name in ("lstm_tiled_fwd", "lstm_tiled_bwd"):
-        log = kernels.library_path(name).with_name(
-            kernels.library_path(name).name + ".log")
-        used = [ln.split("Used")[1].split(",")[0].strip()
-                for ln in (log.read_text().splitlines() if log.is_file()
-                           else []) if "Used" in ln]
-        regs[name] = used[0] if used else "not reported"
+    regs = {name: ", ".join(form_registers(kernels, name, bf16=False))
+            or "not reported" for name in ("lstm_tiled_fwd", "lstm_tiled_bwd")}
     for name, spec in (("config5", LSTM_CONFIG5), ("config5-b64", LSTM_B64),
                        ("b256", LSTM_B256), ("config3", LSTM_CONFIG3),
                        ("awkward", LSTM_TILED_AWKWARD),
@@ -2505,6 +2527,435 @@ def config3_phase(torch, tlm, tgen, cd, serve, device):
     return r
 
 
+# ---------------------------------------------------------------------------
+# bf16: the recurrence kernels' bfloat16 forms (phases 5 and 9) and the
+# LM family's bf16 training through the CLI (phase 15)
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12     # H100 SXM bfloat16, dense, tensor cores
+# the bfloat16 forms against their plain twins on the card: both round h
+# (and dz) to bfloat16 before each product, from float32 sums taken in
+# another order, so a sum that lands by a rounding boundary rounds to the
+# neighbouring bfloat16 value in one and not the other, and the difference
+# travels down the chain. The float32 values (ys, hT, cT, cs) are held to
+# BF16_TOL, the gradients dh0 and dc0 to BF16_GRAD_SHARE of their max
+# |reference|; a stored bfloat16 element (z, dz) to one bfloat16 ulp of the
+# reference element, or BF16_TOL of the stream's max(1, max |reference|)
+BF16_TOL = 1e-3
+BF16_GRAD_SHARE = 3e-3
+# (name, shape, masked cases) of each pair's bfloat16 form: config 1's
+# window (U and U^T in the lanes' registers), U's and U^T's slices in
+# shared memory (H=256), config 3's width on the resident pair (U through
+# L2), an awkward narrow shape; config 3 (B=32, T=70, H=650) and config 5's
+# shard on the tiled pair, and an awkward tiled shape (U rows past the
+# registers: the shared-memory remainder in bfloat16)
+BF16_RESIDENT = (("config1", LSTM_CONFIG1), ("ut_smem", LSTM_UT_SMEM),
+                 ("config3-resident", LSTM_CONFIG3),
+                 ("awkward", dict(B=6, T=33, H=40)))
+BF16_TILED = (("config3", LSTM_CONFIG3), ("config5", LSTM_CONFIG5),
+              ("awkward", LSTM_TILED_AWKWARD))
+# phase 15: the first losses on the card (the kernels' route: the streams
+# rounded to bfloat16, as JAX's --use-pallas) against the CPU run of the
+# same command (the plain loop: zx and h rounded only at the products, as
+# JAX's default scan), both at --dropout 0. The two rounding schemes
+# differ by the streams' roundings, not only by the order of sums, so the
+# limit is relative to the loss: 2e-3 of it (the CPU tests measure the gap
+# at small widths: tests/test_torch_bf16.py)
+BF16_LOSS_RTOL = 2e-3
+BF16_FIRST = 5
+BF16_STEPS = 60
+CONFIG1_BF16_FLAGS = ["train", "--dataset", "ptb_char", "--hidden-units",
+                      "128", "--num-layers", "1", "--batch-size", "64",
+                      "--seq-len", "64", "--learning-rate", "0.5",
+                      "--stateful", "--compute-dtype", "bfloat16"]
+CONFIG3_BF16_FLAGS = ["train", "--dataset", "wikitext2", "--hidden-units",
+                      "650", "--num-layers", "2", "--batch-size", "32",
+                      "--seq-len", "70", "--optimizer", "sgd",
+                      "--learning-rate", "2.0", "--clip-norm", "0.25",
+                      "--stateful", "--compute-dtype", "bfloat16",
+                      "--logits-dtype", "bfloat16"]
+CONFIG5_BF16_FLAGS = ["train", "--dataset", "wikitext103", "--hidden-units",
+                      "1024", "--num-layers", "4", "--batch-size", "16",
+                      "--seq-len", "128", "--optimizer", "adam",
+                      "--learning-rate", "1e-3", "--clip-norm", "1.0",
+                      "--stateful", "--compute-dtype", "bfloat16",
+                      "--logits-dtype", "bfloat16"]
+# the bf16 run, its dropout, its layers, its pair ("resident" or "tiled")
+BF16_RUNS = {"config1": (CONFIG1_BF16_FLAGS, "0", 1, "resident"),
+             "config3": (CONFIG3_BF16_FLAGS, "0.5", 2, "tiled"),
+             "config5": (CONFIG5_BF16_FLAGS, "0.2", 4, "tiled"),
+             "config5-remat32": (CONFIG5_BF16_FLAGS + ["--remat-chunk", "32"],
+                                 "0.2", 4, "tiled")}
+
+
+def ptxas_registers(kernels, name):
+    """{entry function: its ptxas register line} from the build log of
+    kernel ``name`` (``-Xptxas -v``), for each template instance."""
+    log = kernels.library_path(name).with_name(
+        kernels.library_path(name).name + ".log")
+    out, entry = {}, None
+    for line in (log.read_text().splitlines() if log.is_file() else []):
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and entry is not None:
+            out[entry] = line.split("Used")[1].split(",")[0].strip()
+            entry = None
+    return out
+
+
+def form_registers(kernels, name, bf16):
+    """The registers of the bfloat16 (or the float32) instances of kernel
+    ``name``."""
+    regs = ptxas_registers(kernels, name)
+    return sorted({v for k, v in regs.items()
+                   if ("__nv_bfloat16" in k) == bf16})
+
+
+def bf16_held(torch, name, got, ref, label, stream, bad):
+    """max |got - ref| of a bfloat16 form's output against its plain twin,
+    and a note to print beside it: for a gradient that max as a share of
+    max |reference|, for a stored bfloat16 stream the share of its
+    elements more than one ulp of the reference element apart; a miss of
+    the limits above is appended to ``bad`` (the phase fails after
+    printing every case)."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    err = float(d.max())
+    if not stream:
+        grad = name in ("dh0", "dc0")
+        scale = float(ref.abs().max())
+        tol = BF16_GRAD_SHARE * scale if grad else BF16_TOL
+        if not err <= tol:
+            bad.append(f"{label}: bf16 kernel {name} differs from its plain "
+                       f"twin by {err:.3e} > {tol:.3e}")
+        return err, (f"{err / scale:.2e} of max {scale:.3e}" if grad
+                     else None)
+    # one ulp of a bfloat16 value: 2^(exponent - 7), the smallest normal's
+    # for zero
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(
+        ref.abs().clamp_min(2.0 ** -126))[1] - 8)
+    floor = BF16_TOL * max(1.0, float(ref.abs().max()))
+    over = d > ulp
+    n_bad = int((over & (d > floor)).sum())
+    if n_bad:
+        bad.append(f"{label}: bf16 kernel {name}: {n_bad} elements differ "
+                   "from the plain twin by more than one bfloat16 ulp and "
+                   f"{floor:.3e} (max {err:.3e})")
+    return err, f"{100 * float(over.float().mean()):.3f}% past 1 ulp"
+
+
+def lstm_bound_bf16(B, T, H, kind, masked=False):
+    """:func:`lstm_bound` of a bfloat16 form: xproj, z, dz and U at 2 bytes,
+    the rest at 4; the products at the bfloat16 tensor-core peak."""
+    G = 4 * H
+    if kind == "fwd":  # xproj, U in (bf16); h0, c0 in; ys, hT, cT, cs out;
+        # z out (bf16)
+        b16 = T * B * G + H * G + T * B * G
+        f32 = 2 * B * H + T * B * H + 2 * B * H + T * B * H
+    else:  # z, U in (bf16); dys, cs, c0, dhT, dcT in; dz out (bf16);
+        # dh0, dc0 out
+        b16 = T * B * G + G * H + T * B * G
+        f32 = 2 * T * B * H + B * H + 2 * B * H + 2 * B * H
+    nbytes = 2 * b16 + 4 * f32 + 4 * (T * B if masked else 0)
+    flops = 2 * T * B * H * G
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cudnn_bf16_ms(torch, B, T, H, device):
+    """cuDNN's ``torch.nn.LSTM`` in bfloat16 on one layer at B, T, H (input
+    width H, seeded weights): (forward ms, backward-alone ms). A yardstick
+    the port never calls."""
+    g = torch.Generator().manual_seed(7)
+    lstm = torch.nn.LSTM(H, H).to(device=device, dtype=torch.bfloat16)
+    lstm.flatten_parameters()
+    x = torch.randn(T, B, H, generator=g).to(device, torch.bfloat16)
+    x.requires_grad_()
+    h0 = torch.zeros(1, B, H, device=device, dtype=torch.bfloat16)
+    cots = [torch.randn(T, B, H, generator=g).to(device, torch.bfloat16)]
+    params = [x, *lstm.parameters()]
+    ys, _ = lstm(x, (h0, h0))
+
+    def fwd():
+        return lstm(x, (h0, h0))
+
+    def bwd():
+        return torch.autograd.grad([ys], params, cots, retain_graph=True)
+
+    return time_ms(torch, fwd, 20), time_ms(torch, bwd, 20)
+
+
+def bf16_kernel_phase(torch, cl, ct, device, pair):
+    """The bfloat16 forms of the resident pair (``pair="resident"``, with
+    phase 5) or the tiled pair (``"tiled"``, with phase 9) against their
+    plain twins at the configs' shapes, their plans and registers, and
+    their times at the shape of their training path (config 1; config 5's
+    shard) beside the plain twin, cuDNN in bfloat16 and the bound."""
+    from lstm_tensorspark_torch import kernels
+
+    resident = pair == "resident"
+    print(f"== phase {5 if resident else 9}, bf16: the {pair} pair's "
+          "bfloat16 forms vs their plain twins", flush=True)
+    fwd = cl.lstm_forward if resident else ct.lstm_tiled_forward
+    bwd = cl.lstm_backward if resident else ct.lstm_tiled_backward
+    names = ("lstm_fwd", "lstm_bwd") if resident else ("lstm_tiled_fwd",
+                                                       "lstm_tiled_bwd")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    regs = {n: form_registers(kernels, n, bf16=True) for n in names}
+    print(f"  ptxas registers of the bfloat16 instances: {regs}",
+          flush=True)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    bad = []
+
+    def bf16_inputs(B, T, H, masked, seed):
+        (xproj, U, h0, c0, mask), cots = lstm_inputs(torch, B, T, H, masked,
+                                                     seed, device)
+        return [xproj.bfloat16(), U.bfloat16(), h0, c0, mask], cots
+
+    for name, spec in (BF16_RESIDENT if resident else BF16_TILED):
+        B, T, H = spec["B"], spec["T"], spec["H"]
+        for masked in (False, True):
+            label = f"bf16 {pair} {name} B={B} T={T} H={H} mask={masked}"
+            inputs, (dys, dhT, dcT) = bf16_inputs(B, T, H, masked,
+                                                  seed=7 * H + B + masked)
+            got = fwd(*inputs, save_residuals=True)
+            bare = fwd(*inputs)
+            ref = cl.lstm_forward_reference(*inputs, save_residuals=True)
+            torch.cuda.synchronize()
+            if got[3].dtype != torch.bfloat16:
+                fail(f"{label}: the bf16 form stored z as {got[3].dtype}")
+            e = {}
+            for n, a, r in zip(("ys", "hT", "cT", "z", "cs"), got, ref):
+                e[n] = bf16_held(torch, n, a, r, label, n == "z", bad)
+            for n, a, r in zip(("ys", "hT", "cT"), bare, got):
+                if not torch.equal(a, r):
+                    fail(f"{label}: the forward without residuals gives "
+                         f"other {n} than with them")
+            z, cs = ref[3], ref[4]
+            c_prev = torch.cat([inputs[3][None], cs[:-1]])
+            bgot = bwd(z, inputs[3], cs, dys, inputs[1], dhT, dcT, inputs[4])
+            bref = cl.lstm_backward_reference(z, c_prev, dys, inputs[1], dhT,
+                                              dcT, inputs[4])
+            torch.cuda.synchronize()
+            if bgot[0].dtype != torch.bfloat16:
+                fail(f"{label}: the bf16 form stored dz as {bgot[0].dtype}")
+            for n, a, r in zip(("dz", "dh0", "dc0"), bgot, bref):
+                e[n] = bf16_held(torch, n, a, r, label, n == "dz", bad)
+            errs["fwd"] = max(errs["fwd"], *(e[n][0] for n in
+                                             ("ys", "hT", "cT", "z", "cs")))
+            errs["bwd"] = max(errs["bwd"], *(e[n][0] for n in
+                                             ("dz", "dh0", "dc0")))
+            print(f"  {label}: max |d| " + ", ".join(
+                f"{n} {v[0]:.2e}" + ("" if v[1] is None else f" ({v[1]})")
+                for n, v in e.items()), flush=True)
+        if resident:
+            print(f"  {name} bf16 plans: fwd {cl.plan('fwd', B, H, sms, esize=2)}"
+                  f"; bwd (launched) "
+                  f"{cl.card_plan('bwd', B, H, device, esize=2)}", flush=True)
+        else:
+            for kind in ("fwd", "bwd"):
+                p = ct.card_plan(kind, B, H, device, 2)
+                print(f"  {name} bf16 tiled {kind} plan: {p.blocks} blocks "
+                      f"in clusters of {p.cluster}, {p.units} units a block, "
+                      f"{p.per_lane} {'rows' if kind == 'fwd' else 'columns'}"
+                      f" of U a lane ({p.u_regs} in registers), "
+                      f"{p.smem_bytes} bytes of shared memory a block",
+                      flush=True)
+    if bad:
+        fail("; ".join(bad))
+
+    # times at the training path's shape: forward with residuals, backward
+    # from them, unmasked
+    spec = LSTM_CONFIG1 if resident else LSTM_CONFIG5
+    B, T, H = spec["B"], spec["T"], spec["H"]
+    inputs, (dys, dhT, dcT) = bf16_inputs(B, T, H, False, seed=1)
+    _, _, _, z, cs = fwd(*inputs, save_residuals=True)
+    c_prev = torch.cat([inputs[3][None], cs[:-1]])
+    fns = {
+        "fwd": (lambda: fwd(*inputs, save_residuals=True),
+                lambda: cl.lstm_forward_reference(*inputs,
+                                                  save_residuals=True)),
+        "bwd": (lambda: bwd(z, inputs[3], cs, dys, inputs[1], dhT, dcT),
+                lambda: cl.lstm_backward_reference(z, c_prev, dys, inputs[1],
+                                                   dhT, dcT)),
+    }
+    lib = dict(zip(("fwd", "bwd"), cudnn_bf16_ms(torch, B, T, H, device)))
+    timings = {}
+    for kind, (kernel, plain) in fns.items():
+        plain_ms, kernel_ms, r = in_turns(torch, plain, kernel,
+                                          10 if resident else 5)
+        bound_ms, bound_by = lstm_bound_bf16(B, T, H, kind)
+        stem = "lstm" if resident else "lstm_tiled"
+        dev_ms = profiled_ms(torch, kernel, f"{stem}_{kind}_kernel", 20)
+        timings[f"{stem}_{kind}_bf16"] = dict(
+            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, device_ms=dev_ms, library_ms=lib[kind],
+            max_err=errs[kind], shape=(B, T, H))
+        print(f"  {stem}_{kind} bf16 at B={B} T={T} H={H}: kernel_ms "
+              f"{kernel_ms:.4f} ({r[1]:.4f}, {r[2]:.4f}; "
+              f"{1e3 * kernel_ms / T:.2f} us a step), device_ms "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}, "
+              f"plain_ms {plain_ms:.4f} ({r[0]:.4f}, {r[3]:.4f}), "
+              f"library_ms (cuDNN bf16) {lib[kind]:.4f}, bound_ms "
+              f"{bound_ms:.6f} ({bound_by}, {kernel_ms / bound_ms:.1f}x)",
+              flush=True)
+    return timings
+
+
+BF16_REPLACES = {
+    "lstm_fwd_bf16": "lstm_tensorspark_tpu/ops/pallas_lstm.py:528",
+    "lstm_bwd_bf16": "lstm_tensorspark_tpu/ops/pallas_lstm.py:597",
+    "lstm_tiled_fwd_bf16": "lstm_tensorspark_tpu/ops/pallas_lstm.py:670",
+    "lstm_tiled_bwd_bf16": "lstm_tensorspark_tpu/ops/pallas_lstm.py:744"}
+
+
+def bf16_row(name, t, launches):
+    """The kernel report's row of a bfloat16 form."""
+    return {"name": name, "route": "cuda",
+            "source": "lstm_tensorspark_torch/csrc/"
+                      f"{name[:-len('_bf16')]}.cu",
+            "replaces": BF16_REPLACES[name], "launches": launches,
+            "max_abs_err": t["max_err"], "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+
+def step_parts(torch, calls, m):
+    """Where a step's time goes over ``m`` calls of a :func:`cli_calls`
+    run under torch.profiler (device events only): the recurrence kernels,
+    the library's matrix products, the other device work, and the host
+    time the device work does not cover, each in ms a step (None when the
+    profiler records no device time)."""
+    prof = device_profile(torch, lambda: calls(m), cpu=False)
+    if prof is None:
+        return None
+    busy, wall, by_name, _ = prof
+    parts = {"recurrence kernels": 0.0, "matmuls": 0.0, "other": 0.0}
+    for k, v in by_name.items():
+        if "lstm_" in k:
+            parts["recurrence kernels"] += v
+        elif any(w in k.lower() for w in ("gemm", "cutlass", "xmma",
+                                          "nvjet", "sm90_")):
+            parts["matmuls"] += v
+        else:
+            parts["other"] += v
+    parts["host, uncovered"] = wall - busy
+    steps = m * calls.k
+    return {k: v / steps for k, v in parts.items()}
+
+
+def bf16_train_phase(torch, cli, cl, cx, ct, device):
+    """Phase 15: configs 1, 3 and 5's shard in bf16 through the CLI, as
+    their scripts run them (captured, the default): the first losses
+    against the CPU run, the bf16 forms' launches (the float32 forms and
+    the plain twins at 0), and steps/s, device ms a step and the idle
+    share beside the float32 run of the same command, in turns."""
+    print("== phase 15: bf16 training of the LM family through the CLI",
+          flush=True)
+    from lstm_tensorspark_torch.ops import lstm_cell
+
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    counters = all_counters(cl, cx, ct)
+    main_launches = {k: 0 for k in BF16_REPLACES}
+
+    def run(name, flags):
+        for c in counters.values():
+            c.reset()
+        path = os.path.join(tmp, f"{name}.jsonl")
+        t0 = time.perf_counter()
+        rc = cli.main(flags + ["--jsonl", path])
+        if rc != 0:
+            fail(f"bf16 train run {name} exited {rc}")
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+        launches = {k: c.kernel for k, c in counters.items()}
+        launches["plain"] = sum(c.reference for c in counters.values())
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return recs, launches
+
+    cpu_losses = {}
+    for cfg, (flags, drop, L, pair) in BF16_RUNS.items():
+        n = BF16_FIRST
+        first = flags + ["--num-steps", str(n), "--log-every", "1",
+                         "--dropout", "0", "--eval-batches", "1"]
+        base = cfg.split("-")[0]
+        if base not in cpu_losses:  # remat gives the plain loop's values
+            recs, _ = run(f"{cfg} first{n} cpu", first + ["--device", "cpu"])
+            cpu_losses[base] = [r["loss"] for r in recs if "loss" in r]
+        recs, launches = run(f"{cfg} first{n} card",
+                             first + ["--device", "cuda"])
+        card_l = [r["loss"] for r in recs if "loss" in r]
+        cpu_l = cpu_losses[base]
+        if len(card_l) != n or len(cpu_l) != n:
+            fail(f"{cfg}: logged {len(card_l)} / {len(cpu_l)} losses, not "
+                 f"{n}")
+        gap = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        print(f"  {cfg} bf16, first {n} losses: card "
+              f"{[round(x, 6) for x in card_l]}; CPU "
+              f"{[round(x, 6) for x in cpu_l]}; max relative |d| {gap:.2e}"
+              f" (limit {BF16_LOSS_RTOL})", flush=True)
+        if not gap <= BF16_LOSS_RTOL:
+            fail(f"{cfg} bf16: card losses differ from the CPU run by "
+                 f"{gap:.3e} of the loss > {BF16_LOSS_RTOL}")
+        stem = "lstm" if pair == "resident" else "lstm_tiled"
+        others = {k: v for k, v in launches.items()
+                  if v and k not in (f"{stem}_fwd_bf16", f"{stem}_bwd_bf16")}
+        if others or not launches[f"{stem}_fwd_bf16"]:
+            fail(f"{cfg} bf16: launches {launches}: wanted the {pair} "
+                 "pair's bf16 forms alone")
+        # the main run: the script's dropout, BF16_STEPS steps
+        recs, launches = run(f"{cfg} main", flags + [
+            "--num-steps", str(BF16_STEPS), "--log-every", "20",
+            "--dropout", drop, "--device", "cuda"])
+        logged = [r for r in recs if "loss" in r]
+        if not all(r["loss"] == r["loss"] and r["loss"] < 1e9
+                   for r in logged):
+            fail(f"{cfg} bf16: a logged loss is not finite")
+        fw, bw = launches[f"{stem}_fwd_bf16"], launches[f"{stem}_bwd_bf16"]
+        remat = "--remat-chunk" in flags
+        if fw < BF16_STEPS * L or (bw == 0) != remat:
+            fail(f"{cfg} bf16 main: launches {launches} (fwd at least "
+                 f"{BF16_STEPS * L}; bwd {'none' if remat else 'some'})")
+        for k in main_launches:
+            main_launches[k] += launches[k]
+        print(f"  {cfg} bf16 main ({BF16_STEPS} steps, dropout {drop}): "
+              f"loss {logged[0]['loss']:.4f} -> {logged[-1]['loss']:.4f}; "
+              f"launches { {k: v for k, v in launches.items() if v} }",
+              flush=True)
+
+        # steps/s, device ms a step and idle share: float32 and bf16 of the
+        # same command, in turns (f32, bf16, bf16, f32)
+        f32_flags = [("float32" if a == "bfloat16" else a) for a in flags]
+        runs = {}
+        for dt, fl in (("f32", f32_flags), ("bf16", flags)):
+            calls = cli_calls(cli, fl + ["--dropout", drop, "--device",
+                                         "cuda"])
+            calls(3)
+            runs[dt] = calls
+        n_rate = {"config1": 300, "config3": 40}.get(cfg, 20)
+        got = {}
+        for dt in ("f32", "bf16", "bf16", "f32"):
+            got.setdefault(dt, []).append(
+                rate_and_profile(torch, runs[dt], n_rate, 10))
+        print(f"  {cfg} in turns (f32, bf16, bf16, f32; {card}): " + "; ".join(
+            f"{dt} " + ", ".join(
+                f"{s:.2f} steps/s, device "
+                + ("not measured" if d is None else f"{d:.4f} ms a step, "
+                   f"idle {i:.3f}") for s, d, i in got[dt])
+            for dt in ("f32", "bf16")), flush=True)
+        for dt in ("f32", "bf16"):
+            parts = step_parts(torch, runs[dt], 10)
+            print(f"  {cfg} {dt} step by part (ms a step over 10 calls): "
+                  + ("not measured" if parts is None else "; ".join(
+                      f"{k} {v:.4f}" for k, v in parts.items())),
+                  flush=True)
+        del runs
+        gc.collect()
+    return main_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2551,10 +3002,12 @@ def main() -> int:
     max_err, timings = kernel_phase(torch, tlm, tgen, cd, device)
     launches, tokens = serve_phase(torch, tlm, tgen, cd, serve, device)
     lstm_timings = lstm_kernel_phase(torch, cl, device)
+    bf16_timings = bf16_kernel_phase(torch, cl, ct, device, "resident")
     train_launches = train_phase(torch, cli, cl, device)
     lstmx_timings = lstmx_kernel_phase(torch, cx, device)
     config2_launches = config2_phase(torch, cli, cl, cx, ct, device)
     tiled_timings = tiled_kernel_phase(torch, cl, ct, device)
+    bf16_timings.update(bf16_kernel_phase(torch, cl, ct, device, "tiled"))
     config5_launches = config5_phase(torch, cli, cl, cx, ct, device)
     spec_err, spec_timings = spec_kernel_phase(torch, tlm, tgen, cd, cs,
                                                draft_config, device)
@@ -2562,6 +3015,7 @@ def main() -> int:
                                      draft_config, device)
     config3_phase(torch, tlm, tgen, cd, serve, device)
     train_calls_phase(torch, cli, cl, cx, ct, device)
+    bf16_launches = bf16_train_phase(torch, cli, cl, cx, ct, device)
 
     main_path = timings["config1"]
     lstm_rows = [{
@@ -2614,6 +3068,8 @@ def main() -> int:
         "bound_by": tiled_timings[kind]["bound_by"],
         "library_ms": tiled_timings[kind]["library_ms"],
     } for kind in ("fwd", "bwd")]
+    bf16_rows = [bf16_row(name, bf16_timings[name], bf16_launches[name])
+                 for name in bf16_launches]
     print(json.dumps({"kernels": [{
         "name": "decode_window",
         "route": "cuda",
@@ -2638,7 +3094,7 @@ def main() -> int:
         "bound_ms": spec_timings["config1"]["bound_ms"],
         "bound_by": spec_timings["config1"]["bound_by"],
         "library_ms": None,
-    }] + lstm_rows + lstmx_rows + tiled_rows}), flush=True)
+    }] + lstm_rows + lstmx_rows + tiled_rows + bf16_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2859,8 +3315,30 @@ def train_calls(label: str) -> int:
     return 0
 
 
+def bf16(label: str) -> int:
+    """The bf16 work alone (the bf16 parts of phases 5 and 9, phase 15),
+    from the checkout in the working directory, tagged ``label``; ``label``
+    ``kernels`` skips phase 15."""
+    torch, dev = _checkout(label)
+    from lstm_tensorspark_torch import cli, kernels
+    from lstm_tensorspark_torch.ops import cuda_lstm as cl
+    from lstm_tensorspark_torch.ops import cuda_lstm_tiled as ct
+    from lstm_tensorspark_torch.ops import cuda_lstmx as cx
+
+    print(f"bf16 phases of {label} ({os.getcwd()}; {card_line()}); kernels "
+          f"built in {kernels.build(kernels.SOURCES):.1f} s", flush=True)
+    t = bf16_kernel_phase(torch, cl, ct, dev, "resident")
+    t.update(bf16_kernel_phase(torch, cl, ct, dev, "tiled"))
+    if label != "kernels":
+        launches = bf16_train_phase(torch, cli, cl, cx, ct, dev)
+        print(json.dumps([bf16_row(n, t[n], launches[n]) for n in launches]),
+              flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     for flag, fn in (("--train-calls", train_calls),
+                     ("--bf16", bf16),
                      ("--windows", windows),
                      ("--config3-burst", config3_burst_turn),
                      ("--resident-pair", resident_pair),

@@ -9,9 +9,13 @@
   run's device (training steps only). ``--dataset imdb`` trains the
   bi-LSTM classifier instead (BASELINE.md config 2,
   ``tasks/classification.py``). ``--remat-chunk`` takes the recompute
-  backward (JAX's choice when it is set). Float32 only;
-  ``--compute-dtype bfloat16``, ``--logits-dtype bfloat16`` and
-  ``--dataset uci_electricity`` exit with ``USAGE_RC`` (not ported yet). A
+  backward (JAX's choice when it is set). ``--compute-dtype bfloat16``
+  and ``--logits-dtype bfloat16`` train the LM as JAX's command does (the
+  kernels' bfloat16 forms on the card); both default to float32 here
+  (JAX's ``--compute-dtype`` defaults to bfloat16) until the classifier's
+  bfloat16 is ported: ``--dataset imdb --compute-dtype bfloat16`` and
+  ``--dataset uci_electricity`` exit with ``USAGE_RC`` (not ported yet);
+  ``--logits-dtype`` is an LM flag, which imdb ignores as JAX's does. A
   run of ``--anomaly-limit`` consecutive non-finite steps exits with
   ``ANOMALY_RC``.
 - ``serve --selftest`` decodes ``--sessions`` concurrent sessions through
@@ -254,7 +258,7 @@ def build_train_parser() -> argparse.ArgumentParser:
         prog="lstm_tensorspark_torch train",
         description="train the LSTM language model or, with --dataset "
                     "imdb, the bi-LSTM classifier on PyTorch/CUDA (one "
-                    "device, float32)")
+                    "device)")
     p.add_argument("--dataset", type=str, default="ptb_char",
                    choices=["ptb_char", "wikitext2", "wikitext103", "imdb",
                             "uci_electricity"],
@@ -294,11 +298,14 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--tie-embeddings", action="store_true")
     p.add_argument("--compute-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="float32 only so far; bfloat16 is refused")
+                   help="dtype of the recurrence's products (LM only so "
+                        "far: imdb refuses bfloat16); parameters, "
+                        "optimizer state and cell state stay float32")
     p.add_argument("--logits-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="the LM head's dtype: float32 only so far; "
-                        "bfloat16 is refused")
+                   help="dtype of the materialized [B,T,V] LM logits (the "
+                        "NLL still runs in float32 over the upcast "
+                        "values); LM tasks only: imdb ignores it")
     p.add_argument("--stateful", action="store_true",
                    help="carry recurrent state across contiguous windows")
     p.add_argument("--steps-per-call", type=int, default=1,
@@ -335,12 +342,9 @@ def build_train_parser() -> argparse.ArgumentParser:
 def _refusal(args) -> str | None:
     """What the train command refuses in ``args`` before it builds
     anything, or None."""
-    if args.compute_dtype != "float32":
+    if args.dataset == "imdb" and args.compute_dtype != "float32":
         return (f"--compute-dtype {args.compute_dtype} is not ported yet "
-                "(float32 only)")
-    if args.logits_dtype != "float32":
-        return (f"--logits-dtype {args.logits_dtype} is not ported yet "
-                "(float32 only)")
+                "for the classifier (imdb: float32 only)")
     if not 0.0 <= args.dropout < 1.0:
         return f"--dropout must be in [0, 1), got {args.dropout}"
     if args.eval_batches is not None and args.eval_batches < 1:
@@ -437,7 +441,9 @@ def _lm_training(args, dev, logger, graph):
     cfg = LMConfig(vocab_size=len(vocab), hidden_size=args.hidden_units,
                    num_layers=args.num_layers,
                    tie_embeddings=args.tie_embeddings,
-                   remat_chunk=args.remat_chunk, dropout=args.dropout)
+                   remat_chunk=args.remat_chunk, dropout=args.dropout,
+                   compute_dtype=args.compute_dtype,
+                   logits_dtype=args.logits_dtype)
     drop_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
     def train_loss_fn(params, batch, carries=None):

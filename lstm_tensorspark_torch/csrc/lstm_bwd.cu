@@ -1,5 +1,5 @@
 // Fused backward (BPTT) of one LSTM layer's recurrence, for Hopper (sm_90a),
-// float32.
+// in two forms: float32, and bfloat16 streams (stream_dtype.cuh).
 //
 // Replaces lstm_tensorspark_tpu/ops/pallas_lstm.py::_lstm_bwd_kernel (the
 // "resident" branch of _pallas_backward). It walks time in reverse from the
@@ -57,13 +57,21 @@
 //     backstop.
 // Math is expf / tanhf with float32 accumulation (no fast-math intrinsics).
 //
-// Plain C interface for ctypes: lstm_bwd_launch returns the CUDA error code
-// (0 = success). It allocates nothing and does not synchronise; it runs on the
-// stream it is given.
+// The bfloat16 form (TS = __nv_bfloat16: z, U and dz bfloat16, as JAX's
+// _lstm_bwd_kernel under bf16 compute) takes the gates from the rounded z,
+// rounds each dz element once, before it is sent and stored, so dh is the
+// rounded dz times U^T (U converted on load; its slice sits in shared
+// memory as bfloat16 in UT_SMEM); the carries stay float32.
+//
+// Plain C interface for ctypes: lstm_bwd_launch (float32) and
+// lstm_bwd_bf16_launch (bfloat16) return the CUDA error code (0 = success).
+// They allocate nothing and do not synchronise; they run on the stream they
+// are given.
 
 #include <cooperative_groups.h>
 
 #include "cluster_common.cuh"
+#include "stream_dtype.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -84,16 +92,17 @@ __host__ __device__ inline int padded_cols(int G, int mode) {
   return mode == UT_REGS ? 32 * UT_TERMS : (G + 127) / 128 * 128;
 }
 
-// Shared-memory layout, in floats (every piece a multiple of 4 floats):
-//   dzbuf [2][RQ][GP][4]  dz of every gate column for the cluster's rows, a
-//                         row quad's four rows as one float4; by step parity
-//   UTs   [UQ][GP][4]     the block's columns of U^T, a unit quad's four
-//                         units as one float4 (UT_SMEM only)
+// Shared-memory layout (every piece a multiple of 8 bytes):
+//   dzbuf [2][RQ][GP][4]  float: dz of every gate column for the cluster's
+//                         rows, a row quad's four rows as one float4; by
+//                         step parity
+//   UTs   [UQ][GP][4]     TS: the block's columns of U^T, a unit quad's four
+//                         units together (UT_SMEM only)
 //   bars  2 mbarriers     one per dz buffer
-static size_t bwd_smem_floats(int GP, int RQ, int UQ, int mode) {
-  size_t n = 2 * (size_t)RQ * GP * 4;
-  if (mode == UT_SMEM) n += (size_t)UQ * GP * 4;
-  return n + 4;
+static size_t bwd_smem_bytes(int GP, int RQ, int UQ, int mode, size_t esize) {
+  size_t n = sizeof(float) * 2 * (size_t)RQ * GP * 4;
+  if (mode == UT_SMEM) n += esize * UQ * GP * 4;
+  return n + 16;
 }
 
 // One (unit, row) element's inputs of a step: z's four gates, c_{t-1},
@@ -104,12 +113,13 @@ struct Raw {
   float z[4], cp, dy, m;
 };
 
-__device__ __forceinline__ void load_raw(Raw& R, const float* zp,
+template <typename TS>
+__device__ __forceinline__ void load_raw(Raw& R, const TS* zp,
                                          const float* cpp, const float* dyp,
                                          const float* mp, int H, bool ok) {
   if (ok) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) R.z[g] = __ldg(zp + g * H);
+    for (int g = 0; g < 4; ++g) R.z[g] = ld_stream(zp + g * H);
     R.cp = __ldg(cpp);
     R.dy = __ldg(dyp);
     R.m = mp != nullptr ? __ldg(mp) : 1.0f;
@@ -177,13 +187,13 @@ __device__ __forceinline__ float fold16(const float (&acc)[4][4], int lane) {
   return k4 + __shfl_xor_sync(0xffffffffu, k4, 16);
 }
 
-template <int MODE, int NGM>
+template <typename TS, int MODE, int NGM>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ dys,
+lstm_bwd_kernel(const TS* __restrict__ z, const float* __restrict__ dys,
                 const float* __restrict__ cs, const float* __restrict__ c0,
-                const float* __restrict__ mask, const float* __restrict__ U,
+                const float* __restrict__ mask, const TS* __restrict__ U,
                 const float* __restrict__ dhT, const float* __restrict__ dcT,
-                float* __restrict__ dz, float* __restrict__ dh0,
+                TS* __restrict__ dz, float* __restrict__ dh0,
                 float* __restrict__ dc0, int T, int B, int H, int UPC, int RB,
                 int RB4, int NG) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -202,7 +212,7 @@ lstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ dys,
 
   extern __shared__ float4 smem4[];
   float* dzbuf = reinterpret_cast<float*>(smem4);
-  float* UTs = dzbuf + 2 * RQ * GP * 4;
+  TS* UTs = reinterpret_cast<TS*>(dzbuf + 2 * RQ * GP * 4);
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       UTs + (MODE == UT_SMEM ? UQ * GP * 4 : 0));
 
@@ -211,7 +221,8 @@ lstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ dys,
     for (int i = tid; i < UQ * GP * 4; i += THREADS) {
       const int k = i & 3, j = (i >> 2) % GP, q = (i >> 2) / GP;
       const int u = 4 * q + k;
-      UTs[i] = (u < nu && j < G) ? U[(size_t)(u0 + u) * G + j] : 0.0f;
+      UTs[i] = (u < nu && j < G) ? U[(size_t)(u0 + u) * G + j]
+                                 : from_f32<TS>(0.0f);
     }
   }
   if (tid == 0) {  // one arrival a phase: the expected bytes
@@ -248,7 +259,7 @@ lstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ dys,
       for (int k = 0; k < 4; ++k) {
         const int u = 4 * uqs[0] + k;
         ut[i][k] = (live[0] && u < nu && j < G)
-                       ? U[(size_t)(u0 + u) * G + j]
+                       ? to_f32(U[(size_t)(u0 + u) * G + j])
                        : 0.0f;
       }
     }
@@ -331,8 +342,11 @@ lstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ dys,
       const float dh_tot = dh[gi] + f.dy;
       const float dh_eff = f.m * dh_tot, dc_in = dc[gi];
       const float dc_new = f.m * dc_in + dh_eff * f.A;
-      const float d0 = dc_new * f.Ci, d1 = dc_new * f.Cf, d2 = dc_new * f.Cg,
-                  d3 = dh_eff * f.Bo;
+      // dz rounded once, to the precision of its store and of the product
+      const float d0 = round_to<TS>(dc_new * f.Ci),
+                  d1 = round_to<TS>(dc_new * f.Cf),
+                  d2 = round_to<TS>(dc_new * f.Cg),
+                  d3 = round_to<TS>(dh_eff * f.Bo);
       dc[gi] = dc_new * f.F + (1.0f - f.m) * dc_in;
       skip[gi] = (1.0f - f.m) * dh_tot;
       const bool b0 = kr & 1, b1 = kr & 2;
@@ -364,9 +378,9 @@ lstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ dys,
         }
         // rows 0, 1 from the first half-warp, 2, 3 from the second
         const int r = 4 * rqs[gi] + 2 * half;
-        float* dzt = dz + (size_t)t * BG + (size_t)(row0 + r) * G + col;
-        if (r < nrows) dzt[0] = half ? dv.z : dv.x;
-        if (r + 1 < nrows) dzt[G] = half ? dv.w : dv.y;
+        TS* dzt = dz + (size_t)t * BG + (size_t)(row0 + r) * G + col;
+        if (r < nrows) dzt[0] = from_f32<TS>(half ? dv.z : dv.x);
+        if (r + 1 < nrows) dzt[G] = from_f32<TS>(half ? dv.w : dv.y);
       }
     }
     CLK_MARK(0)
@@ -427,7 +441,7 @@ lstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ dys,
         const int uq = uqs[gi];
         // past a block's units and past 4H the indices are clamped: the
         // weight is finite and its dz column 0 (or its sums unused)
-        const float* urow[4];
+        const TS* urow[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k)
           urow[k] = U + (size_t)(u0 + min(4 * uq + k, nu - 1)) * G;
@@ -436,13 +450,12 @@ lstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ dys,
           const float4 dv = *reinterpret_cast<const float4*>(dzc + j * 4);
           float w[4];
           if (MODE == UT_SMEM) {
-            const float4 wv = *reinterpret_cast<const float4*>(
-                UTs + ((size_t)uq * GP + j) * 4);
+            const float4 wv = load4(UTs + ((size_t)uq * GP + j) * 4);
             w[0] = wv.x, w[1] = wv.y, w[2] = wv.z, w[3] = wv.w;
           } else {
             const int jj = min(j, G - 1);
 #pragma unroll
-            for (int k = 0; k < 4; ++k) w[k] = __ldg(urow[k] + jj);
+            for (int k = 0; k < 4; ++k) w[k] = ld_stream(urow[k] + jj);
           }
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
@@ -473,16 +486,16 @@ lstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ dys,
   cluster.sync();
 }
 
-template <int MODE, int NGM>
-static cudaError_t launch(const float* z, const float* dys, const float* cs,
-                          const float* c0, const float* mask, const float* U,
-                          const float* dhT, const float* dcT, float* dz,
+template <typename TS, int MODE, int NGM>
+static cudaError_t launch(const TS* z, const float* dys, const float* cs,
+                          const float* c0, const float* mask, const TS* U,
+                          const float* dhT, const float* dcT, TS* dz,
                           float* dh0, float* dc0, int T, int B, int H, int CS,
                           int UPC, int RB, int RB4, int NG, size_t smem,
                           cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      lstm_bwd_kernel<MODE, NGM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      lstm_bwd_kernel<TS, MODE, NGM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int groups = (B + RB - 1) / RB;
   cudaLaunchConfig_t cfg = {};
@@ -497,30 +510,31 @@ static cudaError_t launch(const float* z, const float* dys, const float* cs,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, lstm_bwd_kernel<MODE, NGM>, z, dys, cs, c0,
-                            mask, U, dhT, dcT, dz, dh0, dc0, T, B, H, UPC, RB,
-                            RB4, NG);
+  return cudaLaunchKernelEx(&cfg, lstm_bwd_kernel<TS, MODE, NGM>, z, dys, cs,
+                            c0, mask, U, dhT, dcT, dz, dh0, dc0, T, B, H, UPC,
+                            RB, RB4, NG);
 }
 
-template <int MODE>
-static cudaError_t launch_mode(const float* z, const float* dys,
+template <typename TS, int MODE>
+static cudaError_t launch_mode(const TS* z, const float* dys,
                                const float* cs, const float* c0,
-                               const float* mask, const float* U,
-                               const float* dhT, const float* dcT, float* dz,
+                               const float* mask, const TS* U,
+                               const float* dhT, const float* dcT, TS* dz,
                                float* dh0, float* dc0, int T, int B, int H,
                                int CS, int UPC, int RB, int RB4, int NG,
                                size_t smem, cudaStream_t stream) {
   if (NG == 1)
-    return launch<MODE, 1>(z, dys, cs, c0, mask, U, dhT, dcT, dz, dh0, dc0, T,
-                           B, H, CS, UPC, RB, RB4, NG, smem, stream);
+    return launch<TS, MODE, 1>(z, dys, cs, c0, mask, U, dhT, dcT, dz, dh0,
+                               dc0, T, B, H, CS, UPC, RB, RB4, NG, smem,
+                               stream);
   if constexpr (MODE != UT_REGS) {  // U^T in registers takes at most 4
     if (NG > 4)
-      return launch<MODE, MAX_SLOTS>(z, dys, cs, c0, mask, U, dhT, dcT, dz,
-                                     dh0, dc0, T, B, H, CS, UPC, RB, RB4, NG,
-                                     smem, stream);
+      return launch<TS, MODE, MAX_SLOTS>(z, dys, cs, c0, mask, U, dhT, dcT,
+                                         dz, dh0, dc0, T, B, H, CS, UPC, RB,
+                                         RB4, NG, smem, stream);
   }
-  return launch<MODE, 4>(z, dys, cs, c0, mask, U, dhT, dcT, dz, dh0, dc0, T,
-                         B, H, CS, UPC, RB, RB4, NG, smem, stream);
+  return launch<TS, MODE, 4>(z, dys, cs, c0, mask, U, dhT, dcT, dz, dh0, dc0,
+                             T, B, H, CS, UPC, RB, RB4, NG, smem, stream);
 }
 
 // U is [H, 4H] as the forward takes it. Plan arguments (chosen by the Python
@@ -529,14 +543,14 @@ static cudaError_t launch_mode(const float* z, const float* dys,
 // a warp (ceil(UQ / 8) * ceil((RB4 / 4) / max(1, 8 / UQ)) with UQ =
 // ceil(UPC / 4), at most 8, at most 4 with U^T in registers), umode where
 // U^T's slice lives (0 registers: 4H <= 512 and UQ <= 8; 1 shared memory; 2
-// read through L2). mask may be null.
-extern "C" int lstm_bwd_launch(const void* z, const void* dys, const void* cs,
-                               const void* c0, const void* mask,
-                               const void* U, const void* dhT,
-                               const void* dcT, void* dz, void* dh0,
-                               void* dc0, int T, int B, int H, int CS,
-                               int UPC, int RB, int RB4, int NG, int umode,
-                               void* stream) {
+// read through L2). mask may be null. z, U and dz are TS (float, or
+// __nv_bfloat16 in lstm_bwd_bf16_launch).
+template <typename TS>
+static int launch_form(const void* z, const void* dys, const void* cs,
+                       const void* c0, const void* mask, const void* U,
+                       const void* dhT, const void* dcT, void* dz, void* dh0,
+                       void* dc0, int T, int B, int H, int CS, int UPC,
+                       int RB, int RB4, int NG, int umode, void* stream) {
   if (T < 1 || B < 1 || H < 1 || CS < 1 || CS > MAX_CLUSTER || UPC < 1 ||
       (CS - 1) * UPC >= H || CS * UPC < H || RB < 1 || RB4 < RB ||
       RB4 % 4 != 0 || umode < UT_REGS || umode > UT_L2)
@@ -549,29 +563,54 @@ extern "C" int lstm_bwd_launch(const void* z, const void* dys, const void* cs,
       (umode == UT_REGS && (NUQ != 1 || G > 32 * UT_TERMS || NG > 4)) ||
       (size_t)G * RB4 * sizeof(float) >= (1u << 20))  // an mbarrier's bytes
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * bwd_smem_floats(padded_cols(G, umode), RQ, UQ, umode);
+  const size_t smem = bwd_smem_bytes(padded_cols(G, umode), RQ, UQ, umode,
+                                     sizeof(TS));
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  const float* in[8] = {(const float*)z,   (const float*)dys,
-                        (const float*)cs,  (const float*)c0,
-                        (const float*)mask, (const float*)U,
+  const TS* zt = (const TS*)z;
+  const TS* ut = (const TS*)U;
+  const float* in[6] = {(const float*)dys, (const float*)cs,
+                        (const float*)c0,  (const float*)mask,
                         (const float*)dhT, (const float*)dcT};
   cudaError_t e;
   if (umode == UT_REGS)
-    e = launch_mode<UT_REGS>(in[0], in[1], in[2], in[3], in[4], in[5], in[6],
-                             in[7], (float*)dz, (float*)dh0, (float*)dc0, T,
-                             B, H, CS, UPC, RB, RB4, NG, smem,
-                             (cudaStream_t)stream);
+    e = launch_mode<TS, UT_REGS>(zt, in[0], in[1], in[2], in[3], ut, in[4],
+                                 in[5], (TS*)dz, (float*)dh0, (float*)dc0, T,
+                                 B, H, CS, UPC, RB, RB4, NG, smem,
+                                 (cudaStream_t)stream);
   else if (umode == UT_SMEM)
-    e = launch_mode<UT_SMEM>(in[0], in[1], in[2], in[3], in[4], in[5], in[6],
-                             in[7], (float*)dz, (float*)dh0, (float*)dc0, T,
-                             B, H, CS, UPC, RB, RB4, NG, smem,
-                             (cudaStream_t)stream);
+    e = launch_mode<TS, UT_SMEM>(zt, in[0], in[1], in[2], in[3], ut, in[4],
+                                 in[5], (TS*)dz, (float*)dh0, (float*)dc0, T,
+                                 B, H, CS, UPC, RB, RB4, NG, smem,
+                                 (cudaStream_t)stream);
   else
-    e = launch_mode<UT_L2>(in[0], in[1], in[2], in[3], in[4], in[5], in[6],
-                           in[7], (float*)dz, (float*)dh0, (float*)dc0, T, B,
-                           H, CS, UPC, RB, RB4, NG, smem,
-                           (cudaStream_t)stream);
+    e = launch_mode<TS, UT_L2>(zt, in[0], in[1], in[2], in[3], ut, in[4],
+                               in[5], (TS*)dz, (float*)dh0, (float*)dc0, T,
+                               B, H, CS, UPC, RB, RB4, NG, smem,
+                               (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+extern "C" int lstm_bwd_launch(const void* z, const void* dys, const void* cs,
+                               const void* c0, const void* mask,
+                               const void* U, const void* dhT,
+                               const void* dcT, void* dz, void* dh0,
+                               void* dc0, int T, int B, int H, int CS,
+                               int UPC, int RB, int RB4, int NG, int umode,
+                               void* stream) {
+  return launch_form<float>(z, dys, cs, c0, mask, U, dhT, dcT, dz, dh0, dc0,
+                            T, B, H, CS, UPC, RB, RB4, NG, umode, stream);
+}
+
+extern "C" int lstm_bwd_bf16_launch(const void* z, const void* dys,
+                                    const void* cs, const void* c0,
+                                    const void* mask, const void* U,
+                                    const void* dhT, const void* dcT,
+                                    void* dz, void* dh0, void* dc0, int T,
+                                    int B, int H, int CS, int UPC, int RB,
+                                    int RB4, int NG, int umode,
+                                    void* stream) {
+  return launch_form<__nv_bfloat16>(z, dys, cs, c0, mask, U, dhT, dcT, dz,
+                                    dh0, dc0, T, B, H, CS, UPC, RB, RB4, NG,
+                                    umode, stream);
 }

@@ -1,5 +1,5 @@
 // Forward recurrence of one LSTM layer over T steps, for Hopper (sm_90a),
-// float32.
+// in two forms: float32, and bfloat16 streams (stream_dtype.cuh).
 //
 // Replaces lstm_tensorspark_tpu/ops/pallas_lstm.py::_lstm_kernel (the
 // "resident" branch of _pallas_forward). The input projection
@@ -37,13 +37,22 @@
 //     and waits on its own (cluster_common.cuh): no cluster barrier per step.
 // Math is expf / tanhf with float32 accumulation (no fast-math intrinsics).
 //
-// Plain C interface for ctypes: lstm_fwd_launch returns the CUDA error code
-// (0 = success). It allocates nothing and does not synchronise; it runs on the
-// stream it is given.
+// The bfloat16 form (TS = __nv_bfloat16: xproj, U and z bfloat16, as JAX's
+// _lstm_kernel under bf16 compute) converts xproj and U on load (U's slice
+// sits in shared memory as bfloat16 in U_SMEM), keeps the h buffers holding
+// h rounded to bfloat16 (the only reader is the product: the mask blend
+// takes each lane's float32 h from its registers), feeds the gates the
+// float32 z and stores z rounded once.
+//
+// Plain C interface for ctypes: lstm_fwd_launch (float32) and
+// lstm_fwd_bf16_launch (bfloat16) return the CUDA error code (0 = success).
+// They allocate nothing and do not synchronise; they run on the stream they
+// are given.
 
 #include <cooperative_groups.h>
 
 #include "cluster_common.cuh"
+#include "stream_dtype.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -54,22 +63,25 @@ namespace cg = cooperative_groups;
 
 enum { U_REGS = 0, U_SMEM = 1, U_L2 = 2 };
 
-// Shared-memory layout, in floats (every piece a multiple of 4 floats):
-//   hbuf [2][H][RB4]   h of every unit for the cluster's rows, transposed so
-//                      four rows load as one float4; double-buffered
-//   Ws   [UPC][H][4]   the block's slice of U, a unit's four gates together
-//                      (U_SMEM only)
+// Shared-memory layout (every piece a multiple of 8 bytes):
+//   hbuf [2][H][RB4]   float: h of every unit for the cluster's rows,
+//                      transposed so four rows load as one float4;
+//                      double-buffered
+//   Ws   [UPC][H][4]   TS: the block's slice of U, a unit's four gates
+//                      together (U_SMEM only)
 //   bars 2 mbarriers   one per h buffer
-static size_t fwd_smem_floats(int H, int UPC, int RB4, int umode) {
-  size_t n = 2 * (size_t)H * RB4;
-  if (umode == U_SMEM) n += (size_t)H * UPC * 4;
-  return n + 4;
+static size_t fwd_smem_bytes(int H, int UPC, int RB4, int umode,
+                             size_t esize) {
+  size_t n = sizeof(float) * 2 * (size_t)H * RB4;
+  if (umode == U_SMEM) n += esize * H * UPC * 4;
+  return n + 16;
 }
 
 // xproj of step t for four rows (from row) and one unit (column col of
 // each gate), and the rows' mask (1 without one); 0 for rows not owned
+template <typename TS>
 __device__ __forceinline__ void load_step(float (&xp)[4][4], float (&mk)[4],
-                                          const float* __restrict__ xproj,
+                                          const TS* __restrict__ xproj,
                                           const float* __restrict__ mask,
                                           int t, int B, int G, int H, int row,
                                           int col, const bool (&rowok)[4]) {
@@ -78,7 +90,7 @@ __device__ __forceinline__ void load_step(float (&xp)[4][4], float (&mk)[4],
     const size_t xb = ((size_t)t * B + row + r) * G + col;
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      xp[g][r] = rowok[r] ? __ldg(xproj + xb + g * H) : 0.0f;
+      xp[g][r] = rowok[r] ? ld_stream(xproj + xb + g * H) : 0.0f;
     mk[r] = (mask != nullptr && rowok[r])
                 ? __ldg(mask + (size_t)t * B + row + r)
                 : 1.0f;
@@ -113,14 +125,15 @@ __device__ __forceinline__ void cell_update(float zi, float zf, float zg,
   h_out = h_new;
 }
 
-template <int UMODE>
+template <typename TS, int UMODE>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
+lstm_fwd_kernel(const TS* __restrict__ xproj, const TS* __restrict__ U,
                 const float* __restrict__ h0, const float* __restrict__ c0,
                 const float* __restrict__ mask, float* __restrict__ ys,
                 float* __restrict__ hT, float* __restrict__ cT,
-                float* __restrict__ z_out, float* __restrict__ cs_out, int T,
+                TS* __restrict__ z_out, float* __restrict__ cs_out, int T,
                 int B, int H, int UPC, int RB, int RB4, int KS) {
+  constexpr bool F32 = sizeof(TS) == sizeof(float);
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -134,20 +147,20 @@ lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
 
   extern __shared__ float4 smem4[];
   float* hbuf = reinterpret_cast<float*>(smem4);
-  float* Ws = hbuf + 2 * H * RB4;
+  TS* Ws = reinterpret_cast<TS*>(hbuf + 2 * H * RB4);
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       Ws + (UMODE == U_SMEM ? H * UPC * 4 : 0));
 
   for (int i = tid; i < H * RB4; i += THREADS) {
     const int d = i / RB4, r = i - d * RB4;
-    hbuf[i] = r < nrows ? h0[(size_t)(row0 + r) * H + d] : 0.0f;
+    hbuf[i] = r < nrows ? round_to<TS>(h0[(size_t)(row0 + r) * H + d]) : 0.0f;
     hbuf[H * RB4 + i] = 0.0f;
   }
   if (UMODE == U_SMEM) {
     for (int i = tid; i < H * UPC * 4; i += THREADS) {
       const int g = i & 3, ud = i >> 2;
       const int u = ud / H, d = ud - u * H;
-      Ws[i] = u < nu ? U[(size_t)d * G + g * H + u0 + u] : 0.0f;
+      Ws[i] = u < nu ? U[(size_t)d * G + g * H + u0 + u] : from_f32<TS>(0.0f);
     }
   }
   if (tid == 0 && CS > 1) {
@@ -174,7 +187,7 @@ lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
 #pragma unroll
       for (int g = 0; g < 4; ++g)
         ureg[kk][g] = (kk < kn && u < nu)
-                          ? U[(size_t)(ks + kk * KS) * G + g * H + u0 + u]
+                          ? to_f32(U[(size_t)(ks + kk * KS) * G + g * H + u0 + u])
                           : 0.0f;
     }
   }
@@ -194,7 +207,14 @@ lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
   cluster.sync();
   CLK_START
 
+  // the group's last h (float32); the bfloat16 form's blend reads it here,
+  // its h buffers holding the rounded h
   float hl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (!F32) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      hl[r] = rowok[r] ? h0[(size_t)(row0 + rb + r) * H + u0 + u] : 0.0f;
+  }
   for (int t = 0; t < T; ++t) {
     const float* hcur = hbuf + (t & 1) * H * RB4;
     const int nb = (t + 1) & 1;
@@ -228,13 +248,13 @@ lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
             *reinterpret_cast<const float4*>(hcur + k * RB4 + rb);
         float w[4];
         if (UMODE == U_SMEM) {
-          const float4 wv =
-              *reinterpret_cast<const float4*>(Ws + ((size_t)u * H + k) * 4);
+          const float4 wv = load4(Ws + ((size_t)u * H + k) * 4);
           w[0] = wv.x, w[1] = wv.y, w[2] = wv.z, w[3] = wv.w;
         } else {
 #pragma unroll
           for (int g = 0; g < 4; ++g)
-            w[g] = u < nu ? __ldg(U + (size_t)k * G + g * H + u0 + u) : 0.0f;
+            w[g] = u < nu ? ld_stream(U + (size_t)k * G + g * H + u0 + u)
+                          : 0.0f;
         }
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
@@ -287,9 +307,15 @@ lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
     // cell update: with KS >= 4 each lane updates its row and the group's
     // new h meet by shuffles, else each lane updates all four rows
     // (a lane past the block's units reads unit 0: hbuf holds H units)
-    const float4 hold = *reinterpret_cast<const float4*>(
-        hcur + (u0 + (active ? u : 0)) * RB4 + rb);
-    const float ho[4] = {hold.x, hold.y, hold.z, hold.w};
+    float ho[4];
+    if (F32) {
+      const float4 hold = *reinterpret_cast<const float4*>(
+          hcur + (u0 + (active ? u : 0)) * RB4 + rb);
+      ho[0] = hold.x, ho[1] = hold.y, ho[2] = hold.z, ho[3] = hold.w;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ho[r] = hl[r];
+    }
     float hn[4], z[4][4];
     if (KS >= 4) {
       const int r = ks & 3;
@@ -310,8 +336,10 @@ lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
                     mask != nullptr, c[r], hn[r]);
       }
     }
-    // the unit's new h to every block (job k to lane k % KS)
-    const float4 hv = make_float4(hn[0], hn[1], hn[2], hn[3]);
+    // the unit's new h to every block (job k to lane k % KS), rounded to
+    // the product's precision
+    const float4 hv = make_float4(round_to<TS>(hn[0]), round_to<TS>(hn[1]),
+                                  round_to<TS>(hn[2]), round_to<TS>(hn[3]));
     if (active) {
       float* dst = hnxt + (u0 + u) * RB4 + rb;
       for (int k = ks; k < CS; k += KS) {
@@ -340,7 +368,8 @@ lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
         if (1 % nh == half) cs_out[o] = c_own;
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          if ((2 + g) % nh == half) z_out[zb + (size_t)r * G + g * H] = zo[g];
+          if ((2 + g) % nh == half)
+            z_out[zb + (size_t)r * G + g * H] = from_f32<TS>(zo[g]);
       }
     } else if (active) {
       // job j to lane j % KS (indices stay compile-time, so the arrays stay
@@ -354,7 +383,7 @@ lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           if (((8 + 4 * r + g) & (KS - 1)) == ks)
-            z_out[zb + (size_t)r * G + g * H] = z[g][r];
+            z_out[zb + (size_t)r * G + g * H] = from_f32<TS>(z[g][r]);
         }
       }
     }
@@ -385,14 +414,14 @@ lstm_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ U,
   cluster.sync();
 }
 
-template <int UMODE>
-static cudaError_t launch(const float* xproj, const float* U, const float* h0,
+template <typename TS, int UMODE>
+static cudaError_t launch(const TS* xproj, const TS* U, const float* h0,
                           const float* c0, const float* mask, float* ys,
-                          float* hT, float* cT, float* z, float* cs, int T,
+                          float* hT, float* cT, TS* z, float* cs, int T,
                           int B, int H, int CS, int UPC, int RB, int RB4,
                           int KS, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      lstm_fwd_kernel<UMODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_fwd_kernel<TS, UMODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const int groups = (B + RB - 1) / RB;
@@ -408,7 +437,7 @@ static cudaError_t launch(const float* xproj, const float* U, const float* h0,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<UMODE>, xproj, U, h0, c0,
+  return cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<TS, UMODE>, xproj, U, h0, c0,
                             mask, ys, hT, cT, z, cs, T, B, H, UPC, RB, RB4,
                             KS);
 }
@@ -418,13 +447,14 @@ static cudaError_t launch(const float* xproj, const float* U, const float* h0,
 // (RB4 = RB rounded up to 4), KS lanes that share a unit's h @ U sum (a
 // power of two, at most 32, KS * UPC * RB4 / 4 <= 256), umode where U's
 // slice lives (0 registers: ceil(H / KS) <= 16; 1 shared memory; 2 read
-// through L2). mask, z and cs may be null (z and cs together).
-extern "C" int lstm_fwd_launch(const void* xproj, const void* U,
-                               const void* h0, const void* c0,
-                               const void* mask, void* ys, void* hT, void* cT,
-                               void* z, void* cs, int T, int B, int H, int CS,
-                               int UPC, int RB, int RB4, int KS, int umode,
-                               void* stream) {
+// through L2). mask, z and cs may be null (z and cs together). xproj, U
+// and z are TS (float, or __nv_bfloat16 in lstm_fwd_bf16_launch).
+template <typename TS>
+static int launch_form(const void* xproj, const void* U, const void* h0,
+                       const void* c0, const void* mask, void* ys, void* hT,
+                       void* cT, void* z, void* cs, int T, int B, int H,
+                       int CS, int UPC, int RB, int RB4, int KS, int umode,
+                       void* stream) {
   if (T < 1 || B < 1 || H < 1 || CS < 1 || CS > MAX_CLUSTER || UPC < 1 ||
       (CS - 1) * UPC >= H || CS * UPC < H || RB < 1 || RB4 < RB ||
       RB4 % 4 != 0 || KS < 1 || KS > 32 || (KS & (KS - 1)) != 0 ||
@@ -432,26 +462,48 @@ extern "C" int lstm_fwd_launch(const void* xproj, const void* U,
       (umode == U_REGS && (H + KS - 1) / KS > KREG) ||
       ((z == nullptr) != (cs == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * fwd_smem_floats(H, UPC, RB4, umode);
+  const size_t smem = fwd_smem_bytes(H, UPC, RB4, umode, sizeof(TS));
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  const float* args[5] = {(const float*)xproj, (const float*)U,
-                          (const float*)h0, (const float*)c0,
+  const TS* xp = (const TS*)xproj;
+  const TS* u = (const TS*)U;
+  const float* args[3] = {(const float*)h0, (const float*)c0,
                           (const float*)mask};
   if (umode == U_REGS)
-    e = launch<U_REGS>(args[0], args[1], args[2], args[3], args[4],
-                       (float*)ys, (float*)hT, (float*)cT, (float*)z,
-                       (float*)cs, T, B, H, CS, UPC, RB, RB4, KS, smem,
-                       (cudaStream_t)stream);
+    e = launch<TS, U_REGS>(xp, u, args[0], args[1], args[2], (float*)ys,
+                           (float*)hT, (float*)cT, (TS*)z, (float*)cs, T, B,
+                           H, CS, UPC, RB, RB4, KS, smem,
+                           (cudaStream_t)stream);
   else if (umode == U_SMEM)
-    e = launch<U_SMEM>(args[0], args[1], args[2], args[3], args[4],
-                       (float*)ys, (float*)hT, (float*)cT, (float*)z,
-                       (float*)cs, T, B, H, CS, UPC, RB, RB4, KS, smem,
-                       (cudaStream_t)stream);
+    e = launch<TS, U_SMEM>(xp, u, args[0], args[1], args[2], (float*)ys,
+                           (float*)hT, (float*)cT, (TS*)z, (float*)cs, T, B,
+                           H, CS, UPC, RB, RB4, KS, smem,
+                           (cudaStream_t)stream);
   else
-    e = launch<U_L2>(args[0], args[1], args[2], args[3], args[4], (float*)ys,
-                     (float*)hT, (float*)cT, (float*)z, (float*)cs, T, B, H,
-                     CS, UPC, RB, RB4, KS, smem, (cudaStream_t)stream);
+    e = launch<TS, U_L2>(xp, u, args[0], args[1], args[2], (float*)ys,
+                         (float*)hT, (float*)cT, (TS*)z, (float*)cs, T, B, H,
+                         CS, UPC, RB, RB4, KS, smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+extern "C" int lstm_fwd_launch(const void* xproj, const void* U,
+                               const void* h0, const void* c0,
+                               const void* mask, void* ys, void* hT, void* cT,
+                               void* z, void* cs, int T, int B, int H, int CS,
+                               int UPC, int RB, int RB4, int KS, int umode,
+                               void* stream) {
+  return launch_form<float>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs, T, B,
+                            H, CS, UPC, RB, RB4, KS, umode, stream);
+}
+
+extern "C" int lstm_fwd_bf16_launch(const void* xproj, const void* U,
+                                    const void* h0, const void* c0,
+                                    const void* mask, void* ys, void* hT,
+                                    void* cT, void* z, void* cs, int T, int B,
+                                    int H, int CS, int UPC, int RB, int RB4,
+                                    int KS, int umode, void* stream) {
+  return launch_form<__nv_bfloat16>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs,
+                                    T, B, H, CS, UPC, RB, RB4, KS, umode,
+                                    stream);
 }

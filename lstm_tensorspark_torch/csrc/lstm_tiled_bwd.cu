@@ -1,5 +1,6 @@
 // Fused backward (BPTT) of one wide LSTM layer's recurrence (U too big for
-// one block's shared memory), for Hopper (sm_90a), float32.
+// one block's shared memory), for Hopper (sm_90a), in two forms: float32,
+// and bfloat16 streams (stream_dtype.cuh).
 //
 // Replaces lstm_tensorspark_tpu/ops/pallas_lstm.py::_lstm_bwd_tiled_kernel
 // (the "tiled" branch of _pallas_backward). The TPU kernel streams U^T from
@@ -43,12 +44,21 @@
 // block).
 // Math is expf / tanhf with float32 accumulation (no fast-math intrinsics).
 //
-// Plain C interface for ctypes: lstm_tiled_bwd_launch returns the CUDA error
-// code (0 = success). It allocates nothing (the caller passes the scratch
-// and the zeroed counters) and does not synchronise; it runs on the stream
-// it is given.
+// The bfloat16 form (TS = __nv_bfloat16: z, U and dz bfloat16, as JAX's
+// _lstm_bwd_tiled_kernel under bf16 compute) takes the gates from the
+// rounded z and rounds each dz element once, before it is sent and stored,
+// so the product is the rounded dz times U^T (U converted on load: float32
+// values in the lanes' registers, the columns past them bfloat16 in shared
+// memory); the carries and the partial sums stay float32.
+//
+// Plain C interface for ctypes: lstm_tiled_bwd_launch (float32) and
+// lstm_tiled_bwd_bf16_launch (bfloat16) return the CUDA error code (0 =
+// success). They allocate nothing (the caller passes the scratch and the
+// zeroed counters) and do not synchronise; they run on the stream they are
+// given.
 
 #include "cluster_common.cuh"
+#include "stream_dtype.cuh"
 #include "tiled_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -93,7 +103,8 @@ __device__ __forceinline__ int cluster_col(int col, int cl, int C, int UPB,
   return unit < H ? g * H + unit : -1;
 }
 
-// Shared-memory layout, in floats (every piece a multiple of 4 floats):
+// Shared-memory layout (every piece a multiple of 16 bytes; Ut in TS, the
+// rest float):
 //   Ut    [groups][per_lane - regs][width]  U^T columns past the registers
 //   dzc   [2][groups * per_lane][ROWS]      the cluster's dz of one tile
 //   red   [groups][width][RED_STRIDE]       each j-group's sums, [k][16 rows]
@@ -105,11 +116,18 @@ __device__ __forceinline__ int cluster_col(int col, int cl, int C, int UPB,
 //   bars  2 mbarriers                       one per dzc buffer
 #define RED_STRIDE 20
 
-static size_t bwd_smem_floats(const BwdGeom& g, int UPB, int ncl) {
-  return (size_t)g.groups * (g.per_lane - g.regs) * g.width +
-         2 * (size_t)g.groups * g.per_lane * ROWS +
-         (size_t)g.groups * g.width * RED_STRIDE + THREADS * 4 +
-         2 * (size_t)g.BP * UPB + (size_t)ncl * UPB * ROWS + 4;
+__host__ __device__ inline size_t bwd_ut_bytes(const BwdGeom& g,
+                                                size_t esize) {
+  return align16(esize * g.groups * (g.per_lane - g.regs) * g.width);
+}
+
+static size_t bwd_smem_bytes(const BwdGeom& g, int UPB, int ncl,
+                             size_t esize) {
+  return bwd_ut_bytes(g, esize) +
+         sizeof(float) * (2 * (size_t)g.groups * g.per_lane * ROWS +
+                          (size_t)g.groups * g.width * RED_STRIDE +
+                          THREADS * 4 + 2 * (size_t)g.BP * UPB +
+                          (size_t)ncl * UPB * ROWS + 4);
 }
 
 // One cell's inputs at (t, row): z, c_{t-1}, dys_t and the mask (1 without
@@ -120,8 +138,9 @@ struct CellIn {
   float ig, fg, gg, og, tc;
 };
 
+template <typename TS>
 __device__ __forceinline__ void load_cell(CellIn& a,
-                                          const float* __restrict__ z,
+                                          const TS* __restrict__ z,
                                           const float* __restrict__ cs,
                                           const float* __restrict__ c0,
                                           const float* __restrict__ dys,
@@ -131,7 +150,7 @@ __device__ __forceinline__ void load_cell(CellIn& a,
   const size_t zb = ((size_t)t * B + row) * 4 * H + unit;
   const size_t hb = ((size_t)t * B + row) * H + unit;
 #pragma unroll
-  for (int g = 0; g < 4; ++g) a.z[g] = ok ? __ldg(z + zb + g * H) : 0.0f;
+  for (int g = 0; g < 4; ++g) a.z[g] = ok ? ld_stream(z + zb + g * H) : 0.0f;
   a.cp = !ok ? 0.0f
              : t > 0 ? __ldg(cs + hb - (size_t)B * H)
                      : __ldg(c0 + (size_t)row * H + unit);
@@ -147,15 +166,16 @@ __device__ __forceinline__ void cell_factors(CellIn& a) {
   a.tc = tanhf(a.fg * a.cp + a.ig * a.gg);
 }
 
+template <typename TS>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_tiled_bwd_kernel(const float* __restrict__ z,
+lstm_tiled_bwd_kernel(const TS* __restrict__ z,
                       const float* __restrict__ dys,
                       const float* __restrict__ cs,
                       const float* __restrict__ c0,
                       const float* __restrict__ mask,
-                      const float* __restrict__ U,
+                      const TS* __restrict__ U,
                       const float* __restrict__ dhT,
-                      const float* __restrict__ dcT, float* __restrict__ dz,
+                      const float* __restrict__ dcT, TS* __restrict__ dz,
                       float* __restrict__ dh0, float* __restrict__ dc0,
                       float* part, int* flags, int T, int B, int H, int UPB) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -174,8 +194,9 @@ lstm_tiled_bwd_kernel(const float* __restrict__ z,
   const int extra = gm.per_lane - gm.regs;
 
   extern __shared__ float4 smem4[];
-  float* Ut = reinterpret_cast<float*>(smem4);
-  float* dzc = Ut + (size_t)gm.groups * extra * W;
+  TS* Ut = reinterpret_cast<TS*>(smem4);
+  float* dzc = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
+                                        bwd_ut_bytes(gm, sizeof(TS)));
   float* red = dzc + 2 * (size_t)JR * ROWS;
   float* gsum = red + (size_t)gm.groups * W * RED_STRIDE;
   float* dcown = gsum + THREADS * 4;
@@ -199,14 +220,15 @@ lstm_tiled_bwd_kernel(const float* __restrict__ z,
 #pragma unroll
     for (int e = 0; e < 2; ++e)
       ureg[i][e] = (uc >= 0 && kl + e < kn)
-                       ? U[(size_t)(k0 + kl + e) * G + uc]
+                       ? to_f32(U[(size_t)(k0 + kl + e) * G + uc])
                        : 0.0f;
   }
   for (int i = tid; i < gm.groups * extra * W; i += THREADS) {
     const int k = i % W, rr = i / W;
     const int grp = rr / extra, j = grp * gm.per_lane + gm.regs + rr % extra;
     const int uc = j < NC ? cluster_col(j, cl, C, UPB, H) : -1;
-    Ut[i] = (k < kn && uc >= 0) ? U[(size_t)(k0 + k) * G + uc] : 0.0f;
+    Ut[i] = (k < kn && uc >= 0) ? U[(size_t)(k0 + k) * G + uc]
+                                : from_f32<TS>(0.0f);
   }
   for (int i = tid; i < 2 * JR * ROWS; i += THREADS) dzc[i] = 0.0f;
   for (int i = tid; i < BP * UPB; i += THREADS) {
@@ -320,8 +342,10 @@ lstm_tiled_bwd_kernel(const float* __restrict__ z,
         const size_t zb = ((size_t)t * B + row) * G + u0 + cu;
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
+          // dz rounded once, to the precision of its store and the product
+          d[g] = round_to<TS>(d[g]);
           // a step's last tile's dz go out after the slab is published
-          if (j + 1 < gm.NT) dz[zb + g * H] = d[g];
+          if (j + 1 < gm.NT) dz[zb + g * H] = from_f32<TS>(d[g]);
           float* dst = dzc + ((size_t)buf * JR + (rank * 4 + g) * UPB + cu) *
                                  ROWS + cr;
           for (int b = 0; b < C; ++b)
@@ -360,10 +384,9 @@ lstm_tiled_bwd_kernel(const float* __restrict__ z,
           lane_product<true>(acc, dp, ureg, KREG, 4);
         else
           lane_product<false>(acc, dp, ureg, gm.regs, 4);
-        const float* up = Ut + (size_t)jg * extra * W + kl;
+        const TS* up = Ut + (size_t)jg * extra * W + kl;
         for (int i = gm.regs; i < gm.per_lane; ++i) {
-          const float2 w = *reinterpret_cast<const float2*>(
-              up + (size_t)(i - gm.regs) * W);
+          const float2 w = load2(up + (size_t)(i - gm.regs) * W);
           float dv[ROWS];
 #pragma unroll
           for (int q4 = 0; q4 < 4; ++q4) {
@@ -419,7 +442,8 @@ lstm_tiled_bwd_kernel(const float* __restrict__ z,
                                   cu) * ROWS + cr;
         const size_t zb = ((size_t)t * B + row) * G + u0 + cu;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) dz[zb + g * H] = src[g * UPB * ROWS];
+        for (int g = 0; g < 4; ++g)
+          dz[zb + g * H] = from_f32<TS>(src[g * UPB * ROWS]);
       }
     }
   }
@@ -431,7 +455,30 @@ lstm_tiled_bwd_kernel(const float* __restrict__ z,
 // hidden units a block; the grid is blocks = C * ceil(H / (C * UPB)). U is
 // [H, 4H] as the forward takes it. part is a scratch of 2 * (blocks / C) *
 // H * BP floats (BP = B rounded up to 16), flags C zeroed ints. mask may be
-// null.
+// null. z, U and dz are TS (float, or __nv_bfloat16 in
+// lstm_tiled_bwd_bf16_launch).
+template <typename TS>
+static int launch_form(const void* z, const void* dys, const void* cs,
+                       const void* c0, const void* mask, const void* U,
+                       const void* dhT, const void* dcT, void* dz, void* dh0,
+                       void* dc0, void* part, void* flags, int T, int B,
+                       int H, int C, int UPB, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || C < 2 || C > MAX_CLUSTER || UPB < 1 ||
+      UPB > MAX_UNITS)
+    return (int)cudaErrorInvalidValue;
+  const BwdGeom g = bwd_geom(B, H, C, UPB);
+  if (g.groups < 1) return (int)cudaErrorInvalidValue;
+  const int ncl = (H + g.UPC - 1) / g.UPC, blocks = C * ncl;
+  const size_t smem = bwd_smem_bytes(g, UPB, ncl, sizeof(TS));
+  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  return (int)launch_clusters(
+      lstm_tiled_bwd_kernel<TS>, blocks, C, smem, (cudaStream_t)stream,
+      (const TS*)z, (const float*)dys, (const float*)cs, (const float*)c0,
+      (const float*)mask, (const TS*)U, (const float*)dhT, (const float*)dcT,
+      (TS*)dz, (float*)dh0, (float*)dc0, (float*)part, (int*)flags, T, B, H,
+      UPB);
+}
+
 extern "C" int lstm_tiled_bwd_launch(const void* z, const void* dys,
                                      const void* cs, const void* c0,
                                      const void* mask, const void* U,
@@ -439,18 +486,19 @@ extern "C" int lstm_tiled_bwd_launch(const void* z, const void* dys,
                                      void* dz, void* dh0, void* dc0,
                                      void* part, void* flags, int T, int B,
                                      int H, int C, int UPB, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || C < 2 || C > MAX_CLUSTER || UPB < 1 ||
-      UPB > MAX_UNITS)
-    return (int)cudaErrorInvalidValue;
-  const BwdGeom g = bwd_geom(B, H, C, UPB);
-  if (g.groups < 1) return (int)cudaErrorInvalidValue;
-  const int ncl = (H + g.UPC - 1) / g.UPC, blocks = C * ncl;
-  const size_t smem = sizeof(float) * bwd_smem_floats(g, UPB, ncl);
-  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  return (int)launch_clusters(
-      lstm_tiled_bwd_kernel, blocks, C, smem, (cudaStream_t)stream,
-      (const float*)z, (const float*)dys, (const float*)cs, (const float*)c0,
-      (const float*)mask, (const float*)U, (const float*)dhT,
-      (const float*)dcT, (float*)dz, (float*)dh0, (float*)dc0, (float*)part,
-      (int*)flags, T, B, H, UPB);
+  return launch_form<float>(z, dys, cs, c0, mask, U, dhT, dcT, dz, dh0, dc0,
+                            part, flags, T, B, H, C, UPB, stream);
+}
+
+extern "C" int lstm_tiled_bwd_bf16_launch(const void* z, const void* dys,
+                                          const void* cs, const void* c0,
+                                          const void* mask, const void* U,
+                                          const void* dhT, const void* dcT,
+                                          void* dz, void* dh0, void* dc0,
+                                          void* part, void* flags, int T,
+                                          int B, int H, int C, int UPB,
+                                          void* stream) {
+  return launch_form<__nv_bfloat16>(z, dys, cs, c0, mask, U, dhT, dcT, dz,
+                                    dh0, dc0, part, flags, T, B, H, C, UPB,
+                                    stream);
 }

@@ -1,5 +1,6 @@
 // Forward recurrence of one wide LSTM layer (U too big for one block's
-// shared memory) over T steps, for Hopper (sm_90a), float32.
+// shared memory) over T steps, for Hopper (sm_90a), in two forms: float32,
+// and bfloat16 streams (stream_dtype.cuh).
 //
 // Replaces lstm_tensorspark_tpu/ops/pallas_lstm.py::_lstm_tiled_kernel (the
 // "tiled" branch of _pallas_forward). The TPU kernel streams U from HBM in
@@ -39,12 +40,21 @@
 // the copy of h, the cell and one counter's round trip through L2.
 // Math is expf / tanhf with float32 accumulation (no fast-math intrinsics).
 //
-// Plain C interface for ctypes: lstm_tiled_fwd_launch returns the CUDA error
-// code (0 = success). It allocates nothing (the caller passes the h scratch
-// and the zeroed counters) and does not synchronise; it runs on the stream
-// it is given.
+// The bfloat16 form (TS = __nv_bfloat16: xproj, U and z bfloat16, as JAX's
+// _lstm_tiled_kernel under bf16 compute) converts xproj and U on load (the
+// lanes' registers hold float32 values; the rows past them sit in shared
+// memory as bfloat16), publishes h_t rounded to bfloat16 (the global h
+// array only feeds the product; the cell keeps its float32 h in shared
+// memory), feeds the gates the float32 z and stores z rounded once.
+//
+// Plain C interface for ctypes: lstm_tiled_fwd_launch (float32) and
+// lstm_tiled_fwd_bf16_launch (bfloat16) return the CUDA error code (0 =
+// success). They allocate nothing (the caller passes the h scratch and the
+// zeroed counters) and do not synchronise; they run on the stream they are
+// given.
 
 #include "cluster_common.cuh"
+#include "stream_dtype.cuh"
 #include "tiled_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -73,7 +83,8 @@ __host__ __device__ inline FwdGeom fwd_geom(int B, int H, int C, int UPB) {
   return g;
 }
 
-// Shared-memory layout, in floats (every piece a multiple of 4 floats):
+// Shared-memory layout (every piece a multiple of 16 bytes; Us in TS, the
+// rest float):
 //   Us   [per_lane - regs][slots][NCB]  U rows past the lanes' registers
 //   hs   [KR][ROWS]                     h_{t-1} of one tile (zero tail, at
 //                                       least KREG rows a lane)
@@ -82,33 +93,40 @@ __host__ __device__ inline FwdGeom fwd_geom(int B, int H, int C, int UPB) {
 //   bars 2 mbarriers                    full: h's copies have landed;
 //                                       free: the cluster's other blocks
 //                                       have read the tile before
-static size_t fwd_smem_floats(const FwdGeom& g, int UPB) {
-  return (size_t)(g.per_lane - g.regs) * g.slots * g.NCB +
-         (size_t)g.KR * ROWS + (size_t)g.slots * ROWS * g.PS +
-         2 * (size_t)g.BP * UPB + 4;
+__host__ __device__ inline size_t fwd_us_bytes(const FwdGeom& g,
+                                                size_t esize) {
+  return align16(esize * (g.per_lane - g.regs) * g.slots * g.NCB);
+}
+
+static size_t fwd_smem_bytes(const FwdGeom& g, int UPB, size_t esize) {
+  return fwd_us_bytes(g, esize) +
+         sizeof(float) * ((size_t)g.KR * ROWS + (size_t)g.slots * ROWS * g.PS +
+                          2 * (size_t)g.BP * UPB + 4);
 }
 
 // xproj of (t, row) for one unit's four gates, and the row's mask (1 without
 // one); 0 for a cell thread with no unit or row
+template <typename TS>
 __device__ __forceinline__ void load_x(float (&xp)[4], float& mk,
-                                       const float* __restrict__ xproj,
+                                       const TS* __restrict__ xproj,
                                        const float* __restrict__ mask, int t,
                                        int row, int B, int H, int unit,
                                        bool ok) {
   const size_t xb = ((size_t)t * B + row) * 4 * H + unit;
 #pragma unroll
-  for (int g = 0; g < 4; ++g) xp[g] = ok ? __ldg(xproj + xb + g * H) : 0.0f;
+  for (int g = 0; g < 4; ++g) xp[g] = ok ? ld_stream(xproj + xb + g * H) : 0.0f;
   mk = (ok && mask != nullptr) ? __ldg(mask + (size_t)t * B + row) : 1.0f;
 }
 
+template <typename TS>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
-                      const float* __restrict__ U,
+lstm_tiled_fwd_kernel(const TS* __restrict__ xproj,
+                      const TS* __restrict__ U,
                       const float* __restrict__ h0,
                       const float* __restrict__ c0,
                       const float* __restrict__ mask, float* __restrict__ ys,
                       float* __restrict__ hT, float* __restrict__ cT,
-                      float* __restrict__ z_out, float* __restrict__ cs_out,
+                      TS* __restrict__ z_out, float* __restrict__ cs_out,
                       float* hx, int* flags, int T, int B, int H, int UPB) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -122,8 +140,9 @@ lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
   const int kn = max(0, min(gm.Hq, H - k0));
 
   extern __shared__ float4 smem4[];
-  float* Us = reinterpret_cast<float*>(smem4);
-  float* hs = Us + (size_t)(gm.per_lane - gm.regs) * gm.slots * NCB;
+  TS* Us = reinterpret_cast<TS*>(smem4);
+  float* hs = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
+                                       fwd_us_bytes(gm, sizeof(TS)));
   float* part = hs + (size_t)gm.KR * ROWS;
   float* cown = part + (size_t)gm.slots * ROWS * gm.PS;
   float* hown = cown + BP * UPB;
@@ -149,7 +168,7 @@ lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
 #pragma unroll
     for (int e = 0; e < 2; ++e)
       ureg[i][e] = (i < gm.regs && k < H && ucol[e] >= 0)
-                       ? U[(size_t)k * G + ucol[e]]
+                       ? to_f32(U[(size_t)k * G + ucol[e]])
                        : 0.0f;
   }
   for (int i = tid; i < (gm.per_lane - gm.regs) * gm.slots * NCB;
@@ -157,7 +176,8 @@ lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
     const int col = i % NCB, rr = i / NCB;
     const int s = rr % gm.slots, k = (gm.regs + rr / gm.slots) * gm.slots + s;
     const int g = col / UPB, uu = col - g * UPB;
-    Us[i] = (k < H && uu < nu) ? U[(size_t)k * G + g * H + u0 + uu] : 0.0f;
+    Us[i] = (k < H && uu < nu) ? U[(size_t)k * G + g * H + u0 + uu]
+                               : from_f32<TS>(0.0f);
   }
   for (int i = tid; i < gm.KR * ROWS; i += THREADS) hs[i] = 0.0f;
   float* hx0 = hx;
@@ -170,7 +190,7 @@ lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
     cown[i] = own ? c0[(size_t)r * H + u0 + uu] : 0.0f;
     if (uu < nu) {  // both buffers: padded rows stay 0
       const size_t o = ((size_t)(r / ROWS) * H + u0 + uu) * ROWS + r % ROWS;
-      hx0[o] = h;
+      hx0[o] = round_to<TS>(h);
       hx1[o] = 0.0f;
     }
   }
@@ -205,7 +225,7 @@ lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
       cs_out[ob] = co;
       const size_t zb = ((size_t)ts * B + row) * G + u0 + cu;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) z_out[zb + g * H] = zo[g];
+      for (int g = 0; g < 4; ++g) z_out[zb + g * H] = from_f32<TS>(zo[g]);
     }
   };
   const uint16_t everyone = (uint16_t)((1u << C) - 1);
@@ -240,10 +260,9 @@ lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
         // every lane runs all KREG register rows: past its share the
         // weights and the staged rows are 0 (one unrolled copy to schedule)
         lane_product<true>(acc, hp, ureg, KREG, gm.slots * 4);
-        const float* up = Us + (size_t)sl * NCB + 2 * cp;
+        const TS* up = Us + (size_t)sl * NCB + 2 * cp;
         for (int i = gm.regs; i < gm.per_lane; ++i) {
-          const float2 w = *reinterpret_cast<const float2*>(
-              up + (size_t)(i - gm.regs) * gm.slots * NCB);
+          const float2 w = load2(up + (size_t)(i - gm.regs) * gm.slots * NCB);
           const float4* hv = hp + (size_t)i * gm.slots * 4;
           float x[ROWS];
 #pragma unroll
@@ -298,7 +317,7 @@ lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
         }
         cown[o] = co;
         hown[o] = ho;
-        hnxt[((size_t)j * H + u0 + cu) * ROWS + cr] = ho;
+        hnxt[((size_t)j * H + u0 + cu) * ROWS + cr] = round_to<TS>(ho);
         if (j + 1 < gm.NT) store_out(t, row);
       }
       // the next tile's xproj, loaded while the next product runs (a step's
@@ -337,26 +356,46 @@ lstm_tiled_fwd_kernel(const float* __restrict__ xproj,
 // C blocks a cluster (they share the copy of h), UPB hidden units a block;
 // the grid is blocks = C * ceil(H / (C * UPB)). hx is a scratch of 2 * H *
 // BP floats (BP = B rounded up to 16), flags C zeroed ints. mask, z and cs
-// may be null (z and cs together).
+// may be null (z and cs together). xproj, U and z are TS (float, or
+// __nv_bfloat16 in lstm_tiled_fwd_bf16_launch).
+template <typename TS>
+static int launch_form(const void* xproj, const void* U, const void* h0,
+                       const void* c0, const void* mask, void* ys, void* hT,
+                       void* cT, void* z, void* cs, void* hx, void* flags,
+                       int T, int B, int H, int C, int UPB, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || C < 2 || C > MAX_CLUSTER || UPB < 1 ||
+      UPB > MAX_UNITS || ((z == nullptr) != (cs == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const FwdGeom g = fwd_geom(B, H, C, UPB);
+  const size_t smem = fwd_smem_bytes(g, UPB, sizeof(TS));
+  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  const int blocks = C * ((H + C * UPB - 1) / (C * UPB));
+  return (int)launch_clusters(
+      lstm_tiled_fwd_kernel<TS>, blocks, C, smem, (cudaStream_t)stream,
+      (const TS*)xproj, (const TS*)U, (const float*)h0, (const float*)c0,
+      (const float*)mask, (float*)ys, (float*)hT, (float*)cT, (TS*)z,
+      (float*)cs, (float*)hx, (int*)flags, T, B, H, UPB);
+}
+
 extern "C" int lstm_tiled_fwd_launch(const void* xproj, const void* U,
                                      const void* h0, const void* c0,
                                      const void* mask, void* ys, void* hT,
                                      void* cT, void* z, void* cs, void* hx,
                                      void* flags, int T, int B, int H,
                                      int C, int UPB, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || C < 2 || C > MAX_CLUSTER || UPB < 1 ||
-      UPB > MAX_UNITS || ((z == nullptr) != (cs == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const FwdGeom g = fwd_geom(B, H, C, UPB);
-  const size_t smem = sizeof(float) * fwd_smem_floats(g, UPB);
-  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  const int blocks = C * ((H + C * UPB - 1) / (C * UPB));
-  return (int)launch_clusters(
-      lstm_tiled_fwd_kernel, blocks, C, smem, (cudaStream_t)stream,
-      (const float*)xproj, (const float*)U, (const float*)h0,
-      (const float*)c0, (const float*)mask, (float*)ys, (float*)hT,
-      (float*)cT, (float*)z, (float*)cs, (float*)hx, (int*)flags, T, B, H,
-      UPB);
+  return launch_form<float>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs, hx,
+                            flags, T, B, H, C, UPB, stream);
+}
+
+extern "C" int lstm_tiled_fwd_bf16_launch(const void* xproj, const void* U,
+                                          const void* h0, const void* c0,
+                                          const void* mask, void* ys,
+                                          void* hT, void* cT, void* z,
+                                          void* cs, void* hx, void* flags,
+                                          int T, int B, int H, int C, int UPB,
+                                          void* stream) {
+  return launch_form<__nv_bfloat16>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs,
+                                    hx, flags, T, B, H, C, UPB, stream);
 }
 
 // How many clusters of C blocks the card keeps resident at once when each
@@ -366,5 +405,5 @@ extern "C" int lstm_tiled_fwd_launch(const void* xproj, const void* U,
 extern "C" int lstm_tiled_fwd_max_clusters(int C, int smem, int* out) {
   if (C < 2 || C > MAX_CLUSTER || smem < 0 || smem > MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
-  return (int)max_clusters_of(lstm_tiled_fwd_kernel, C, smem, out);
+  return (int)max_clusters_of(lstm_tiled_fwd_kernel<float>, C, smem, out);
 }

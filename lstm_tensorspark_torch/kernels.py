@@ -13,7 +13,7 @@ launched with extra preprocessor macros (an instrumented build, e.g. the
 phase clocks of ``phase_clocks.py``), as libraries of their own beside the
 plain ones. Also here: what every wrapper shares — its launch counter
 (:class:`LaunchCounts`), the check of a tensor it passes by pointer
-(:func:`check_f32`), and the lock held while a CUDA graph is captured
+(:func:`check_operand`, its dtype included), and the lock held while a CUDA graph is captured
 (:data:`CAPTURE_LOCK`).
 """
 
@@ -162,19 +162,30 @@ class LaunchCounts:
             self.reference = 0
 
 
-def check_f32(name: str, t, shape, device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device`` — what every kernel wrapper checks before it passes a
-    pointer."""
+def check_operand(name: str, t, shape, device, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
+    on ``device`` — what every kernel wrapper checks before it passes a
+    pointer (``TypeError`` for another dtype: a kernel reads its operands
+    as the dtype its build takes, and a mixed call never converts)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_f32(name: str, t, shape, device) -> None:
+    """:func:`check_operand` of a float32 tensor. A bfloat16 tensor here
+    raises ``TypeError`` naming what is missing: the kernel's bfloat16
+    form (the residentx pair's and the windows' are not ported yet)."""
+    if t.dtype == torch.bfloat16:
+        raise TypeError(f"{name} is bfloat16: this kernel's bfloat16 form is "
+                        "not ported yet (float32 only)")
+    check_operand(name, t, shape, device, torch.float32)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -218,11 +229,12 @@ def max_clusters(name: str, dev, cluster: int, smem: int) -> int:
     return n
 
 
-def launcher(name: str, argtypes):
-    """The C entry point ``<name>_launch`` of kernel ``name`` (built and
-    loaded first if needed), with ``argtypes`` set and an int result: the
+def launcher(name: str, argtypes, entry: str = "launch"):
+    """The C entry point ``<name>_<entry>`` of kernel ``name`` (built and
+    loaded first if needed; ``entry`` names a second form of the source,
+    e.g. ``"bf16_launch"``), with ``argtypes`` set and an int result: the
     CUDA error code of the launch."""
-    key = (name, _defines)
+    key = (name, entry, _defines)
     fn = _launchers.get(key)
     if fn is not None:
         return fn
@@ -230,7 +242,7 @@ def launcher(name: str, argtypes):
     with _lock:
         fn = _launchers.get(key)
         if fn is None:
-            fn = getattr(lib, f"{name}_launch")
+            fn = getattr(lib, f"{name}_{entry}")
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _launchers[key] = fn

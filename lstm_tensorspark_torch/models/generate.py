@@ -17,7 +17,8 @@ from ..device import resolve_device
 from ..ops.cuda_decode import sampling_supported
 from ..ops.embedding import embed_lookup
 from ..ops.lstm_cell import fuse_params, lstm_step
-from .lstm_lm import LMConfig, _head_kernel, init_carries, lm_forward, params_to
+from .lstm_lm import (LMConfig, _head_kernel, head_logits, init_carries,
+                      lm_forward, params_to)
 
 
 def check_sampling(temperature: float = 1.0, top_k=None, top_p=None,
@@ -64,8 +65,10 @@ def sample_logits(logits: torch.Tensor, *, temperature: float = 1.0,
 
 
 def fuse_layers(params, cfg: LMConfig):
-    """Fuse every layer's gate matrices once (outside the decode loop)."""
-    return [fuse_params(layer) for layer in params["layers"]]
+    """Fuse every layer's gate matrices once (outside the decode loop), in
+    the config's compute dtype (float32 without a config)."""
+    cd = None if cfg is None or cfg.cdtype == torch.float32 else cfg.cdtype
+    return [fuse_params(layer, compute_dtype=cd) for layer in params["layers"]]
 
 
 def decode_one(params, fused_layers, cfg: LMConfig, carries, token):
@@ -76,7 +79,9 @@ def decode_one(params, fused_layers, cfg: LMConfig, carries, token):
         carry, x = lstm_step(fused, carry, x)
         new_carries.append(carry)
     kernel, bias = _head_kernel(params, cfg)
-    return x @ kernel + bias, new_carries
+    # the prefill's logits dtype, so a decode step samples as lm_forward's
+    # last position does
+    return head_logits(x, kernel, bias, cfg), new_carries
 
 
 @torch.no_grad()

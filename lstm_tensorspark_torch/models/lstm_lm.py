@@ -1,8 +1,12 @@
 """LSTM language model: embedding → stacked LSTM → linear head.
 
-Port of ``lstm_tensorspark_tpu/models/lstm_lm.py`` (float32): the forward,
-and :func:`lm_loss`, the next-token cross-entropy that training
-differentiates, with dropout between layers. The recurrence goes through
+Port of ``lstm_tensorspark_tpu/models/lstm_lm.py``: the forward, and
+:func:`lm_loss`, the next-token cross-entropy that training
+differentiates, with dropout between layers. ``compute_dtype`` bfloat16
+runs the recurrence's products in bfloat16 (the parameters, the optimizer
+state and the cell state stay float32); ``logits_dtype`` bfloat16 forms
+the head's [B, T, V] logits in bfloat16, and the loss upcasts them to
+float32 before the logsumexp. The recurrence goes through
 ``ops/scan.stacked_lstm_scan``, so on the card every layer runs the
 hand-written recurrence kernels and on the CPU the plain loop. Params are a plain dict, as in the JAX package::
 
@@ -20,7 +24,9 @@ from typing import Iterator
 import torch
 
 from ..ops.embedding import embed_lookup, selected_logits
-from ..ops.lstm_cell import LSTMParams, glorot_uniform, init_lstm_params, zero_carry
+from ..ops.lstm_cell import (COMPUTE_DTYPES, LSTMParams, glorot_uniform,
+                             init_lstm_params, mm_f32, resolve_dtype,
+                             zero_carry)
 from ..ops.scan import stacked_lstm_scan
 
 
@@ -36,25 +42,36 @@ class LMConfig:
     num_layers: int = 1
     embed_size: int | None = None  # defaults to hidden_size
     tie_embeddings: bool = False
-    # float32 only in this port; bf16 compute is a later slice
+    # "bfloat16" for the recurrence's products (JAX LMConfig.compute_dtype)
     compute_dtype: str = "float32"
     # checkpoint chunks of the recurrence; the backward recomputes them
     remat_chunk: int | None = None
     # inverted dropout between layers (training only: it needs a source of
     # keep masks, see lm_backbone)
     dropout: float = 0.0
+    # dtype of the materialized [B, T, V] logits (JAX LMConfig.logits_dtype)
+    logits_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise ValueError(
-                f"compute_dtype {self.compute_dtype!r} is not supported by "
-                "the port yet (float32 only)")
+        for name in ("compute_dtype", "logits_dtype"):
+            if getattr(self, name) not in COMPUTE_DTYPES:
+                raise ValueError(f"{name} must be one of "
+                                 f"{sorted(COMPUTE_DTYPES)}, got "
+                                 f"{getattr(self, name)!r}")
         if self.tie_embeddings and self.embed != self.hidden_size:
             raise ValueError("tie_embeddings requires embed_size == hidden_size")
 
     @property
     def embed(self) -> int:
         return self.embed_size or self.hidden_size
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return resolve_dtype(self.compute_dtype)
+
+    @property
+    def ldtype(self) -> torch.dtype:
+        return resolve_dtype(self.logits_dtype)
 
 
 def init_lm(gen: torch.Generator, cfg: LMConfig):
@@ -105,13 +122,49 @@ def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig, *,
                              remat_chunk=cfg.remat_chunk,
                              dropout_rate=cfg.dropout,
                              dropout_gen=dropout_gen,
-                             dropout_keeps=dropout_keeps)
+                             dropout_keeps=dropout_keeps,
+                             compute_dtype=cfg.cdtype)
 
 
 def _head_kernel(params, cfg: LMConfig):
     head = params["head"]
     kernel = params["embedding"].T if cfg.tie_embeddings else head["kernel"]
     return kernel, head["bias"]
+
+
+class _RoundedProduct(torch.autograd.Function):
+    """``ys @ kernel`` (float32 operands) rounded to ``dtype``, with JAX's
+    transpose of a ``dot(..., preferred_element_type=dtype)``: each
+    cotangent product takes the cotangent (in ``dtype``) times the other
+    operand cast to ``dtype`` (``g @ kernelᵀ``, ``ysᵀ @ g``), accumulated
+    in float32, rounded to ``dtype`` and widened to its float32 operand."""
+
+    @staticmethod
+    def forward(ctx, ys, kernel, dtype):
+        ctx.save_for_backward(ys, kernel)
+        ctx.dtype = dtype
+        return (ys @ kernel).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        ys, kernel = ctx.saved_tensors
+        dt = ctx.dtype
+        dys = mm_f32(g, kernel.to(dt).T).to(dt).float()
+        dk = mm_f32(ys.reshape(-1, ys.shape[-1]).to(dt).T,
+                    g.reshape(-1, g.shape[-1]))
+        return dys, dk.to(dt).float(), None
+
+
+def head_logits(ys: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                cfg: LMConfig) -> torch.Tensor:
+    """The head ``ys @ kernel + bias`` in ``cfg.logits_dtype`` (JAX
+    ``lm_forward``): the float32 product rounded once to the logits' dtype
+    (its gradients rounded as JAX's transpose rounds them), plus the bias
+    in that dtype."""
+    ld = cfg.ldtype
+    if ld == torch.float32:
+        return ys @ kernel + bias
+    return _RoundedProduct.apply(ys, kernel, ld) + bias.to(ld)
 
 
 def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig, *, carries=None,
@@ -122,7 +175,7 @@ def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig, *, carries=None,
                              dropout_gen=dropout_gen,
                              dropout_keeps=dropout_keeps)
     kernel, bias = _head_kernel(params, cfg)
-    return ys @ kernel + bias, finals
+    return head_logits(ys, kernel, bias, cfg), finals
 
 
 def lm_loss(params, batch, cfg: LMConfig, *, carries=None,
@@ -145,6 +198,7 @@ def lm_loss(params, batch, cfg: LMConfig, *, carries=None,
     logits, finals = lm_forward(params, batch["inputs"], cfg, carries=carries,
                                 dropout_gen=dropout_gen,
                                 dropout_keeps=dropout_keeps)
+    logits = logits.float()  # the NLL runs in float32 over bf16 logits too
     lse = torch.logsumexp(logits, dim=-1)
     tgt = selected_logits(logits, batch["targets"])
     loss = torch.mean(lse - tgt)

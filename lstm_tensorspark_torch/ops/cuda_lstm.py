@@ -32,8 +32,16 @@ Counterpart of ``lstm_tensorspark_tpu/ops/pallas_lstm.py`` on its
   order of the algebra (the tests hold it against the plain version and
   the JAX pair).
 
-Layouts are time-major inside (``[T, B, ·]``), float32, gate order i, f, g,
-o. The mask here is float32 ``[T, B]`` (1 = step, 0 = frozen carry).
+Layouts are time-major inside (``[T, B, ·]``), gate order i, f, g, o. The
+mask here is float32 ``[T, B]`` (1 = step, 0 = frozen carry). Each kernel
+has two forms, chosen by the dtype of xproj (the forward) or z (the
+backward): float32, and bfloat16 (JAX's Pallas route under bf16 compute,
+``pallas_lstm._residual_dtype``), where xproj, z, dz and U are bfloat16,
+h is rounded to bfloat16 at the product (dz is rounded once, at its store,
+and dh formed from the rounded dz), every product accumulates in float32,
+and ys, cs, the carries, dys and the mask stay float32. Their launches
+count apart (:data:`fwd_bf16_counts`, :data:`bwd_bf16_counts`). A mixed
+call raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from .lstm_cell import LSTMParams, fuse_params
+from .lstm_cell import LSTMParams, fuse_params, mm_f32, resolve_dtype
 
 THREADS = 256  # csrc/lstm_*.cu THREADS
 MAX_CLUSTER = 8  # portable cluster size (csrc MAX_CLUSTER)
@@ -54,6 +62,29 @@ MIN_SPLIT = 32  # fewest terms of a split sum
 
 fwd_counts = kernels.LaunchCounts("lstm_fwd")
 bwd_counts = kernels.LaunchCounts("lstm_bwd")
+# the bfloat16 forms of the same sources
+fwd_bf16_counts = kernels.LaunchCounts("lstm_fwd_bf16")
+bwd_bf16_counts = kernels.LaunchCounts("lstm_bwd_bf16")
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
+F32 = torch.float32
+
+
+def stream_dtype(name: str, t) -> torch.dtype:
+    """The form a kernel call takes, by the dtype of its stream ``t``
+    (xproj or z): float32 or bfloat16; ``TypeError`` for another."""
+    if t.dtype not in STREAM_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    return t.dtype
+
+
+def esize_of(dtype: torch.dtype) -> int:
+    """Bytes of one element of U and the streams in ``dtype``'s form."""
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def counts_of(dtype, f32_counts, bf16_counts):
+    """The launch counter of ``dtype``'s form."""
+    return bf16_counts if dtype == torch.bfloat16 else f32_counts
 
 
 class Plan(NamedTuple):
@@ -96,9 +127,12 @@ def _lanes(items: int, cap: int) -> int:
     return n
 
 
-def _fwd_plan(B: int, H: int, cs: int, upc: int, clusters: int) -> Plan:
+def _fwd_plan(B: int, H: int, cs: int, upc: int, clusters: int,
+              esize: int = 4) -> Plan:
     """The forward's plan (csrc/lstm_fwd.cu): a group of lanes owns one unit
-    and four rows, so a block takes at most THREADS // upc row quads."""
+    and four rows, so a block takes at most THREADS // upc row quads. The
+    slice of U in shared memory takes ``esize`` bytes an element (2 in the
+    bfloat16 form)."""
     rows = -(-B // clusters)
     rows = min(B, -(-rows // 4) * 4, 4 * max(1, THREADS // upc))
     rows4 = -(-rows // 4) * 4
@@ -109,10 +143,10 @@ def _fwd_plan(B: int, H: int, cs: int, upc: int, clusters: int) -> Plan:
             f"lstm fwd kernel: B={B} H={H} needs {4 * base} bytes of "
             f"shared memory per block (> {MAX_SMEM_BYTES})")
     u_regs = -(-H // ks) <= KREG
-    w = 4 * H * upc
-    smem_w = not u_regs and 4 * (base + w) <= MAX_SMEM_BYTES
+    w = esize * 4 * H * upc
+    smem_w = not u_regs and 4 * base + w <= MAX_SMEM_BYTES
     return Plan(cs, upc, rows, rows4, ks, smem_w,
-                4 * (base + (w if smem_w else 0)), u_regs)
+                4 * base + (w if smem_w else 0), u_regs)
 
 
 def bwd_slots(units: int, rows4: int) -> int:
@@ -125,20 +159,22 @@ def bwd_slots(units: int, rows4: int) -> int:
     return -(-uq // WARPS) * -(-(rows4 // 4) // per_quad)
 
 
-def _bwd_smem(H: int, units: int, rows4: int, where: str) -> int:
+def _bwd_smem(H: int, units: int, rows4: int, where: str,
+              esize: int = 4) -> int:
     """Bytes of the backward's layout (``csrc/lstm_bwd.cu``
-    bwd_smem_floats): dz double-buffered over 4H columns padded to the
-    lanes' terms, two mbarriers, and Uᵀ's slice when it sits in shared
-    memory."""
+    bwd_smem_bytes): dz double-buffered over 4H columns padded to the
+    lanes' terms (float32), two mbarriers, and Uᵀ's slice, ``esize``
+    bytes an element, when it sits in shared memory."""
     G = 4 * H
     gp = 32 * UT_TERMS if where == "regs" else -(-G // 128) * 128
-    n = 2 * rows4 * gp + 4
+    n = 4 * (2 * rows4 * gp + 4)
     if where == "smem":
-        n += -(-units // 4) * gp * 4
-    return 4 * n
+        n += esize * -(-units // 4) * gp * 4
+    return n
 
 
-def _bwd_plan(B: int, H: int, cs: int, upc: int, clusters: int) -> Plan:
+def _bwd_plan(B: int, H: int, cs: int, upc: int, clusters: int,
+              esize: int = 4) -> Plan:
     """The backward's plan (csrc/lstm_bwd.cu): a warp a unit quad and row
     quad, Uᵀ's slice in the lanes' registers when a lane's 16 terms of four
     units cover 4H and a warp's slots share one unit quad (at most four of
@@ -165,22 +201,24 @@ def _bwd_plan(B: int, H: int, cs: int, upc: int, clusters: int) -> Plan:
     if (nuq == 1 and 4 * H <= 32 * UT_TERMS and slots <= 4
             and _bwd_smem(H, upc, rows4, "regs") <= MAX_SMEM_BYTES):
         where = "regs"
-    elif _bwd_smem(H, upc, rows4, "smem") <= MAX_SMEM_BYTES:
+    elif _bwd_smem(H, upc, rows4, "smem", esize) <= MAX_SMEM_BYTES:
         where = "smem"
     return Plan(cs, upc, rows, rows4, 32, where == "smem",
-                _bwd_smem(H, upc, rows4, where), where == "regs", slots)
+                _bwd_smem(H, upc, rows4, where, esize), where == "regs",
+                slots)
 
 
 def plan(kind: str, B: int, H: int, num_sms: int = 132,
-         max_clusters: int | None = None) -> Plan:
+         max_clusters: int | None = None, esize: int = 4) -> Plan:
     """The launch plan of the ``"fwd"`` or ``"bwd"`` kernel for B rows of
     width H on a card with ``num_sms`` SMs; the backward's rows spread over
     at most ``max_clusters`` clusters (the card's resident clusters,
     :func:`card_plan`) when their buffers fit, else over every cluster the
-    SMs hold (a second wave). Mirrors the
-    shared-memory layouts at the top of ``csrc/lstm_fwd.cu`` /
-    ``csrc/lstm_bwd.cu``. Raises ``ValueError`` for a shape whose buffers
-    do not fit a block."""
+    SMs hold (a second wave). ``esize`` is the bytes of an element of U:
+    4, or 2 in the bfloat16 forms, whose slice of U in shared memory takes
+    half the room. Mirrors the shared-memory layouts at the top of
+    ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu``. Raises ``ValueError`` for
+    a shape whose buffers do not fit a block."""
     if kind not in ("fwd", "bwd"):
         raise ValueError(f"kind must be 'fwd' or 'bwd', got {kind!r}")
     if B < 1 or H < 1:
@@ -190,16 +228,16 @@ def plan(kind: str, B: int, H: int, num_sms: int = 132,
     cs = -(-H // upc)  # no block without units
     clusters = max(1, num_sms // cs)
     if kind == "fwd":
-        return _fwd_plan(B, H, cs, upc, clusters)
+        return _fwd_plan(B, H, cs, upc, clusters, esize)
     if max_clusters is not None and max_clusters < clusters:
         try:  # rows for the resident clusters, when their buffers fit
-            return _bwd_plan(B, H, cs, upc, max(1, max_clusters))
+            return _bwd_plan(B, H, cs, upc, max(1, max_clusters), esize)
         except ValueError:
             pass
-    return _bwd_plan(B, H, cs, upc, clusters)
+    return _bwd_plan(B, H, cs, upc, clusters, esize)
 
 
-def card_plan(kind: str, B: int, H: int, dev) -> Plan:
+def card_plan(kind: str, B: int, H: int, dev, esize: int = 4) -> Plan:
     """:func:`plan` for the card ``dev``: its SM count and, for the
     backward, the clusters it keeps resident at once (asked of the CUDA
     runtime once per card and cluster size)."""
@@ -207,9 +245,9 @@ def card_plan(kind: str, B: int, H: int, dev) -> Plan:
 
     sms = _num_sms(dev)
     if kind == "fwd":
-        return plan(kind, B, H, sms)
-    cs = plan(kind, B, H, sms).cluster
-    return plan(kind, B, H, sms, max_clusters(dev, cs))
+        return plan(kind, B, H, sms, esize=esize)
+    cs = plan(kind, B, H, sms, esize=esize).cluster
+    return plan(kind, B, H, sms, max_clusters(dev, cs), esize=esize)
 
 
 # ---------------------------------------------------------------------------
@@ -226,11 +264,13 @@ def lstm_forward_reference(xproj, U, h0, c0, mask=None, *,
                            save_residuals: bool = False):
     """The forward recurrence, step for step the algebra of the JAX
     ``_lstm_kernel``. Returns ``(ys, hT, cT)``, plus ``(z, cs)`` with
-    ``save_residuals``."""
+    ``save_residuals``. In the bfloat16 form (xproj and U bfloat16) h is
+    rounded at the product, which accumulates in float32, the gates take
+    the float32 z and the stored z is rounded once."""
     h, c = h0, c0
     ys, zs, cs = [], [], []
     for t in range(xproj.shape[0]):
-        z = xproj[t] + h @ U
+        z = xproj[t].float() + mm_f32(h.to(U.dtype), U)
         i, f, g, o = _gates(z)
         c_new = f * c + i * g
         h_new = o * torch.tanh(c_new)
@@ -241,7 +281,7 @@ def lstm_forward_reference(xproj, U, h0, c0, mask=None, *,
         else:
             c, h = c_new, h_new
         ys.append(h)
-        zs.append(z)
+        zs.append(z.to(xproj.dtype))
         cs.append(c)
     out = (torch.stack(ys), h, c)
     if save_residuals:
@@ -253,11 +293,13 @@ def lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask=None):
     """Reverse-time BPTT from the forward's residuals, step for step the
     algebra of the JAX ``_lstm_bwd_kernel``: ``z`` [T,B,4H], ``c_prev``
     [T,B,H] (c0, then cs[:-1]), ``dys`` [T,B,H]. Returns ``(dz, dh0,
-    dc0)``."""
+    dc0)``. In the bfloat16 form (z and U bfloat16) the gates come from
+    the rounded z, dz is rounded once, at its store, and dh is the rounded
+    dz times Uᵀ accumulated in float32."""
     dh, dc = dhT, dcT
     dzs = [None] * z.shape[0]
     for t in range(z.shape[0] - 1, -1, -1):
-        i, f, g, o = _gates(z[t])
+        i, f, g, o = _gates(z[t].float())
         cp = c_prev[t]
         tc = torch.tanh(f * cp + i * g)
         dh_tot = dh + dys[t]
@@ -272,9 +314,9 @@ def lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask=None):
         di = dc_new * g * i * (1.0 - i)
         df = dc_new * cp * f * (1.0 - f)
         dg = dc_new * i * (1.0 - g * g)
-        dz = torch.cat([di, df, dg, do], dim=-1)
+        dz = torch.cat([di, df, dg, do], dim=-1).to(z.dtype)
         dzs[t] = dz
-        dh = dz @ U.T
+        dh = mm_f32(dz, U.T)
         dc = dc_new * f
         if mask is not None:
             dh = dh + (1.0 - m) * dh_tot
@@ -316,37 +358,81 @@ def lstm_backward_factored(z, c_prev, dys, U, dhT, dcT, mask=None):
 # ---------------------------------------------------------------------------
 
 
+def check_forward(xproj, U, h0, c0, mask):
+    """The forward's operands: ``xproj`` [T>=1, B, 4H] and ``U`` [H, 4H] in
+    one form's dtype (float32 or bfloat16), ``h0``, ``c0`` [B, H] and the
+    mask [T, B] float32, contiguous, on one device. Returns (T, B, H, the
+    form's dtype); raises otherwise."""
+    if xproj.dim() != 3 or xproj.shape[2] % 4 or xproj.shape[0] < 1:
+        raise ValueError(f"xproj must be [T >= 1, B, 4H], got "
+                         f"{tuple(xproj.shape)}")
+    T, B, G = xproj.shape
+    H = G // 4
+    dev, sd = xproj.device, stream_dtype("xproj", xproj)
+    kernels.check_operand("xproj", xproj, (T, B, G), dev, sd)
+    kernels.check_operand("U", U, (H, G), dev, sd)
+    kernels.check_operand("h0", h0, (B, H), dev, F32)
+    kernels.check_operand("c0", c0, (B, H), dev, F32)
+    _check_mask(mask, T, B, dev)
+    return T, B, H, sd
+
+
+def check_backward(z, c0, cs, dys, U, dhT, dcT, mask):
+    """The backward's operands: ``z`` [T>=1, B, 4H] and ``U`` [H, 4H] in one
+    form's dtype, the rest float32 (``c0``, ``dhT``, ``dcT`` [B, H];
+    ``cs``, ``dys`` [T, B, H]; the mask [T, B]). Returns (T, B, H, the
+    form's dtype); raises otherwise."""
+    if z.dim() != 3 or z.shape[2] % 4 or z.shape[0] < 1:
+        raise ValueError(f"z must be [T >= 1, B, 4H], got {tuple(z.shape)}")
+    T, B, G = z.shape
+    H = G // 4
+    dev, sd = z.device, stream_dtype("z", z)
+    kernels.check_operand("z", z, (T, B, G), dev, sd)
+    kernels.check_operand("c0", c0, (B, H), dev, F32)
+    kernels.check_operand("cs", cs, (T, B, H), dev, F32)
+    kernels.check_operand("dys", dys, (T, B, H), dev, F32)
+    kernels.check_operand("U", U, (H, G), dev, sd)
+    kernels.check_operand("dhT", dhT, (B, H), dev, F32)
+    kernels.check_operand("dcT", dcT, (B, H), dev, F32)
+    _check_mask(mask, T, B, dev)
+    return T, B, H, sd
+
+
 def lstm_forward(xproj, U, h0, c0, mask=None, *, save_residuals: bool = False):
     """Forward recurrence: ``xproj`` [T,B,4H], ``U`` [H,4H], ``h0``/``c0``
     [B,H], ``mask`` [T,B] float32 or None. Returns ``(ys [T,B,H], hT,
-    cT)`` and, with ``save_residuals``, ``z`` [T,B,4H] and ``cs``
-    [T,B,H]. CUDA tensors launch ``csrc/lstm_fwd.cu``; CPU tensors run the
-    plain version."""
+    cT)`` and, with ``save_residuals``, ``z`` [T,B,4H] (in xproj's dtype)
+    and ``cs`` [T,B,H]. CUDA tensors launch ``csrc/lstm_fwd.cu`` in the
+    form of xproj's dtype; CPU tensors run the plain version."""
     if xproj.device.type == "cuda":
         return _launch_fwd(xproj, U, h0, c0, mask, save_residuals)
-    if xproj.device.type == "cpu":
-        fwd_counts.bump("reference")
-        return lstm_forward_reference(xproj, U, h0, c0, mask,
-                                      save_residuals=save_residuals)
-    raise ValueError(f"unsupported device {xproj.device}")
+    if xproj.device.type != "cpu":
+        raise ValueError(f"unsupported device {xproj.device}")
+    *_, sd = check_forward(xproj, U, h0, c0, mask)
+    counts_of(sd, fwd_counts, fwd_bf16_counts).bump("reference")
+    return lstm_forward_reference(xproj, U, h0, c0, mask,
+                                  save_residuals=save_residuals)
 
 
 def lstm_backward(z, c0, cs, dys, U, dhT, dcT, mask=None):
     """Fused BPTT from the forward's residuals ``z`` and ``cs`` (and
-    ``c0``): returns ``(dz [T,B,4H], dh0, dc0)``. CUDA tensors launch
-    ``csrc/lstm_bwd.cu``; CPU tensors run the plain version."""
+    ``c0``): returns ``(dz [T,B,4H] in z's dtype, dh0, dc0)``. CUDA tensors
+    launch ``csrc/lstm_bwd.cu`` in the form of z's dtype; CPU tensors run
+    the plain version."""
     if z.device.type == "cuda":
         return _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask)
-    if z.device.type == "cpu":
-        bwd_counts.bump("reference")
-        c_prev = torch.cat([c0[None], cs[:-1]], dim=0)
-        return lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask)
-    raise ValueError(f"unsupported device {z.device}")
+    if z.device.type != "cpu":
+        raise ValueError(f"unsupported device {z.device}")
+    *_, sd = check_backward(z, c0, cs, dys, U, dhT, dcT, mask)
+    counts_of(sd, bwd_counts, bwd_bf16_counts).bump("reference")
+    c_prev = torch.cat([c0[None], cs[:-1]], dim=0)
+    return lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask)
 
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-# csrc/lstm_fwd.cu::lstm_fwd_launch: 10 tensor pointers, T, B, H and the six
-# plan ints, the stream; csrc/lstm_bwd.cu::lstm_bwd_launch the same with 11
+# csrc/lstm_fwd.cu::lstm_fwd_launch (and lstm_fwd_bf16_launch): 10 tensor
+# pointers, T, B, H and the six plan ints, the stream;
+# csrc/lstm_bwd.cu::lstm_bwd_launch (and _bf16_launch) the same with 11
 # pointers
 _FWD_ARGTYPES = [_p] * 10 + [_i] * 9 + [_p]
 _BWD_ARGTYPES = [_p] * 11 + [_i] * 9 + [_p]
@@ -362,31 +448,27 @@ def _num_sms(dev) -> int:
 
 def _check_mask(mask, T, B, dev):
     if mask is not None:
-        kernels.check_f32("mask", mask, (T, B), dev)
+        kernels.check_operand("mask", mask, (T, B), dev, F32)
+
+
+def entry(dtype) -> str:
+    """The C entry point of a source's form for ``dtype``."""
+    return "bf16_launch" if dtype == torch.bfloat16 else "launch"
 
 
 def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     dev = xproj.device
-    if xproj.dim() != 3 or xproj.shape[2] % 4:
-        raise ValueError(f"xproj must be [T, B, 4H], got {tuple(xproj.shape)}")
-    T, B, G = xproj.shape
-    H = G // 4
-    if T < 1:
-        raise ValueError("the kernel needs T >= 1")
-    kernels.check_f32("xproj", xproj, (T, B, G), dev)
-    kernels.check_f32("U", U, (H, G), dev)
-    kernels.check_f32("h0", h0, (B, H), dev)
-    kernels.check_f32("c0", c0, (B, H), dev)
-    _check_mask(mask, T, B, dev)
-    pl = plan("fwd", B, H, _num_sms(dev))
+    T, B, H, sd = check_forward(xproj, U, h0, c0, mask)
+    G = 4 * H
+    pl = plan("fwd", B, H, _num_sms(dev), esize=esize_of(sd))
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     hT = torch.empty((B, H), dtype=torch.float32, device=dev)
     cT = torch.empty((B, H), dtype=torch.float32, device=dev)
     z = cs = None
     if save_residuals:
-        z = torch.empty((T, B, G), dtype=torch.float32, device=dev)
+        z = torch.empty((T, B, G), dtype=sd, device=dev)
         cs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    launch = kernels.launcher("lstm_fwd", _FWD_ARGTYPES)
+    launch = kernels.launcher("lstm_fwd", _FWD_ARGTYPES, entry(sd))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
@@ -396,32 +478,20 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
             pl.ksplit, 0 if pl.u_regs else 1 if pl.smem_w else 2, stream)
     if rc != 0:
         raise RuntimeError(f"lstm_fwd kernel launch failed: CUDA error {rc} "
-                           f"(T={T} B={B} H={H}, {pl})")
-    fwd_counts.bump("kernel")
+                           f"(T={T} B={B} H={H}, {sd}, {pl})")
+    counts_of(sd, fwd_counts, fwd_bf16_counts).bump("kernel")
     return (ys, hT, cT, z, cs) if save_residuals else (ys, hT, cT)
 
 
 def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
     dev = z.device
-    if z.dim() != 3 or z.shape[2] % 4:
-        raise ValueError(f"z must be [T, B, 4H], got {tuple(z.shape)}")
-    T, B, G = z.shape
-    H = G // 4
-    if T < 1:
-        raise ValueError("the kernel needs T >= 1")
-    kernels.check_f32("z", z, (T, B, G), dev)
-    kernels.check_f32("c0", c0, (B, H), dev)
-    kernels.check_f32("cs", cs, (T, B, H), dev)
-    kernels.check_f32("dys", dys, (T, B, H), dev)
-    kernels.check_f32("U", U, (H, G), dev)
-    kernels.check_f32("dhT", dhT, (B, H), dev)
-    kernels.check_f32("dcT", dcT, (B, H), dev)
-    _check_mask(mask, T, B, dev)
-    pl = card_plan("bwd", B, H, dev)
-    dz = torch.empty((T, B, G), dtype=torch.float32, device=dev)
+    T, B, H, sd = check_backward(z, c0, cs, dys, U, dhT, dcT, mask)
+    G = 4 * H
+    pl = card_plan("bwd", B, H, dev, esize=esize_of(sd))
+    dz = torch.empty((T, B, G), dtype=sd, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    launch = kernels.launcher("lstm_bwd", _BWD_ARGTYPES)
+    launch = kernels.launcher("lstm_bwd", _BWD_ARGTYPES, entry(sd))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
@@ -432,8 +502,8 @@ def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
             0 if pl.u_regs else 1 if pl.smem_w else 2, stream)
     if rc != 0:
         raise RuntimeError(f"lstm_bwd kernel launch failed: CUDA error {rc} "
-                           f"(T={T} B={B} H={H}, {pl})")
-    bwd_counts.bump("kernel")
+                           f"(T={T} B={B} H={H}, {sd}, {pl})")
+    counts_of(sd, bwd_counts, bwd_bf16_counts).bump("kernel")
     return dz, dh0, dc0
 
 
@@ -445,22 +515,26 @@ def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
 def recurrence_forward(ctx, forward, xproj, U, h0, c0, mask):
     """The Function's forward over a kernel pair with this module's
     contract: ``forward`` runs with residuals, which are saved for
-    :func:`recurrence_backward`."""
-    ys, hT, cT, z, cs = forward(xproj, U, h0, c0, mask, save_residuals=True)
-    ctx.save_for_backward(U, h0, c0, ys, z, cs, mask)
+    :func:`recurrence_backward`. ``U`` comes in its parameter's float32
+    and goes to the kernel in xproj's dtype (its gradient leaves in
+    float32, as JAX casts each gradient to its parameter)."""
+    Us = U.to(xproj.dtype)
+    ys, hT, cT, z, cs = forward(xproj, Us, h0, c0, mask, save_residuals=True)
+    ctx.save_for_backward(Us, h0, c0, ys, z, cs, mask)
     return ys, hT, cT
 
 
 def recurrence_backward(ctx, backward, dys, dhT, dcT):
     """The Function's backward: ``backward`` gives dz (= dxproj), dh0 and
-    dc0; ``dU = h_prev^T dz`` is one matmul over T·B."""
-    U, h0, c0, ys, z, cs, mask = ctx.saved_tensors
-    dz, dh0, dc0 = backward(z, c0, cs, dys.contiguous(), U, dhT.contiguous(),
-                            dcT.contiguous(), mask)
+    dc0; ``dU = h_prev^T dz`` is one matmul over T·B (h_prev rounded to
+    dz's dtype, accumulated in float32: JAX ``_pallas_backward``)."""
+    Us, h0, c0, ys, z, cs, mask = ctx.saved_tensors
+    dz, dh0, dc0 = backward(z, c0, cs, dys.contiguous(), Us,
+                            dhT.contiguous(), dcT.contiguous(), mask)
     T, B, G = dz.shape
     H = G // 4
     h_prev = torch.cat([h0[None], ys[:-1]], dim=0)
-    dU = h_prev.reshape(T * B, H).T @ dz.reshape(T * B, G)
+    dU = mm_f32(h_prev.reshape(T * B, H).to(dz.dtype).T, dz.reshape(T * B, G))
     return dz, dU, dh0, dc0, None
 
 
@@ -468,7 +542,8 @@ class LSTMRecurrence(torch.autograd.Function):
     """``(xproj [T,B,4H], U [H,4H], h0, c0, mask [T,B] or None) -> (ys
     [T,B,H], hT, cT)`` with the fused backward. Saves z and cs (the
     forward's residuals) for the backward; no gradient flows to the
-    mask."""
+    mask. xproj's dtype picks the kernels' form; U is float32 (cast to
+    that form inside)."""
 
     @staticmethod
     def forward(ctx, xproj, U, h0, c0, mask):
@@ -482,11 +557,44 @@ class LSTMRecurrence(torch.autograd.Function):
 def run_recurrence(function, forward, xproj, U, h0, c0, mask=None):
     """``function`` (an autograd Function over a kernel pair) when autograd
     needs it; ``forward`` alone, without residual writes, otherwise
-    (``torch.no_grad``, eval, prefill)."""
+    (``torch.no_grad``, eval, prefill). ``U`` is float32; the kernels take
+    it in xproj's dtype."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xproj, U, h0, c0)):
         return function.apply(xproj, U, h0, c0, mask)
-    return forward(xproj, U, h0, c0, mask)
+    return forward(xproj, U.to(xproj.dtype), h0, c0, mask)
+
+
+class BF16Projection(torch.autograd.Function):
+    """``(xs [..., D], W [D, 4H], b [4H]) -> xproj`` in bfloat16 as JAX's
+    Pallas route forms it (``_pallas_forward``): ``xs·W`` from bfloat16
+    operands accumulated in float32, plus the float32 bias, rounded once.
+    Its backward (``_pallas_backward``) takes dxproj = dz (bfloat16):
+    ``dW = xsᵀ·dz`` and ``dxs = dz·Wᵀ`` from bfloat16 operands accumulated
+    in float32, ``db`` the float32 sum of dz; each gradient float32."""
+
+    @staticmethod
+    def forward(ctx, xs, W, b):
+        xb, Wb = xs.to(torch.bfloat16), W.to(torch.bfloat16)
+        ctx.save_for_backward(xb, Wb)
+        return (mm_f32(xb, Wb) + b).to(torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, dz):
+        xb, Wb = ctx.saved_tensors
+        D, G = Wb.shape
+        dW = mm_f32(xb.reshape(-1, D).T, dz.reshape(-1, G))
+        db = dz.float().sum(dim=tuple(range(dz.dim() - 1)))
+        return mm_f32(dz, Wb.T), dW, db
+
+
+def project(xs, fused, compute_dtype=None):
+    """The recurrence's input ``xproj = xs @ W + b`` (xs [..., D], fused
+    float32 params): float32 by autograd, or bfloat16 through
+    :class:`BF16Projection` when ``compute_dtype`` is bfloat16."""
+    if resolve_dtype(compute_dtype) == torch.bfloat16:
+        return BF16Projection.apply(xs, fused.kernel, fused.bias)
+    return torch.matmul(xs, fused.kernel) + fused.bias
 
 
 def lstm_recurrence(xproj, U, h0, c0, mask=None):
@@ -497,11 +605,12 @@ def lstm_recurrence(xproj, U, h0, c0, mask=None):
 
 def cuda_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
                    mask: torch.Tensor | None = None, reverse: bool = False,
-                   recurrence=lstm_recurrence):
+                   recurrence=lstm_recurrence, compute_dtype=None):
     """One LSTM layer over ``xs`` [B, T, D] through ``recurrence`` (the
     resident pair's :func:`lstm_recurrence` unless told otherwise): the
     same contract as ``ops.scan.lstm_scan`` (``carry`` (h, c) each [B, H]
-    or None; ``mask`` bool [B, T]; ``reverse``). Returns ``((hT, cT), ys
+    or None; ``mask`` bool [B, T]; ``reverse``; ``compute_dtype``, whose
+    bfloat16 takes the kernels' bfloat16 forms). Returns ``((hT, cT), ys
     [B, T, H])``."""
     B, T, _ = xs.shape
     fused = fuse_params(params)
@@ -515,7 +624,7 @@ def cuda_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
         c0 = torch.zeros_like(h0)
     else:
         h0, c0 = carry[0].contiguous(), carry[1].contiguous()
-    xproj = torch.matmul(xs.transpose(0, 1), fused.kernel) + fused.bias
+    xproj = project(xs.transpose(0, 1), fused, compute_dtype)
     m = None if mask is None else mask.transpose(0, 1).to(torch.float32).contiguous()
     ys, hT, cT = recurrence(xproj.contiguous(), fused.recurrent, h0, c0, m)
     ys = ys.transpose(0, 1)

@@ -23,7 +23,11 @@ mask [T,B] float32 or None) -> (ys [T,B,H], hT, cT[, z [T,B,4H], cs
 [T,B,H]])``, the backward ``(z, c0, cs, dys, U, dhT, dcT, mask) -> (dz
 [T,B,4H], dh0, dc0)``. Their plain versions are
 ``cuda_lstm.lstm_forward_reference`` / ``lstm_backward_reference``, which a
-CPU tensor runs; a CUDA tensor launches the kernel or raises.
+CPU tensor runs; a CUDA tensor launches the kernel or raises. Each source
+has the resident pair's two forms, float32 and bfloat16 (xproj, z, dz and
+U bfloat16; h rounded at the product, dz at its store), chosen by the
+dtype of xproj or z; the bfloat16 form keeps the lanes' U in registers as
+float32 values and the rest of its share in shared memory as bfloat16.
 
 - :func:`plan` is the launch plan (testable on the CPU); it raises
   ``ValueError`` for a shape no cluster size fits. :func:`card_plan` is
@@ -46,8 +50,10 @@ import torch
 
 from .. import kernels
 from . import cuda_lstm
-from .cuda_lstm import (lstm_backward_reference, lstm_forward_reference,
-                        recurrence_backward, recurrence_forward)
+from .cuda_lstm import (check_backward, check_forward, counts_of, entry,
+                        esize_of, lstm_backward_reference,
+                        lstm_forward_reference, recurrence_backward,
+                        recurrence_forward)
 from .lstm_cell import LSTMParams
 
 THREADS = 256  # csrc/tiled_common.cuh THREADS
@@ -75,6 +81,9 @@ MAX_STATE_BYTES = 2 << 20
 
 fwd_counts = kernels.LaunchCounts("lstm_tiled_fwd")
 bwd_counts = kernels.LaunchCounts("lstm_tiled_bwd")
+# the bfloat16 forms of the same sources
+fwd_bf16_counts = kernels.LaunchCounts("lstm_tiled_fwd_bf16")
+bwd_bf16_counts = kernels.LaunchCounts("lstm_tiled_bwd_bf16")
 
 
 class TiledPlan(NamedTuple):
@@ -91,7 +100,8 @@ class TiledPlan(NamedTuple):
     ``group_lanes`` lanes (two rows a lane) covers the slice, ``groups``
     groups split the columns, ``per_lane`` columns a lane. The first
     ``u_regs`` rows or columns a lane stay in registers, the rest in
-    shared memory. ``smem_bytes`` is what one block asks for."""
+    shared memory (``esize`` bytes an element: 2 in the bfloat16 form).
+    ``smem_bytes`` is what one block asks for."""
 
     blocks: int
     cluster: int
@@ -104,11 +114,14 @@ class TiledPlan(NamedTuple):
     smem_bytes: int
 
 
-def _geometry(kind: str, B: int, H: int, C: int, units: int):
+def _geometry(kind: str, B: int, H: int, C: int, units: int,
+              esize: int = 4):
     """(groups, group_lanes, per_lane, u_regs, row_tiles, smem_bytes) of
     one block, or None when the warps cannot cover it. Mirrors
     ``fwd_geom`` / ``bwd_geom`` and the shared-memory layouts of
-    ``csrc/lstm_tiled_fwd.cu`` / ``lstm_tiled_bwd.cu``."""
+    ``csrc/lstm_tiled_fwd.cu`` / ``lstm_tiled_bwd.cu``: U's rows or
+    columns past the registers take ``esize`` bytes an element, rounded up
+    to 16 bytes; every other piece is float32."""
     hq = -(-H // C)
     bp = -(-B // ROWS) * ROWS
     carries = 2 * bp * units + 4  # c and h (dc and the skip), mbarriers
@@ -117,8 +130,8 @@ def _geometry(kind: str, B: int, H: int, C: int, units: int):
         groups = THREADS // lanes
         per_lane = -(-H // groups)
         regs = min(per_lane, KREG)
-        floats = ((per_lane - regs) * groups * 4 * units
-                  + groups * max(per_lane, KREG) * ROWS
+        u_rest = (per_lane - regs) * groups * 4 * units
+        floats = (groups * max(per_lane, KREG) * ROWS
                   + groups * ROWS * (4 * units + 8))
     else:  # U^T columns past the registers, dz, j-group sums, the gather
         nc = 4 * C * units
@@ -129,14 +142,16 @@ def _geometry(kind: str, B: int, H: int, C: int, units: int):
         per_lane = -(-nc // groups)
         regs = min(per_lane, KREG)
         ncl = -(-H // (C * units))
-        floats = (groups * (per_lane - regs) * lanes
-                  + 2 * groups * per_lane * ROWS + groups * lanes * RED_STRIDE
+        u_rest = groups * (per_lane - regs) * lanes
+        floats = (2 * groups * per_lane * ROWS + groups * lanes * RED_STRIDE
                   + THREADS * 4 + ncl * units * ROWS)
-    return groups, lanes, per_lane, regs, bp // ROWS, 4 * (floats + carries)
+    u_bytes = -(-esize * u_rest // 16) * 16
+    return (groups, lanes, per_lane, regs, bp // ROWS,
+            u_bytes + 4 * (floats + carries))
 
 
 def plan(kind: str, B: int, H: int, num_sms: int = 132,
-         max_clusters: dict | None = None) -> TiledPlan:
+         max_clusters: dict | None = None, esize: int = 4) -> TiledPlan:
     """The launch plan of the ``"fwd"`` or ``"bwd"`` kernel for B rows of
     width H on a card with ``num_sms`` SMs that keeps ``max_clusters[C]``
     clusters of C blocks resident at once (default: an H100's counts
@@ -144,8 +159,10 @@ def plan(kind: str, B: int, H: int, num_sms: int = 132,
     :data:`CLUSTERS` in order: each takes as many clusters as the card
     keeps, the fewest units a block that cover H with them and fit shared
     memory; keeps the first plan whose U fits the lanes' registers, else
-    the first that fits shared memory. Raises ``ValueError`` when none
-    fits or the state of a step reaches :data:`MAX_STATE_BYTES`."""
+    the first that fits shared memory. ``esize`` is the bytes of an
+    element of U in shared memory (2 in the bfloat16 forms). Raises
+    ``ValueError`` when none fits or the state of a step reaches
+    :data:`MAX_STATE_BYTES`."""
     if kind not in ("fwd", "bwd"):
         raise ValueError(f"kind must be 'fwd' or 'bwd', got {kind!r}")
     if B < 1 or H < 1 or num_sms < 1:
@@ -174,11 +191,11 @@ def plan(kind: str, B: int, H: int, num_sms: int = 132,
             continue
         # more units a block where the fewest do not fit shared memory (at
         # a small H the forward's many slots stage a long zero tail of h)
-        geo = _geometry(kind, B, H, C, units)
+        geo = _geometry(kind, B, H, C, units, esize)
         while (geo is not None and geo[-1] > MAX_SMEM_BYTES
                and units < MAX_UNITS):
             units += 1
-            geo = _geometry(kind, B, H, C, units)
+            geo = _geometry(kind, B, H, C, units, esize)
         if geo is None:
             why.append(f"clusters of {C}: the slice is too wide for the warps")
             continue
@@ -197,16 +214,18 @@ def plan(kind: str, B: int, H: int, num_sms: int = 132,
     return best
 
 
-def fits(B: int, H: int, num_sms: int = 132, dev=None) -> bool:
-    """Whether both tiled kernels have a plan for B rows of width H: on
-    the card ``dev`` (:func:`card_plan`, what the launch runs) when it is
-    given, else on ``num_sms`` SMs of an H100."""
+def fits(B: int, H: int, num_sms: int = 132, dev=None,
+         esize: int = 4) -> bool:
+    """Whether both tiled kernels have a plan for B rows of width H (U at
+    ``esize`` bytes an element): on the card ``dev`` (:func:`card_plan`,
+    what the launch runs) when it is given, else on ``num_sms`` SMs of an
+    H100."""
     try:
         for kind in ("fwd", "bwd"):
             if dev is None:
-                plan(kind, B, H, num_sms)
+                plan(kind, B, H, num_sms, esize=esize)
             else:
-                card_plan(kind, B, H, dev)
+                card_plan(kind, B, H, dev, esize)
     except ValueError:
         return False
     return True
@@ -220,10 +239,11 @@ def max_clusters(dev) -> dict[int, int]:
             for C in (2, 4)}
 
 
-def card_plan(kind: str, B: int, H: int, dev) -> TiledPlan:
+def card_plan(kind: str, B: int, H: int, dev, esize: int = 4) -> TiledPlan:
     """:func:`plan` for the card ``dev``: its SM count and resident
     clusters."""
-    return plan(kind, B, H, cuda_lstm._num_sms(dev), max_clusters(dev))
+    return plan(kind, B, H, cuda_lstm._num_sms(dev), max_clusters(dev),
+                esize)
 
 
 # ---------------------------------------------------------------------------
@@ -234,56 +254,45 @@ def card_plan(kind: str, B: int, H: int, dev) -> TiledPlan:
 def lstm_tiled_forward(xproj, U, h0, c0, mask=None, *,
                        save_residuals: bool = False):
     """Forward recurrence with ``cuda_lstm.lstm_forward``'s contract. CUDA
-    tensors launch ``csrc/lstm_tiled_fwd.cu`` (the card plan); CPU tensors
-    run the plain version."""
+    tensors launch ``csrc/lstm_tiled_fwd.cu`` (the card plan) in the form
+    of xproj's dtype; CPU tensors run the plain version."""
     if xproj.device.type == "cuda":
         return _launch_fwd(xproj, U, h0, c0, mask, save_residuals)
-    if xproj.device.type == "cpu":
-        fwd_counts.bump("reference")
-        return lstm_forward_reference(xproj, U, h0, c0, mask,
-                                      save_residuals=save_residuals)
-    raise ValueError(f"unsupported device {xproj.device}")
+    if xproj.device.type != "cpu":
+        raise ValueError(f"unsupported device {xproj.device}")
+    *_, sd = check_forward(xproj, U, h0, c0, mask)
+    counts_of(sd, fwd_counts, fwd_bf16_counts).bump("reference")
+    return lstm_forward_reference(xproj, U, h0, c0, mask,
+                                  save_residuals=save_residuals)
 
 
 def lstm_tiled_backward(z, c0, cs, dys, U, dhT, dcT, mask=None):
     """Fused BPTT with ``cuda_lstm.lstm_backward``'s contract: returns
     ``(dz [T,B,4H], dh0, dc0)``. CUDA tensors launch
-    ``csrc/lstm_tiled_bwd.cu`` (the card plan); CPU tensors run the plain
-    version."""
+    ``csrc/lstm_tiled_bwd.cu`` (the card plan) in the form of z's dtype;
+    CPU tensors run the plain version."""
     if z.device.type == "cuda":
         return _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask)
-    if z.device.type == "cpu":
-        bwd_counts.bump("reference")
-        c_prev = torch.cat([c0[None], cs[:-1]], dim=0)
-        return lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask)
-    raise ValueError(f"unsupported device {z.device}")
+    if z.device.type != "cpu":
+        raise ValueError(f"unsupported device {z.device}")
+    *_, sd = check_backward(z, c0, cs, dys, U, dhT, dcT, mask)
+    counts_of(sd, bwd_counts, bwd_bf16_counts).bump("reference")
+    c_prev = torch.cat([c0[None], cs[:-1]], dim=0)
+    return lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask)
 
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-# csrc/lstm_tiled_fwd.cu::lstm_tiled_fwd_launch: 12 pointers, T, B, H, C,
-# UPB, the stream; lstm_tiled_bwd_launch: 13 pointers, T, B, H, C, UPB, the
-# stream
+# csrc/lstm_tiled_fwd.cu::lstm_tiled_fwd_launch (and _bf16_launch): 12
+# pointers, T, B, H, C, UPB, the stream; lstm_tiled_bwd_launch (and
+# _bf16_launch): 13 pointers, T, B, H, C, UPB, the stream
 _FWD_ARGTYPES = [_p] * 12 + [_i] * 5 + [_p]
 _BWD_ARGTYPES = [_p] * 13 + [_i] * 5 + [_p]
 
 
-def _shape(name, t):
-    if t.dim() != 3 or t.shape[2] % 4 or t.shape[0] < 1:
-        raise ValueError(f"{name} must be [T >= 1, B, 4H], got "
-                         f"{tuple(t.shape)}")
-    T, B, G = t.shape
-    return T, B, G // 4
-
-
 def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     dev = xproj.device
-    T, B, H = _shape("xproj", xproj)
-    kernels.check_f32("xproj", xproj, (T, B, 4 * H), dev)
-    kernels.check_f32("U", U, (H, 4 * H), dev)
-    kernels.check_f32("h0", h0, (B, H), dev)
-    kernels.check_f32("c0", c0, (B, H), dev)
-    cuda_lstm._check_mask(mask, T, B, dev)
-    pl = card_plan("fwd", B, H, dev)
+    T, B, H, sd = check_forward(xproj, U, h0, c0, mask)
+    pl = card_plan("fwd", B, H, dev, esize_of(sd))
     f32 = dict(dtype=torch.float32, device=dev)
     ys = torch.empty((T, B, H), **f32)
     hT = torch.empty((B, H), **f32)
@@ -292,9 +301,9 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     flags = torch.zeros(pl.cluster, dtype=torch.int32, device=dev)
     z = cs = None
     if save_residuals:
-        z = torch.empty((T, B, 4 * H), **f32)
+        z = torch.empty((T, B, 4 * H), dtype=sd, device=dev)
         cs = torch.empty((T, B, H), **f32)
-    launch = kernels.launcher("lstm_tiled_fwd", _FWD_ARGTYPES)
+    launch = kernels.launcher("lstm_tiled_fwd", _FWD_ARGTYPES, entry(sd))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
@@ -304,31 +313,23 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
             flags.data_ptr(), T, B, H, pl.cluster, pl.units, stream)
     if rc != 0:
         raise RuntimeError(f"lstm_tiled_fwd kernel launch failed: CUDA error "
-                           f"{rc} (T={T} B={B} H={H}, {pl})")
-    fwd_counts.bump("kernel")
+                           f"{rc} (T={T} B={B} H={H}, {sd}, {pl})")
+    counts_of(sd, fwd_counts, fwd_bf16_counts).bump("kernel")
     return (ys, hT, cT, z, cs) if save_residuals else (ys, hT, cT)
 
 
 def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
     dev = z.device
-    T, B, H = _shape("z", z)
-    kernels.check_f32("z", z, (T, B, 4 * H), dev)
-    kernels.check_f32("c0", c0, (B, H), dev)
-    kernels.check_f32("cs", cs, (T, B, H), dev)
-    kernels.check_f32("dys", dys, (T, B, H), dev)
-    kernels.check_f32("U", U, (H, 4 * H), dev)
-    kernels.check_f32("dhT", dhT, (B, H), dev)
-    kernels.check_f32("dcT", dcT, (B, H), dev)
-    cuda_lstm._check_mask(mask, T, B, dev)
-    pl = card_plan("bwd", B, H, dev)
+    T, B, H, sd = check_backward(z, c0, cs, dys, U, dhT, dcT, mask)
+    pl = card_plan("bwd", B, H, dev, esize_of(sd))
     f32 = dict(dtype=torch.float32, device=dev)
-    dz = torch.empty((T, B, 4 * H), **f32)
+    dz = torch.empty((T, B, 4 * H), dtype=sd, device=dev)
     dh0 = torch.empty((B, H), **f32)
     dc0 = torch.empty((B, H), **f32)
     part = torch.empty((2, pl.blocks // pl.cluster, H, pl.row_tiles * ROWS),
                        **f32)
     flags = torch.zeros(pl.cluster, dtype=torch.int32, device=dev)
-    launch = kernels.launcher("lstm_tiled_bwd", _BWD_ARGTYPES)
+    launch = kernels.launcher("lstm_tiled_bwd", _BWD_ARGTYPES, entry(sd))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
@@ -339,8 +340,8 @@ def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
             stream)
     if rc != 0:
         raise RuntimeError(f"lstm_tiled_bwd kernel launch failed: CUDA error "
-                           f"{rc} (T={T} B={B} H={H}, {pl})")
-    bwd_counts.bump("kernel")
+                           f"{rc} (T={T} B={B} H={H}, {sd}, {pl})")
+    counts_of(sd, bwd_counts, bwd_bf16_counts).bump("kernel")
     return dz, dh0, dc0
 
 
@@ -373,9 +374,10 @@ def lstm_tiled_recurrence(xproj, U, h0, c0, mask=None):
 
 def cuda_lstm_tiled_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
                          mask: torch.Tensor | None = None,
-                         reverse: bool = False):
+                         reverse: bool = False, compute_dtype=None):
     """One LSTM layer over ``xs`` [B, T, D] through the tiled pair, with
     ``ops.scan.lstm_scan``'s contract."""
     return cuda_lstm.cuda_lstm_scan(params, xs, carry, mask=mask,
                                     reverse=reverse,
-                                    recurrence=lstm_tiled_recurrence)
+                                    recurrence=lstm_tiled_recurrence,
+                                    compute_dtype=compute_dtype)

@@ -26,6 +26,13 @@ Port of ``lstm_tensorspark_tpu/ops/scan.py``:
 - :func:`stacked_lstm_scan` runs layers one after another through the
   dispatch, with inter-layer dropout.
 
+``compute_dtype`` (None / float32, or bfloat16) follows JAX's: the plain
+loop casts the fused matrices and rounds x and h only at the products
+(its zx stays float32, with and without remat); the kernel routes store
+their [T, B, 4H] streams (xproj, z, dz) in bfloat16, as JAX's Pallas
+route does. A bfloat16 scan on a route with no bfloat16 form (the
+residentx pair, the stacked bi-LSTM pair) raises ``TypeError``.
+
 The parallel-scan backward (``bptt="assoc"``) is not ported and raises.
 """
 
@@ -41,7 +48,8 @@ from .cuda_bilstm import bilstm_supported, cuda_bilstm_scan
 from .cuda_lstm import cuda_lstm_scan
 from .cuda_lstm_tiled import cuda_lstm_tiled_scan
 from .cuda_lstmx import cuda_lstmx_scan
-from .lstm_cell import LSTMParams, fuse_params, lstm_step_hoisted, zero_carry
+from .lstm_cell import (LSTMParams, fuse_params, lstm_step_hoisted, mm_f32,
+                        resolve_dtype, zero_carry)
 from .masking import dropout, dropout_with_keep
 
 BPTT_MODES = ("sequential", "auto", "assoc")
@@ -73,28 +81,36 @@ def _check_remat(T: int, remat_chunk: int | None) -> None:
 
 def lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
               mask: torch.Tensor | None = None, reverse: bool = False,
-              remat_chunk: int | None = None):
+              remat_chunk: int | None = None, compute_dtype=None):
     """Run one LSTM layer over ``xs`` [B, T, D].
 
     ``carry``: optional initial ``(h, c)`` each [B, H] (zeros if None);
     ``mask``: optional bool [B, T], False steps leave the carry unchanged;
     ``reverse``: scan right to left; ``remat_chunk``: checkpoint chunks of
     that many steps (T must be divisible by it), projecting each chunk's
-    inputs inside its checkpoint as the JAX scan does. Returns ``((h_T,
-    c_T), ys)`` with ``ys`` [B, T, H] (the carried h at every step).
+    inputs inside its checkpoint as the JAX scan does; ``compute_dtype``:
+    e.g. ``torch.bfloat16`` for the products (the projection zx, the cell
+    state and the accumulation stay float32). Returns ``((h_T, c_T),
+    ys)`` with ``ys`` [B, T, H] (the carried h at every step).
     """
     B, T, _ = xs.shape
     _check_remat(T, remat_chunk)
-    fused = fuse_params(params)
+    cd = resolve_dtype(compute_dtype)
+    fused = fuse_params(params, compute_dtype=cd)
     if carry is None:
         carry = zero_carry(B, params.hidden_size, device=xs.device)
     if remat_chunk is None:
-        zx = xs @ fused.kernel + fused.bias  # [B, T, 4H], one matmul
+        # [B, T, 4H], one matmul
+        zx = mm_f32(xs.to(cd), fused.kernel) + fused.bias
         return _steps(fused, carry, zx, mask, reverse)
 
     def chunk(kernel, recurrent, bias, h, c, x, m):
-        f = fused._replace(kernel=kernel, recurrent=recurrent, bias=bias)
-        return _steps(f, (h, c), x @ kernel + bias, m, reverse)
+        # a view a chunk: the chunk's steps sum their U cotangents first,
+        # then the chunks add theirs (JAX's scan of checkpointed chunks;
+        # the order shows in a bfloat16 cotangent)
+        f = fused._replace(kernel=kernel, recurrent=recurrent.view_as(recurrent),
+                           bias=bias)
+        return _steps(f, (h, c), mm_f32(x.to(cd), kernel) + bias, m, reverse)
 
     starts = range(0, T, remat_chunk)
     ys = [None] * len(starts)
@@ -117,7 +133,7 @@ def lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
 
 
 def chosen_fwd_strategy(B: int, T: int, H: int, D: int, *,
-                        num_sms: int = 132, dev=None) -> str:
+                        num_sms: int = 132, dev=None, esize: int = 4) -> str:
     """The forward kernel a CUDA scan runs, in the JAX package's order:
     ``"residentx"`` at T >= ``FUSEDX_MIN_T`` when its plan fits; then
     ``"resident"`` when its blocks keep their slice of U on chip (shared
@@ -125,89 +141,110 @@ def chosen_fwd_strategy(B: int, T: int, H: int, D: int, *,
     then ``"tiled"`` when the tiled pair's plan fits; then ``"resident"``
     reading U through L2. The test is Hopper's shared memory, not the TPU's
     VMEM budget; the tiled pair's, on the card ``dev`` when it is given
-    (the plan its launch runs). Raises ``ValueError`` when nothing fits."""
+    (the plan its launch runs). ``esize`` is the bytes of an element of U
+    and of the streams, as JAX's planners take ``pbytes``: 2 under
+    bfloat16 compute, where the residentx pair (which has no bfloat16 form
+    yet) raises ``TypeError``. Raises ``ValueError`` when nothing fits."""
     if T >= cuda_lstmx.FUSEDX_MIN_T and cuda_lstmx.fits(B, H, D, 1, num_sms):
+        if esize != 4:
+            raise TypeError(
+                f"a bfloat16 scan at T={T} >= {cuda_lstmx.FUSEDX_MIN_T} takes "
+                "the residentx pair, whose bfloat16 form (csrc/lstmx_fwd.cu, "
+                "csrc/lstmx_bwd.cu) is not ported yet")
         return "residentx"
     try:
-        p = cuda_lstm.plan("fwd", B, H, num_sms)
+        p = cuda_lstm.plan("fwd", B, H, num_sms, esize=esize)
         keeps_u = p.smem_w or p.u_regs
     except ValueError:
         keeps_u = False
-    if not keeps_u and cuda_lstm_tiled.fits(B, H, num_sms, dev):
+    if not keeps_u and cuda_lstm_tiled.fits(B, H, num_sms, dev, esize=esize):
         return "tiled"
-    cuda_lstm.plan("fwd", B, H, num_sms)  # raises when it does not fit
+    cuda_lstm.plan("fwd", B, H, num_sms, esize=esize)  # raises when no fit
     return "resident"
 
 
 def chosen_bwd_strategy(B: int, T: int, H: int, D: int, *,
                         remat_chunk: int | None = None,
-                        num_sms: int = 132, dev=None) -> str:
+                        num_sms: int = 132, dev=None, esize: int = 4) -> str:
     """The gradient path a CUDA scan takes (JAX ``chosen_bwd_strategy``):
     ``"recompute"`` when ``remat_chunk`` is set or the residuals exceed
-    their budget, else the backward kernel paired with
-    :func:`chosen_fwd_strategy`'s forward — ``"residentx"``,
-    ``"resident"`` or ``"tiled"``. Raises ``ValueError`` when no plan
-    fits."""
-    fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms, dev=dev)
+    their budget (z counted at ``esize`` bytes, cs at 4), else the
+    backward kernel paired with :func:`chosen_fwd_strategy`'s forward —
+    ``"residentx"``, ``"resident"`` or ``"tiled"``. Raises ``ValueError``
+    when no plan fits (``TypeError`` as the forward's lattice does)."""
+    fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms, dev=dev,
+                              esize=esize)
     if remat_chunk is not None:
         return "recompute"
     if fwd == "resident":
-        cuda_lstm.plan("bwd", B, H, num_sms)  # raises when it does not fit
-    per_step = 4 if fwd == "residentx" else 4 * 4 + 4  # cs; z and cs
+        # raises when it does not fit
+        cuda_lstm.plan("bwd", B, H, num_sms, esize=esize)
+    per_step = 4 if fwd == "residentx" else 4 * esize + 4  # cs; z and cs
     if T * B * H * per_step > cuda_lstmx.RESIDUAL_BUDGET_BYTES:
         return "recompute"
     return fwd
 
 
-# the layer scan of each kernel route
-_SCANS = {"residentx": cuda_lstmx_scan, "resident": cuda_lstm_scan,
-          "tiled": cuda_lstm_tiled_scan}
+def _route_scan(route: str, params, xs, carry, mask, reverse, cd):
+    """The layer scan of kernel route ``route`` (the residentx pair is
+    reached in float32 only: the lattice raises for it under bfloat16)."""
+    if route == "residentx":
+        return cuda_lstmx_scan(params, xs, carry, mask=mask, reverse=reverse)
+    scan = cuda_lstm_scan if route == "resident" else cuda_lstm_tiled_scan
+    return scan(params, xs, carry, mask=mask, reverse=reverse,
+                compute_dtype=cd)
+
+
+_ROUTES = ("residentx", "resident", "tiled")
 
 
 class _KernelForwardRecompute(torch.autograd.Function):
     """The forward kernel's values with the plain recompute backward (JAX
     ``_scan_core_bwd``'s recompute branch): the backward re-runs
-    :func:`lstm_scan` with ``remat_chunk`` under autograd and pulls the
-    cotangents through it."""
+    :func:`lstm_scan` with ``remat_chunk`` (in the compute dtype) under
+    autograd and pulls the cotangents through it."""
 
     @staticmethod
     def forward(ctx, spec, xs, h0, c0, *gates):
-        fwd, mask, remat_chunk = spec
-        scan = _SCANS[fwd]
-        (hT, cT), ys = scan(LSTMParams(*gates), xs, (h0, c0), mask=mask)
+        fwd, mask, remat_chunk, cd = spec
+        (hT, cT), ys = _route_scan(fwd, LSTMParams(*gates), xs, (h0, c0),
+                                   mask, False, cd)
         ctx.spec = spec
         ctx.save_for_backward(xs, h0, c0, *gates)
         return ys, hT, cT
 
     @staticmethod
     def backward(ctx, dys, dhT, dcT):
-        _, mask, remat_chunk = ctx.spec
+        _, mask, remat_chunk, cd = ctx.spec
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             xs, h0, c0, *gates = leaves
             (hT, cT), ys = lstm_scan(LSTMParams(*gates), xs, (h0, c0),
-                                     mask=mask, remat_chunk=remat_chunk)
+                                     mask=mask, remat_chunk=remat_chunk,
+                                     compute_dtype=cd)
             grads = torch.autograd.grad((ys, hT, cT), leaves, (dys, dhT, dcT))
         return (None, *grads)
 
 
 def kernel_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
                      mask: torch.Tensor | None = None, reverse: bool = False,
-                     remat_chunk: int | None = None):
+                     remat_chunk: int | None = None, compute_dtype=None):
     """:func:`lstm_scan`'s contract through the kernels that
     :func:`chosen_bwd_strategy` picks (on CPU tensors their plain
     versions run, which is how the tests reach each route)."""
     B, T, D = xs.shape
     H = params.hidden_size
+    cd = resolve_dtype(compute_dtype)
     on_card = xs.device.type == "cuda"
     num_sms = cuda_lstm._num_sms(xs.device) if on_card else 132
     dev = xs.device if on_card else None
     _check_remat(T, remat_chunk)
     bwd = chosen_bwd_strategy(B, T, H, D, remat_chunk=remat_chunk,
-                              num_sms=num_sms, dev=dev)
-    if bwd in _SCANS:
-        return _SCANS[bwd](params, xs, carry, mask=mask, reverse=reverse)
-    fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms, dev=dev)
+                              num_sms=num_sms, dev=dev, esize=cuda_lstm.esize_of(cd))
+    if bwd in _ROUTES:
+        return _route_scan(bwd, params, xs, carry, mask, reverse, cd)
+    fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms, dev=dev,
+                              esize=cuda_lstm.esize_of(cd))
     if reverse:
         xs = torch.flip(xs, dims=(1,))
         if mask is not None:
@@ -215,7 +252,7 @@ def kernel_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
     if carry is None:
         carry = zero_carry(B, H, device=xs.device)
     ys, hT, cT = _KernelForwardRecompute.apply(
-        (fwd, mask, remat_chunk), xs, carry[0], carry[1], *params)
+        (fwd, mask, remat_chunk, cd), xs, carry[0], carry[1], *params)
     if reverse:
         ys = torch.flip(ys, dims=(1,))
     return (hT, cT), ys
@@ -231,7 +268,8 @@ def _check_bptt(bptt: str) -> None:
 
 def auto_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
                    mask: torch.Tensor | None = None, reverse: bool = False,
-                   remat_chunk: int | None = None, bptt: str = "sequential"):
+                   remat_chunk: int | None = None, bptt: str = "sequential",
+                   compute_dtype=None):
     """:func:`lstm_scan`'s contract, through the kernels for CUDA tensors
     (:func:`kernel_lstm_scan`) and the plain loop for CPU tensors.
     ``bptt="auto"`` is the sequential backward (the parallel-scan backward
@@ -239,9 +277,10 @@ def auto_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
     _check_bptt(bptt)
     if xs.device.type == "cuda":
         return kernel_lstm_scan(params, xs, carry, mask=mask, reverse=reverse,
-                                remat_chunk=remat_chunk)
+                                remat_chunk=remat_chunk,
+                                compute_dtype=compute_dtype)
     return lstm_scan(params, xs, carry, mask=mask, reverse=reverse,
-                     remat_chunk=remat_chunk)
+                     remat_chunk=remat_chunk, compute_dtype=compute_dtype)
 
 
 def bidir_route(B: int, T: int, H_fwd: int, H_bwd: int, D: int, *,
@@ -281,21 +320,23 @@ def stacked_lstm_scan(layer_params: Sequence[LSTMParams], xs: torch.Tensor,
                       reverse: bool = False, remat_chunk: int | None = None,
                       bptt: str = "sequential", dropout_rate: float = 0.0,
                       dropout_gen: torch.Generator | None = None,
-                      dropout_keeps: Iterator[torch.Tensor] | None = None):
+                      dropout_keeps: Iterator[torch.Tensor] | None = None,
+                      compute_dtype=None):
     """Stack layers over the same time axis, each through
     :func:`auto_lstm_scan`. With ``dropout_rate`` > 0 and a source of keep
     masks — drawn from ``dropout_gen``, or taken in order from
     ``dropout_keeps`` (the tests feed JAX's) — inverted dropout is applied
     to the full [B, T, H] output between layers, never after the top layer
     (JAX ``stacked_lstm_scan``; no source is its ``deterministic``).
-    Returns (per-layer final carries, top-layer outputs [B, T, H])."""
+    ``compute_dtype`` goes to every layer's scan. Returns (per-layer final carries, top-layer outputs [B, T, H])."""
     ys = xs
     finals = []
     n = len(layer_params)
     for idx, p in enumerate(layer_params):
         c0 = None if carries is None else carries[idx]
         final, ys = auto_lstm_scan(p, ys, c0, mask=mask, reverse=reverse,
-                                   remat_chunk=remat_chunk, bptt=bptt)
+                                   remat_chunk=remat_chunk, bptt=bptt,
+                                   compute_dtype=compute_dtype)
         finals.append(final)
         if idx < n - 1 and dropout_rate > 0.0:
             if dropout_keeps is not None:

@@ -108,6 +108,17 @@ def _bucket_for(value: int, buckets: tuple[int, ...], what: str) -> int:
     raise ValueError(f"{what} {value} exceeds the largest bucket {buckets[-1]}")
 
 
+def _float32_only(cfg: LMConfig) -> None:
+    """Serving decodes through the windows (csrc/decode_window.cu,
+    csrc/spec_window.cu), whose bfloat16 forms are not ported yet."""
+    for name in ("compute_dtype", "logits_dtype"):
+        if getattr(cfg, name) != "float32":
+            raise TypeError(
+                f"serving a {name}={getattr(cfg, name)!r} model takes the "
+                "bfloat16 forms of the decode and spec windows, which are "
+                "not ported yet (float32 only)")
+
+
 class ServeEngine:
     """Owns the params, the fused decode weights, the state cache and the
     sampling generator. Thread-safe: one lock serialises dispatch."""
@@ -120,6 +131,7 @@ class ServeEngine:
                  rng_seed: int = 0):
         self.device = resolve_device(device)
         configure_precision()
+        _float32_only(cfg)
         # serving never rematerialises (the same override as generate())
         if cfg.remat_chunk is not None:
             cfg = dataclasses.replace(cfg, remat_chunk=None)
@@ -173,6 +185,7 @@ class ServeEngine:
                 f"draft vocab {draft_cfg.vocab_size} != target vocab "
                 f"{self.cfg.vocab_size} — proposals must share the token "
                 "space they are verified in")
+        _float32_only(draft_cfg)
         if draft_cfg.remat_chunk is not None:
             draft_cfg = dataclasses.replace(draft_cfg, remat_chunk=None)
         params = params_to(draft_params, self.device)

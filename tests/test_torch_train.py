@@ -254,9 +254,11 @@ def test_anomaly_limit_exits_77(capsys):
     assert "anomaly abort" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--compute-dtype", "bfloat16"],
-                                   ["--logits-dtype", "bfloat16"],
-                                   ["--dataset", "uci_electricity"]])
+@pytest.mark.parametrize("flags", [
+    ["--dataset", "imdb", "--compute-dtype", "bfloat16"],
+    ["--dataset", "imdb", "--compute-dtype", "bfloat16", "--logits-dtype",
+     "bfloat16"],
+    ["--dataset", "uci_electricity"]])
 def test_train_refuses_what_is_not_ported(flags, capsys):
     rc = tcli.main(["train", "--device", "cpu", "--num-steps", "1", *flags])
     assert rc == USAGE_RC
