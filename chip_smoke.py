@@ -79,10 +79,19 @@ Phases (each one fails the run):
    the bound, each time also per step; the backward runs from the plain
    forward's ys and cs and from the kernel's own; and time the stacked
    pair under the card's plan against the other row cut of each kernel;
+   then the pair's bfloat16 forms (xs, W, U and dz bfloat16; zx, c, the
+   gates, ys and cs float32) against their plain twins at config 2 (one
+   and two directions, masked and not), the LM's T=256, the awkward
+   shapes and the forward's other builds, from both the twin's and the
+   kernel's own ys and cs (phase 5's bf16 limits), their plans and
+   registers, each role timed at its main-path shape beside the twin,
+   cuDNN in bfloat16 (bidirectional for the stacked roles) and the bf16
+   bound;
 8. train config 2 through the CLI: the first 10 losses on the card at
    ``--dropout 0``, without and with ``--remat-chunk 50``, against the same
    run on the CPU (without remat: the plain scan's values do not depend
-   on it), with the steps/s of each (with remat: the residentx forward,
+   on it; a host run started before phase 2, beside the card's phases),
+   with the steps/s of each (with remat: the residentx forward,
    then the plain recompute backward); 300 steps at ``--dropout 0.2``
    with an eval every 100, whose launch counts must equal the
    prediction; the LM at
@@ -164,11 +173,25 @@ Phases (each one fails the run):
    CPU's plain loop does not), the bf16 forms' launches (and no other
    recurrence kernel, no plain twin), 60 steps at the script's dropout,
    and steps/s, device ms a step and the idle share beside the float32
-   run of the same command, in turns (f32, bf16, bf16, f32).
+   run of the same command, in turns (f32, bf16, bf16, f32);
+16. train config 2 in bf16 through the CLI as ``configs/imdb_bilstm.sh``
+   runs it (B=32, T=400, H=256, Adam 1e-3, clip 1.0, dropout 0.2,
+   ``--remat-chunk 50``: the residentx forward's bf16 form a direction,
+   then the plain recompute), the same without remat (the stacked pair's
+   bf16 forms) and the LM at ``--seq-len 256`` in bf16 (the one-direction
+   pair), captured: the first 5 losses at ``--dropout 0`` within 2e-3 of
+   the CPU run's (config 2's a host run beside the card), exact bf16
+   launch counts with the capture warm-ups taken out (every other
+   counter and the plain twins at 0), a 30-step run at the script's
+   dropout, and steps/s, device ms a step, the idle share and the device
+   ms a step by part beside the float32 run of the same command, in
+   turns.
 
-``python3 <this file> --train-calls LABEL`` runs phase 14 alone;
-``--bf16 train`` the bf16 parts of phases 5 and 9 and phase 15
-(``--bf16 kernels`` without phase 15).
+Each phase prints the seconds it took. ``python3 <this file>
+--train-calls LABEL`` runs phase 14 alone; ``--bf16 train`` the bf16
+parts of phases 5, 7 and 9 and phases 15 and 16 (``--bf16 kernels``
+without phases 15 and 16, ``--bf16 residentx`` phase 7's bf16 part and
+phase 16 alone).
 
 The last lines are the kernel report (one JSON object), the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``. Exits
@@ -177,6 +200,8 @@ non-zero, printing no result, without a card or without the package.
 
 from __future__ import annotations
 
+import atexit
+import functools
 import gc
 import http.client
 import json
@@ -243,6 +268,23 @@ CONFIG2_FLAGS = ["train", "--dataset", "imdb", "--hidden-units", "256",
                  "400", "--optimizer", "adam", "--learning-rate", "1e-3",
                  "--clip-norm", "1.0", "--compute-dtype", "float32"]
 CONFIG2_STEPS, CONFIG2_EVAL_EVERY = 300, 100
+# the first losses held against the CPU run of the same command
+CONFIG2_FIRST = 10
+
+
+def first_flags(flags, n):
+    """``flags`` for a run of the first ``n`` losses: one a step, dropout
+    off, one eval batch."""
+    return flags + ["--num-steps", str(n), "--log-every", "1", "--dropout",
+                    "0", "--eval-batches", "1"]
+
+
+def host_references():
+    """(name, flags) of the host runs the card's first losses are held
+    against (HostRuns): config 2 in float32 (phase 8) and in bf16 (phase
+    16)."""
+    return (("config2 f32", first_flags(CONFIG2_FLAGS, CONFIG2_FIRST)),
+            ("config2 bf16", first_flags(CONFIG2_BF16_FLAGS, BF16_FIRST)))
 AWKWARD = dict(B=8, T=257, D=72, H=200)
 # the residentx forward's 8-row clusters (two columns a thread) at an
 # awkward width (58 column pairs of 64) and at the LM's width (64 terms a
@@ -310,6 +352,71 @@ def card_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+class HostRuns:
+    """The CLI runs on the host's CPU that the card's first losses are held
+    against (config 2's in phases 8 and 16, each over a minute), started as
+    subprocesses (``python -m lstm_tensorspark_torch train ... --device
+    cpu``, niced, ``HOST_THREADS`` threads each) before the kernels are
+    built, so they run beside the card's phases; a phase waits for its own
+    run's losses. ``stop`` kills every run still going (the script
+    registers it to run at exit)."""
+
+    def __init__(self):
+        self.runs, self.done = {}, {}
+        self.dir = None
+
+    def start(self, name, flags):
+        """Start the run ``train <flags> --device cpu`` as ``name`` (once)."""
+        if name in self.runs:
+            return
+        self.dir = self.dir or tempfile.mkdtemp(prefix="chip_smoke_host_")
+        path = os.path.join(self.dir, f"{name}.jsonl")
+        err = open(os.path.join(self.dir, f"{name}.err"), "w+")
+        env = {**os.environ, "OMP_NUM_THREADS": str(HOST_THREADS)}
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lstm_tensorspark_torch", *flags,
+             "--device", "cpu", "--jsonl", path],
+            stdout=subprocess.DEVNULL, stderr=err, env=env,
+            preexec_fn=lambda: os.nice(10))
+        self.runs[name] = (proc, path, err, time.perf_counter())
+
+    def losses(self, name, flags):
+        """The logged losses of run ``name`` (started now unless it was),
+        once it has ended; fails the script when it did not end well."""
+        if name in self.done:
+            return self.done[name]
+        self.start(name, flags)
+        proc, path, err, t0 = self.runs[name]
+        t_wait = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=HOST_RUN_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"host run {name} did not end in {HOST_RUN_LIMIT_S} s")
+        if rc != 0:
+            err.seek(0)
+            fail(f"host run {name} exited {rc}: {err.read()[-2000:]}")
+        with open(path) as f:
+            losses = [json.loads(line)["loss"] for line in f
+                      if '"loss"' in line]
+        print(f"  host run {name}: {time.perf_counter() - t0:.1f} s beside "
+              f"the card, {time.perf_counter() - t_wait:.1f} s waited for",
+              flush=True)
+        self.done[name] = losses
+        return losses
+
+    def stop(self):
+        for proc, _, err, _ in self.runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+
+
+HOST_THREADS = 3
+HOST_RUN_LIMIT_S = 900
 
 
 def make_model(torch, tlm, gen_seed, vocab, hidden, layers, device):
@@ -1097,40 +1204,44 @@ def lstmx_inputs(torch, B, T, D, H, ndir, lengths, seed, device):
             [dev(t) for t in (dys, dhT, dcT)])
 
 
-def lstmx_bound(B, T, D, H, ndir, kind, masked, save_c=True):
+def lstmx_bound(B, T, D, H, ndir, kind, masked, save_c=True, esize=4):
     """Least time of one call of the pair: the larger of the bytes it must
     move (each input read once, each output written once) over HBM
-    bandwidth and its products' FLOPs over the float32 peak. The forward
+    bandwidth and its products' FLOPs over the card's peak. The forward
     (with ``save_c``: its cs writes) does the projection and h @ U,
     2·T·BS·(D+H)·4H; the backward rebuilds z (the same) and does dz @ Uᵀ,
-    2·T·BS·4H·H."""
+    2·T·BS·4H·H. ``esize`` 2 is the bfloat16 form: xs, W, U and dz at 2
+    bytes, the rest at 4, the products at the bfloat16 tensor-core peak."""
     BS, G = ndir * B, 4 * H
-    weights = ndir * (D * G + G + H * G)
-    if kind == "fwd":  # xs, W, b, U, h0, c0 in; ys, hT, cT (and cs) out
-        floats = T * BS * D + weights + 2 * BS * H + T * BS * H \
-            + 2 * BS * H + (T * BS * H if save_c else 0)
+    narrow = T * BS * D + ndir * (D * G + H * G)  # xs, W, U
+    wide = ndir * G + (T * BS if masked else 0)  # b, mask
+    if kind == "fwd":  # h0, c0 in; ys, hT, cT (and cs) out
+        wide += 2 * BS * H + T * BS * H + 2 * BS * H \
+            + (T * BS * H if save_c else 0)
         flops = 2 * T * BS * (D + H) * G
-    else:  # xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT in; dz, dh0, dc0 out
-        floats = T * BS * D + 3 * T * BS * H + 4 * BS * H + weights \
-            + T * BS * G + 2 * BS * H
+    else:  # ys, h0, cs, c0, dys, dhT, dcT in; dz, dh0, dc0 out
+        wide += 3 * T * BS * H + 4 * BS * H + 2 * BS * H
+        narrow += T * BS * G
         flops = 2 * T * BS * (D + H) * G + 2 * T * BS * G * H
-    nbytes = 4 * (floats + (T * BS if masked else 0))
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    nbytes = esize * narrow + 4 * wide
+    peak = PEAK_F32_FLOPS if esize == 4 else PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def cudnn_bi_yardstick(torch, B, T, D, H, ndir, device):
+def cudnn_bi_yardstick(torch, B, T, D, H, ndir, device, dtype=None):
     """cuDNN's ``torch.nn.LSTM`` (bidirectional when ``ndir`` is 2) on one
-    layer at the same B, T, D, H, unmasked, TF32 off: (forward ms, backward
-    alone ms). It does more than the kernels — its forward includes the
-    input product for both directions' inputs, its backward also gives dx,
-    dW, dU and db — so it is a yardstick, not a like-for-like time; the
-    port never calls it."""
-    lstm = torch.nn.LSTM(D, H, bidirectional=ndir == 2).to(device)
+    layer at the same B, T, D, H, unmasked, TF32 off, in ``dtype`` (float32
+    by default): (forward ms, backward alone ms). It does more than the
+    kernels — its forward includes the input product for both directions'
+    inputs, its backward also gives dx, dW, dU and db — so it is a
+    yardstick, not a like-for-like time; the port never calls it."""
+    dtype = dtype or torch.float32
+    lstm = torch.nn.LSTM(D, H, bidirectional=ndir == 2).to(device, dtype)
     g = torch.Generator().manual_seed(11)
-    x = torch.randn(T, B, D, generator=g).to(device).requires_grad_()
-    dy = torch.randn(T, B, ndir * H, generator=g).to(device)
+    x = torch.randn(T, B, D, generator=g).to(device, dtype).requires_grad_()
+    dy = torch.randn(T, B, ndir * H, generator=g).to(device, dtype)
     ys, _ = lstm(x)
 
     def fwd():
@@ -1151,6 +1262,24 @@ def cudnn_bi_yardstick(torch, B, T, D, H, ndir, device):
 # each kernel's side kernel, timed apart from its chain: the forward's
 # projection (zx), the backward's z rebuild
 LSTMX_SIDE = {"fwd": "lstmx_proj_kernel", "bwd": "lstmx_factors_kernel"}
+LSTMX_SHAPES = {"config2": CONFIG2, "lm256": LM256, "awkward": AWKWARD,
+                "awkward8": AWKWARD8, "lm8": LM8, "smem": LSTMX_SMEM,
+                "l2": LSTMX_L2, "tiny": LSTMX_TINY, "small": LSTMX_SMALL}
+
+
+def lstmx_lengths(lens, lens2):
+    """A case's row lengths: ``"imdb"`` the IMDB stand-in's first config-2
+    batch (``lens2``), ``"awkward"`` / ``"awkward8"`` right padding of
+    every kind at those shapes, a list as given, None unmasked."""
+    if lens == "imdb":
+        return lens2
+    if lens == "awkward":
+        out = [AWKWARD["T"] - 3 * i for i in range(AWKWARD["B"])]
+        out[-1] = 1
+        return out
+    if lens == "awkward8":
+        return [AWKWARD8["T"] - i for i in range(AWKWARD8["B"])]
+    return lens
 LSTMX_ROLES = {  # role: (shape, ndir, kind, masked, save_c)
     "lstmx_fwd": ("config2", 1, "fwd", True, False),
     "lstmx_bwd": ("lm256", 1, "bwd", False, True),
@@ -1168,13 +1297,9 @@ def lstmx_kernel_phase(torch, cx, device):
     print(f"  IMDB stand-in lengths of the first config-2 batch: min "
           f"{int(lens2.min())}, max {int(lens2.max())}, mean "
           f"{float(lens2.mean()):.1f}", flush=True)
-    shapes = {"config2": CONFIG2, "lm256": LM256, "awkward": AWKWARD,
-              "awkward8": AWKWARD8, "lm8": LM8, "smem": LSTMX_SMEM,
-              "l2": LSTMX_L2, "tiny": LSTMX_TINY, "small": LSTMX_SMALL}
-    aw = AWKWARD
-    lens_aw = [aw["T"] - 3 * i for i in range(aw["B"])]
-    lens_aw[-1] = 1
-    lens_aw8 = [AWKWARD8["T"] - i for i in range(AWKWARD8["B"])]
+    shapes = LSTMX_SHAPES
+    lens_aw, lens_aw8 = (lstmx_lengths(n, lens2)
+                         for n in ("awkward", "awkward8"))
     cases = []
     for ndir in (1, 2):
         cases += [("config2", ndir, lens2), ("config2", ndir, None)]
@@ -1342,7 +1467,7 @@ def rows_ab(torch, cx, lens2, sms, device):
           flush=True)
 
 
-def config2_phase(torch, cli, cl, cx, ct, device):
+def config2_phase(torch, cli, cl, cx, ct, device, host):
     print("== phase 8: train config 2 through the CLI", flush=True)
     from lstm_tensorspark_torch.data import get_dataset
 
@@ -1379,44 +1504,44 @@ def config2_phase(torch, cli, cl, cx, ct, device):
         if got != full:
             fail(f"{name}: launch counts {got} != predicted {full}")
 
-    # the CPU reference runs once, without remat: with --remat-chunk the
-    # plain scan gives the same values (tests/test_torch_scan_routes.py), so
-    # both card runs are held against it
+    # the CPU reference runs once, without remat (a host run beside the
+    # card, HostRuns): with --remat-chunk the plain scan gives the same
+    # values (tests/test_torch_scan_routes.py), so both card runs are held
+    # against it
     first, rate = {}, {}
-    for remat, devs in ((None, ("cuda", "cpu")), (50, ("cuda",))):
+    n = CONFIG2_FIRST
+    for remat in (None, 50):
         extra = [] if remat is None else ["--remat-chunk", str(remat)]
-        for dev in devs:
-            name = f"first10_remat{remat}_{dev}"
-            t0 = time.perf_counter()
-            recs, launches = run(name, CONFIG2_FLAGS + extra + [
-                "--num-steps", "10", "--log-every", "1", "--dropout", "0",
-                "--eval-batches", "1", "--device", dev])
-            first[remat, dev] = [r["loss"] for r in recs if "loss" in r]
-            # steps/s a step (log-every 1), the median of steps 2-10
-            sps = sorted(r["steps_per_sec"] for r in recs
-                         if "loss" in r and r["step"] > 1)
-            rate[remat, dev] = sps[len(sps) // 2] if sps else float("nan")
-            if len(first[remat, dev]) != 10:
-                fail(f"{name} logged {len(first[remat, dev])} losses, not 10")
-            if dev == "cuda":
-                # 10 steps and one eval batch; with remat each direction is
-                # its own scan and the backward is the plain recompute
-                if remat is None:
-                    expect(launches, name, bilstm_fwd=11, bilstm_bwd=10)
-                else:
-                    expect(launches, name, lstmx_fwd=22)
-                    remat_launches = launches
-            print(f"  {name}: {time.perf_counter() - t0:.1f} s, launches "
-                  f"{launches}", flush=True)
-        a, b = first[remat, "cuda"], first[None, "cpu"]
+        name = f"first{n}_remat{remat}_cuda"
+        t0 = time.perf_counter()
+        recs, launches = run(name, first_flags(CONFIG2_FLAGS + extra, n)
+                             + ["--device", "cuda"])
+        first[remat] = [r["loss"] for r in recs if "loss" in r]
+        # steps/s a step (log-every 1), the median of steps 2-n
+        sps = sorted(r["steps_per_sec"] for r in recs
+                     if "loss" in r and r["step"] > 1)
+        rate[remat] = sps[len(sps) // 2] if sps else float("nan")
+        # n steps and one eval batch; with remat each direction is its own
+        # scan and the backward is the plain recompute
+        if remat is None:
+            expect(launches, name, bilstm_fwd=n + 1, bilstm_bwd=n)
+        else:
+            expect(launches, name, lstmx_fwd=2 * (n + 1))
+            remat_launches = launches
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{launches}", flush=True)
+        a, b = first[remat], host.losses(*host_references()[0])
+        if len(a) != n or len(b) != n:
+            fail(f"{name}: logged {len(a)} losses, the CPU run {len(b)}, "
+                 f"not {n}")
         gap = max(abs(x - y) for x, y in zip(a, b))
         route = ("the stacked pair" if remat is None else
                  "the residentx forward a direction, then the plain "
                  "recompute backward")
-        print(f"  remat_chunk={remat}, first 10 losses: card "
+        print(f"  remat_chunk={remat}, first {n} losses: card "
               f"{[round(x, 6) for x in a]}; CPU {[round(x, 6) for x in b]}; "
-              f"max |d| {gap:.2e}; {rate[remat, 'cuda']:.2f} steps/s on the "
-              f"card (median of steps 2-10, {route})", flush=True)
+              f"max |d| {gap:.2e}; {rate[remat]:.2f} steps/s on the "
+              f"card (median of steps 2-{n}, {route})", flush=True)
         if not gap <= TRAIN_LOSS_TOL:
             fail(f"config 2 (remat_chunk={remat}) card losses differ from "
                  f"the CPU run by {gap:.3e} > {TRAIN_LOSS_TOL}")
@@ -1448,7 +1573,7 @@ def config2_phase(torch, cli, cl, cx, ct, device):
         fail("a logged loss is not finite")
     sps = sorted(r["steps_per_sec"] for r in logged[1:])
     eps = sorted(r["examples_per_sec"] for r in logged[1:])
-    print(f"  loss at step 1 {first[None, 'cuda'][0]:.6f} (dropout 0 run), "
+    print(f"  loss at step 1 {first[None][0]:.6f} (dropout 0 run), "
           f"at step {logged[0]['step']} {logged[0]['loss']:.6f}, at step "
           f"{logged[-1]['step']} {logged[-1]['loss']:.6f}; final eval_loss "
           f"{final['eval_loss']:.6f}, eval_accuracy "
@@ -1460,18 +1585,18 @@ def config2_phase(torch, cli, cl, cx, ct, device):
     lm = {}
     for dev in ("cuda", "cpu"):
         recs, launches = run(f"lm256_{dev}", TRAIN_FLAGS + [
-            "--seq-len", "256", "--num-steps", "10", "--log-every", "1",
+            "--seq-len", "256", "--num-steps", str(n), "--log-every", "1",
             "--eval-batches", "1", "--device", dev])
         lm[dev] = [r["loss"] for r in recs if "loss" in r]
         if dev == "cuda":
-            expect(launches, "lm256_cuda", lstmx_fwd=11, lstmx_bwd=10)
+            expect(launches, "lm256_cuda", lstmx_fwd=n + 1, lstmx_bwd=n)
             lm_launches = launches
     gap = max(abs(x - y) for x, y in zip(lm["cuda"], lm["cpu"]))
-    print(f"  LM at --seq-len 256, first 10 losses: card "
+    print(f"  LM at --seq-len 256, first {n} losses: card "
           f"{[round(x, 6) for x in lm['cuda']]}; CPU "
           f"{[round(x, 6) for x in lm['cpu']]}; max |d| {gap:.2e}; launches "
           f"{lm_launches}", flush=True)
-    if len(lm["cuda"]) != 10 or not gap <= TRAIN_LOSS_TOL:
+    if len(lm["cuda"]) != n or not gap <= TRAIN_LOSS_TOL:
         fail(f"LM at T=256: card losses differ from the CPU run by {gap:.3e}")
 
     # device idle share over 20 config-2 steps under torch.profiler, of the
@@ -1491,7 +1616,7 @@ def config2_phase(torch, cli, cl, cx, ct, device):
               + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top), flush=True)
     # the launches each run made, its capture's warm-up included
     return {"lstmx_fwd": (remat_launches["lstmx_fwd"]
-                          + warmups["first10_remat50_cuda"]["lstmx_fwd"]),
+                          + warmups[f"first{n}_remat50_cuda"]["lstmx_fwd"]),
             "lstmx_bwd": (lm_launches["lstmx_bwd"]
                           + warmups["lm256_cuda"]["lstmx_bwd"]),
             "bilstm_fwd": (main_launches["bilstm_fwd"]
@@ -1510,7 +1635,11 @@ def all_counters(cl, cx, ct):
             "lstm_fwd_bf16": cl.fwd_bf16_counts,
             "lstm_bwd_bf16": cl.bwd_bf16_counts,
             "lstm_tiled_fwd_bf16": ct.fwd_bf16_counts,
-            "lstm_tiled_bwd_bf16": ct.bwd_bf16_counts}
+            "lstm_tiled_bwd_bf16": ct.bwd_bf16_counts,
+            "lstmx_fwd_bf16": cx.fwdx_bf16_counts,
+            "lstmx_bwd_bf16": cx.bwdx_bf16_counts,
+            "bilstm_fwd_bf16": cx.bi_fwdx_bf16_counts,
+            "bilstm_bwd_bf16": cx.bi_bwdx_bf16_counts}
 
 
 def warmup_launches(recs, counters):
@@ -2543,6 +2672,13 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM bfloat16, dense, tensor cores
 # reference element, or BF16_TOL of the stream's max(1, max |reference|)
 BF16_TOL = 1e-3
 BF16_GRAD_SHARE = 3e-3
+# phase 7's bf16 part holds the cell states (cs, cT) to BF16_TOL of
+# max(1, max |c|): its chains run 256-400 dependent steps, most of them
+# unmasked, where c (not bounded by 1, unlike h) carries every earlier
+# rounding of h that fell the other way (measured on an H100: 1.018e-3
+# and 1.024e-3 absolute at config 2 unmasked and at the LM's T=256, every
+# h-valued output within 8.8e-4; PERF.md section 6)
+BF16X_C_SCALED = ("cs", "cT")
 # (name, shape, masked cases) of each pair's bfloat16 form: config 1's
 # window (U and U^T in the lanes' registers), U's and U^T's slices in
 # shared memory (H=256), config 3's width on the resident pair (U through
@@ -2611,25 +2747,28 @@ def form_registers(kernels, name, bf16):
                    if ("__nv_bfloat16" in k) == bf16})
 
 
-def bf16_held(torch, name, got, ref, label, stream, bad):
+def bf16_held(torch, name, got, ref, label, stream, bad, scaled=False):
     """max |got - ref| of a bfloat16 form's output against its plain twin,
     and a note to print beside it: for a gradient that max as a share of
     max |reference|, for a stored bfloat16 stream the share of its
     elements more than one ulp of the reference element apart; a miss of
     the limits above is appended to ``bad`` (the phase fails after
-    printing every case)."""
+    printing every case). ``scaled``: a float32 value held to BF16_TOL of
+    max(1, max |reference|), as a sum of products is (phase 7's cell
+    states, BF16X_C_SCALED)."""
     got, ref = got.float(), ref.float()
     d = (got - ref).abs()
     err = float(d.max())
     if not stream:
         grad = name in ("dh0", "dc0")
         scale = float(ref.abs().max())
-        tol = BF16_GRAD_SHARE * scale if grad else BF16_TOL
+        tol = (BF16_GRAD_SHARE * scale if grad
+               else BF16_TOL * max(1.0, scale) if scaled else BF16_TOL)
         if not err <= tol:
             bad.append(f"{label}: bf16 kernel {name} differs from its plain "
                        f"twin by {err:.3e} > {tol:.3e}")
-        return err, (f"{err / scale:.2e} of max {scale:.3e}" if grad
-                     else None)
+        return err, (f"{err / scale:.2e} of max {scale:.3e}"
+                     if grad or scaled else None)
     # one ulp of a bfloat16 value: 2^(exponent - 7), the smallest normal's
     # for zero
     ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(
@@ -2812,10 +2951,11 @@ BF16_REPLACES = {
 
 def bf16_row(name, t, launches):
     """The kernel report's row of a bfloat16 form."""
+    stem, replaces = BF16X_ROWS.get(name, (name[:-len("_bf16")],
+                                           BF16_REPLACES.get(name)))
     return {"name": name, "route": "cuda",
-            "source": "lstm_tensorspark_torch/csrc/"
-                      f"{name[:-len('_bf16')]}.cu",
-            "replaces": BF16_REPLACES[name], "launches": launches,
+            "source": f"lstm_tensorspark_torch/csrc/{stem}.cu",
+            "replaces": replaces, "launches": launches,
             "max_abs_err": t["max_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -2833,7 +2973,7 @@ def step_parts(torch, calls, m):
     busy, wall, by_name, _ = prof
     parts = {"recurrence kernels": 0.0, "matmuls": 0.0, "other": 0.0}
     for k, v in by_name.items():
-        if "lstm_" in k:
+        if "lstm_" in k or "lstmx_" in k:
             parts["recurrence kernels"] += v
         elif any(w in k.lower() for w in ("gemm", "cutlass", "xmma",
                                           "nvjet", "sm90_")):
@@ -2843,6 +2983,61 @@ def step_parts(torch, calls, m):
     parts["host, uncovered"] = wall - busy
     steps = m * calls.k
     return {k: v / steps for k, v in parts.items()}
+
+
+def bf16_cli_run(cli, counters, tmp, name, flags):
+    """One CLI run of phases 15 and 16, every count set to 0 just before
+    it: its records, the launches of its replays and eager calls (the
+    capture warm-ups' taken out, :func:`warmup_launches`; the plain
+    twins' under "plain") and the warm-ups' launches."""
+    for c in counters.values():
+        c.reset()
+    path = os.path.join(tmp, f"{name}.jsonl")
+    t0 = time.perf_counter()
+    rc = cli.main(flags + ["--jsonl", path])
+    if rc != 0:
+        fail(f"bf16 train run {name} exited {rc}")
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    warm = warmup_launches(recs, counters)
+    launches = {k: c.kernel - warm[k] for k, c in counters.items()}
+    launches["plain"] = sum(c.reference for c in counters.values())
+    print(f"  {name}: {time.perf_counter() - t0:.1f} s; capture warm-up "
+          f"launches { {k: v for k, v in warm.items() if v} }", flush=True)
+    return recs, launches, warm
+
+
+def bf16_in_turns(torch, cli, cfg, flags, drop, card, n_rate):
+    """Phases 15 and 16: steps/s (over ``n_rate`` calls), device ms a step
+    and the idle share of the float32 and the bf16 run of one command in
+    turns (f32, bf16, bf16, f32), then each run's device ms a step by
+    part. A remat step's graph holds 100,000-200,000 nodes: its profiles
+    take the longest to read, so they cover two calls (phase 14's rule is
+    one; the profiler can miss a window's first launches) after 4."""
+    f32_flags = [("float32" if a == "bfloat16" else a) for a in flags]
+    runs = {}
+    for dt, fl in (("f32", f32_flags), ("bf16", flags)):
+        calls = cli_calls(cli, fl + ["--dropout", drop, "--device", "cuda"])
+        calls(3)
+        runs[dt] = calls
+    n_rate, m = (4, 2) if "remat" in cfg else (n_rate, 10)
+    got = {}
+    for dt in ("f32", "bf16", "bf16", "f32"):
+        got.setdefault(dt, []).append(
+            rate_and_profile(torch, runs[dt], n_rate, m))
+    print(f"  {cfg} in turns (f32, bf16, bf16, f32; {card}): " + "; ".join(
+        f"{dt} " + ", ".join(
+            f"{s:.2f} steps/s, device "
+            + ("not measured" if d is None else f"{d:.4f} ms a step, "
+               f"idle {i:.3f}") for s, d, i in got[dt])
+        for dt in ("f32", "bf16")), flush=True)
+    for dt in ("f32", "bf16"):
+        parts = step_parts(torch, runs[dt], m)
+        print(f"  {cfg} {dt} step by part (ms a step over {m} calls): "
+              + ("not measured" if parts is None else "; ".join(
+                  f"{k} {v:.4f}" for k, v in parts.items())), flush=True)
+    del runs
+    gc.collect()
 
 
 def bf16_train_phase(torch, cli, cl, cx, ct, device):
@@ -2860,20 +3055,7 @@ def bf16_train_phase(torch, cli, cl, cx, ct, device):
     counters = all_counters(cl, cx, ct)
     main_launches = {k: 0 for k in BF16_REPLACES}
 
-    def run(name, flags):
-        for c in counters.values():
-            c.reset()
-        path = os.path.join(tmp, f"{name}.jsonl")
-        t0 = time.perf_counter()
-        rc = cli.main(flags + ["--jsonl", path])
-        if rc != 0:
-            fail(f"bf16 train run {name} exited {rc}")
-        with open(path) as f:
-            recs = [json.loads(line) for line in f]
-        launches = {k: c.kernel for k, c in counters.items()}
-        launches["plain"] = sum(c.reference for c in counters.values())
-        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
-        return recs, launches
+    run = functools.partial(bf16_cli_run, cli, counters, tmp)
 
     cpu_losses = {}
     for cfg, (flags, drop, L, pair) in BF16_RUNS.items():
@@ -2882,10 +3064,11 @@ def bf16_train_phase(torch, cli, cl, cx, ct, device):
                          "--dropout", "0", "--eval-batches", "1"]
         base = cfg.split("-")[0]
         if base not in cpu_losses:  # remat gives the plain loop's values
-            recs, _ = run(f"{cfg} first{n} cpu", first + ["--device", "cpu"])
+            recs, _, _ = run(f"{cfg} first{n} cpu",
+                             first + ["--device", "cpu"])
             cpu_losses[base] = [r["loss"] for r in recs if "loss" in r]
-        recs, launches = run(f"{cfg} first{n} card",
-                             first + ["--device", "cuda"])
+        recs, launches, _ = run(f"{cfg} first{n} card",
+                                first + ["--device", "cuda"])
         card_l = [r["loss"] for r in recs if "loss" in r]
         cpu_l = cpu_losses[base]
         if len(card_l) != n or len(cpu_l) != n:
@@ -2906,7 +3089,7 @@ def bf16_train_phase(torch, cli, cl, cx, ct, device):
             fail(f"{cfg} bf16: launches {launches}: wanted the {pair} "
                  "pair's bf16 forms alone")
         # the main run: the script's dropout, BF16_STEPS steps
-        recs, launches = run(f"{cfg} main", flags + [
+        recs, launches, warm = run(f"{cfg} main", flags + [
             "--num-steps", str(BF16_STEPS), "--log-every", "20",
             "--dropout", drop, "--device", "cuda"])
         logged = [r for r in recs if "loss" in r]
@@ -2919,41 +3102,285 @@ def bf16_train_phase(torch, cli, cl, cx, ct, device):
             fail(f"{cfg} bf16 main: launches {launches} (fwd at least "
                  f"{BF16_STEPS * L}; bwd {'none' if remat else 'some'})")
         for k in main_launches:
-            main_launches[k] += launches[k]
+            main_launches[k] += launches[k] + warm[k]
         print(f"  {cfg} bf16 main ({BF16_STEPS} steps, dropout {drop}): "
               f"loss {logged[0]['loss']:.4f} -> {logged[-1]['loss']:.4f}; "
               f"launches { {k: v for k, v in launches.items() if v} }",
               flush=True)
 
-        # steps/s, device ms a step and idle share: float32 and bf16 of the
-        # same command, in turns (f32, bf16, bf16, f32)
-        f32_flags = [("float32" if a == "bfloat16" else a) for a in flags]
-        runs = {}
-        for dt, fl in (("f32", f32_flags), ("bf16", flags)):
-            calls = cli_calls(cli, fl + ["--dropout", drop, "--device",
-                                         "cuda"])
-            calls(3)
-            runs[dt] = calls
-        n_rate = {"config1": 300, "config3": 40}.get(cfg, 20)
-        got = {}
-        for dt in ("f32", "bf16", "bf16", "f32"):
-            got.setdefault(dt, []).append(
-                rate_and_profile(torch, runs[dt], n_rate, 10))
-        print(f"  {cfg} in turns (f32, bf16, bf16, f32; {card}): " + "; ".join(
-            f"{dt} " + ", ".join(
-                f"{s:.2f} steps/s, device "
-                + ("not measured" if d is None else f"{d:.4f} ms a step, "
-                   f"idle {i:.3f}") for s, d, i in got[dt])
-            for dt in ("f32", "bf16")), flush=True)
-        for dt in ("f32", "bf16"):
-            parts = step_parts(torch, runs[dt], 10)
-            print(f"  {cfg} {dt} step by part (ms a step over 10 calls): "
-                  + ("not measured" if parts is None else "; ".join(
-                      f"{k} {v:.4f}" for k, v in parts.items())),
-                  flush=True)
-        del runs
-        gc.collect()
+        bf16_in_turns(torch, cli, cfg, flags, drop, card,
+                      {"config1": 300, "config3": 40}.get(cfg, 20))
     return main_launches
+
+
+# ---------------------------------------------------------------------------
+# bf16 of the residentx pair: phase 7's bfloat16 part and phase 16 (config
+# 2 and the LM at T=256 in bf16 through the CLI)
+# ---------------------------------------------------------------------------
+
+# the residentx pair's bfloat16 forms against their plain twins (phase 5's
+# limits above): config 2 one and two directions masked (8-row and 4-row
+# chains, U in registers; U^T in shared memory), unmasked, the LM's T=256
+# (U and U^T in registers), an awkward shape and the 8-row chain at an
+# awkward width, and the forward's other builds (U in shared memory, through
+# L2, one block a cluster)
+BF16X_CASES = (("config2", 1, "imdb"), ("config2", 2, "imdb"),
+               ("config2", 2, None), ("lm256", 1, None),
+               ("awkward", 2, "awkward"), ("awkward8", 2, "awkward8"),
+               ("smem", 2, None), ("l2", 1, None), ("tiny", 1, [5, 1, 3]))
+# each row of the report: its source and the TPU kernel it replaces
+BF16X_ROWS = {
+    "lstmx_fwd_bf16": ("lstmx_fwd",
+                       "lstm_tensorspark_tpu/ops/pallas_lstm.py:383"),
+    "lstmx_bwd_bf16": ("lstmx_bwd",
+                       "lstm_tensorspark_tpu/ops/pallas_lstm.py:444"),
+    "bilstm_fwd_bf16": ("lstmx_fwd",
+                        "lstm_tensorspark_tpu/ops/pallas_bilstm.py:108"),
+    "bilstm_bwd_bf16": ("lstmx_bwd",
+                        "lstm_tensorspark_tpu/ops/pallas_bilstm.py:178")}
+# phase 16: configs/imdb_bilstm.sh's model and optimizer (config 2: B=32,
+# T=400, E=H=256, Adam 1e-3, clip 1.0, dropout 0.2, bf16 compute), the same
+# without --remat-chunk, and config 1's LM at --seq-len 256 in bf16
+CONFIG2_BF16_FLAGS = [a if a != "float32" else "bfloat16"
+                      for a in CONFIG2_FLAGS]
+LM256_BF16_FLAGS = CONFIG1_BF16_FLAGS[:CONFIG1_BF16_FLAGS.index(
+    "--seq-len") + 1] + ["256"] + CONFIG1_BF16_FLAGS[
+    CONFIG1_BF16_FLAGS.index("--seq-len") + 2:]
+BF16X_STEPS = 30
+# run: (flags, dropout, the forward's counter and its launches a step and
+# eval batch, the backward's counter or None, the report's rows whose
+# main-path launches it gives)
+BF16X_RUNS = {
+    "config2-remat50": (CONFIG2_BF16_FLAGS + ["--remat-chunk", "50"], "0.2",
+                        "lstmx_fwd_bf16", 2, None, ("lstmx_fwd_bf16",)),
+    "config2": (CONFIG2_BF16_FLAGS, "0.2", "bilstm_fwd_bf16", 1,
+                "bilstm_bwd_bf16", ("bilstm_fwd_bf16", "bilstm_bwd_bf16")),
+    "lm256": (LM256_BF16_FLAGS, "0", "lstmx_fwd_bf16", 1, "lstmx_bwd_bf16",
+              ("lstmx_bwd_bf16",))}
+
+
+def bf16x_inputs(torch, B, T, D, H, ndir, lengths, seed, device):
+    """:func:`lstmx_inputs` in the bfloat16 form: xs, W and U bfloat16."""
+    (xs, W, b, U, h0, c0, mask), cots = lstmx_inputs(
+        torch, B, T, D, H, ndir, lengths, seed, device)
+    return [xs.bfloat16(), W.bfloat16(), b, U.bfloat16(), h0, c0, mask], cots
+
+
+def bf16_residentx_phase(torch, cx, device):
+    """Phase 7's bfloat16 part: the residentx pair's bfloat16 forms (one
+    and two directions) against their plain twins at BF16X_CASES, their
+    plans and registers, and each role timed at its main-path shape (as
+    phase 7) beside the plain twin, cuDNN in bfloat16 and the bound."""
+    from lstm_tensorspark_torch import kernels
+
+    print("== phase 7, bf16: the residentx pair's bfloat16 forms vs their "
+          "plain twins", flush=True)
+    regs = {n: form_registers(kernels, n, bf16=True)
+            for n in ("lstmx_fwd", "lstmx_bwd")}
+    print(f"  ptxas registers of the bfloat16 instances: {regs}", flush=True)
+    lens2 = imdb_lengths(CONFIG2["B"], CONFIG2["T"])
+    errs = {(k, nd): 0.0 for k in ("fwd", "bwd") for nd in (1, 2)}
+    bad = []
+    for i, (name, ndir, lens) in enumerate(BF16X_CASES):
+        B, T, D, H = (LSTMX_SHAPES[name][k] for k in ("B", "T", "D", "H"))
+        lengths = lstmx_lengths(lens, lens2)
+        label = (f"bf16 {name} B={B} T={T} D={D} H={H} ndir={ndir} "
+                 f"mask={lengths is not None}")
+        inputs, (dys, dhT, dcT) = bf16x_inputs(torch, B, T, D, H, ndir,
+                                               lengths, 40 + i, device)
+        xs, W, b, U, h0, c0, mask = inputs
+        got = cx.lstmx_forward(*inputs, save_c=True)
+        bare = cx.lstmx_forward(*inputs)
+        ref = cx.lstmx_forward_reference(*inputs, save_c=True)
+        torch.cuda.synchronize()
+        e = {}
+        for n, a, r in zip(("ys", "hT", "cT", "cs"), got, ref):
+            e[n] = bf16_held(torch, n, a, r, label, False, bad,
+                             scaled=n in BF16X_C_SCALED)
+        for n, a, r in zip(("ys", "hT", "cT"), bare, got):
+            if not torch.equal(a, r):
+                fail(f"{label}: the forward without cs gives other {n} than "
+                     "with it")
+        # the backward from the twin's ys and cs, then from the kernel's own
+        for fed, (ys, cs) in (("", (ref[0], ref[3])),
+                              (" (own)", (got[0], got[3]))):
+            bgot = cx.lstmx_backward(xs, ys, h0, cs, c0, dys, W, b, U, dhT,
+                                     dcT, mask)
+            bref = cx.lstmx_backward_reference(xs, ys, h0, cs, c0, dys, W, b,
+                                               U, dhT, dcT, mask)
+            torch.cuda.synchronize()
+            if bgot[0].dtype != torch.bfloat16:
+                fail(f"{label}: the bf16 form stored dz as {bgot[0].dtype}")
+            for n, a, r in zip(("dz", "dh0", "dc0"), bgot, bref):
+                e[n + fed] = bf16_held(torch, n, a, r, label + fed,
+                                       n == "dz", bad)
+        errs["fwd", ndir] = max(errs["fwd", ndir], *(
+            e[n][0] for n in ("ys", "hT", "cT", "cs")))
+        errs["bwd", ndir] = max(errs["bwd", ndir], *(
+            v[0] for n, v in e.items() if n.split()[0] in ("dz", "dh0",
+                                                           "dc0")))
+        print(f"  {label}: max |d| " + ", ".join(
+            f"{n} {v[0]:.2e}" + ("" if v[1] is None else f" ({v[1]})")
+            for n, v in e.items()), flush=True)
+        print(f"    plan {cx.card_plan(B, H, D, ndir, device, 2)}",
+              flush=True)
+    if bad:
+        fail("; ".join(bad))
+
+    timings, lib = {}, {}
+    for role, (name, nd, kind, masked, save_c) in LSTMX_ROLES.items():
+        B, T, D, H = (LSTMX_SHAPES[name][k] for k in ("B", "T", "D", "H"))
+        if (name, nd) not in lib:
+            lib[name, nd] = cudnn_bi_yardstick(torch, B, T, D, H, nd, device,
+                                               torch.bfloat16)
+        inputs, (dys, dhT, dcT) = bf16x_inputs(
+            torch, B, T, D, H, nd, lens2 if masked else None, 7, device)
+        xs, W, b, U, h0, c0, mask = inputs
+        ys, _, _, cs = cx.lstmx_forward(*inputs, save_c=True)
+        bargs = (xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask)
+        if kind == "fwd":
+            def kernel():
+                return cx.lstmx_forward(*inputs, save_c=save_c)
+
+            def plain():
+                return cx.lstmx_forward_reference(*inputs, save_c=save_c)
+        else:
+            def kernel():
+                return cx.lstmx_backward(*bargs)
+
+            def plain():
+                return cx.lstmx_backward_reference(*bargs)
+        # in turns as the float32 roles of phase 7: 2 plain calls, 10
+        # kernel calls a reading
+        p1 = time_ms(torch, plain, 2)
+        k1 = time_ms(torch, kernel, 10)
+        k2 = time_ms(torch, kernel, 10)
+        p2 = time_ms(torch, plain, 2)
+        plain_ms, kernel_ms, r = (p1 + p2) / 2, (k1 + k2) / 2, (p1, k1, k2, p2)
+        bound_ms, bound_by = lstmx_bound(B, T, D, H, nd, kind, masked,
+                                         save_c, esize=2)
+        prof = device_profile(torch, lambda: [kernel() for _ in range(10)])
+        dev_ms = side_ms = None
+        if prof is not None:
+            for which in ("chain", "side"):
+                pat = (f"lstmx_{kind}_kernel" if which == "chain"
+                       else LSTMX_SIDE[kind])
+                keys = [k for k in prof[2] if pat in k]
+                n = sum(prof[3][k] for k in keys)
+                if n and which == "chain":
+                    dev_ms = sum(prof[2][k] for k in keys) / n
+                elif n:
+                    side_ms = sum(prof[2][k] for k in keys) / n
+        key = f"{role}_bf16"
+        timings[key] = dict(
+            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, device_ms=dev_ms,
+            library_ms=lib[name, nd][0 if kind == "fwd" else 1],
+            max_err=errs[kind, nd], shape=(B, T, D, H, nd))
+        side = "projection" if kind == "fwd" else "z rebuild"
+        print(f"  {key} {name} B={B} T={T} D={D} H={H} (mask={masked}, "
+              f"cs={save_c if kind == 'fwd' else 'in'}): kernel_ms "
+              f"{kernel_ms:.4f} ({r[1]:.4f}, {r[2]:.4f}; "
+              f"{1e3 * kernel_ms / T:.2f} us a step), device_ms "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
+              f"(the chain; its {side} "
+              + ("not measured" if side_ms is None else f"{side_ms:.4f}")
+              + f"), plain_ms {plain_ms:.4f} ({r[0]:.4f}, {r[3]:.4f}), "
+              f"library_ms (cuDNN bf16"
+              f"{' bidirectional' if nd == 2 else ''}) "
+              f"{timings[key]['library_ms']:.4f}, bound_ms {bound_ms:.6f} "
+              f"({bound_by}, {kernel_ms / bound_ms:.1f}x); {card_line()}",
+              flush=True)
+    return timings
+
+
+def bf16x_train_phase(torch, cli, cl, cx, ct, device, host):
+    """Phase 16: config 2 as configs/imdb_bilstm.sh runs it (bf16,
+    --remat-chunk 50: the residentx forward's bf16 form a direction, then
+    the plain recompute), the same without remat (the stacked pair's bf16
+    forms) and the LM at --seq-len 256 in bf16 (the one-direction pair),
+    through the CLI, captured: the first losses at --dropout 0 against the
+    CPU run of the same command, exact bf16 launch counts with the capture
+    warm-ups taken out (every other counter and the plain twins at 0), a
+    main run at the script's dropout, and steps/s, device ms a step, the
+    idle share and the device ms a step by part beside the float32 run of
+    the same command, in turns (f32, bf16, bf16, f32). Returns each row's
+    launches on the main path (the main runs', warm-ups included)."""
+    print("== phase 16: bf16 training of config 2 and the LM at T=256 "
+          "through the CLI", flush=True)
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16x_")
+    counters = all_counters(cl, cx, ct)
+
+    run = functools.partial(bf16_cli_run, cli, counters, tmp)
+
+    def expect(got, name, fwd, per, bwd, n):
+        # n steps and the final eval's one batch
+        want = {k: 0 for k in counters}
+        want["plain"] = 0
+        want[fwd] = per * (n + 1)
+        if bwd is not None:
+            want[bwd] = n
+        if got != want:
+            fail(f"{name}: launch counts {got} != predicted {want}")
+
+    main_path = {k: 0 for k in BF16X_ROWS}
+    cpu_losses = {}
+    for cfg, (flags, drop, fwd, per, bwd, rows) in BF16X_RUNS.items():
+        n = BF16_FIRST
+        first = first_flags(flags, n)
+        base = cfg.split("-")[0]
+        if base == "config2":  # a host run beside the card (HostRuns); the
+            # plain loop's values do not depend on remat
+            cpu_losses[base] = host.losses(*host_references()[1])
+        elif base not in cpu_losses:
+            recs, _, _ = run(f"{cfg} first{n} cpu",
+                             first + ["--device", "cpu"])
+            cpu_losses[base] = [r["loss"] for r in recs if "loss" in r]
+        recs, launches, _ = run(f"{cfg} first{n} card",
+                                first + ["--device", "cuda"])
+        expect(launches, f"{cfg} first{n} card", fwd, per, bwd, n)
+        card_l = [r["loss"] for r in recs if "loss" in r]
+        cpu_l = cpu_losses[base]
+        if len(card_l) != n or len(cpu_l) != n:
+            fail(f"{cfg}: logged {len(card_l)} / {len(cpu_l)} losses, not "
+                 f"{n}")
+        gap = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        print(f"  {cfg} bf16, first {n} losses: card "
+              f"{[round(x, 6) for x in card_l]}; CPU "
+              f"{[round(x, 6) for x in cpu_l]}; max relative |d| {gap:.2e}"
+              f" (limit {BF16_LOSS_RTOL}); launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        if not gap <= BF16_LOSS_RTOL:
+            fail(f"{cfg} bf16: card losses differ from the CPU run by "
+                 f"{gap:.3e} of the loss > {BF16_LOSS_RTOL}")
+        # the main run: the script's dropout, BF16X_STEPS steps
+        recs, launches, warm = run(f"{cfg} main", flags + [
+            "--num-steps", str(BF16X_STEPS), "--log-every", "10",
+            "--dropout", drop, "--eval-batches", "1", "--device", "cuda"])
+        expect(launches, f"{cfg} main", fwd, per, bwd, BF16X_STEPS)
+        logged = [r for r in recs if "loss" in r]
+        if not all(r["loss"] == r["loss"] and r["loss"] < 1e9
+                   for r in logged):
+            fail(f"{cfg} bf16: a logged loss is not finite")
+        for k in rows:
+            main_path[k] = launches[k] + warm[k]
+        print(f"  {cfg} bf16 main ({BF16X_STEPS} steps, dropout {drop}): "
+              f"loss {logged[0]['loss']:.4f} -> {logged[-1]['loss']:.4f}; "
+              f"launches { {k: v for k, v in launches.items() if v} } "
+              f"(+ warm-up { {k: v for k, v in warm.items() if v} })",
+              flush=True)
+
+        bf16_in_turns(torch, cli, cfg, flags, drop, card, 100)
+    return main_path
+
+
+def timed(fn, *args):
+    """``fn(*args)``, printing the seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"  [{fn.__name__}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2986,6 +3413,11 @@ def main() -> int:
     configure_precision()
     device = torch.device("cuda", 0)
 
+    # the CPU references of phases 8 and 16 start now, beside the build
+    host = HostRuns()
+    atexit.register(host.stop)
+    for name, flags in host_references():
+        host.start(name, flags)
     print("== phase 2: build the CUDA kernels", flush=True)
     sources = kernels.SOURCES
     secs = kernels.build(sources)
@@ -2999,23 +3431,30 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}", flush=True)
 
-    max_err, timings = kernel_phase(torch, tlm, tgen, cd, device)
-    launches, tokens = serve_phase(torch, tlm, tgen, cd, serve, device)
-    lstm_timings = lstm_kernel_phase(torch, cl, device)
-    bf16_timings = bf16_kernel_phase(torch, cl, ct, device, "resident")
-    train_launches = train_phase(torch, cli, cl, device)
-    lstmx_timings = lstmx_kernel_phase(torch, cx, device)
-    config2_launches = config2_phase(torch, cli, cl, cx, ct, device)
-    tiled_timings = tiled_kernel_phase(torch, cl, ct, device)
-    bf16_timings.update(bf16_kernel_phase(torch, cl, ct, device, "tiled"))
-    config5_launches = config5_phase(torch, cli, cl, cx, ct, device)
-    spec_err, spec_timings = spec_kernel_phase(torch, tlm, tgen, cd, cs,
-                                               draft_config, device)
-    spec_launches = spec_serve_phase(torch, tlm, tgen, cd, cs, cl, serve,
-                                     draft_config, device)
-    config3_phase(torch, tlm, tgen, cd, serve, device)
-    train_calls_phase(torch, cli, cl, cx, ct, device)
-    bf16_launches = bf16_train_phase(torch, cli, cl, cx, ct, device)
+    max_err, timings = timed(kernel_phase, torch, tlm, tgen, cd, device)
+    launches, tokens = timed(serve_phase, torch, tlm, tgen, cd, serve,
+                             device)
+    lstm_timings = timed(lstm_kernel_phase, torch, cl, device)
+    bf16_timings = timed(bf16_kernel_phase, torch, cl, ct, device,
+                         "resident")
+    train_launches = timed(train_phase, torch, cli, cl, device)
+    lstmx_timings = timed(lstmx_kernel_phase, torch, cx, device)
+    bf16x_timings = timed(bf16_residentx_phase, torch, cx, device)
+    config2_launches = timed(config2_phase, torch, cli, cl, cx, ct, device,
+                             host)
+    tiled_timings = timed(tiled_kernel_phase, torch, cl, ct, device)
+    bf16_timings.update(timed(bf16_kernel_phase, torch, cl, ct, device,
+                              "tiled"))
+    config5_launches = timed(config5_phase, torch, cli, cl, cx, ct, device)
+    spec_err, spec_timings = timed(spec_kernel_phase, torch, tlm, tgen, cd,
+                                   cs, draft_config, device)
+    spec_launches = timed(spec_serve_phase, torch, tlm, tgen, cd, cs, cl,
+                          serve, draft_config, device)
+    timed(config3_phase, torch, tlm, tgen, cd, serve, device)
+    timed(train_calls_phase, torch, cli, cl, cx, ct, device)
+    bf16_launches = timed(bf16_train_phase, torch, cli, cl, cx, ct, device)
+    bf16x_launches = timed(bf16x_train_phase, torch, cli, cl, cx, ct, device,
+                           host)
 
     main_path = timings["config1"]
     lstm_rows = [{
@@ -3070,6 +3509,8 @@ def main() -> int:
     } for kind in ("fwd", "bwd")]
     bf16_rows = [bf16_row(name, bf16_timings[name], bf16_launches[name])
                  for name in bf16_launches]
+    bf16_rows += [bf16_row(name, bf16x_timings[name], bf16x_launches[name])
+                  for name in BF16X_ROWS]
     print(json.dumps({"kernels": [{
         "name": "decode_window",
         "route": "cuda",
@@ -3316,9 +3757,10 @@ def train_calls(label: str) -> int:
 
 
 def bf16(label: str) -> int:
-    """The bf16 work alone (the bf16 parts of phases 5 and 9, phase 15),
-    from the checkout in the working directory, tagged ``label``; ``label``
-    ``kernels`` skips phase 15."""
+    """The bf16 work alone (the bf16 parts of phases 5, 7 and 9, phases 15
+    and 16), from the checkout in the working directory, tagged ``label``;
+    ``label`` ``kernels`` skips phases 15 and 16, ``residentx`` runs phase
+    7's bf16 part and phase 16 alone."""
     torch, dev = _checkout(label)
     from lstm_tensorspark_torch import cli, kernels
     from lstm_tensorspark_torch.ops import cuda_lstm as cl
@@ -3327,12 +3769,22 @@ def bf16(label: str) -> int:
 
     print(f"bf16 phases of {label} ({os.getcwd()}; {card_line()}); kernels "
           f"built in {kernels.build(kernels.SOURCES):.1f} s", flush=True)
-    t = bf16_kernel_phase(torch, cl, ct, dev, "resident")
-    t.update(bf16_kernel_phase(torch, cl, ct, dev, "tiled"))
+    host = HostRuns()
+    atexit.register(host.stop)
     if label != "kernels":
-        launches = bf16_train_phase(torch, cli, cl, cx, ct, dev)
-        print(json.dumps([bf16_row(n, t[n], launches[n]) for n in launches]),
-              flush=True)
+        host.start(*host_references()[1])
+    rows, t = [], {}
+    if label != "residentx":
+        t = timed(bf16_kernel_phase, torch, cl, ct, dev, "resident")
+        t.update(timed(bf16_kernel_phase, torch, cl, ct, dev, "tiled"))
+    tx = timed(bf16_residentx_phase, torch, cx, dev)
+    if label != "kernels":
+        if label != "residentx":
+            launches = timed(bf16_train_phase, torch, cli, cl, cx, ct, dev)
+            rows += [bf16_row(n, t[n], launches[n]) for n in launches]
+        lx = timed(bf16x_train_phase, torch, cli, cl, cx, ct, dev, host)
+        rows += [bf16_row(n, tx[n], lx[n]) for n in BF16X_ROWS]
+        print(json.dumps(rows), flush=True)
     return 0
 
 

@@ -9,14 +9,13 @@
   run's device (training steps only). ``--dataset imdb`` trains the
   bi-LSTM classifier instead (BASELINE.md config 2,
   ``tasks/classification.py``). ``--remat-chunk`` takes the recompute
-  backward (JAX's choice when it is set). ``--compute-dtype bfloat16``
-  and ``--logits-dtype bfloat16`` train the LM as JAX's command does (the
-  kernels' bfloat16 forms on the card); both default to float32 here
-  (JAX's ``--compute-dtype`` defaults to bfloat16) until the classifier's
-  bfloat16 is ported: ``--dataset imdb --compute-dtype bfloat16`` and
-  ``--dataset uci_electricity`` exit with ``USAGE_RC`` (not ported yet);
-  ``--logits-dtype`` is an LM flag, which imdb ignores as JAX's does. A
-  run of ``--anomaly-limit`` consecutive non-finite steps exits with
+  backward (JAX's choice when it is set). ``--compute-dtype`` defaults to
+  bfloat16 and ``--logits-dtype`` to float32, as JAX's command: the
+  recurrences of every task (the LM and imdb) run the kernels' bfloat16
+  forms on the card unless ``--compute-dtype float32`` is given;
+  ``--logits-dtype`` is an LM flag, which imdb ignores as JAX's does.
+  ``--dataset uci_electricity`` exits with ``USAGE_RC`` (not ported yet).
+  A run of ``--anomaly-limit`` consecutive non-finite steps exits with
   ``ANOMALY_RC``.
 - ``serve --selftest`` decodes ``--sessions`` concurrent sessions through
   the full server path and checks that the greedy tokens equal the plain
@@ -296,11 +295,11 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="checkpoint the recurrence in chunks of N steps: "
                         "the backward recomputes them (T % N == 0)")
     p.add_argument("--tie-embeddings", action="store_true")
-    p.add_argument("--compute-dtype", type=str, default="float32",
+    p.add_argument("--compute-dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"],
-                   help="dtype of the recurrence's products (LM only so "
-                        "far: imdb refuses bfloat16); parameters, "
-                        "optimizer state and cell state stay float32")
+                   help="dtype of the recurrence's products (the LM and "
+                        "imdb); parameters, optimizer state and cell state "
+                        "stay float32")
     p.add_argument("--logits-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="dtype of the materialized [B,T,V] LM logits (the "
@@ -342,9 +341,6 @@ def build_train_parser() -> argparse.ArgumentParser:
 def _refusal(args) -> str | None:
     """What the train command refuses in ``args`` before it builds
     anything, or None."""
-    if args.dataset == "imdb" and args.compute_dtype != "float32":
-        return (f"--compute-dtype {args.compute_dtype} is not ported yet "
-                "for the classifier (imdb: float32 only)")
     if not 0.0 <= args.dropout < 1.0:
         return f"--dropout must be in [0, 1), got {args.dropout}"
     if args.eval_batches is not None and args.eval_batches < 1:

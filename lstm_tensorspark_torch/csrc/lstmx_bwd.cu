@@ -1,5 +1,6 @@
 // Fused backward (BPTT) of the "residentx" LSTM kernels, one or two
-// directions, for Hopper (sm_90a), float32.
+// directions, for Hopper (sm_90a), in two forms: float32, and bfloat16
+// (below).
 //
 // Replaces lstm_tensorspark_tpu/ops/pallas_lstm.py::_lstm_bwdx_kernel (one
 // direction, ND = 1) and ops/pallas_bilstm.py::_bi_bwdx_kernel (both
@@ -57,7 +58,18 @@
 //     its own.
 // Math is expf / tanhf with float32 accumulation (no fast-math intrinsics).
 //
-// Plain C interface for ctypes: lstmx_bwd_launch returns the CUDA error code
+// The bfloat16 form (TS = __nv_bfloat16, JAX's _lstm_bwdx_kernel /
+// _bi_bwdx_kernel under bf16 compute) rebuilds z as the bfloat16 forward
+// sums it: xs, W and U bfloat16, converted on load, and h_prev rounded to
+// bfloat16 as it is staged, every sum in float32 in the forward's order, so
+// z is again the forward's to the bit. The factors stay float32. dz is
+// rounded to bfloat16 once, where it is formed: that value is stored (dz is
+// a bfloat16 stream) and exchanged for dh = dz @ U^T, whose U^T is bfloat16
+// (its slice in shared memory as bfloat16) and whose sums are float32. dc,
+// dh0 and dc0 stay float32.
+//
+// Plain C interface for ctypes: lstmx_bwd_launch (float32) and
+// lstmx_bwd_bf16_launch (bfloat16) return the CUDA error code
 // (0 = success). It allocates nothing (the factor stream is scratch the
 // caller passes) and does not synchronise; it runs on the stream it is given.
 
@@ -94,18 +106,20 @@ static size_t factors_smem_floats(int H, int D, int UPC, int RB4, int C) {
   return (size_t)(D > H ? D : H) * (E + 4) + E * 4 * UPC;
 }
 
-// lstmx_bwd_kernel's shared memory, in floats (every piece a multiple of 4):
-//   dzbuf [2][4H][RB4]   dz of every gate column for the group's rows,
-//                        transposed so four rows load as one float4;
+// lstmx_bwd_kernel's shared memory, in bytes:
+//   dzbuf [2][4H][RB4]   float: dz of every gate column for the group's
+//                        rows, transposed so four rows load as one float4;
 //                        double-buffered by step
-//   bars  2 mbarriers    one per dzbuf buffer
-//   UTs   [UPC][4H+KS2]  the block's rows of U_d (U_d^T's columns), padded so
-//                        the KS2 lanes of neighbouring units meet no bank
-//                        conflict (UT_SMEM only)
-static size_t bwd_smem_floats(int H, int UPC, int RB4, int KS2, int ut_mode) {
+//   bars  2 mbarriers    one per dzbuf buffer (4 floats)
+//   UTs   [UPC][4H+KS2]  TS: the block's rows of U_d (U_d^T's columns),
+//                        padded so the KS2 lanes of neighbouring units meet
+//                        no bank conflict (UT_SMEM only), esize bytes an
+//                        element
+static size_t bwd_smem_bytes(int H, int UPC, int RB4, int KS2, int ut_mode,
+                             size_t esize) {
   const size_t G = 4 * (size_t)H;
-  size_t n = 2 * G * RB4 + 4;
-  if (ut_mode == UT_SMEM) n += (G + KS2) * UPC;
+  size_t n = sizeof(float) * (2 * G * RB4 + 4);
+  if (ut_mode == UT_SMEM) n += esize * (G + KS2) * UPC;
   return n;
 }
 
@@ -115,19 +129,21 @@ __device__ __forceinline__ float at(const float4& v, int r) {
 
 // Rebuild z for C steps of one row group and one block's units, then the
 // algebra's factors. Block b takes unit slice b % CS of row group
-// (b / CS) % NG and the chunk b / (CS * NG) from the end.
+// (b / CS) % NG and the chunk b / (CS * NG) from the end. xs, W and U are
+// TS; h_prev is staged rounded to TS, as the forward's product reads it.
 #define REBUILD_MIN_BLOCKS 2  // rebuild blocks an SM keeps at once
+template <typename TS>
 __global__ void __launch_bounds__(THREADS, REBUILD_MIN_BLOCKS)
-lstmx_factors_kernel(const float* __restrict__ xs,
+lstmx_factors_kernel(const TS* __restrict__ xs,
                      const float* __restrict__ ys,
                      const float* __restrict__ h0,
                      const float* __restrict__ cs,
                      const float* __restrict__ c0,
                      const float* __restrict__ dys,
                      const float* __restrict__ mask,
-                     const float* __restrict__ W,
+                     const TS* __restrict__ W,
                      const float* __restrict__ bias,
-                     const float* __restrict__ U, float4* __restrict__ fac,
+                     const TS* __restrict__ U, float4* __restrict__ fac,
                      int* __restrict__ ready, int T, int B, int ND, int D,
                      int H, int CS, int UPC, int RB, int RB4, int GPD,
                      int ZKS, int C) {
@@ -140,9 +156,9 @@ lstmx_factors_kernel(const float* __restrict__ xs,
   const int dir = grp / GPD, gi = grp - dir * GPD;
   const int row0 = dir * B + gi * RB, nrows = min(RB, B - gi * RB);
   const int u0 = rank * UPC, nu = max(0, min(UPC, H - u0));
-  const float* Wd = W + (size_t)dir * D * G;
+  const TS* Wd = W + (size_t)dir * D * G;
   const float* bd = bias + (size_t)dir * G;
-  const float* Ud = U + (size_t)dir * H * G;
+  const TS* Ud = U + (size_t)dir * H * G;
   const int t0 = n * C, clen = min(C, T - t0);
   const int NQ = clen * RB4 / 4;
 
@@ -151,12 +167,13 @@ lstmx_factors_kernel(const float* __restrict__ xs,
   float* zbuf = stg + (size_t)max(D, H) * (C * RB4 + 4);
   CLK_START
 
-  stage_rows(stg, xs, nullptr, t0, clen, BS, row0, nrows, RB4, D);
+  stage_rows<TS, float>(stg, xs, nullptr, t0, clen, BS, row0, nrows, RB4,
+                        D);
   __syncthreads();
   CLK_MARK_AT(0, 0)
   chunk_product<PROD_QM>(stg, D, NQ, Wd, G, H, UPC, u0, nu, 1, bd, zbuf);
   __syncthreads();
-  stage_rows(stg, ys, h0, t0, clen, BS, row0, nrows, RB4, H);
+  stage_rows<float, TS>(stg, ys, h0, t0, clen, BS, row0, nrows, RB4, H);
   __syncthreads();
   CLK_MARK_AT(1, 0)
   chunk_product<PROD_QM>(stg, H, NQ, Ud, G, H, UPC, u0, nu, ZKS, nullptr,
@@ -231,11 +248,11 @@ __device__ __forceinline__ void wait_chunk(const int* ready, int n, int NG,
   __syncthreads();
 }
 
-template <int UT_MODE>
+template <typename TS, int UT_MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 lstmx_bwd_kernel(const float4* __restrict__ fac, const int* __restrict__ ready,
-                 const float* __restrict__ UT, const float* __restrict__ dhT,
-                 const float* __restrict__ dcT, float* __restrict__ dz,
+                 const TS* __restrict__ UT, const float* __restrict__ dhT,
+                 const float* __restrict__ dcT, TS* __restrict__ dz,
                  float* __restrict__ dh0, float* __restrict__ dc0, int T,
                  int B, int ND, int H, int UPC, int RB, int RB4, int GPD,
                  int KS2, int C) {
@@ -249,19 +266,20 @@ lstmx_bwd_kernel(const float4* __restrict__ fac, const int* __restrict__ ready,
   const int grp = blockIdx.x / CS;
   const Geo geo = block_geo(CS, rank, B, H, UPC, RB, GPD);
   const int u0 = geo.u0, nu = geo.nu, row0 = geo.row0, nrows = geo.nrows;
-  const float* UTd = UT + (size_t)geo.dir * G * H;
+  const TS* UTd = UT + (size_t)geo.dir * G * H;
 
   extern __shared__ float4 smem4[];
   float* dzbuf = reinterpret_cast<float*>(smem4);
   uint64_t* bars = reinterpret_cast<uint64_t*>(dzbuf + 2 * G * RB4);
-  float* UTs = dzbuf + 2 * G * RB4 + 4;
+  TS* UTs = reinterpret_cast<TS*>(dzbuf + 2 * G * RB4 + 4);
   const int ldu = G + KS2;
 
   for (int i = tid; i < 2 * G * RB4; i += THREADS) dzbuf[i] = 0.0f;
   if (UT_MODE == UT_SMEM) {
     for (int i = tid; i < G * UPC; i += THREADS) {
       const int j = i / UPC, u = i - j * UPC;
-      UTs[u * ldu + j] = u < nu ? UTd[(size_t)j * H + u0 + u] : 0.0f;
+      UTs[u * ldu + j] =
+          u < nu ? UTd[(size_t)j * H + u0 + u] : from_f32<TS>(0.0f);
     }
   }
   if (tid == 0 && CS > 1) {
@@ -288,7 +306,7 @@ lstmx_bwd_kernel(const float4* __restrict__ fac, const int* __restrict__ ready,
   // the lane's terms of dz @ U^T: j = ks, ks + KS2, ... (neighbouring lanes
   // read neighbouring dz rows: no bank conflict); a lane past the block's
   // units reads unit 0 of U^T's rows
-  const float* wp =
+  const TS* wp =
       UT_MODE == UT_SMEM ? UTs + u * ldu : UTd + u0 + (active ? u : 0);
   const size_t ldw = UT_MODE == UT_SMEM ? 1 : (size_t)H;
   float utr[UT_MODE == UT_REGS ? UT_REG : 1];
@@ -296,7 +314,7 @@ lstmx_bwd_kernel(const float4* __restrict__ fac, const int* __restrict__ ready,
 #pragma unroll
     for (int i = 0; i < UT_REG; ++i) {
       const int j = ks + i * KS2;
-      utr[i] = (j < G && active) ? wp[(size_t)j * ldw] : 0.0f;
+      utr[i] = (j < G && active) ? to_f32(wp[(size_t)j * ldw]) : 0.0f;
     }
   }
   // a step's factors, loaded one step ahead through L2 (the rebuild may
@@ -338,6 +356,9 @@ lstmx_bwd_kernel(const float4* __restrict__ fac, const int* __restrict__ ready,
       dzv[3][r] = dh_eff * at(f[1], r);
       dc[r] = dc_new * at(f[5], r) + (1.0f - m) * dc_in;
       skip[r] = (1.0f - m) * dh_tot;
+      // the value stored and carried into dh: dz rounded to TS once
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dzv[g][r] = round_to<TS>(dzv[g][r]);
     }
     // the four gate slices (four rows each) to every block; job j goes to
     // lane j % KS2 (indices stay compile-time, so dzv stays in registers)
@@ -366,7 +387,7 @@ lstmx_bwd_kernel(const float4* __restrict__ fac, const int* __restrict__ ready,
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           if (((4 * r + g) & (KS2 - 1)) == ks && rb + r < nrows)
-            dz[zb + (size_t)r * G + g * H] = dzv[g][r];
+            dz[zb + (size_t)r * G + g * H] = from_f32<TS>(dzv[g][r]);
         }
       }
     }
@@ -395,7 +416,7 @@ lstmx_bwd_kernel(const float4* __restrict__ fac, const int* __restrict__ ready,
         float4 dv[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          wv[q] = wp[(size_t)(j + q * KS2) * ldw];
+          wv[q] = to_f32(wp[(size_t)(j + q * KS2) * ldw]);
           dv[q] = *reinterpret_cast<const float4*>(dzc + (j + q * KS2) * RB4);
         }
 #pragma unroll
@@ -407,7 +428,7 @@ lstmx_bwd_kernel(const float4* __restrict__ fac, const int* __restrict__ ready,
         }
       }
       for (; j < G; j += KS2) {
-        const float wv = wp[(size_t)j * ldw];
+        const float wv = to_f32(wp[(size_t)j * ldw]);
         const float4 dv = *reinterpret_cast<const float4*>(dzc + j * RB4);
         a0 = fmaf(dv.x, wv, a0);
         a1 = fmaf(dv.y, wv, a1);
@@ -444,17 +465,17 @@ lstmx_bwd_kernel(const float4* __restrict__ fac, const int* __restrict__ ready,
   cluster.sync();
 }
 
-template <int UT_MODE>
+template <typename TS, int UT_MODE>
 static cudaError_t launch_chain(const float4* fac, const int* ready,
-                                const float* UT, const float* dhT,
-                                const float* dcT, float* dz, float* dh0,
+                                const TS* UT, const float* dhT,
+                                const float* dcT, TS* dz, float* dh0,
                                 float* dc0, int T, int B, int ND, int H,
                                 int CS, int UPC, int RB, int RB4, int GPD,
                                 int KS2, int C, size_t smem,
                                 cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      lstmx_bwd_kernel<UT_MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      lstmx_bwd_kernel<TS, UT_MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CS * GPD * ND, 1, 1);
@@ -468,25 +489,81 @@ static cudaError_t launch_chain(const float4* fac, const int* ready,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, lstmx_bwd_kernel<UT_MODE>, fac, ready, UT,
-                            dhT, dcT, dz, dh0, dc0, T, B, ND, H, UPC, RB, RB4,
-                            GPD, KS2, C);
+  return cudaLaunchKernelEx(&cfg, lstmx_bwd_kernel<TS, UT_MODE>, fac, ready,
+                            UT, dhT, dcT, dz, dh0, dc0, T, B, ND, H, UPC, RB,
+                            RB4, GPD, KS2, C);
 }
 
 // xs [T, ND*B, D]; ys, cs, dys [T, ND*B, H] (the forward's ys and cs);
 // h0, c0, dhT, dcT, dh0, dc0 [ND*B, H]; mask [T, ND*B] or null; W [ND, D,
 // 4H]; b [ND, 4H]; U [ND, H, 4H]; UT [ND, 4H, H] (U transposed); dz [T,
-// ND*B, 4H]; fac scratch of ops/cuda_lstmx.py::factor_floats floats
-// (16-byte aligned); ready ceil(T / C) * ND * GPD ints, zero. Plan
-// arguments as in lstmx_fwd_launch, ZKS being the forward's KS (the pieces
-// of h @ U), C the steps of a rebuild block, KS2 the lanes that share a
-// unit's dz @ U^T sum (a power of two, at most 32, KS2 * UPC * RB4 / 4 <=
-// 256), ut_mode where U^T's slice lives (0 the lanes' registers: 4H / KS2 <=
-// 64; 1 shared memory; 2 read through L2). The rebuild runs on
-// rebuild_stream and the chain on stream: two streams let the chain start
-// on the chunks already rebuilt (the caller orders both after the inputs and
-// the rest after both, and passes one stream when the chain's blocks would
-// leave the rebuild no SM).
+// ND*B, 4H]; xs, W, U, UT and dz are TS (float, or __nv_bfloat16 in
+// lstmx_bwd_bf16_launch), the rest float; fac scratch of
+// ops/cuda_lstmx.py::factor_floats floats (16-byte aligned); ready
+// ceil(T / C) * ND * GPD ints, zero. Plan arguments as in lstmx_fwd_launch,
+// ZKS being the forward's KS (the pieces of h @ U), C the steps of a
+// rebuild block, KS2 the lanes that share a unit's dz @ U^T sum (a power of
+// two, at most 32, KS2 * UPC * RB4 / 4 <= 256), ut_mode where U^T's slice
+// lives (0 the lanes' registers: 4H / KS2 <= 64; 1 shared memory; 2 read
+// through L2). The rebuild runs on rebuild_stream and the chain on stream:
+// two streams let the chain start on the chunks already rebuilt (the caller
+// orders both after the inputs and the rest after both, and passes one
+// stream when the chain's blocks would leave the rebuild no SM).
+template <typename TS>
+static int launch_form(const void* xs, const void* ys, const void* h0,
+                       const void* cs, const void* c0, const void* dys,
+                       const void* mask, const void* W, const void* b,
+                       const void* U, const void* UT, const void* dhT,
+                       const void* dcT, void* dz, void* dh0, void* dc0,
+                       void* fac, void* ready, int T, int B, int ND, int D,
+                       int H, int CS, int UPC, int RB, int RB4, int GPD,
+                       int ZKS, int KS2, int C, int ut_mode,
+                       void* rebuild_stream, void* stream) {
+  if (T < 1 || B < 1 || ND < 1 || ND > 2 || D < 1 || H < 1 || CS < 1 ||
+      CS > MAX_CLUSTER || UPC < 1 || (CS - 1) * UPC >= H || CS * UPC < H ||
+      RB < 1 || RB4 < RB || RB4 % 4 != 0 || GPD < 1 || GPD * RB < B ||
+      (GPD - 1) * RB >= B || ZKS < 1 || KS2 < 1 || KS2 > 32 ||
+      (KS2 & (KS2 - 1)) != 0 || KS2 * UPC * (RB4 / 4) > THREADS || C < 1 ||
+      ut_mode < UT_REGS || ut_mode > UT_L2 ||
+      (ut_mode == UT_REGS && (4 * H + KS2 - 1) / KS2 > UT_REG))
+    return (int)cudaErrorInvalidValue;
+  const size_t fsmem = sizeof(float) * factors_smem_floats(H, D, UPC, RB4, C);
+  const size_t smem = bwd_smem_bytes(H, UPC, RB4, KS2, ut_mode, sizeof(TS));
+  if (fsmem > MAX_SMEM_BYTES || smem > MAX_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      lstmx_factors_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)fsmem);
+  if (e != cudaSuccess) return (int)e;
+  const int nchunks = (T + C - 1) / C;
+  lstmx_factors_kernel<TS><<<nchunks * ND * GPD * CS, THREADS, fsmem,
+                             (cudaStream_t)rebuild_stream>>>(
+      (const TS*)xs, (const float*)ys, (const float*)h0, (const float*)cs,
+      (const float*)c0, (const float*)dys, (const float*)mask, (const TS*)W,
+      (const float*)b, (const TS*)U, (float4*)fac, (int*)ready, T, B, ND, D,
+      H, CS, UPC, RB, RB4, GPD, ZKS, C);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const float4* f = (const float4*)fac;
+  const int* r = (const int*)ready;
+  const TS* ut = (const TS*)UT;
+  const float *dh = (const float*)dhT, *dc = (const float*)dcT;
+  TS* z = (TS*)dz;
+  float *h0o = (float*)dh0, *c0o = (float*)dc0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (ut_mode == UT_REGS)
+    e = launch_chain<TS, UT_REGS>(f, r, ut, dh, dc, z, h0o, c0o, T, B, ND, H,
+                                  CS, UPC, RB, RB4, GPD, KS2, C, smem, st);
+  else if (ut_mode == UT_SMEM)
+    e = launch_chain<TS, UT_SMEM>(f, r, ut, dh, dc, z, h0o, c0o, T, B, ND, H,
+                                  CS, UPC, RB, RB4, GPD, KS2, C, smem, st);
+  else
+    e = launch_chain<TS, UT_L2>(f, r, ut, dh, dc, z, h0o, c0o, T, B, ND, H,
+                                CS, UPC, RB, RB4, GPD, KS2, C, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 extern "C" int lstmx_bwd_launch(const void* xs, const void* ys,
                                 const void* h0, const void* cs,
                                 const void* c0, const void* dys,
@@ -498,49 +575,22 @@ extern "C" int lstmx_bwd_launch(const void* xs, const void* ys,
                                 int RB, int RB4, int GPD, int ZKS, int KS2,
                                 int C, int ut_mode, void* rebuild_stream,
                                 void* stream) {
-  if (T < 1 || B < 1 || ND < 1 || ND > 2 || D < 1 || H < 1 || CS < 1 ||
-      CS > MAX_CLUSTER || UPC < 1 || (CS - 1) * UPC >= H || CS * UPC < H ||
-      RB < 1 || RB4 < RB || RB4 % 4 != 0 || GPD < 1 || GPD * RB < B ||
-      (GPD - 1) * RB >= B || ZKS < 1 || KS2 < 1 || KS2 > 32 ||
-      (KS2 & (KS2 - 1)) != 0 || KS2 * UPC * (RB4 / 4) > THREADS || C < 1 ||
-      ut_mode < UT_REGS || ut_mode > UT_L2 ||
-      (ut_mode == UT_REGS && (4 * H + KS2 - 1) / KS2 > UT_REG))
-    return (int)cudaErrorInvalidValue;
-  const size_t fsmem = sizeof(float) * factors_smem_floats(H, D, UPC, RB4, C);
-  const size_t smem =
-      sizeof(float) * bwd_smem_floats(H, UPC, RB4, KS2, ut_mode);
-  if (fsmem > MAX_SMEM_BYTES || smem > MAX_SMEM_BYTES)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      lstmx_factors_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)fsmem);
-  if (e != cudaSuccess) return (int)e;
-  const int nchunks = (T + C - 1) / C;
-  lstmx_factors_kernel<<<nchunks * ND * GPD * CS, THREADS, fsmem,
-                         (cudaStream_t)rebuild_stream>>>(
-      (const float*)xs, (const float*)ys, (const float*)h0, (const float*)cs,
-      (const float*)c0, (const float*)dys, (const float*)mask,
-      (const float*)W, (const float*)b, (const float*)U, (float4*)fac,
-      (int*)ready, T, B, ND, D, H, CS, UPC, RB, RB4, GPD, ZKS, C);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const float4* f = (const float4*)fac;
-  const int* r = (const int*)ready;
-  if (ut_mode == UT_REGS)
-    e = launch_chain<UT_REGS>(f, r, (const float*)UT, (const float*)dhT,
-                              (const float*)dcT, (float*)dz, (float*)dh0,
-                              (float*)dc0, T, B, ND, H, CS, UPC, RB, RB4, GPD,
-                              KS2, C, smem, (cudaStream_t)stream);
-  else if (ut_mode == UT_SMEM)
-    e = launch_chain<UT_SMEM>(f, r, (const float*)UT, (const float*)dhT,
-                              (const float*)dcT, (float*)dz, (float*)dh0,
-                              (float*)dc0, T, B, ND, H, CS, UPC, RB, RB4, GPD,
-                              KS2, C, smem, (cudaStream_t)stream);
-  else
-    e = launch_chain<UT_L2>(f, r, (const float*)UT, (const float*)dhT,
-                            (const float*)dcT, (float*)dz, (float*)dh0,
-                            (float*)dc0, T, B, ND, H, CS, UPC, RB, RB4, GPD,
-                            KS2, C, smem, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_form<float>(xs, ys, h0, cs, c0, dys, mask, W, b, U, UT, dhT,
+                            dcT, dz, dh0, dc0, fac, ready, T, B, ND, D, H, CS,
+                            UPC, RB, RB4, GPD, ZKS, KS2, C, ut_mode,
+                            rebuild_stream, stream);
+}
+
+extern "C" int lstmx_bwd_bf16_launch(
+    const void* xs, const void* ys, const void* h0, const void* cs,
+    const void* c0, const void* dys, const void* mask, const void* W,
+    const void* b, const void* U, const void* UT, const void* dhT,
+    const void* dcT, void* dz, void* dh0, void* dc0, void* fac, void* ready,
+    int T, int B, int ND, int D, int H, int CS, int UPC, int RB, int RB4,
+    int GPD, int ZKS, int KS2, int C, int ut_mode, void* rebuild_stream,
+    void* stream) {
+  return launch_form<__nv_bfloat16>(xs, ys, h0, cs, c0, dys, mask, W, b, U,
+                                    UT, dhT, dcT, dz, dh0, dc0, fac, ready, T,
+                                    B, ND, D, H, CS, UPC, RB, RB4, GPD, ZKS,
+                                    KS2, C, ut_mode, rebuild_stream, stream);
 }

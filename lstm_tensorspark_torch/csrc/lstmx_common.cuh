@@ -1,6 +1,9 @@
 // Pieces shared by lstmx_fwd.cu and lstmx_bwd.cu, the "residentx" LSTM
 // recurrence kernels (the input projection computed by the pair itself, z
-// recomputed in the backward), for Hopper (sm_90a), float32.
+// recomputed in the backward), for Hopper (sm_90a), float32, with the
+// bfloat16 forms' loads (stream_dtype.cuh): an operand of element type TS is
+// converted to float where it is loaded, so every product below is a float
+// FMA and both kernels still take the same sums in the same order.
 //
 // Both kernels cut the work the same way: a cluster of CS blocks owns a group
 // of RB rows of one direction; block k of the cluster owns hidden units
@@ -27,6 +30,7 @@
 #include <math.h>
 
 #include "cluster_common.cuh"
+#include "stream_dtype.cuh"
 
 #define THREADS 256
 #define MAX_CLUSTER 8
@@ -58,16 +62,20 @@ __device__ __forceinline__ Geo block_geo(int CS, int rank, int B, int H,
   return g;
 }
 
-// Stage clen steps of the group's rows of src [T][BS][K] transposed into
+// Stage clen steps of the group's rows of src [T][BS][K] (element type TSRC,
+// each value rounded to TR's precision: the bfloat16 backward stages its
+// float32 h_prev rounded to bfloat16, as the forward's product reads it)
+// transposed into
 // dst [K][lda] (dst[k*lda + c*RB4 + r]), zeros for rows past nrows, where
 // lda = clen*RB4 + 4: the pad keeps float4 rows aligned and spreads a
 // warp's stores (8 values of k times 4 of c*RB4 + r) over all 32 banks.
 // With `first` set, step t reads src's step t - 1 and step 0 reads first
 // [BS][K] (h_prev from the forward's ys and h0). Each thread keeps SB loads
 // in flight before it stores.
+template <typename TSRC, typename TR>
 __device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ src,
-                                           const float* __restrict__ first,
+                                           const TSRC* __restrict__ src,
+                                           const TSRC* __restrict__ first,
                                            int t0, int clen, int BS, int row0,
                                            int nrows, int RB4, int K) {
   const int W = clen * RB4, lda = W + 4;
@@ -87,10 +95,11 @@ __device__ __forceinline__ void stage_rows(float* dst,
         const int t = t0 + c;
         const size_t row = (size_t)(row0 + r);
         if (first == nullptr)
-          v[q] = src[((size_t)t * BS + row) * K + k];
+          v[q] = to_f32(src[((size_t)t * BS + row) * K + k]);
         else
-          v[q] = t > 0 ? src[((size_t)(t - 1) * BS + row) * K + k]
-                       : first[row * K + k];
+          v[q] = to_f32(t > 0 ? src[((size_t)(t - 1) * BS + row) * K + k]
+                              : first[row * K + k]);
+        v[q] = round_to<TR>(v[q]);
       }
     }
 #pragma unroll
@@ -104,11 +113,12 @@ __device__ __forceinline__ void stage_rows(float* dst,
   }
 }
 
+template <typename TW>
 __device__ __forceinline__ void load_w(float (&w)[KB],
-                                       const float* __restrict__ wp, int k,
+                                       const TW* __restrict__ wp, int k,
                                        int ldw) {
 #pragma unroll
-  for (int q = 0; q < KB; ++q) w[q] = __ldg(wp + (size_t)(k + q) * ldw);
+  for (int q = 0; q < KB; ++q) w[q] = ld_stream(wp + (size_t)(k + q) * ldw);
 }
 
 // acc[j] += A[k + q][q0 + j] * w[q] for q = 0 .. KB-1 in order
@@ -138,10 +148,11 @@ __device__ __forceinline__ void fma_w(float4 (&acc)[QM], const float (&w)[KB],
 // with the sum in KS pieces as described at the top. The addend is
 // bias[col] when `bias` is given, else the value out holds already. Each
 // output is summed whole by one thread; how items spread over threads does
-// not change any bit. An item holds up to QM float4 accumulators.
-template <int QM = QMAX>
+// not change any bit. An item holds up to QM float4 accumulators. Wd's
+// elements are TW (float, or bfloat16 in the bfloat16 forms).
+template <int QM = QMAX, typename TW>
 __device__ __forceinline__ void chunk_product(
-    const float* A, int K, int NQ, const float* __restrict__ Wd, int ldw,
+    const float* A, int K, int NQ, const TW* __restrict__ Wd, int ldw,
     int H, int UPC, int u0, int nu, int KS, const float* __restrict__ bias,
     float* out) {
   const int NC = 4 * UPC;
@@ -159,7 +170,7 @@ __device__ __forceinline__ void chunk_product(
     const int nq = min(Qc, NQ - q0);
     if (u >= nu || nq <= 0) continue;
     const int col = g * H + u0 + u;
-    const float* wp = Wd + col;
+    const TW* wp = Wd + col;
     float4 tot[QM];
     for (int ks = 0; ks < KS; ++ks) {
       const int k0 = ks * Kc, k1 = min(K, k0 + Kc);
@@ -185,7 +196,7 @@ __device__ __forceinline__ void chunk_product(
         if (!na) break;
       }
       for (; k < k1; ++k) {
-        const float wv = __ldg(wp + (size_t)k * ldw);
+        const float wv = ld_stream(wp + (size_t)k * ldw);
         const float4* ar = A4 + (size_t)k * lda4 + q0;
 #pragma unroll
         for (int j = 0; j < QM; ++j) {

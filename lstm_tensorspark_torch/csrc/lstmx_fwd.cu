@@ -1,5 +1,5 @@
 // Forward recurrence of the "residentx" LSTM kernels, one or two directions,
-// for Hopper (sm_90a), float32.
+// for Hopper (sm_90a), in two forms: float32, and bfloat16 (below).
 //
 // Replaces lstm_tensorspark_tpu/ops/pallas_lstm.py::_lstm_fwdx_kernel (one
 // direction, ND = 1) and ops/pallas_bilstm.py::_bi_fwdx_kernel (both
@@ -50,7 +50,17 @@
 //     (cluster_common.cuh).
 // Math is expf / tanhf with float32 accumulation (no fast-math intrinsics).
 //
-// Plain C interface for ctypes: lstmx_fwd_launch returns the CUDA error code
+// The bfloat16 form (TS = __nv_bfloat16, JAX's _lstm_fwdx_kernel /
+// _bi_fwdx_kernel under bf16 compute) reads xs, W and U as bfloat16 and
+// converts them on load (U's slice, and the 8-row chain's second columns,
+// sit in shared memory as bfloat16). The projection zx is summed and kept in
+// float32 (JAX keeps it as a float32 value in VMEM and never rounds it). The
+// h buffers hold h rounded to bfloat16, their only reader being the product;
+// each (unit, row) item keeps its float32 h in shared memory (hown) for the
+// mask blend and hT. The gates, c, ys and cs stay float32.
+//
+// Plain C interface for ctypes: lstmx_fwd_launch (float32) and
+// lstmx_fwd_bf16_launch (bfloat16) return the CUDA error code
 // (0 = success). It allocates nothing (the zx stream and its counts are
 // scratch the caller passes) and does not synchronise; it runs on the
 // streams it is given.
@@ -89,8 +99,10 @@ __host__ __device__ __forceinline__ size_t zx_index(int t, int grp, int u,
 // unit * 4 + gate). Thread (tm, tn) = (tid / 16, tid % 16) sums rows 4tm ..
 // 4tm+3 of units tn and 16 + tn: one fmaf chain over k from 0 per output,
 // then the bias, as chunk_product does (zero inputs past D add nothing).
+// xs and W are TS, converted to float as they are loaded.
+template <typename TS>
 __global__ void __launch_bounds__(THREADS)
-lstmx_proj_kernel(const float* __restrict__ xs, const float* __restrict__ W,
+lstmx_proj_kernel(const TS* __restrict__ xs, const TS* __restrict__ W,
                   const float* __restrict__ bias, float4* __restrict__ zx,
                   int* __restrict__ ready, int T, int B, int ND, int D, int H,
                   int RB, int RB4, int GPD, int C) {
@@ -106,7 +118,7 @@ lstmx_proj_kernel(const float* __restrict__ xs, const float* __restrict__ W,
   const int row0 = dir * B + gi * RB, nrows = min(RB, B - gi * RB);
   const int t0 = n * C, clen = min(C, T - t0);
   const int uo = ut * PROJ_UNITS;
-  const float* Wd = W + (size_t)dir * D * G;
+  const TS* Wd = W + (size_t)dir * D * G;
   const float* bd = bias + (size_t)dir * G;
   CLK_START
 
@@ -114,7 +126,7 @@ lstmx_proj_kernel(const float* __restrict__ xs, const float* __restrict__ W,
   // of the slab (i = tid + s * THREADS: a half-warp reads 16 neighbouring
   // k of a row); weight element s is k = i / 128 and column i % 128, gate
   // (i % 128) / 32 and unit i % 32 (a warp reads 32 neighbouring units)
-  const float* arow[4];
+  const TS* arow[4];
   int acol[4];
   bool aok[4];
 #pragma unroll
@@ -126,7 +138,7 @@ lstmx_proj_kernel(const float* __restrict__ xs, const float* __restrict__ W,
                     (aok[s] ? r : 0)) * D;
     acol[s] = i & 15;
   }
-  const float* bcol[8];
+  const TS* bcol[8];
   bool bok[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
@@ -140,12 +152,12 @@ lstmx_proj_kernel(const float* __restrict__ xs, const float* __restrict__ W,
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       const int k = k0 + acol[s];
-      ra[s] = aok[s] && k < D ? __ldg(arow[s] + k) : 0.0f;
+      ra[s] = aok[s] && k < D ? ld_stream(arow[s] + k) : 0.0f;
     }
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       const int k = k0 + ((tid + s * THREADS) >> 7);
-      rw[s] = bok[s] && k < D ? __ldg(bcol[s] + (size_t)k * G) : 0.0f;
+      rw[s] = bok[s] && k < D ? ld_stream(bcol[s] + (size_t)k * G) : 0.0f;
     }
   };
   auto store = [&](int buf) {
@@ -217,7 +229,7 @@ lstmx_proj_kernel(const float* __restrict__ xs, const float* __restrict__ W,
   CLK_MARK_AT(1, 0)
 }
 
-// The chain's shared memory, in floats (every piece a multiple of 4):
+// The chain's shared memory (every float piece a multiple of 4 floats):
 //   hbuf [2][H+HPAD][RB4]  h of every unit for the group's rows, transposed
 //                          so four rows load as one float4; double-buffered;
 //                          HPAD = KREG_MAX zero rows under U_REGS, else 0
@@ -225,19 +237,25 @@ lstmx_proj_kernel(const float* __restrict__ xs, const float* __restrict__ W,
 //                          (NCP = NC rounded up to a warp), rounded up to 4
 //   zxb  [2][UPC*RB4][4]   the step's zx of the block's (unit, row) items
 //   cown [UPC*RB4]         c of those items
+//   hown [UPC*RB4]         their float32 h (the bfloat16 form only)
 //   mskb [2][RB4]          the step's mask
 //   bars 2 mbarriers       one per h buffer (4 floats)
-//   Us   [H][NCP]          the block's slice of U_d (U_SMEM only)
-//   UB   [KS][KREG_MAX][UB_PAIRS] U_REGS with RB4 = 8: the second column
-//                          of each thread's pair, a piece's terms then zeros
-static size_t chain_smem_floats(int H, int UPC, int RB4, int KS, int umode) {
+//   Us   [H][NCP]          TS: the block's slice of U_d (U_SMEM only)
+//   UB   [KS][KREG_MAX][UB_PAIRS] TS: U_REGS with RB4 = 8, the second
+//                          column of each thread's pair, a piece's terms
+//                          then zeros
+// in bytes, the TS pieces at esize bytes an element
+static size_t chain_smem_bytes(int H, int UPC, int RB4, int KS, int umode,
+                               size_t esize) {
   const size_t NCP = (4 * (size_t)UPC + 31) / 32 * 32;
   size_t n = 2 * (size_t)(H + (umode == U_REGS ? KREG_MAX : 0)) * RB4;
   n += (KS * NCP * (RB4 + 1) + 3) / 4 * 4;
   n += 9 * (size_t)UPC * RB4 + 2 * (size_t)RB4 + 4;
-  if (umode == U_SMEM) n += (size_t)H * NCP;
-  if (umode == U_REGS && RB4 == 8) n += (size_t)KS * KREG_MAX * UB_PAIRS;
-  return n;
+  if (esize != sizeof(float)) n += (size_t)UPC * RB4;
+  size_t w = 0;
+  if (umode == U_SMEM) w = (size_t)H * NCP;
+  if (umode == U_REGS && RB4 == 8) w = (size_t)KS * KREG_MAX * UB_PAIRS;
+  return sizeof(float) * n + esize * w;
 }
 
 // cp.async of step t's zx for the block's items, and of its mask, into
@@ -261,10 +279,10 @@ __device__ __forceinline__ void copy_step(float* zxb, float* mskb,
               mask + (size_t)t * BS + row0 + threadIdx.x);
 }
 
-template <int UMODE, int KR, int RQ>
+template <typename TS, int UMODE, int KR, int RQ>
 __global__ void __launch_bounds__(THREADS, 1)
 lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
-                 const float* __restrict__ U, const float* __restrict__ h0,
+                 const TS* __restrict__ U, const float* __restrict__ h0,
                  const float* __restrict__ c0, const float* __restrict__ mask,
                  float* __restrict__ ys, float* __restrict__ hT,
                  float* __restrict__ cT, float* __restrict__ cs_out, int T,
@@ -272,6 +290,7 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
                  int C) {
   constexpr int RB4 = 4 * RQ;
   constexpr int RS = RB4 + 1;  // a column's rows in red: no bank conflict
+  constexpr bool F32 = sizeof(TS) == sizeof(float);
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -282,7 +301,7 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
   const int items = UPC * RB4;
   const Geo geo = block_geo(CS, rank, B, H, UPC, RB, GPD);
   const int u0 = geo.u0, nu = geo.nu, row0 = geo.row0, nrows = geo.nrows;
-  const float* Ud = U + (size_t)geo.dir * H * G;
+  const TS* Ud = U + (size_t)geo.dir * H * G;
   // floats of an h buffer: a U_REGS thread reads up to KREG_MAX terms past
   // its piece's start unguarded (zero rows past H)
   const int HS = (H + (UMODE == U_REGS ? KREG_MAX : 0)) * RB4;
@@ -292,19 +311,24 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
   float* red = hbuf + 2 * HS;
   float* zxb = red + (KS * NCP * RS + 3) / 4 * 4;
   float* cown = zxb + 8 * items;
-  float* mskb = cown + items;
+  float* hown = cown + items;  // the bfloat16 form
+  float* mskb = hown + (F32 ? 0 : items);
   uint64_t* bars = reinterpret_cast<uint64_t*>(mskb + 2 * RB4);
-  float* Us = mskb + 2 * RB4 + 4;  // U_SMEM
-  float* UB = Us;                  // U_REGS with two row quads
+  TS* Us = reinterpret_cast<TS*>(mskb + 2 * RB4 + 4);  // U_SMEM
+  TS* UB = Us;  // U_REGS with two row quads
 
   for (int i = tid; i < 2 * HS; i += THREADS) {
     const int d = i / RB4, r = i - d * RB4;
-    hbuf[i] = d < H && r < nrows ? h0[(size_t)(row0 + r) * H + d] : 0.0f;
+    hbuf[i] = d < H && r < nrows
+                  ? round_to<TS>(h0[(size_t)(row0 + r) * H + d])
+                  : 0.0f;
   }
   for (int i = tid; i < items; i += THREADS) {
     const int u = i / RB4, r = i - u * RB4;
-    cown[i] = (r < nrows && u < nu) ? c0[(size_t)(row0 + r) * H + u0 + u]
-                                    : 0.0f;
+    const bool ok = r < nrows && u < nu;
+    const size_t o = (size_t)(row0 + r) * H + u0 + u;
+    cown[i] = ok ? c0[o] : 0.0f;
+    if (!F32) hown[i] = ok ? h0[o] : 0.0f;
   }
   // rows past the group's stay frozen (mask 0) at their zero carries
   if (tid < 2 * RB4) mskb[tid] = mask != nullptr ? 0.0f : 1.0f;
@@ -312,7 +336,8 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
     for (int i = tid; i < H * NCP; i += THREADS) {
       const int d = i / NCP, lc = i - d * NCP;
       const int g = lc / UPC, u = lc - g * UPC;
-      Us[i] = (lc < NC && u < nu) ? Ud[(size_t)d * G + g * H + u0 + u] : 0.0f;
+      Us[i] = (lc < NC && u < nu) ? Ud[(size_t)d * G + g * H + u0 + u]
+                                  : from_f32<TS>(0.0f);
     }
   }
   if (tid == 0) {  // one arrival a phase: the expected bytes
@@ -341,7 +366,7 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
     const bool ok = live && u < nu;
 #pragma unroll
     for (int k = 0; k < KR; ++k)
-      ureg[k] = ok && k < kn ? Ud[(size_t)(d0 + k) * G + g * H + u0 + u]
+      ureg[k] = ok && k < kn ? to_f32(Ud[(size_t)(d0 + k) * G + g * H + u0 + u])
                              : 0.0f;
     if (RQ == 2) {
       for (int i = tid; i < KS * KREG_MAX * NQ; i += THREADS) {
@@ -350,7 +375,7 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
         const int d = pp * Kc + k;
         UB[i] = lb < NC && ub < nu && k < Kc && d < H
                     ? Ud[(size_t)d * G + gb * H + u0 + ub]
-                    : 0.0f;
+                    : from_f32<TS>(0.0f);
       }
     }
   }
@@ -378,7 +403,7 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
 #pragma unroll
           for (int r = 0; r < 4; ++r) acc[e][r] = 0.0f;
         const float* hp = hcur + d0 * RB4 + 4 * q;
-        const float* ub = UB + p * KREG_MAX * NQ + j;
+        const TS* ub = UB + p * KREG_MAX * NQ + j;
         // KBH terms' loads, then their products: loads hoisted further
         // ahead spilled the registers U needs
         constexpr int KBH = KB_H / RQ;
@@ -391,7 +416,7 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
             // past the piece the weights are 0 and h finite (another
             // piece's or the zero rows past H): no change, and no guard
             hv[kk] = *reinterpret_cast<const float4*>(hp + (k0 + kk) * RB4);
-            if (RQ == 2) wb[kk] = ub[(k0 + kk) * NQ];
+            if (RQ == 2) wb[kk] = to_f32(ub[(k0 + kk) * NQ]);
           }
 #pragma unroll
           for (int kk = 0; kk < KBH; ++kk) {
@@ -419,13 +444,14 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
         const int g = wl / UPC, u = wl - g * UPC;
         if (wl >= NC || u >= nu) continue;
         const int e0 = wpc * Kc, e1 = min(H, e0 + Kc);
-        const float* wp = UMODE == U_SMEM ? Us + wl : Ud + g * H + u0 + u;
+        const TS* wp = UMODE == U_SMEM ? Us + wl : Ud + g * H + u0 + u;
         const size_t ldw = UMODE == U_SMEM ? (size_t)NCP : (size_t)G;
         float acc[RB4];
 #pragma unroll
         for (int r = 0; r < RB4; ++r) acc[r] = 0.0f;
         for (int d = e0; d < e1; ++d) {
-          const float wv = UMODE == U_SMEM ? wp[d * ldw] : __ldg(wp + d * ldw);
+          const float wv =
+              UMODE == U_SMEM ? to_f32(wp[d * ldw]) : ld_stream(wp + d * ldw);
           const float4* hk = reinterpret_cast<const float4*>(hcur + d * RB4);
 #pragma unroll
           for (int q = 0; q < RQ; ++q) {
@@ -476,21 +502,24 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
         h_new = og * tanhf(c_new);
         if (mask != nullptr) {
           const float m = mskb[cur * RB4 + r];
-          const float h_old = hcur[(u0 + u) * RB4 + r];
+          const float h_old = F32 ? hcur[(u0 + u) * RB4 + r] : hown[i];
           c_new = m * c_new + (1.0f - m) * c_old;
           h_new = m * h_new + (1.0f - m) * h_old;
         }
         cown[i] = c_new;
+        if (!F32) hown[i] = h_new;
         if (r < nrows) {
           const size_t ob = ((size_t)t * BS + row0 + r) * H + u0 + u;
           ys[ob] = h_new;
           if (cs_out != nullptr) cs_out[ob] = c_new;
         }
       }
+      // what the next product reads: h rounded to TS
+      const float h_out = round_to<TS>(h_new);
       float hv[RB4];
 #pragma unroll
       for (int q = 0; q < RB4; ++q)
-        hv[q] = __shfl_sync(0xffffffffu, h_new, q, RB4);
+        hv[q] = __shfl_sync(0xffffffffu, h_out, q, RB4);
       if (act) {
         for (int k = r; k < CS; k += RB4) {
 #pragma unroll
@@ -523,7 +552,7 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
     const int u = i / RB4, r = i - u * RB4;
     if (u < nu && r < nrows) {
       const size_t ob = (size_t)(row0 + r) * H + u0 + u;
-      hT[ob] = hfin[(u0 + u) * RB4 + r];
+      hT[ob] = F32 ? hfin[(u0 + u) * RB4 + r] : hown[i];
       cT[ob] = cown[i];
     }
   }
@@ -531,72 +560,72 @@ lstmx_fwd_kernel(const float4* __restrict__ zx, const int* __restrict__ ready,
   cluster.sync();
 }
 
-template <int UMODE, int KR, int RQ>
-static cudaError_t launch_chain(const float4* zx, const int* ready,
-                                const float* U, const float* h0,
-                                const float* c0, const float* mask, float* ys,
-                                float* hT, float* cT, float* cs, int T, int B,
-                                int ND, int H, int CS, int UPC, int RB,
-                                int GPD, int KS, int C, cudaStream_t stream) {
+// The chain's arguments past its template choice
+struct ChainArgs {
+  const float4* zx;
+  const int* ready;
+  const float *h0, *c0, *mask;
+  float *ys, *hT, *cT, *cs;
+  int T, B, ND, H, CS, UPC, RB, GPD, KS, C;
+};
+
+template <typename TS, int UMODE, int KR, int RQ>
+static cudaError_t launch_chain(const TS* U, const ChainArgs& a,
+                                cudaStream_t stream) {
   // the whole SM's shared memory: no other block (a projection block) runs
   // beside a chain block
   cudaError_t e = cudaFuncSetAttribute(
-      lstmx_fwd_kernel<UMODE, KR, RQ>,
+      lstmx_fwd_kernel<TS, UMODE, KR, RQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM_BYTES);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CS * GPD * ND, 1, 1);
+  cfg.gridDim = dim3(a.CS * a.GPD * a.ND, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = MAX_SMEM_BYTES;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.x = a.CS;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, lstmx_fwd_kernel<UMODE, KR, RQ>, zx, ready,
-                            U, h0, c0, mask, ys, hT, cT, cs, T, B, ND, H, UPC,
-                            RB, GPD, KS, C);
+  return cudaLaunchKernelEx(&cfg, lstmx_fwd_kernel<TS, UMODE, KR, RQ>, a.zx,
+                            a.ready, U, a.h0, a.c0, a.mask, a.ys, a.hT, a.cT,
+                            a.cs, a.T, a.B, a.ND, a.H, a.UPC, a.RB, a.GPD,
+                            a.KS, a.C);
 }
 
-template <int UMODE, int KR>
-static cudaError_t launch_rows(int RQ, const float4* zx, const int* ready,
-                               const float* U, const float* h0,
-                               const float* c0, const float* mask, float* ys,
-                               float* hT, float* cT, float* cs, int T, int B,
-                               int ND, int H, int CS, int UPC, int RB, int GPD,
-                               int KS, int C, cudaStream_t stream) {
-  if (RQ == 1)
-    return launch_chain<UMODE, KR, 1>(zx, ready, U, h0, c0, mask, ys, hT, cT,
-                                      cs, T, B, ND, H, CS, UPC, RB, GPD, KS,
-                                      C, stream);
-  return launch_chain<UMODE, KR, 2>(zx, ready, U, h0, c0, mask, ys, hT, cT,
-                                    cs, T, B, ND, H, CS, UPC, RB, GPD, KS, C,
-                                    stream);
+template <typename TS, int UMODE, int KR>
+static cudaError_t launch_rows(int RQ, const TS* U, const ChainArgs& a,
+                               cudaStream_t stream) {
+  if (RQ == 1) return launch_chain<TS, UMODE, KR, 1>(U, a, stream);
+  return launch_chain<TS, UMODE, KR, 2>(U, a, stream);
 }
 
 // xs [T, ND*B, D]; W [ND, D, 4H]; b [ND, 4H]; U [ND, H, 4H]; h0, c0, hT, cT
 // [ND*B, H]; mask [T, ND*B] or null; ys and cs [T, ND*B, H], cs may be null;
 // zx scratch of T * ND * GPD * H * RB4 float4s (16-byte aligned); ready
-// ceil(T / C) * ND * GPD ints, zero. Plan arguments (ops/cuda_lstmx.py::
-// plan): CS blocks per cluster, UPC hidden units per block, RB rows per
-// cluster (RB4 = RB rounded up to 4, 4 or 8), GPD row groups per direction,
-// KS pieces of the h @ U sum, C steps per projection chunk (C * RB4 = 64),
-// umode where U's slice lives (0 the threads' registers: ceil(H / KS) <=
-// 128, and with RB4 = 8 NC <= 128; 1 shared memory; 2 read through L2). The projection runs on proj_stream and the
+// ceil(T / C) * ND * GPD ints, zero. xs, W and U are TS (float, or
+// __nv_bfloat16 in lstmx_fwd_bf16_launch), the rest float. Plan arguments
+// (ops/cuda_lstmx.py::plan): CS blocks per cluster, UPC hidden units per
+// block, RB rows per cluster (RB4 = RB rounded up to 4, 4 or 8), GPD row
+// groups per direction, KS pieces of the h @ U sum, C steps per projection
+// chunk (C * RB4 = 64), umode where U's slice lives (0 the threads'
+// registers: ceil(H / KS) <= 128, and with RB4 = 8 NC <= 128; 1 shared
+// memory; 2 read through L2). The projection runs on proj_stream and the
 // chain on stream: two streams let the chain start on the chunks already
 // projected (the caller orders both after the inputs and the rest after
 // both, and passes one stream when the chain's blocks would leave the
 // projection too few SMs).
-extern "C" int lstmx_fwd_launch(const void* xs, const void* W, const void* b,
-                                const void* U, const void* h0, const void* c0,
-                                const void* mask, void* ys, void* hT, void* cT,
-                                void* cs, void* zx, void* ready, int T, int B,
-                                int ND, int D, int H, int CS, int UPC, int RB,
-                                int RB4, int GPD, int KS, int C, int umode,
-                                void* proj_stream, void* stream) {
+template <typename TS>
+static int launch_form(const void* xs, const void* W, const void* b,
+                       const void* U, const void* h0, const void* c0,
+                       const void* mask, void* ys, void* hT, void* cT,
+                       void* cs, void* zx, void* ready, int T, int B, int ND,
+                       int D, int H, int CS, int UPC, int RB, int RB4,
+                       int GPD, int KS, int C, int umode, void* proj_stream,
+                       void* stream) {
   if (T < 1 || B < 1 || ND < 1 || ND > 2 || D < 1 || H < 1 || CS < 1 ||
       CS > MAX_CLUSTER || UPC < 1 || (CS - 1) * UPC >= H || CS * UPC < H ||
       RB < 1 || RB4 < RB || (RB4 != 4 && RB4 != MAX_RB4) || GPD < 1 ||
@@ -609,41 +638,61 @@ extern "C" int lstmx_fwd_launch(const void* xs, const void* W, const void* b,
             THREADS / (RB4 / 4) ||
         (RB4 == 8 && 4 * UPC > 2 * UB_PAIRS))))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * chain_smem_floats(H, UPC, RB4, KS, umode);
-  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  if (chain_smem_bytes(H, UPC, RB4, KS, umode, sizeof(TS)) > MAX_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
   const int NG = ND * GPD;
   const int NT = (H + PROJ_UNITS - 1) / PROJ_UNITS;
   const int nchunks = (T + C - 1) / C;
-  lstmx_proj_kernel<<<nchunks * NG * NT, THREADS, 0,
-                      (cudaStream_t)proj_stream>>>(
-      (const float*)xs, (const float*)W, (const float*)b, (float4*)zx,
-      (int*)ready, T, B, ND, D, H, RB, RB4, GPD, C);
+  lstmx_proj_kernel<TS><<<nchunks * NG * NT, THREADS, 0,
+                          (cudaStream_t)proj_stream>>>(
+      (const TS*)xs, (const TS*)W, (const float*)b, (float4*)zx, (int*)ready,
+      T, B, ND, D, H, RB, RB4, GPD, C);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const float4* z = (const float4*)zx;
-  const int* r = (const int*)ready;
-  const float *u = (const float*)U, *hh = (const float*)h0,
-              *cc = (const float*)c0, *m = (const float*)mask;
-  float *y = (float*)ys, *ht = (float*)hT, *ct = (float*)cT,
-        *cso = (float*)cs;
+  const ChainArgs a = {(const float4*)zx, (const int*)ready, (const float*)h0,
+                       (const float*)c0, (const float*)mask, (float*)ys,
+                       (float*)hT, (float*)cT, (float*)cs, T, B, ND, H, CS,
+                       UPC, RB, GPD, KS, C};
+  const TS* u = (const TS*)U;
   const cudaStream_t st = (cudaStream_t)stream;
   const int RQ = RB4 / 4;
   if (umode == U_REGS && (H + KS - 1) / KS <= 64)
-    e = launch_rows<U_REGS, 64>(RQ, z, r, u, hh, cc, m, y, ht, ct, cso, T, B,
-                                ND, H, CS, UPC, RB, GPD, KS, C, st);
+    e = launch_rows<TS, U_REGS, 64>(RQ, u, a, st);
   else if (umode == U_REGS)
-    e = launch_rows<U_REGS, KREG_MAX>(RQ, z, r, u, hh, cc, m, y, ht, ct, cso,
-                                      T, B, ND, H, CS, UPC, RB, GPD, KS, C,
-                                      st);
+    e = launch_rows<TS, U_REGS, KREG_MAX>(RQ, u, a, st);
   else if (umode == U_SMEM)
-    e = launch_rows<U_SMEM, 1>(RQ, z, r, u, hh, cc, m, y, ht, ct, cso, T, B,
-                               ND, H, CS, UPC, RB, GPD, KS, C, st);
+    e = launch_rows<TS, U_SMEM, 1>(RQ, u, a, st);
   else
-    e = launch_rows<U_L2, 1>(RQ, z, r, u, hh, cc, m, y, ht, ct, cso, T, B, ND,
-                             H, CS, UPC, RB, GPD, KS, C, st);
+    e = launch_rows<TS, U_L2, 1>(RQ, u, a, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+extern "C" int lstmx_fwd_launch(const void* xs, const void* W, const void* b,
+                                const void* U, const void* h0, const void* c0,
+                                const void* mask, void* ys, void* hT, void* cT,
+                                void* cs, void* zx, void* ready, int T, int B,
+                                int ND, int D, int H, int CS, int UPC, int RB,
+                                int RB4, int GPD, int KS, int C, int umode,
+                                void* proj_stream, void* stream) {
+  return launch_form<float>(xs, W, b, U, h0, c0, mask, ys, hT, cT, cs, zx,
+                            ready, T, B, ND, D, H, CS, UPC, RB, RB4, GPD, KS,
+                            C, umode, proj_stream, stream);
+}
+
+extern "C" int lstmx_fwd_bf16_launch(const void* xs, const void* W,
+                                     const void* b, const void* U,
+                                     const void* h0, const void* c0,
+                                     const void* mask, void* ys, void* hT,
+                                     void* cT, void* cs, void* zx,
+                                     void* ready, int T, int B, int ND, int D,
+                                     int H, int CS, int UPC, int RB, int RB4,
+                                     int GPD, int KS, int C, int umode,
+                                     void* proj_stream, void* stream) {
+  return launch_form<__nv_bfloat16>(xs, W, b, U, h0, c0, mask, ys, hT, cT, cs,
+                                    zx, ready, T, B, ND, D, H, CS, UPC, RB,
+                                    RB4, GPD, KS, C, umode, proj_stream,
+                                    stream);
 }
 
 // How many clusters of CS blocks of the chain kernel, each block asking for
@@ -655,7 +704,7 @@ extern "C" int lstmx_fwd_max_clusters(int CS, int smem, int* out) {
   if (CS < 1 || CS > MAX_CLUSTER || smem < 0 || smem > MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      lstmx_fwd_kernel<U_SMEM, 1, 1>,
+      lstmx_fwd_kernel<float, U_SMEM, 1, 1>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
@@ -669,7 +718,6 @@ extern "C" int lstmx_fwd_max_clusters(int CS, int smem, int* out) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(out,
-                                             lstmx_fwd_kernel<U_SMEM, 1, 1>,
-                                             &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, lstmx_fwd_kernel<float, U_SMEM, 1, 1>, &cfg);
 }

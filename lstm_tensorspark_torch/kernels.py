@@ -181,7 +181,7 @@ def check_operand(name: str, t, shape, device, dtype=torch.float32) -> None:
 def check_f32(name: str, t, shape, device) -> None:
     """:func:`check_operand` of a float32 tensor. A bfloat16 tensor here
     raises ``TypeError`` naming what is missing: the kernel's bfloat16
-    form (the residentx pair's and the windows' are not ported yet)."""
+    form (the decode and spec windows' are not ported yet)."""
     if t.dtype == torch.bfloat16:
         raise TypeError(f"{name} is bfloat16: this kernel's bfloat16 form is "
                         "not ported yet (float32 only)")

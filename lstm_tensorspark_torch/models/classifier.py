@@ -1,14 +1,16 @@
 """Bidirectional LSTM sequence classifier (BASELINE.md config 2: IMDB
 sentiment, hidden 256, sequences up to 400 tokens).
 
-Port of ``lstm_tensorspark_tpu/models/classifier.py`` (float32). Each
+Port of ``lstm_tensorspark_tpu/models/classifier.py``. Each
 bi-layer runs both directions through ``ops/scan.bidir_lstm_scan`` — on the
 card one launch of the stacked-direction kernels, or two single-direction
 scans with ``remat_chunk`` — with the carry-freeze mask, so the reverse
 direction's final state is its state at t=0 over the valid prefix. The
 directions' outputs concatenate to [B, T, 2H]; the head reads the concat of
 both final states. Dropout (inverted) hits the inter-layer outputs and the
-final [B, 2H] states when training. Params are a plain dict, as in the JAX
+final [B, 2H] states when training. ``compute_dtype`` ("float32" or
+"bfloat16") reaches the recurrences alone, as in JAX: the parameters, the
+embedding and the head stay float32. Params are a plain dict, as in the JAX
 package::
 
     {"embedding": [V, E], "fwd": [LSTMParams, ...], "bwd": [...],
@@ -23,7 +25,8 @@ from typing import Iterator
 import torch
 
 from ..ops.embedding import embed_lookup
-from ..ops.lstm_cell import LSTMParams, glorot_uniform, init_lstm_params
+from ..ops.lstm_cell import (COMPUTE_DTYPES, LSTMParams, glorot_uniform,
+                             init_lstm_params)
 from ..ops.masking import dropout, dropout_with_keep, sequence_mask
 from ..ops.scan import bidir_lstm_scan
 
@@ -36,15 +39,14 @@ class ClassifierConfig:
     num_layers: int = 1
     embed_size: int | None = None  # defaults to hidden_size
     dropout: float = 0.0
-    # float32 only in this port; bf16 compute is a later slice
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # the recurrences' (JAX's default too)
     remat_chunk: int | None = None
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(
-                f"compute_dtype {self.compute_dtype!r} is not supported by "
-                "the port yet (float32 only)")
+                f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got "
+                f"{self.compute_dtype!r}")
 
     @property
     def embed(self) -> int:
@@ -99,7 +101,8 @@ def classifier_forward(params, tokens: torch.Tensor, lengths: torch.Tensor,
     h_fwd = h_bwd = None
     for i, (pf, pb) in enumerate(zip(params["fwd"], params["bwd"])):
         ((h_fwd, _), ys_f), ((h_bwd, _), ys_b) = bidir_lstm_scan(
-            pf, pb, xs, mask=mask, remat_chunk=cfg.remat_chunk)
+            pf, pb, xs, mask=mask, remat_chunk=cfg.remat_chunk,
+            compute_dtype=cfg.compute_dtype)
         xs = torch.cat([ys_f, ys_b], dim=-1)
         if i < cfg.num_layers - 1 and training:
             xs = drop(xs)

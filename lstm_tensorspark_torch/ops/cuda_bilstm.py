@@ -14,7 +14,8 @@ carries, the bi-LSTM layer contract (the classifier never seeds carries).
 bilstm_supported``): the sequence is long enough for the residentx class
 (T >= ``FUSEDX_MIN_T``), the stacked plan fits a block and the cs residual
 fits its budget. Everything else runs as two single-direction scans at the
-dispatch layer (``ops/scan.bidir_lstm_scan``).
+dispatch layer (``ops/scan.bidir_lstm_scan``). A bfloat16 ``compute_dtype``
+runs the pair's bfloat16 forms (``ops/cuda_lstmx.py``).
 """
 
 from __future__ import annotations
@@ -23,22 +24,26 @@ import torch
 
 from .cuda_lstmx import (FUSEDX_MIN_T, RESIDUAL_BUDGET_BYTES, fits,
                          lstmx_recurrence)
-from .lstm_cell import LSTMParams, fuse_params
+from .lstm_cell import LSTMParams, fuse_params, resolve_dtype
 
 
 def bilstm_supported(batch: int, hidden: int, d_in: int, seq_len: int,
-                     num_sms: int = 132) -> bool:
+                     num_sms: int = 132, esize: int = 4) -> bool:
     """Can the stacked-direction pair run this layer (``batch`` rows per
-    direction)?"""
+    direction) in the form whose U takes ``esize`` bytes an element (2
+    under bfloat16 compute, as JAX's ``param_dtype_bytes``)? The cs
+    residual is float32 in both forms."""
     return (hidden >= 1 and seq_len >= FUSEDX_MIN_T
-            and fits(batch, hidden, d_in, 2, num_sms)
+            and fits(batch, hidden, d_in, 2, num_sms, esize)
             and seq_len * 2 * batch * hidden * 4 <= RESIDUAL_BUDGET_BYTES)
 
 
 def cuda_bilstm_scan(params_fwd: LSTMParams, params_bwd: LSTMParams,
-                     xs: torch.Tensor, *, mask: torch.Tensor | None = None):
+                     xs: torch.Tensor, *, mask: torch.Tensor | None = None,
+                     compute_dtype=None):
     """Both directions of one layer over ``xs`` [B, T, D] (``mask`` bool
-    [B, T] or None): equivalent to ``lstm_scan(params_fwd, xs, mask=mask)``
+    [B, T] or None; ``compute_dtype`` None / float32 or bfloat16, the
+    kernels' form): equivalent to ``lstm_scan(params_fwd, xs, mask=mask)``
     and ``lstm_scan(params_bwd, xs, mask=mask, reverse=True)`` — the
     reverse rows walk a right-padded tail first with a frozen zero carry.
     Returns ``(((hT_f, cT_f), ys_f), ((hT_b, cT_b), ys_b))``."""
@@ -57,7 +62,7 @@ def cuda_bilstm_scan(params_fwd: LSTMParams, params_bwd: LSTMParams,
         xs2.transpose(0, 1).contiguous(),
         torch.stack([ff.kernel, fb.kernel]), torch.stack([ff.bias, fb.bias]),
         torch.stack([ff.recurrent, fb.recurrent]), h0, torch.zeros_like(h0),
-        m)
+        m, resolve_dtype(compute_dtype))
     ys_f = ys2[:, :B].transpose(0, 1)
     ys_b = torch.flip(ys2[:, B:].transpose(0, 1), dims=(1,))
     return ((hT[:B], cT[:B]), ys_f), ((hT[B:], cT[B:]), ys_b)

@@ -289,13 +289,16 @@ def lstm_forward_reference(xproj, U, h0, c0, mask=None, *,
     return out
 
 
-def lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask=None):
+def lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask=None, *,
+                            dz_dtype=None):
     """Reverse-time BPTT from the forward's residuals, step for step the
     algebra of the JAX ``_lstm_bwd_kernel``: ``z`` [T,B,4H], ``c_prev``
     [T,B,H] (c0, then cs[:-1]), ``dys`` [T,B,H]. Returns ``(dz, dh0,
-    dc0)``. In the bfloat16 form (z and U bfloat16) the gates come from
-    the rounded z, dz is rounded once, at its store, and dh is the rounded
-    dz times Uᵀ accumulated in float32."""
+    dc0)``, dz in ``dz_dtype`` (default z's). In the bfloat16 form (U and
+    dz bfloat16; z bfloat16 too, except in the residentx pair's backward,
+    whose rebuilt z is float32) the gates come from z, dz is rounded once,
+    at its store, and dh is the rounded dz times Uᵀ accumulated in
+    float32."""
     dh, dc = dhT, dcT
     dzs = [None] * z.shape[0]
     for t in range(z.shape[0] - 1, -1, -1):
@@ -314,7 +317,7 @@ def lstm_backward_reference(z, c_prev, dys, U, dhT, dcT, mask=None):
         di = dc_new * g * i * (1.0 - i)
         df = dc_new * cp * f * (1.0 - f)
         dg = dc_new * i * (1.0 - g * g)
-        dz = torch.cat([di, df, dg, do], dim=-1).to(z.dtype)
+        dz = torch.cat([di, df, dg, do], dim=-1).to(dz_dtype or z.dtype)
         dzs[t] = dz
         dh = mm_f32(dz, U.T)
         dc = dc_new * f

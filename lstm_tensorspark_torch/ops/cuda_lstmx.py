@@ -12,15 +12,28 @@ replaces ``_lstm_fwdx_kernel`` (launched with one direction) and
 Operands are time-major and direction-stacked: ``xs`` [T, ND*B, D] with
 rows ``[d*B, (d+1)*B)`` belonging to direction d, ``W`` [ND, D, 4H], ``b``
 [ND, 4H], ``U`` [ND, H, 4H], carries [ND*B, H], mask float32 [T, ND*B]
-(1 = step, 0 = frozen carry). Float32, gate order i, f, g, o.
+(1 = step, 0 = frozen carry). Gate order i, f, g, o.
+
+Each kernel has two forms, chosen by the dtype of ``xs``: float32, and
+bfloat16 (JAX's pair under bf16 compute, ``pallas_lstm._residual_dtype``),
+where xs, W, U and the dz stream are bfloat16 and everything else float32.
+The bfloat16 forward keeps its projection ``zx = xs @ W + b`` in float32
+(JAX never rounds it) and rounds h to bfloat16 only at the product ``h @
+U``; the backward rebuilds z from the same operands in the same order, so
+z is the forward's to the bit, rounds dz once, at its store, and forms dh
+from that rounded dz. Their launches count apart (:data:`fwdx_bf16_counts`
+and the other ``*_bf16_counts``). A mixed call raises ``TypeError``.
 
 - :func:`lstmx_forward` / :func:`lstmx_backward` dispatch: a CUDA tensor
   launches the kernel or raises; a CPU tensor runs
   :func:`lstmx_forward_reference` / :func:`lstmx_backward_reference`.
 - :class:`LSTMXRecurrence` is the autograd Function ``(xs, W, b, U, h0,
-  c0, mask) -> (ys, hT, cT)``. It saves the cell states only (z is rebuilt
-  in the backward, as the JAX pair does) and contracts dW, db, dU and
-  dxs = dz @ Wᵀ over T·B outside the kernel, per direction.
+  c0, mask, dtype) -> (ys, hT, cT)``: float32 operands, cast to ``dtype``
+  inside (so the gradients leave in float32). It saves the cell states
+  only (z is rebuilt in the backward, as the JAX pair does) and contracts
+  dW, db, dU and dxs = dz @ Wᵀ over T·B outside the kernel, per direction
+  (from bfloat16 operands with float32 sums in the bfloat16 form:
+  ``lstm_cell.mm_f32``).
 - :func:`cuda_lstmx_scan` is the single-direction layer entry with
   ``lstm_scan``'s signature; ``ops/cuda_bilstm.py`` stacks two directions.
 - :func:`plan` cuts the work (testable on the CPU); :func:`card_plan`
@@ -29,7 +42,9 @@ rows ``[d*B, (d+1)*B)`` belonging to direction d, ``W`` [ND, D, 4H], ``b``
   per direction, :func:`projection_sms` the SMs its chain leaves to its
   projection kernel.
 - Launch counters: :data:`fwdx_counts` / :data:`bwdx_counts` (one
-  direction), :data:`bi_fwdx_counts` / :data:`bi_bwdx_counts` (two).
+  direction), :data:`bi_fwdx_counts` / :data:`bi_bwdx_counts` (two), and
+  the bfloat16 forms' :data:`fwdx_bf16_counts`, :data:`bwdx_bf16_counts`,
+  :data:`bi_fwdx_bf16_counts`, :data:`bi_bwdx_bf16_counts`.
 """
 
 from __future__ import annotations
@@ -40,10 +55,11 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from .cuda_lstm import (MAX_CLUSTER, MAX_SMEM_BYTES, MIN_SPLIT, THREADS,
-                        UNITS_PER_BLOCK, _num_sms, _ptr, lstm_backward_reference,
-                        lstm_forward_reference)
-from .lstm_cell import LSTMParams, fuse_params
+from .cuda_lstm import (F32, MAX_CLUSTER, MAX_SMEM_BYTES, MIN_SPLIT, THREADS,
+                        UNITS_PER_BLOCK, _num_sms, _ptr, entry, esize_of,
+                        lstm_backward_reference, lstm_forward_reference,
+                        stream_dtype)
+from .lstm_cell import LSTMParams, fuse_params, mm_f32, resolve_dtype
 
 # The JAX package prefers the residentx pair from this sequence length on
 # (pallas_lstm._FUSEDX_MIN_T): the [T, B, 4H] xproj and z streams it saves
@@ -58,12 +74,23 @@ fwdx_counts = kernels.LaunchCounts("lstmx_fwd")
 bwdx_counts = kernels.LaunchCounts("lstmx_bwd")
 bi_fwdx_counts = kernels.LaunchCounts("bi_lstmx_fwd")
 bi_bwdx_counts = kernels.LaunchCounts("bi_lstmx_bwd")
+# the bfloat16 forms of the same sources
+fwdx_bf16_counts = kernels.LaunchCounts("lstmx_fwd_bf16")
+bwdx_bf16_counts = kernels.LaunchCounts("lstmx_bwd_bf16")
+bi_fwdx_bf16_counts = kernels.LaunchCounts("bi_lstmx_fwd_bf16")
+bi_bwdx_bf16_counts = kernels.LaunchCounts("bi_lstmx_bwd_bf16")
+_COUNTS = {("fwd", 1, F32): fwdx_counts, ("bwd", 1, F32): bwdx_counts,
+           ("fwd", 2, F32): bi_fwdx_counts, ("bwd", 2, F32): bi_bwdx_counts,
+           ("fwd", 1, torch.bfloat16): fwdx_bf16_counts,
+           ("bwd", 1, torch.bfloat16): bwdx_bf16_counts,
+           ("fwd", 2, torch.bfloat16): bi_fwdx_bf16_counts,
+           ("bwd", 2, torch.bfloat16): bi_bwdx_bf16_counts}
 
 
-def _counts(kind: str, ndir: int) -> kernels.LaunchCounts:
-    if kind == "fwd":
-        return fwdx_counts if ndir == 1 else bi_fwdx_counts
-    return bwdx_counts if ndir == 1 else bi_bwdx_counts
+def _counts(kind: str, ndir: int, dtype=F32) -> kernels.LaunchCounts:
+    """The launch counter of one role (``"fwd"`` / ``"bwd"``, one or two
+    directions) in ``dtype``'s form."""
+    return _COUNTS[kind, ndir, dtype]
 
 
 class KernelPlan(NamedTuple):
@@ -75,7 +102,8 @@ class KernelPlan(NamedTuple):
     projection tile, the backward's z rebuild block), whether the block's
     slice of U (forward) or Uᵀ (backward) sits in shared memory or in its
     threads' registers (else it is read through L2), and the bytes of
-    shared memory the chain kernel's layout takes a block."""
+    shared memory the chain kernel's layout takes a block (in the form
+    whose element size the plan was made for)."""
 
     rows: int
     rows4: int
@@ -169,33 +197,37 @@ def _zks(H: int, upc: int) -> int:
     return max(1, min(THREADS // (4 * upc), H // MIN_SPLIT))
 
 
-def chain_floats(H: int, upc: int, rows4: int, zks: int,
-                 u_in_smem: bool, u_in_regs: bool) -> int:
+def chain_bytes(H: int, upc: int, rows4: int, zks: int, u_in_smem: bool,
+                u_in_regs: bool, esize: int = 4) -> int:
     """Shared memory of the forward's chain kernel (``csrc/lstmx_fwd.cu``
-    chain_smem_floats): h double-buffered (with ``FWD_U_REG`` zero rows when
+    chain_smem_bytes): h double-buffered (with ``FWD_U_REG`` zero rows when
     U sits in registers), the pieces of h @ U (the block's columns rounded
-    up to a warp, rows + 1 a column), a step's zx double-buffered, c, the
-    mask, two mbarriers, and U's slice when it sits in shared memory (or,
-    with U in registers and two row quads, the second column of each
-    thread's pair)."""
+    up to a warp, rows + 1 a column), a step's zx double-buffered, c (and,
+    in the bfloat16 form, h: the buffers then hold h rounded), the mask,
+    two mbarriers — floats — and U's slice when it sits in shared memory
+    (or, with U in registers and two row quads, the second column of each
+    thread's pair), ``esize`` bytes an element (2 in the bfloat16 form)."""
     ncp = -(-4 * upc // 32) * 32
     red = -(-(zks * ncp * (rows4 + 1)) // 4) * 4
     pad = FWD_U_REG if u_in_regs else 0
+    own = upc * rows4 if esize != 4 else 0
     # two row quads: each thread's second column from shared memory, a
     # piece's FWD_U_REG terms (zeros past it) a column of the pairs
     ub = zks * FWD_U_REG * FWD_UB_PAIRS if u_in_regs and rows4 == 8 else 0
-    return (2 * (H + pad) * rows4 + red + 9 * upc * rows4 + 2 * rows4 + 4
-            + (H * ncp if u_in_smem else 0) + ub)
+    return (4 * (2 * (H + pad) * rows4 + red + 9 * upc * rows4 + own
+                 + 2 * rows4 + 4)
+            + esize * ((H * ncp if u_in_smem else 0) + ub))
 
 
-def forward_plan(B: int, H: int, per_dir: int) -> KernelPlan:
+def forward_plan(B: int, H: int, per_dir: int, esize: int = 4) -> KernelPlan:
     """The forward's cut with at most ``per_dir`` clusters a direction (more
     when a cluster would take more than ``FWD_MAX_ROWS`` rows): each
     thread's piece of h @ U in its registers when a piece has at most
     ``FWD_U_REG`` terms, else the block's slice of U in shared memory when
     it fits, else read through L2; the projection's chunk fills its tile of
-    ``PROJ_ROWS`` rows. Raises ``ValueError`` when the chain's buffers do
-    not fit a block."""
+    ``PROJ_ROWS`` rows; ``esize`` is the bytes of an element of U (2 in the
+    bfloat16 form). Raises ``ValueError`` when the chain's buffers do not
+    fit a block."""
     _, upc = cluster_units(H)
     zks = _zks(H, upc)
     rows, rows4, groups = _row_groups(B, per_dir)
@@ -204,9 +236,9 @@ def forward_plan(B: int, H: int, per_dir: int) -> KernelPlan:
             rows = rows4 = cap
             groups = -(-B // rows)
         regs = -(-H // zks) <= FWD_U_REG
-        smem = not regs and 4 * chain_floats(
-            H, upc, rows4, zks, True, False) <= MAX_SMEM_BYTES
-        n = 4 * chain_floats(H, upc, rows4, zks, smem, regs)
+        smem = not regs and chain_bytes(
+            H, upc, rows4, zks, True, False, esize) <= MAX_SMEM_BYTES
+        n = chain_bytes(H, upc, rows4, zks, smem, regs, esize)
         if n <= MAX_SMEM_BYTES:
             return KernelPlan(rows, rows4, groups, zks, PROJ_ROWS // rows4,
                               smem, n, regs)
@@ -223,7 +255,7 @@ def projection_sms(xplan: XPlan, ndir: int, num_sms: int) -> int:
 
 
 def plan(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
-         max_clusters: int | None = None) -> XPlan:
+         max_clusters: int | None = None, esize: int = 4) -> XPlan:
     """The launch plan of the pair for ``ndir`` directions of B rows each,
     hidden size H and input width D, on a card with ``num_sms`` SMs that
     keeps ``max_clusters`` clusters resident at once (default: every
@@ -234,8 +266,10 @@ def plan(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
     rebuild a chunk of ``MIN_ONE_WAVE_CHUNK`` steps, else the rows that
     spread it over ``num_sms // cluster`` clusters (a second wave when the
     card keeps fewer). Mirrors the shared-memory layouts in
-    ``csrc/lstmx_fwd.cu`` and ``csrc/lstmx_bwd.cu``. Raises ``ValueError``
-    for a shape whose buffers do not fit a block."""
+    ``csrc/lstmx_fwd.cu`` and ``csrc/lstmx_bwd.cu`` in the form whose U
+    takes ``esize`` bytes an element (4, or 2 in the bfloat16 form, whose
+    slices of U and Uᵀ in shared memory take half the room). Raises
+    ``ValueError`` for a shape whose buffers do not fit a block."""
     if ndir not in (1, 2):
         raise ValueError(f"ndir must be 1 or 2, got {ndir}")
     if B < 1 or H < 1 or D < 1:
@@ -254,14 +288,15 @@ def plan(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
         while lanes * 2 <= min(32, BWD_THREADS // (upc * (rows4 // 4)),
                                G // MIN_SPLIT):
             lanes *= 2
-        # the chain kernel: dz double buffer, two mbarriers, and Uᵀ's slice
-        # (a row of 4H + lanes of padding per unit) unless the lanes' terms
-        # fit their registers; the rebuild kernel: the staged rows and the
-        # rebuilt z of a chunk
-        base = 2 * G * rows4 + 4
+        # the chain kernel: dz double buffer and two mbarriers (floats),
+        # and Uᵀ's slice (a row of 4H + lanes of padding per unit, esize
+        # bytes an element) unless the lanes' terms fit their registers;
+        # the rebuild kernel: the staged rows and the rebuilt z of a chunk
+        base = 4 * (2 * G * rows4 + 4)
         regs = -(-G // lanes) <= BWD_UT_REG
-        smem = not regs and 4 * (base + (G + lanes) * upc) <= MAX_SMEM_BYTES
-        n = 4 * (base + ((G + lanes) * upc if smem else 0))
+        ut = esize * (G + lanes) * upc
+        smem = not regs and base + ut <= MAX_SMEM_BYTES
+        n = base + (ut if smem else 0)
         if n > MAX_SMEM_BYTES:
             raise ValueError(
                 f"lstmx bwd kernel: B={B} H={H} D={D} ndir={ndir} needs {n} "
@@ -290,15 +325,17 @@ def plan(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
         return make(fill)
 
     free = max(1, ((num_sms - REBUILD_MIN_SMS) // cs) // ndir)
-    return XPlan(cs, upc, zks, forward_plan(B, H, min(wave, free)),
+    return XPlan(cs, upc, zks, forward_plan(B, H, min(wave, free), esize),
                  pick(bwd))
 
 
-def fits(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132) -> bool:
-    """Whether :func:`plan` finds a plan for these shapes (fewer resident
-    clusters only change the rows, never whether a plan exists)."""
+def fits(B: int, H: int, D: int, ndir: int = 1, num_sms: int = 132,
+         esize: int = 4) -> bool:
+    """Whether :func:`plan` finds a plan for these shapes in the form of
+    ``esize`` (fewer resident clusters only change the rows, never whether
+    a plan exists)."""
     try:
-        plan(B, H, D, ndir, num_sms)
+        plan(B, H, D, ndir, num_sms, esize=esize)
     except ValueError:
         return False
     return True
@@ -315,11 +352,12 @@ def max_clusters(dev, cluster: int) -> int:
     return n
 
 
-def card_plan(B: int, H: int, D: int, ndir: int, dev) -> XPlan:
+def card_plan(B: int, H: int, D: int, ndir: int, dev,
+              esize: int = 4) -> XPlan:
     """:func:`plan` for the card ``dev``: its SM count and resident
     clusters."""
     return plan(B, H, D, ndir, _num_sms(dev),
-                max_clusters(dev, cluster_units(H)[0]))
+                max_clusters(dev, cluster_units(H)[0]), esize)
 
 
 # ---------------------------------------------------------------------------
@@ -331,21 +369,29 @@ def _rows(d: int, B: int) -> slice:
     return slice(d * B, (d + 1) * B)
 
 
+def _projection(xs, W, b, d: int, B: int):
+    """Direction d's ``zx = xs_d @ W_d + b_d`` [T, B, 4H], float32 (the
+    exact products of bfloat16 operands summed in float32 in the bfloat16
+    form)."""
+    return mm_f32(xs[:, _rows(d, B)], W[d]) + b[d]
+
+
 def lstmx_forward_reference(xs, W, b, U, h0, c0, mask=None, *,
                             save_c: bool = False):
     """The forward of ``_lstm_fwdx_kernel`` / ``_bi_fwdx_kernel``: per
     direction ``zx = xs_d @ W_d + b_d``, then the steps ``z = zx_t + h @
-    U_d``, the gates and the mask blend. Returns ``(ys, hT, cT)``, plus
-    ``cs`` with ``save_c``."""
+    U_d``, the gates and the mask blend. In the bfloat16 form (xs, W and U
+    bfloat16) zx stays float32 and h is rounded to bfloat16 at the product.
+    Returns ``(ys, hT, cT)``, plus ``cs`` with ``save_c``."""
     ND = W.shape[0]
     B = xs.shape[1] // ND
     outs = []
     for d in range(ND):
         r = _rows(d, B)
-        zx = xs[:, r] @ W[d] + b[d]
         m = None if mask is None else mask[:, r]
-        outs.append(lstm_forward_reference(zx, U[d], h0[r], c0[r], m,
-                                           save_residuals=save_c))
+        outs.append(lstm_forward_reference(
+            _projection(xs, W, b, d, B), U[d], h0[r], c0[r], m,
+            save_residuals=save_c))
     ys = torch.cat([o[0] for o in outs], dim=1)
     hT = torch.cat([o[1] for o in outs], dim=0)
     cT = torch.cat([o[2] for o in outs], dim=0)
@@ -354,23 +400,41 @@ def lstmx_forward_reference(xs, W, b, U, h0, c0, mask=None, *,
     return ys, hT, cT
 
 
-def lstmx_backward_reference(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT,
-                             mask=None):
-    """The backward of ``_lstm_bwdx_kernel`` / ``_bi_bwdx_kernel``: per
-    direction, rebuild ``z = xs_d @ W_d + b_d + h_prev @ U_d`` (h_prev = h0,
-    then ys[:-1]) and run the reverse cotangent algebra. Returns ``(dz
-    [T, ND*B, 4H], dh0, dc0)``."""
+def rebuild_z(xs, ys, h0, W, b, U):
+    """The backward's pre-activations [T, ND*B, 4H], float32: per direction
+    ``zx_t + h_prev_t @ U_d`` (h_prev = h0, then ys[:-1], rounded to U's
+    dtype at the product), step by step with the operands and products of
+    :func:`lstmx_forward_reference`, so z is the forward's to the bit."""
     ND = W.shape[0]
     B = xs.shape[1] // ND
     h_prev = torch.cat([h0[None], ys[:-1]], dim=0)
+    parts = []
+    for d in range(ND):
+        zx = _projection(xs, W, b, d, B)
+        hp = h_prev[:, _rows(d, B)].to(U.dtype)
+        parts.append(torch.stack([zx[t] + mm_f32(hp[t], U[d])
+                                  for t in range(xs.shape[0])]))
+    return torch.cat(parts, dim=1)
+
+
+def lstmx_backward_reference(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT,
+                             mask=None):
+    """The backward of ``_lstm_bwdx_kernel`` / ``_bi_bwdx_kernel``: per
+    direction, rebuild z (:func:`rebuild_z`) and run the reverse cotangent
+    algebra. In the bfloat16 form dz is rounded to bfloat16 once, where it
+    is formed, and dh is that dz times Uᵀ (bfloat16) summed in float32.
+    Returns ``(dz [T, ND*B, 4H] in xs's dtype, dh0, dc0)``."""
+    ND = W.shape[0]
+    B = xs.shape[1] // ND
+    z = rebuild_z(xs, ys, h0, W, b, U)
     c_prev = torch.cat([c0[None], cs[:-1]], dim=0)
     outs = []
     for d in range(ND):
         r = _rows(d, B)
-        z = (xs[:, r] @ W[d] + b[d]) + h_prev[:, r] @ U[d]
         m = None if mask is None else mask[:, r]
-        outs.append(lstm_backward_reference(z, c_prev[:, r], dys[:, r], U[d],
-                                            dhT[r], dcT[r], m))
+        outs.append(lstm_backward_reference(z[:, r], c_prev[:, r], dys[:, r],
+                                            U[d], dhT[r], dcT[r], m,
+                                            dz_dtype=xs.dtype))
     return (torch.cat([o[0] for o in outs], dim=1),
             torch.cat([o[1] for o in outs], dim=0),
             torch.cat([o[2] for o in outs], dim=0))
@@ -379,47 +443,6 @@ def lstmx_backward_reference(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT,
 # ---------------------------------------------------------------------------
 # dispatch and the kernel launches
 # ---------------------------------------------------------------------------
-
-
-def lstmx_forward(xs, W, b, U, h0, c0, mask=None, *, save_c: bool = False,
-                  xplan: XPlan | None = None):
-    """Forward of the pair: returns ``(ys [T, ND*B, H], hT, cT)`` and, with
-    ``save_c``, ``cs`` [T, ND*B, H]. CUDA tensors launch
-    ``csrc/lstmx_fwd.cu`` with ``xplan`` (default :func:`card_plan`); CPU
-    tensors run the plain version."""
-    if xs.device.type == "cuda":
-        return _launch_fwd(xs, W, b, U, h0, c0, mask, save_c, xplan)
-    if xs.device.type == "cpu":
-        _counts("fwd", W.shape[0]).bump("reference")
-        return lstmx_forward_reference(xs, W, b, U, h0, c0, mask,
-                                       save_c=save_c)
-    raise ValueError(f"unsupported device {xs.device}")
-
-
-def lstmx_backward(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask=None, *,
-                   xplan: XPlan | None = None):
-    """Backward of the pair from the forward's ``ys`` and ``cs``: returns
-    ``(dz [T, ND*B, 4H], dh0, dc0)``. CUDA tensors launch
-    ``csrc/lstmx_bwd.cu`` with ``xplan`` (default :func:`card_plan`); CPU
-    tensors run the plain version."""
-    if xs.device.type == "cuda":
-        return _launch_bwd(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask,
-                           xplan)
-    if xs.device.type == "cpu":
-        _counts("bwd", W.shape[0]).bump("reference")
-        return lstmx_backward_reference(xs, ys, h0, cs, c0, dys, W, b, U,
-                                        dhT, dcT, mask)
-    raise ValueError(f"unsupported device {xs.device}")
-
-
-_p, _i = ctypes.c_void_p, ctypes.c_int
-# csrc/lstmx_fwd.cu::lstmx_fwd_launch: 13 pointers (the last two the zx
-# scratch and its ready counts), T, B, ND, D, H and the eight plan ints,
-# the projection's stream and the chain's; lstmx_bwd_launch: 18 pointers
-# (the last two the factor scratch and its ready counts), the five shape
-# ints and nine plan ints, the rebuild's stream and the chain's
-_FWD_ARGTYPES = [_p] * 13 + [_i] * 13 + [_p] * 2
-_BWD_ARGTYPES = [_p] * 18 + [_i] * 14 + [_p] * 2
 
 
 def _shapes(xs, W, U):
@@ -434,34 +457,91 @@ def _shapes(xs, W, U):
     return T, BS // ND, ND, D, H
 
 
-def _check_weights(W, b, U, ND, D, H, dev):
-    kernels.check_f32("W", W, (ND, D, 4 * H), dev)
-    kernels.check_f32("b", b, (ND, 4 * H), dev)
-    kernels.check_f32("U", U, (ND, H, 4 * H), dev)
-
-
-def _launch_fwd(xs, W, b, U, h0, c0, mask, save_c, xplan):
-    dev = xs.device
+def _check(xs, W, b, U, carries, streams, mask):
+    """The operands of either kernel: ``xs``, ``W`` and ``U`` in one form's
+    dtype (float32 or bfloat16), ``b``, the [ND*B, H] ``carries`` and the
+    [T, ND*B, H] ``streams`` (dicts by name) and the mask float32,
+    contiguous, on xs's device. Returns (T, B, ND, D, H, the form's
+    dtype); raises otherwise (``TypeError`` for a mixed call)."""
     T, B, ND, D, H = _shapes(xs, W, U)
+    dev, sd = xs.device, stream_dtype("xs", xs)
     BS = ND * B
-    kernels.check_f32("xs", xs, (T, BS, D), dev)
-    _check_weights(W, b, U, ND, D, H, dev)
-    kernels.check_f32("h0", h0, (BS, H), dev)
-    kernels.check_f32("c0", c0, (BS, H), dev)
+    kernels.check_operand("xs", xs, (T, BS, D), dev, sd)
+    kernels.check_operand("W", W, (ND, D, 4 * H), dev, sd)
+    kernels.check_operand("b", b, (ND, 4 * H), dev, F32)
+    kernels.check_operand("U", U, (ND, H, 4 * H), dev, sd)
+    for name, t in streams.items():
+        kernels.check_operand(name, t, (T, BS, H), dev, F32)
+    for name, t in carries.items():
+        kernels.check_operand(name, t, (BS, H), dev, F32)
     if mask is not None:
-        kernels.check_f32("mask", mask, (T, BS), dev)
-    pl = xplan or card_plan(B, H, D, ND, dev)
+        kernels.check_operand("mask", mask, (T, BS), dev, F32)
+    return T, B, ND, D, H, sd
+
+
+def lstmx_forward(xs, W, b, U, h0, c0, mask=None, *, save_c: bool = False,
+                  xplan: XPlan | None = None):
+    """Forward of the pair: returns ``(ys [T, ND*B, H], hT, cT)`` and, with
+    ``save_c``, ``cs`` [T, ND*B, H]. CUDA tensors launch
+    ``csrc/lstmx_fwd.cu`` in the form of xs's dtype with ``xplan`` (default
+    :func:`card_plan`); CPU tensors run the plain version."""
+    if xs.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {xs.device}")
+    *shape, sd = _check(xs, W, b, U, {"h0": h0, "c0": c0}, {}, mask)
+    if xs.device.type == "cuda":
+        return _launch_fwd(xs, W, b, U, h0, c0, mask, save_c, xplan, shape,
+                           sd)
+    _counts("fwd", W.shape[0], sd).bump("reference")
+    return lstmx_forward_reference(xs, W, b, U, h0, c0, mask, save_c=save_c)
+
+
+def lstmx_backward(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask=None, *,
+                   xplan: XPlan | None = None):
+    """Backward of the pair from the forward's ``ys`` and ``cs``: returns
+    ``(dz [T, ND*B, 4H] in xs's dtype, dh0, dc0)``. CUDA tensors launch
+    ``csrc/lstmx_bwd.cu`` in the form of xs's dtype with ``xplan`` (default
+    :func:`card_plan`); CPU tensors run the plain version."""
+    if xs.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {xs.device}")
+    *shape, sd = _check(xs, W, b, U,
+                        {"h0": h0, "c0": c0, "dhT": dhT, "dcT": dcT},
+                        {"ys": ys, "cs": cs, "dys": dys}, mask)
+    if xs.device.type == "cuda":
+        return _launch_bwd(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask,
+                           xplan, shape, sd)
+    _counts("bwd", W.shape[0], sd).bump("reference")
+    return lstmx_backward_reference(xs, ys, h0, cs, c0, dys, W, b, U,
+                                    dhT, dcT, mask)
+
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# csrc/lstmx_fwd.cu::lstmx_fwd_launch (and lstmx_fwd_bf16_launch): 13
+# pointers (the last two the zx scratch and its ready counts), T, B, ND, D,
+# H and the eight plan ints, the projection's stream and the chain's;
+# lstmx_bwd_launch (and _bf16_launch): 18 pointers (the last two the factor
+# scratch and its ready counts), the five shape ints and nine plan ints,
+# the rebuild's stream and the chain's
+_FWD_ARGTYPES = [_p] * 13 + [_i] * 13 + [_p] * 2
+_BWD_ARGTYPES = [_p] * 18 + [_i] * 14 + [_p] * 2
+
+
+def _launch_fwd(xs, W, b, U, h0, c0, mask, save_c, xplan, shape, sd):
+    dev = xs.device
+    T, B, ND, D, H = shape
+    BS = ND * B
+    pl = xplan or card_plan(B, H, D, ND, dev, esize_of(sd))
     kp = pl.fwd
     ys = torch.empty((T, BS, H), dtype=torch.float32, device=dev)
     hT = torch.empty((BS, H), dtype=torch.float32, device=dev)
     cT = torch.empty((BS, H), dtype=torch.float32, device=dev)
     cs = (torch.empty((T, BS, H), dtype=torch.float32, device=dev)
           if save_c else None)
+    # the projection stays float32 in both forms
     zx = torch.empty(zx_floats(T, H, ND, pl), dtype=torch.float32,
                      device=dev)
     ready = torch.zeros(-(-T // kp.chunk) * ND * kp.groups,
                         dtype=torch.int32, device=dev)
-    launch = kernels.launcher("lstmx_fwd", _FWD_ARGTYPES)
+    launch = kernels.launcher("lstmx_fwd", _FWD_ARGTYPES, entry(sd))
     with torch.cuda.device(dev):
         cur = torch.cuda.current_stream(dev)
         # the projection beside the chain when the chain leaves it SMs (the
@@ -482,8 +562,8 @@ def _launch_fwd(xs, W, b, U, h0, c0, mask, save_c, xplan):
             cur.wait_stream(side)
     if rc != 0:
         raise RuntimeError(f"lstmx_fwd kernel launch failed: CUDA error {rc} "
-                           f"(T={T} B={B} ND={ND} D={D} H={H}, {pl})")
-    _counts("fwd", ND).bump("kernel")
+                           f"(T={T} B={B} ND={ND} D={D} H={H}, {sd}, {pl})")
+    _counts("fwd", ND, sd).bump("kernel")
     return (ys, hT, cT, cs) if save_c else (ys, hT, cT)
 
 
@@ -500,29 +580,22 @@ def _side_stream(dev) -> torch.cuda.Stream:
     return s
 
 
-def _launch_bwd(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask, xplan):
+def _launch_bwd(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask, xplan,
+                shape, sd):
     dev = xs.device
-    T, B, ND, D, H = _shapes(xs, W, U)
+    T, B, ND, D, H = shape
     BS = ND * B
-    kernels.check_f32("xs", xs, (T, BS, D), dev)
-    for name, t in (("ys", ys), ("cs", cs), ("dys", dys)):
-        kernels.check_f32(name, t, (T, BS, H), dev)
-    for name, t in (("h0", h0), ("c0", c0), ("dhT", dhT), ("dcT", dcT)):
-        kernels.check_f32(name, t, (BS, H), dev)
-    _check_weights(W, b, U, ND, D, H, dev)
-    if mask is not None:
-        kernels.check_f32("mask", mask, (T, BS), dev)
-    pl = xplan or card_plan(B, H, D, ND, dev)
+    pl = xplan or card_plan(B, H, D, ND, dev, esize_of(sd))
     kp = pl.bwd
     ut = U.transpose(1, 2).contiguous()  # [ND, 4H, H]
-    dz = torch.empty((T, BS, 4 * H), dtype=torch.float32, device=dev)
+    dz = torch.empty((T, BS, 4 * H), dtype=sd, device=dev)
     dh0 = torch.empty((BS, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((BS, H), dtype=torch.float32, device=dev)
     fac = torch.empty(factor_floats(T, ND, pl), dtype=torch.float32,
                       device=dev)
     ready = torch.zeros(-(-T // kp.chunk) * ND * kp.groups,
                         dtype=torch.int32, device=dev)
-    launch = kernels.launcher("lstmx_bwd", _BWD_ARGTYPES)
+    launch = kernels.launcher("lstmx_bwd", _BWD_ARGTYPES, entry(sd))
     with torch.cuda.device(dev):
         cur = torch.cuda.current_stream(dev)
         # the rebuild beside the chain when the chain leaves it SMs (its
@@ -546,8 +619,8 @@ def _launch_bwd(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask, xplan):
             cur.wait_stream(side)
     if rc != 0:
         raise RuntimeError(f"lstmx_bwd kernel launch failed: CUDA error {rc} "
-                           f"(T={T} B={B} ND={ND} D={D} H={H}, {pl})")
-    _counts("bwd", ND).bump("kernel")
+                           f"(T={T} B={B} ND={ND} D={D} H={H}, {sd}, {pl})")
+    _counts("bwd", ND, sd).bump("kernel")
     return dz, dh0, dc0
 
 
@@ -558,11 +631,17 @@ def _launch_bwd(xs, ys, h0, cs, c0, dys, W, b, U, dhT, dcT, mask, xplan):
 
 class LSTMXRecurrence(torch.autograd.Function):
     """``(xs [T, ND*B, D], W [ND, D, 4H], b [ND, 4H], U [ND, H, 4H], h0,
-    c0, mask [T, ND*B] or None) -> (ys, hT, cT)`` through the residentx
-    pair. Saves xs, ys and cs; no gradient flows to the mask."""
+    c0, mask [T, ND*B] or None, dtype) -> (ys, hT, cT)`` through the
+    residentx pair in ``dtype``'s form. xs, W and U come in float32 and are
+    cast to ``dtype`` inside, so their gradients leave in float32 (as JAX
+    casts each gradient to its operand's dtype). Saves xs, ys and cs; no
+    gradient flows to the mask. dW, dU and dxs are products over T·B from
+    the stream dtype's operands with float32 sums (``_pallas_backward``,
+    ``_bi_backward``), db the float32 sum of dz."""
 
     @staticmethod
-    def forward(ctx, xs, W, b, U, h0, c0, mask):
+    def forward(ctx, xs, W, b, U, h0, c0, mask, dtype):
+        xs, W, U = xs.to(dtype), W.to(dtype), U.to(dtype)
         ys, hT, cT, cs = lstmx_forward(xs, W, b, U, h0, c0, mask, save_c=True)
         ctx.save_for_backward(xs, W, b, U, h0, c0, mask, ys, cs)
         return ys, hT, cT
@@ -576,33 +655,37 @@ class LSTMXRecurrence(torch.autograd.Function):
         T, BS, G = dz.shape
         ND, D, H = W.shape[0], W.shape[1], U.shape[1]
         B = BS // ND
-        h_prev = torch.cat([h0[None], ys[:-1]], dim=0)
+        h_prev = torch.cat([h0[None], ys[:-1]], dim=0).to(dz.dtype)
         dW, db, dU, dxs = [], [], [], []
         for d in range(ND):  # T·B contractions outside the kernel
             r = _rows(d, B)
             dz_d = dz[:, r].reshape(T * B, G)
-            dW.append(xs[:, r].reshape(T * B, D).T @ dz_d)
-            dU.append(h_prev[:, r].reshape(T * B, H).T @ dz_d)
-            db.append(dz_d.sum(dim=0))
-            dxs.append((dz_d @ W[d].T).reshape(T, B, D))
+            dW.append(mm_f32(xs[:, r].reshape(T * B, D).T, dz_d))
+            dU.append(mm_f32(h_prev[:, r].reshape(T * B, H).T, dz_d))
+            db.append(dz_d.float().sum(dim=0))
+            dxs.append(mm_f32(dz_d, W[d].T).reshape(T, B, D))
         return (torch.cat(dxs, dim=1), torch.stack(dW), torch.stack(db),
-                torch.stack(dU), dh0, dc0, None)
+                torch.stack(dU), dh0, dc0, None, None)
 
 
-def lstmx_recurrence(xs, W, b, U, h0, c0, mask=None):
-    """The pair with the fused backward when autograd needs it; the forward
-    alone, without the cs writes, otherwise (eval)."""
+def lstmx_recurrence(xs, W, b, U, h0, c0, mask=None, dtype=F32):
+    """The pair in ``dtype``'s form (float32 operands, cast inside) with the
+    fused backward when autograd needs it; the forward alone, without the
+    cs writes, otherwise (eval)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xs, W, b, U, h0, c0)):
-        return LSTMXRecurrence.apply(xs, W, b, U, h0, c0, mask)
-    return lstmx_forward(xs, W, b, U, h0, c0, mask)
+        return LSTMXRecurrence.apply(xs, W, b, U, h0, c0, mask, dtype)
+    return lstmx_forward(xs.to(dtype), W.to(dtype), b, U.to(dtype), h0, c0,
+                         mask)
 
 
 def cuda_lstmx_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
-                    mask: torch.Tensor | None = None, reverse: bool = False):
+                    mask: torch.Tensor | None = None, reverse: bool = False,
+                    compute_dtype=None):
     """One LSTM layer over ``xs`` [B, T, D] through the single-direction
     residentx pair, with ``lstm_scan``'s contract (``carry`` (h, c) or
-    None; ``mask`` bool [B, T]; ``reverse``, a flip outside the Function).
+    None; ``mask`` bool [B, T]; ``reverse``, a flip outside the Function;
+    ``compute_dtype``, whose bfloat16 takes the kernels' bfloat16 forms).
     Returns ``((hT, cT), ys [B, T, H])``."""
     B, T, _ = xs.shape
     fused = fuse_params(params)
@@ -619,7 +702,7 @@ def cuda_lstmx_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
     m = None if mask is None else mask.transpose(0, 1).to(torch.float32).contiguous()
     ys, hT, cT = lstmx_recurrence(
         xs.transpose(0, 1).contiguous(), fused.kernel[None], fused.bias[None],
-        fused.recurrent[None], h0, c0, m)
+        fused.recurrent[None], h0, c0, m, resolve_dtype(compute_dtype))
     ys = ys.transpose(0, 1)
     if reverse:
         ys = torch.flip(ys, dims=(1,))

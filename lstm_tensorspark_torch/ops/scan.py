@@ -30,8 +30,8 @@ Port of ``lstm_tensorspark_tpu/ops/scan.py``:
 loop casts the fused matrices and rounds x and h only at the products
 (its zx stays float32, with and without remat); the kernel routes store
 their [T, B, 4H] streams (xproj, z, dz) in bfloat16, as JAX's Pallas
-route does. A bfloat16 scan on a route with no bfloat16 form (the
-residentx pair, the stacked bi-LSTM pair) raises ``TypeError``.
+route does (the residentx pair keeps its projection in float32, as JAX's
+does, and stores dz in bfloat16). Every route has its bfloat16 form.
 
 The parallel-scan backward (``bptt="assoc"``) is not ported and raises.
 """
@@ -143,14 +143,9 @@ def chosen_fwd_strategy(B: int, T: int, H: int, D: int, *,
     VMEM budget; the tiled pair's, on the card ``dev`` when it is given
     (the plan its launch runs). ``esize`` is the bytes of an element of U
     and of the streams, as JAX's planners take ``pbytes``: 2 under
-    bfloat16 compute, where the residentx pair (which has no bfloat16 form
-    yet) raises ``TypeError``. Raises ``ValueError`` when nothing fits."""
-    if T >= cuda_lstmx.FUSEDX_MIN_T and cuda_lstmx.fits(B, H, D, 1, num_sms):
-        if esize != 4:
-            raise TypeError(
-                f"a bfloat16 scan at T={T} >= {cuda_lstmx.FUSEDX_MIN_T} takes "
-                "the residentx pair, whose bfloat16 form (csrc/lstmx_fwd.cu, "
-                "csrc/lstmx_bwd.cu) is not ported yet")
+    bfloat16 compute. Raises ``ValueError`` when nothing fits."""
+    if T >= cuda_lstmx.FUSEDX_MIN_T and cuda_lstmx.fits(B, H, D, 1, num_sms,
+                                                        esize):
         return "residentx"
     try:
         p = cuda_lstm.plan("fwd", B, H, num_sms, esize=esize)
@@ -171,7 +166,7 @@ def chosen_bwd_strategy(B: int, T: int, H: int, D: int, *,
     their budget (z counted at ``esize`` bytes, cs at 4), else the
     backward kernel paired with :func:`chosen_fwd_strategy`'s forward —
     ``"residentx"``, ``"resident"`` or ``"tiled"``. Raises ``ValueError``
-    when no plan fits (``TypeError`` as the forward's lattice does)."""
+    when no plan fits."""
     fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms, dev=dev,
                               esize=esize)
     if remat_chunk is not None:
@@ -186,11 +181,9 @@ def chosen_bwd_strategy(B: int, T: int, H: int, D: int, *,
 
 
 def _route_scan(route: str, params, xs, carry, mask, reverse, cd):
-    """The layer scan of kernel route ``route`` (the residentx pair is
-    reached in float32 only: the lattice raises for it under bfloat16)."""
-    if route == "residentx":
-        return cuda_lstmx_scan(params, xs, carry, mask=mask, reverse=reverse)
-    scan = cuda_lstm_scan if route == "resident" else cuda_lstm_tiled_scan
+    """The layer scan of kernel route ``route`` in compute dtype ``cd``."""
+    scan = {"residentx": cuda_lstmx_scan, "resident": cuda_lstm_scan,
+            "tiled": cuda_lstm_tiled_scan}[route]
     return scan(params, xs, carry, mask=mask, reverse=reverse,
                 compute_dtype=cd)
 
@@ -285,33 +278,38 @@ def auto_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
 
 def bidir_route(B: int, T: int, H_fwd: int, H_bwd: int, D: int, *,
                 remat_chunk: int | None = None, bptt: str = "sequential",
-                num_sms: int = 132) -> str:
+                num_sms: int = 132, esize: int = 4) -> str:
     """How a CUDA bi-LSTM layer runs (JAX ``bidir_lstm_scan``'s gate):
     ``"stacked"`` — one launch of the stacked pair — when there is no
-    ``remat_chunk``, no explicit assoc BPTT and :func:`bilstm_supported`;
-    else ``"two_scans"``."""
+    ``remat_chunk``, no explicit assoc BPTT and :func:`bilstm_supported`
+    (at ``esize`` bytes an element of U: 2 under bfloat16 compute); else
+    ``"two_scans"``."""
     if (remat_chunk is None and bptt != "assoc" and H_fwd == H_bwd
-            and bilstm_supported(B, H_fwd, D, T, num_sms)):
+            and bilstm_supported(B, H_fwd, D, T, num_sms, esize)):
         return "stacked"
     return "two_scans"
 
 
 def bidir_lstm_scan(params_fwd: LSTMParams, params_bwd: LSTMParams,
                     xs: torch.Tensor, *, mask: torch.Tensor | None = None,
-                    remat_chunk: int | None = None, bptt: str = "sequential"):
+                    remat_chunk: int | None = None, bptt: str = "sequential",
+                    compute_dtype=None):
     """Both directions of one bi-LSTM layer over ``xs`` [B, T, D], zero
-    initial carries. Returns ``(((hT_f, cT_f), ys_f), ((hT_b, cT_b),
-    ys_b))``."""
+    initial carries, ``compute_dtype`` (None / float32, or bfloat16) for
+    both. Returns ``(((hT_f, cT_f), ys_f), ((hT_b, cT_b), ys_b))``."""
     B, T, D = xs.shape
+    esize = cuda_lstm.esize_of(resolve_dtype(compute_dtype))
     if xs.device.type == "cuda" and bidir_route(
             B, T, params_fwd.hidden_size, params_bwd.hidden_size, D,
             remat_chunk=remat_chunk, bptt=bptt,
-            num_sms=cuda_lstm._num_sms(xs.device)) == "stacked":
-        return cuda_bilstm_scan(params_fwd, params_bwd, xs, mask=mask)
+            num_sms=cuda_lstm._num_sms(xs.device), esize=esize) == "stacked":
+        return cuda_bilstm_scan(params_fwd, params_bwd, xs, mask=mask,
+                                compute_dtype=compute_dtype)
     out_f = auto_lstm_scan(params_fwd, xs, mask=mask, remat_chunk=remat_chunk,
-                           bptt=bptt)
+                           bptt=bptt, compute_dtype=compute_dtype)
     out_b = auto_lstm_scan(params_bwd, xs, mask=mask, reverse=True,
-                           remat_chunk=remat_chunk, bptt=bptt)
+                           remat_chunk=remat_chunk, bptt=bptt,
+                           compute_dtype=compute_dtype)
     return out_f, out_b
 
 

@@ -10,7 +10,9 @@ train command's loop drives it). ``--steps-per-call``, ``--prefetch``,
 ``--device-data`` (the padded examples staged on the device, each batch
 a row gather by [K, B] indices in ``example_order``) and ``--fused-eval``
 (the stacked eval batches staged on the device, the eval inside the train
-call) as for the LM. Dropout keep masks come from a generator on the
+call) as for the LM. ``--compute-dtype`` reaches every train and eval
+step through the model's config (bfloat16 by default, as JAX's command:
+the residentx kernels' bfloat16 forms on the card). Dropout keep masks come from a generator on the
 training device seeded with ``--seed + 1``; the weights from a CPU
 generator seeded with ``--seed``.
 """
@@ -50,7 +52,8 @@ def classifier_training(args, dev: torch.device, logger, *,
     cfg = ClassifierConfig(
         vocab_size=len(vocab), num_classes=data["num_classes"],
         hidden_size=args.hidden_units, num_layers=args.num_layers,
-        dropout=args.dropout, remat_chunk=args.remat_chunk)
+        dropout=args.dropout, compute_dtype=args.compute_dtype,
+        remat_chunk=args.remat_chunk)
     B = args.batch_size
     k = args.steps_per_call
     train_seqs, train_labels = data["train"]

@@ -21,9 +21,10 @@ go through both sides:
    D=32), where JAX plans ``('resident', 8)`` in bf16 (the same function
    with the same rounding points, another tiling), same limits;
 5. the routes of ``ops/scan.py`` in bf16 at configs 1, 3 and 5's shapes
-   on a 132-SM plan, the element size in the plans, and the refusals: a
-   bf16 LM at T >= 256 (the residentx pair has no bf16 form yet), a mixed
-   kernel call, bf16 serving;
+   on a 132-SM plan, the element size in the plans, a bf16 LM at T >= 256
+   taking the residentx pair's bf16 form (``tests/test_torch_bf16_residentx
+   .py`` holds that form against JAX), and the refusals: a mixed kernel
+   call, float16, bf16 serving;
 6. ``lm_loss`` and its gradients with ``compute_dtype=bfloat16``, ±
    ``logits_dtype=bfloat16``, L=2, tied and untied: the port's plain loop
    against JAX's default scan (losses to 1e-5 relative, gradients to 5e-3
@@ -44,7 +45,7 @@ go through both sides:
    move one); every parameter and moment stays float32;
 8. ``python -m lstm_tensorspark_torch train --compute-dtype bfloat16
    --logits-dtype bfloat16`` on the CPU, and the CLI's handling of the two
-   flags on imdb.
+   flags on imdb (``--logits-dtype`` ignored, a bf16 run accepted).
 """
 
 import itertools
@@ -63,7 +64,7 @@ from lstm_tensorspark_torch import cli as tcli
 from lstm_tensorspark_torch.convert import params_from_numpy
 from lstm_tensorspark_torch.data import batching as tbatch
 from lstm_tensorspark_torch.data import corpus as tcorpus
-from lstm_tensorspark_torch.exit_codes import OK_RC, USAGE_RC
+from lstm_tensorspark_torch.exit_codes import OK_RC
 from lstm_tensorspark_torch.models import lstm_lm as tlm
 from lstm_tensorspark_torch.ops import cuda_lstm, cuda_lstm_tiled
 from lstm_tensorspark_torch.ops import lstm_cell as tcell
@@ -377,13 +378,19 @@ def test_bf16_plans_follow_the_element_size():
 
 
 def test_bf16_refusals():
-    # a bf16 LM at T >= 256 would take the residentx pair: no bf16 form
-    with pytest.raises(TypeError, match="residentx"):
-        tscan.chosen_fwd_strategy(64, 256, 128, 128, esize=2)
+    # a bf16 LM at T >= 256 takes the residentx pair's bf16 form (its twins
+    # on the CPU), with the recompute backward under remat
+    from lstm_tensorspark_torch.ops import cuda_lstmx
+    assert tscan.chosen_fwd_strategy(64, 256, 128, 128, esize=2) == \
+        "residentx"
+    assert tscan.chosen_bwd_strategy(64, 256, 128, 128, remat_chunk=64,
+                                     esize=2) == "recompute"
     xs = torch.zeros(4, 256, 8)
     p = tcell.init_lstm_params(torch.Generator().manual_seed(0), 8, 8)
-    with pytest.raises(TypeError, match="bfloat16 form"):
-        tscan.kernel_lstm_scan(p, xs, compute_dtype=BF)
+    before = cuda_lstmx.fwdx_bf16_counts.reference
+    (hT, _), ys = tscan.kernel_lstm_scan(p, xs, compute_dtype=BF)
+    assert cuda_lstmx.fwdx_bf16_counts.reference == before + 1
+    assert ys.dtype == hT.dtype == torch.float32 and bool(ys.isfinite().all())
     # a mixed kernel call raises, on the CPU as on the card
     T, B, H = 3, 2, 4
     args = [torch.zeros(T, B, 4 * H, dtype=BF), torch.zeros(H, 4 * H),
@@ -395,7 +402,7 @@ def test_bf16_refusals():
                                            args[2].to(BF), args[3])
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         cuda_lstm.lstm_forward(args[0].half(), args[1].half(), *args[2:])
-    # a kernel with no bf16 form (the residentx pair, the windows) names it
+    # a kernel with no bf16 form (the windows) names it
     from lstm_tensorspark_torch import kernels
     with pytest.raises(TypeError, match="bfloat16 form is not ported"):
         kernels.check_f32("xs", args[0], tuple(args[0].shape),
@@ -594,10 +601,11 @@ def test_cli_train_bf16_end_to_end(tmp_path):
 def test_cli_dtype_flags_on_imdb(tmp_path, capsys):
     """As JAX's command: --logits-dtype is an LM flag the classifier
     ignores (the run is the float32 one, loss for loss); --compute-dtype
-    bfloat16 on imdb is refused until the classifier's bf16 is ported."""
+    bfloat16 on imdb trains the classifier in bf16."""
     base = ["train", "--dataset", "imdb", "--device", "cpu",
             "--hidden-units", "8", "--seq-len", "16", "--batch-size", "4",
-            "--num-steps", "2", "--log-every", "1"]
+            "--num-steps", "2", "--log-every", "1", "--compute-dtype",
+            "float32"]
     runs = []
     for i, extra in enumerate(([], ["--logits-dtype", "bfloat16"])):
         path = tmp_path / f"{i}.jsonl"
@@ -605,5 +613,5 @@ def test_cli_dtype_flags_on_imdb(tmp_path, capsys):
         runs.append([json.loads(line)["loss"] for line in
                      path.read_text().splitlines() if '"loss"' in line])
     assert len(runs[0]) == 2 and runs[0] == runs[1]
-    assert tcli.main(base + ["--compute-dtype", "bfloat16"]) == USAGE_RC
-    assert "not ported" in capsys.readouterr().err
+    assert tcli.main(base + ["--compute-dtype", "bfloat16"]) == OK_RC
+    assert "not ported" not in capsys.readouterr().err

@@ -260,8 +260,11 @@ def test_init_classifier_shapes_and_order():
     assert p["fwd"][0].W_i.shape == (6, 8) and p["bwd"][1].W_i.shape == (16, 8)
     assert p["head"]["kernel"].shape == (16, 2)
     assert [k for k in sorted(p)] == ["bwd", "embedding", "fwd", "head"]
-    with pytest.raises(ValueError, match="float32 only"):
-        tclf.ClassifierConfig(vocab_size=4, compute_dtype="bfloat16")
+    assert tclf.ClassifierConfig(vocab_size=4,
+                                 compute_dtype="bfloat16").compute_dtype \
+        == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype must be one of"):
+        tclf.ClassifierConfig(vocab_size=4, compute_dtype="float16")
 
 
 def test_cli_train_imdb_end_to_end(tmp_path):
@@ -273,8 +276,8 @@ def test_cli_train_imdb_end_to_end(tmp_path):
         "8", "--seq-len", "24", "--batch-size", "8", "--num-steps", "12",
         "--log-every", "4", "--eval-every", "6", "--eval-batches", "2",
         "--optimizer", "adam", "--learning-rate", "1e-2", "--clip-norm",
-        "1.0", "--dropout", "0.2", "--remat-chunk", "8", "--jsonl",
-        str(path)])
+        "1.0", "--dropout", "0.2", "--remat-chunk", "8", "--compute-dtype",
+        "float32", "--jsonl", str(path)])
     assert rc == 0
     recs = [json.loads(line) for line in path.read_text().splitlines()]
     losses = [r for r in recs if "loss" in r]
@@ -288,7 +291,7 @@ def test_cli_train_imdb_end_to_end(tmp_path):
 
 @pytest.mark.parametrize("flags,msg", [
     (["--stateful"], "--stateful"), (["--remat-chunk", "0"], "remat-chunk"),
-    (["--compute-dtype", "bfloat16"], "not ported")])
+    (["--fused-eval"], "--fused-eval needs --eval-every")])
 def test_cli_imdb_refusals(flags, msg, capsys):
     rc = tcli.main(["train", "--dataset", "imdb", "--device", "cpu",
                     "--num-steps", "1", *flags])

@@ -279,11 +279,12 @@ def test_classifier_device_rows_match_host_batches():
 LM_FLAGS = ["train", "--device", "cpu", "--hidden-units", "16",
             "--batch-size", "4", "--seq-len", "8", "--learning-rate", "0.5",
             "--stateful", "--log-every", "2", "--eval-every", "3",
-            "--eval-batches", "2"]
+            "--eval-batches", "2", "--compute-dtype", "float32"]
 IMDB_FLAGS = ["train", "--dataset", "imdb", "--device", "cpu",
               "--hidden-units", "8", "--seq-len", "16", "--batch-size", "8",
               "--optimizer", "adam", "--learning-rate", "1e-2",
-              "--log-every", "2", "--eval-every", "2", "--eval-batches", "2"]
+              "--log-every", "2", "--eval-every", "2", "--eval-batches", "2",
+              "--compute-dtype", "float32"]
 # the keys of JAX's logged records (train/loop.py::_run_train_loop, with
 # the logger's elapsed "t") that the port keeps; model_tflops and mfu need
 # --peak-tflops, not ported
@@ -322,8 +323,8 @@ def test_cli_k_steps_device_data_fused_eval(tmp_path):
     assert [r["eval_loss"] for r in host if "eval_loss" in r] == [ev[1]] * 2
 
 
-def test_cli_classifier_device_data_fused_eval(tmp_path):
-    flags = IMDB_FLAGS + ["--num-steps", "8", "--steps-per-call", "2"]
+def _classifier_device_data_fused_eval(tmp_path, extra):
+    flags = IMDB_FLAGS + ["--num-steps", "8", "--steps-per-call", "2"] + extra
     fused = _run(tmp_path, "fused", flags + ["--device-data", "--fused-eval"])
     host = _run(tmp_path, "host", flags)
     for recs in (fused, host):
@@ -336,6 +337,17 @@ def test_cli_classifier_device_data_fused_eval(tmp_path):
     for a, b in zip([r for r in fused if "eval_loss" in r],
                     [r for r in host if "eval_loss" in r]):
         np.testing.assert_allclose(a["eval_loss"], b["eval_loss"], atol=1e-6)
+
+
+def test_cli_classifier_device_data_fused_eval(tmp_path):
+    _classifier_device_data_fused_eval(tmp_path, [])
+
+
+def test_cli_classifier_device_data_fused_eval_bf16(tmp_path):
+    """The same in bf16 compute (the train command's default): the staged
+    rows and the fused eval carry the compute dtype through the config."""
+    _classifier_device_data_fused_eval(tmp_path,
+                                       ["--compute-dtype", "bfloat16"])
 
 
 @pytest.mark.parametrize("flags", [

@@ -249,15 +249,15 @@ def test_anomaly_limit_exits_77(capsys):
     rc = tcli.main(["train", "--device", "cpu", "--hidden-units", "8",
                     "--batch-size", "4", "--seq-len", "8", "--num-steps", "20",
                     "--learning-rate", "inf", "--anomaly-limit", "2",
-                    "--log-every", "0"])
+                    "--log-every", "0", "--compute-dtype", "float32"])
     assert rc == ANOMALY_RC == 77
     assert "anomaly abort" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dataset", "imdb", "--compute-dtype", "bfloat16"],
-    ["--dataset", "imdb", "--compute-dtype", "bfloat16", "--logits-dtype",
-     "bfloat16"],
+    ["--dataset", "uci_electricity", "--compute-dtype", "bfloat16"],
+    ["--dataset", "uci_electricity", "--compute-dtype", "float32",
+     "--logits-dtype", "bfloat16"],
     ["--dataset", "uci_electricity"]])
 def test_train_refuses_what_is_not_ported(flags, capsys):
     rc = tcli.main(["train", "--device", "cpu", "--num-steps", "1", *flags])
@@ -274,7 +274,7 @@ def test_cli_train_end_to_end(tmp_path):
          "--device", "cpu", "--hidden-units", "32", "--batch-size", "8",
          "--seq-len", "16", "--num-steps", "60", "--log-every", "10",
          "--eval-every", "30", "--eval-batches", "4", "--learning-rate", "0.5",
-         "--stateful", "--jsonl", str(path)],
+         "--stateful", "--compute-dtype", "float32", "--jsonl", str(path)],
         capture_output=True, text=True, timeout=300,
         # one thread, as the in-process tests use: the suite runs in
         # parallel workers
