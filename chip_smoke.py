@@ -185,13 +185,35 @@ Phases (each one fails the run):
    counter and the plain twins at 0), a 30-step run at the script's
    dropout, and steps/s, device ms a step, the idle share and the device
    ms a step by part beside the float32 run of the same command, in
-   turns.
+   turns;
+17. train, checkpoint, resume and serve that checkpoint in bf16: (a) the
+   decode and spec windows' bf16 forms (W and U bfloat16) against their
+   plain twins at config 1 (decode B=16, K=8, greedy, sampled and with
+   bf16 logits; spec k_draft=4, a random and the all-accept draft) and
+   config 3's width (B=4, K=4; k_draft=4): tokens identical, carries
+   within phase 5's bf16 limit (1e-3), each timed beside its float32 form
+   in turns (f32, bf16, bf16, f32), its plain twin, its device ms and its
+   bound; the recurrence forwards' plain-rounding forms (xproj float32, U
+   bfloat16: the serve prefill's) against their twins at a prefill batch
+   of config 1 (resident) and config 3's width (tiled); (b) config 1
+   trained as ``configs/ptb_char.sh`` runs it (bf16), captured, with
+   ``--checkpoint-dir --checkpoint-every``, then resumed from the oldest
+   checkpoint kept: every later loss equal to the whole run's bit for bit,
+   at K=1 host-fed and K=8 ``--device-data``; (c) ``serve --http
+   --compute-dtype bfloat16 --checkpoint-dir`` on that checkpoint as a
+   subprocess, plain and ``--speculative``: phase 4's burst, tokens equal
+   to the CPU plain ``generate`` of the checkpoint in bf16, the bf16
+   windows' and the prefill form's launches from the server's
+   ``/v1/stats`` (no other kernel, no plain twin), tokens/s, TTFT and the
+   largest gap between tokens; (d) phase 13's burst at config 3's width in
+   bf16.
 
 Each phase prints the seconds it took. ``python3 <this file>
 --train-calls LABEL`` runs phase 14 alone; ``--bf16 train`` the bf16
 parts of phases 5, 7 and 9 and phases 15 and 16 (``--bf16 kernels``
 without phases 15 and 16, ``--bf16 residentx`` phase 7's bf16 part and
-phase 16 alone).
+phase 16 alone, ``--bf16 windows`` phase 17a alone, ``--bf16 serve``
+phase 17).
 
 The last lines are the kernel report (one JSON object), the card's
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``. Exits
@@ -206,6 +228,7 @@ import gc
 import http.client
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2554,16 +2577,22 @@ def spec_serve_phase(torch, tlm, tgen, cd, cs, cl, serve, draft_config,
     return spec_launches
 
 
-def config3_burst(torch, tlm, tgen, cd, serve, device):
+def config3_burst(torch, tlm, tgen, cd, serve, device,
+                  compute_dtype="float32"):
     """Phase 4's 6-request greedy burst (32 new tokens, request 5 with an
     eos_id) over HTTP at config 3's width (L=2, H=650, V=33,278, seeded
     weights), where the decode window sets the pace: tokens against the
-    plain ``generate`` on the CPU, the window kernel's launches, no plain
-    window on the card; returns tokens/s, TTFT, the largest gap between
-    tokens, the device's idle share and the launches."""
+    plain ``generate`` on the CPU, the window kernel's launches (its form of
+    ``compute_dtype``), no plain window on the card; returns tokens/s,
+    TTFT, the largest gap between tokens, the device's idle share and the
+    launches."""
+    import dataclasses
+
     import numpy as np
 
     cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG3)
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    counts = cd.counts_bf16 if compute_dtype == "bfloat16" else cd.counts
     rng = np.random.RandomState(0)
     lens = (3, 9, 17, 24, 33, 40)
     prompts = [rng.randint(0, cfg.vocab_size, size=t).tolist() for t in lens]
@@ -2617,9 +2646,9 @@ def config3_burst(torch, tlm, tgen, cd, serve, device):
 
     try:
         with server:
-            cd.counts.reset()
+            counts.reset()
             out, wall = burst()
-            launches, plain = cd.counts.kernel, cd.counts.reference
+            launches, plain = counts.kernel, counts.reference
             prof = device_profile(torch, burst)
     finally:
         httpd.shutdown()
@@ -3375,6 +3404,519 @@ def bf16x_train_phase(torch, cli, cl, cx, ct, device, host):
     return main_path
 
 
+# ---------------------------------------------------------------------------
+# phase 17: train with checkpoints, resume, serve that checkpoint in bf16
+# ---------------------------------------------------------------------------
+
+# (a) the windows' bfloat16 forms (W and U bfloat16, x and h rounded at the
+# products) and the recurrence forwards' plain-rounding form (xproj float32,
+# U bfloat16: the serve prefill's) against their plain twins, held as phase
+# 5 holds the bf16 forms: tokens identical, float32 values (h, c, ys) to
+# BF16_TOL (both round h to bfloat16 from float32 sums taken in another
+# order, so a sum by a rounding boundary can round the other way). Shapes:
+# config 1 (decode B=16, K=8; spec k_draft=4) and config 3's width (B=4,
+# K=4; k_draft=4); the prefill forms at a serve prefill batch of config 1
+# (B=8, T=16, masked: the resident forward) and of config 3's width (B=4,
+# T=40, masked: the tiled forward)
+BF16_WINDOWS = (("config1", CONFIG1, 16, 8, 4), ("config3", CONFIG3, 4, 4, 4))
+BF16U_PREFILL = (("lstm_fwd_bf16u", dict(B=8, T=16, H=128)),
+                 ("lstm_tiled_fwd_bf16u", dict(B=4, T=40, H=650)))
+
+
+def bf16_window_weights(torch, cd, tgen, params, cfg, ldtype=None):
+    """Decode weights of ``cfg``'s model fused in bfloat16 (the serve
+    engine's under ``--compute-dtype bfloat16``), logits in ``ldtype``."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    return cd.decode_weights(params, tgen.fuse_layers(params, cfg),
+                             cfg.tie_embeddings, ldtype or torch.float32)
+
+
+def window_bound_bf16(cfg, B, K, row_steps, draft=None, live=0, emitted=0):
+    """Least time of a bfloat16 window: W and U at 2 bytes an element (the
+    rest as :func:`bound` and :func:`spec_bound` count it) over HBM
+    bandwidth, against the layers' products over the bf16 tensor-core peak
+    plus the float32 head's over the float32 peak. A decode window runs
+    ``row_steps`` row steps; with a ``draft``, a spec window whose rows
+    ran K draft steps each (``live`` rows) and ``emitted`` target and
+    draft steps."""
+    def cell(m):
+        return sum(((m.embed if l == 0 else m.hidden_size) + m.hidden_size)
+                   * 4 * m.hidden_size for l in range(m.num_layers))
+
+    V = cfg.vocab_size
+    models = (cfg,) if draft is None else (cfg, draft)
+    nbytes = sum(2 * cell(m) + 4 * (4 * m.hidden_size * m.num_layers
+                                    + m.hidden_size * V + V)
+                 + 4 * 4 * m.num_layers * B * m.hidden_size for m in models)
+    if draft is None:
+        nbytes += 4 * min(row_steps, V) * cfg.embed + 4 * B * (K + 7)
+        mm = 2 * row_steps * cell(cfg)
+        head = 2 * row_steps * cfg.hidden_size * V
+    else:
+        nbytes += 4 * (min(emitted, V) * cfg.embed
+                       + min(K * live + emitted, V) * draft.embed
+                       + B * (K + 8))
+        mm = 2 * (K * live * cell(draft) + emitted * (cell(cfg) + cell(draft)))
+        head = 2 * V * (K * live * draft.hidden_size
+                        + emitted * cfg.hidden_size)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = mm / PEAK_BF16_FLOPS + head / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def held_bf16(got, ref, label, names, n_exact):
+    """Fail unless the first ``n_exact`` outputs past the float ones are
+    identical and every float output is within BF16_TOL; returns the max
+    float difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    nf = len(names) - n_exact
+    for name, a, b in zip(names[nf:], got[nf:], ref[nf:]):
+        if not torch.equal(a, b):
+            fail(f"{label}: kernel {name} differ from the plain twin:\n"
+                 f"kernel {a.tolist()}\nplain  {b.tolist()}")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got[:nf], ref[:nf]))
+    if err > BF16_TOL:
+        fail(f"{label}: {'/'.join(names[:nf])} differ by {err:.3e} > "
+             f"{BF16_TOL}")
+    return err
+
+
+def in_turns_ms(torch, f32_fn, bf16_fn, iters):
+    """CUDA-event ms of two forms in turns (f32, bf16, bf16, f32)."""
+    a1 = time_ms(torch, f32_fn, iters)
+    b1 = time_ms(torch, bf16_fn, iters)
+    b2 = time_ms(torch, bf16_fn, iters)
+    a2 = time_ms(torch, f32_fn, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2, (a1, b1, b2, a2)
+
+
+def bf16_windows_phase(torch, tlm, tgen, cd, cs, cl, ct, draft_config,
+                       device):
+    print("== phase 17a: the windows' bf16 forms and the prefill's "
+          "plain-rounding forms vs their plain twins", flush=True)
+    out = {"decode_window_bf16": dict(max_err=0.0),
+           "spec_window_bf16": dict(max_err=0.0)}
+    dnames = ("h", "c", "tokens", "next", "alive", "remaining")
+    snames = ("h", "c", "draft h", "draft c", "tokens", "next", "alive",
+              "remaining")
+    for name, spec, B, K, kd in BF16_WINDOWS:
+        cfg, _, params = make_model(torch, tlm, 1, device=device, **spec)
+        w32 = weights_of(cd, tgen, params, cfg)
+        wb = bf16_window_weights(torch, cd, tgen, params, cfg)
+        shape = ((cfg.num_layers, cfg.hidden_size, cfg.embed),)
+        plan = cd.card_plan(shape, cfg.vocab_size, B, None, device, 2)
+        cases = [(True, None), (False, None)]
+        if name == "config1":
+            cases.append((True, torch.bfloat16))
+        for i, (greedy, ld) in enumerate(cases):
+            w = wb if ld is None else wb._replace(ldtype=ld)
+            inputs = window_inputs(torch, cd, w, cfg, B, K, greedy,
+                                   seed=300 + i, device=device,
+                                   edge_rows=True)
+            args = dict(window=K, temperature=0.7, greedy=greedy)
+            err = held_bf16(cd.decode_window(w, *inputs, **args),
+                            cd.decode_window_reference(w, *inputs, **args),
+                            f"decode bf16 {name} greedy={greedy} "
+                            f"ldtype={ld or torch.float32}", dnames, 4)
+            out["decode_window_bf16"]["max_err"] = max(
+                out["decode_window_bf16"]["max_err"], err)
+            print(f"  decode bf16 {name} B={B} K={K} greedy={greedy} "
+                  f"logits {ld or torch.float32}: tokens identical, max "
+                  f"|dh|,|dc| = {err:.3e}; {plan}", flush=True)
+        # the spec window: the draft_config draft (bf16, as the target)
+        dcfg = draft_config(cfg)
+        dparams = tlm.params_to(tlm.init_lm(torch.Generator().manual_seed(2),
+                                            dcfg), device)
+        dw32 = weights_of(cd, tgen, dparams, dcfg)
+        dwb = bf16_window_weights(torch, cd, tgen, dparams, dcfg)
+        splan = cd.card_plan(shape + ((dcfg.num_layers, dcfg.hidden_size,
+                                       dcfg.embed),), cfg.vocab_size, B, kd,
+                             device, 2)
+        for accept in (False, True):
+            dw_ = wb if accept else dwb
+            inputs = spec_inputs(torch, cfg, cfg if accept else dcfg, B, kd,
+                                 310 + accept, device, accept)
+            err = held_bf16(cs.spec_window(wb, dw_, *inputs, k_draft=kd),
+                            cs.spec_window_reference(wb, dw_, *inputs,
+                                                     k_draft=kd),
+                            f"spec bf16 {name} accept={accept}", snames, 4)
+            out["spec_window_bf16"]["max_err"] = max(
+                out["spec_window_bf16"]["max_err"], err)
+            print(f"  spec bf16 {name} B={B} k_draft={kd} "
+                  f"{'all-accept' if accept else 'random'} draft: tokens "
+                  f"identical, max carry diff {err:.3e}; {splan}",
+                  flush=True)
+        # timing: every row live, greedy; each bf16 form beside its f32 form
+        # in turns, its plain twin, its device ms and its bound
+        iters = 100 if name == "config1" else 20
+        inputs = window_inputs(torch, cd, wb, cfg, B, K, True, seed=7,
+                               device=device, edge_rows=False)
+        args = dict(window=K, temperature=1.0, greedy=True)
+        row_steps = int((cd.decode_window(wb, *inputs, **args)[2]
+                         != cd.PAD_TOKEN).sum())
+        f32_ms, bf_ms, turns = in_turns_ms(
+            torch, lambda: cd.decode_window(w32, *inputs, **args),
+            lambda: cd.decode_window(wb, *inputs, **args), iters)
+        plain_ms = time_ms(
+            torch, lambda: cd.decode_window_reference(wb, *inputs, **args),
+            max(5, iters // 10))
+        dev_ms = profiled_ms(torch, lambda: cd.decode_window(wb, *inputs,
+                                                             **args),
+                             "decode_window", 20)
+        b_ms, b_by = window_bound_bf16(cfg, B, K, row_steps)
+        out["decode_window_bf16"][name] = dict(
+            kernel_ms=bf_ms, f32_ms=f32_ms, plain_ms=plain_ms,
+            device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  decode {name} B={B} K={K}: bf16 kernel_ms {bf_ms:.4f}, "
+              f"f32 kernel_ms {f32_ms:.4f} (turns f32/bf16/bf16/f32 "
+              f"{', '.join(f'{t:.4f}' for t in turns)}), bf16 device ms "
+              f"{'not recorded' if dev_ms is None else f'{dev_ms:.4f}'}, "
+              f"plain twin {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+              f"({b_by}); off-chip weight bytes a step "
+              f"{sum(plan.offchip_bytes[0])}", flush=True)
+        inputs = spec_inputs(torch, cfg, dcfg, B, kd, 7, device, False)
+        inputs[5].fill_(1)
+        inputs[6].fill_(kd + 4)
+        toks = cs.spec_window(wb, dwb, *inputs, k_draft=kd)[4]
+        emitted = int((toks != cs.PAD_TOKEN).sum())
+        f32_ms, bf_ms, turns = in_turns_ms(
+            torch, lambda: cs.spec_window(w32, dw32, *inputs, k_draft=kd),
+            lambda: cs.spec_window(wb, dwb, *inputs, k_draft=kd), iters)
+        plain_ms = time_ms(
+            torch, lambda: cs.spec_window_reference(wb, dwb, *inputs,
+                                                    k_draft=kd),
+            max(5, iters // 10))
+        dev_ms = profiled_ms(torch, lambda: cs.spec_window(wb, dwb, *inputs,
+                                                           k_draft=kd),
+                             "spec_window", 20)
+        b_ms, b_by = window_bound_bf16(cfg, B, kd, 0, draft=dcfg, live=B,
+                                       emitted=emitted)
+        out["spec_window_bf16"][name] = dict(
+            kernel_ms=bf_ms, f32_ms=f32_ms, plain_ms=plain_ms,
+            device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  spec {name} B={B} k_draft={kd} ({emitted} tokens emitted):"
+              f" bf16 kernel_ms {bf_ms:.4f}, f32 kernel_ms {f32_ms:.4f} "
+              f"(turns {', '.join(f'{t:.4f}' for t in turns)}), bf16 device "
+              f"ms {'not recorded' if dev_ms is None else f'{dev_ms:.4f}'}, "
+              f"plain twin {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})",
+              flush=True)
+    # the plain-rounding forms of the recurrence forwards
+    for name, sh in BF16U_PREFILL:
+        B, T, H = sh["B"], sh["T"], sh["H"]
+        fwd = cl.lstm_forward if name == "lstm_fwd_bf16u" else \
+            ct.lstm_tiled_forward
+        g = torch.Generator().manual_seed(17)
+        xp = (torch.randn((T, B, 4 * H), generator=g) * 0.5).to(device)
+        U = (torch.randn((H, 4 * H), generator=g) / H ** 0.5).to(
+            device).to(torch.bfloat16)
+        h0 = (torch.randn((B, H), generator=g) * 0.5).to(device)
+        c0 = (torch.randn((B, H), generator=g) * 0.5).to(device)
+        lens = torch.randint(1, T + 1, (B,), generator=g)
+        mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(device)
+        got = fwd(xp, U, h0, c0, mask)
+        ref = cl.lstm_forward_reference(xp, U, h0, c0, mask)
+        err = held_bf16(got, ref, f"{name} B={B} T={T} H={H}",
+                        ("ys", "hT", "cT"), 0)
+        kernel_ms = time_ms(torch, lambda: fwd(xp, U, h0, c0, mask), 50)
+        plain_ms = time_ms(torch, lambda: cl.lstm_forward_reference(
+            xp, U, h0, c0, mask), 3)
+        dev_ms = profiled_ms(torch, lambda: fwd(xp, U, h0, c0, mask),
+                             name.replace("_bf16u", ""), 20)
+        nbytes = 4 * T * B * 4 * H + 2 * 4 * H * H + 4 * (T * B * H
+                                                          + 4 * B * H + T * B)
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = 2 * T * B * H * 4 * H / PEAK_BF16_FLOPS
+        out[name] = dict(max_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                         device_ms=dev_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", library_ms=None)
+        print(f"  {name} B={B} T={T} H={H} masked: ys/hT/cT within "
+              f"{err:.3e}; kernel_ms {kernel_ms:.4f} (device "
+              f"{'not recorded' if dev_ms is None else f'{dev_ms:.4f}'}), "
+              f"plain twin {plain_ms:.4f} ms, bound "
+              f"{out[name]['bound_ms']:.6f} ms ({out[name]['bound_by']})",
+              flush=True)
+    return out
+
+
+# (b) config 1 trained as configs/ptb_char.sh runs it (bf16), captured,
+# with checkpoints: a whole run, then the same command resumed from the
+# oldest checkpoint it kept; every loss after that step must equal the
+# whole run's bit for bit (K=1 host-fed: 24 steps, a checkpoint every 8
+# calls; K=8 --device-data: 48 steps, every 2 calls). The K=1 run's last
+# checkpoint is what (c) serves.
+RESUME_RUNS = (("k1", ["--num-steps", "24", "--checkpoint-every", "8"]),
+               ("k8-device-data", ["--num-steps", "48", "--steps-per-call",
+                                   "8", "--device-data",
+                                   "--checkpoint-every", "2"]))
+
+
+def resume_phase(torch, cli, tmp):
+    print("== phase 17b: config 1 in bf16 with checkpoints, resumed bit for "
+          "bit", flush=True)
+    base = CONFIG1_BF16_FLAGS + ["--log-every", "1"]
+    out = {}
+    for name, extra in RESUME_RUNS:
+        whole_dir = os.path.join(tmp, f"{name}-whole")
+        logs = {}
+
+        def run(tag, flags):
+            path = os.path.join(tmp, f"{name}-{tag}.jsonl")
+            t0 = time.perf_counter()
+            rc = cli.main(base + extra + flags + ["--jsonl", path])
+            if rc != 0:
+                fail(f"resume {name} {tag}: train exited {rc}")
+            with open(path) as f:
+                recs = [json.loads(line) for line in f]
+            logs[tag] = {r["step"]: r["loss"] for r in recs
+                         if "loss" in r and "note" not in r}
+            return recs, time.perf_counter() - t0
+
+        _, t_whole = run("whole", ["--checkpoint-dir", whole_dir])
+        kept = sorted(int(n[5:-3]) for n in os.listdir(whole_dir)
+                      if n.endswith(".pt"))
+        mid = kept[0]
+        res_dir = os.path.join(tmp, f"{name}-resumed")
+        os.makedirs(res_dir)
+        for suffix in (".pt", ".pt.sha256"):
+            shutil.copy(os.path.join(whole_dir, f"step_{mid}{suffix}"),
+                        res_dir)
+        recs, t_res = run("resumed", ["--checkpoint-dir", res_dir,
+                                      "--resume"])
+        if not any(r.get("note") == f"resumed at step {mid}" for r in recs):
+            fail(f"resume {name}: the run did not resume at step {mid}")
+        whole, resumed = logs["whole"], logs["resumed"]
+        want = [s for s in sorted(whole) if s > mid]
+        if sorted(resumed) != want:
+            fail(f"resume {name}: logged steps {sorted(resumed)} != {want}")
+        diff = [s for s in want if whole[s] != resumed[s]]
+        if diff:
+            fail(f"resume {name}: losses differ at steps {diff}: whole "
+                 f"{[whole[s] for s in diff]} resumed "
+                 f"{[resumed[s] for s in diff]}")
+        print(f"  {name}: checkpoints {kept} kept; resumed at step {mid}, "
+              f"{len(want)} logged losses after it identical to the whole "
+              f"run's (last {resumed[want[-1]]:.6f}); whole run {t_whole:.1f}"
+              f" s, resumed {t_res:.1f} s", flush=True)
+        out[name] = whole_dir
+    return out["k1"]
+
+
+# (c) serve that checkpoint in bf16: `serve --http --compute-dtype bfloat16
+# --checkpoint-dir <dir>` as a subprocess, plain and --speculative; phase
+# 4's burst (6 greedy requests, prompt lengths 3-40, 32 new tokens, one
+# with an eos_id) against the CPU plain generate of the same checkpoint in
+# bf16; the server's own counters (GET /v1/stats) before and after
+SERVE_BOOT_LIMIT_S = 180
+
+
+def serve_cmd_burst(torch, cli, tgen, tlm, ckpt_dir, vocab, speculative):
+    """Boot the serve command on the checkpoint, send the burst, stop it;
+    returns (responses, wall s, launches during the burst by counter)."""
+    import numpy as np
+
+    cfg = tlm.LMConfig(vocab_size=vocab, hidden_size=128, num_layers=1,
+                       compute_dtype="bfloat16")
+    args = cli.build_serve_parser().parse_args(
+        ["--http", "--checkpoint-dir", ckpt_dir, "--vocab-size", str(vocab),
+         "--hidden-units", "128", "--num-layers", "1"])
+    params = cli._checkpoint_params(args, tlm.init_lm(
+        torch.Generator().manual_seed(0), cfg))
+    rng = np.random.RandomState(0)
+    lens = (3, 9, 17, 24, 33, 40)
+    prompts = [rng.randint(0, vocab, size=t).tolist() for t in lens]
+    n_new = 32
+    refs = [tgen.generate(params, [q], cfg, max_new_tokens=n_new,
+                          greedy=True, device="cpu")[0, len(q):].tolist()
+            for q in prompts]
+    eos_at = next((i for i in range(8, n_new)
+                   if refs[5][i] not in refs[5][:i]), None)
+    expect = [list(r) for r in refs]
+    if eos_at is not None:
+        expect[5] = refs[5][:eos_at + 1]
+    cmd = [sys.executable, "-m", "lstm_tensorspark_torch", "serve", "--http",
+           "--port", "0", "--compute-dtype", "bfloat16", "--checkpoint-dir",
+           ckpt_dir, "--vocab-size", str(vocab), "--hidden-units", "128",
+           "--num-layers", "1", "--num-slots", "32", "--prefill-buckets",
+           "8,16,32,64", "--max-new-tokens", str(n_new)]
+    if speculative:
+        cmd.append("--speculative")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    lines, port = [], None
+    t0 = time.perf_counter()
+    try:
+        while port is None:
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"serve exited {proc.wait()} before serving: "
+                     + "".join(lines)[-3000:])
+            lines.append(line)
+            if line.startswith("serving on http://"):
+                port = int(line.split()[2].rsplit(":", 1)[1])
+            if time.perf_counter() - t0 > SERVE_BOOT_LIMIT_S:
+                fail(f"serve did not boot in {SERVE_BOOT_LIMIT_S} s")
+        boot = time.perf_counter() - t0
+
+        def stats():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                conn.request("GET", "/v1/stats")
+                return json.loads(conn.getresponse().read())["engine"]
+            finally:
+                conn.close()
+
+        before = stats()
+        out = [None] * len(prompts)
+
+        def one(i):
+            body = {"prompt": prompts[i], "max_new_tokens": n_new,
+                    "greedy": True}
+            if i == 5 and eos_at is not None:
+                body["eos_id"] = refs[5][eos_at]
+            out[i] = post(port, body)
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t1
+        after = stats()
+    finally:
+        proc.send_signal(2)  # SIGINT: the command's own shutdown
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    mode = "speculative" if speculative else "plain"
+    for i, r in enumerate(out):
+        if r is None or r[0] != 200:
+            fail(f"serve {mode}: request {i} failed: {r}")
+        if r[1]["tokens"] != expect[i]:
+            fail(f"serve {mode}: request {i}: served tokens {r[1]['tokens']} "
+                 f"!= the CPU plain generate of the checkpoint {expect[i]}")
+    if after["window_form"] != "bfloat16":
+        fail(f"serve {mode}: the engine runs the {after['window_form']} "
+             "windows, not their bfloat16 forms")
+    if after["reference_windows"] or after["spec_reference_windows"]:
+        fail(f"serve {mode}: windows ran the plain twins on the card")
+    launches = {k: after["launch_counts"].get(k, 0)
+                - before["launch_counts"].get(k, 0)
+                for k in after["launch_counts"]}
+    return out, wall, launches, boot, expect
+
+
+def bf16_serve_phase(torch, cli, tgen, tlm, ckpt_dir):
+    print("== phase 17c: serve --compute-dtype bfloat16 --checkpoint-dir "
+          "(the checkpoint of 17b), plain and speculative", flush=True)
+    import glob
+
+    vocab = None
+    for path in glob.glob(os.path.join(ckpt_dir, "step_*.pt")):
+        vocab = torch.load(path, weights_only=True)["params"][0].shape[0]
+        break
+    out = {}
+    for speculative in (False, True):
+        mode = "speculative" if speculative else "plain"
+        res, wall, launches, boot, expect = serve_cmd_burst(
+            torch, cli, tgen, tlm, ckpt_dir, vocab, speculative)
+        want = "spec_window_bf16" if speculative else "decode_window_bf16"
+        for name in (want, "lstm_fwd_bf16u"):
+            if launches.get(name, 0) < 1:
+                fail(f"serve {mode}: the burst launched {name} no time "
+                     f"({launches})")
+        stray = {k: v for k, v in launches.items()
+                 if v and k not in ("decode_window_bf16", "spec_window_bf16",
+                                    "lstm_fwd_bf16u")}
+        if stray:
+            fail(f"serve {mode}: the burst launched other kernels {stray}")
+        tokens = sum(len(r[1]["tokens"]) for r in res)
+        ttft = sorted(r[1]["ttft_ms"] for r in res)
+        itl = sorted(r[1]["max_itl_ms"] or 0.0 for r in res)
+        print(f"  {mode}: booted in {boot:.1f} s; 6 requests, tokens "
+              f"identical to the CPU plain generate of the checkpoint in bf16"
+              f" ({'request 5 stopped on its eos_id' if len(expect[5]) < 32 else 'no eos'});"
+              f" {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} "
+              f"tokens/s; ttft_ms {ttft}; max_itl_ms {itl}; launches during "
+              f"the burst {launches}", flush=True)
+        out[mode] = launches
+    return out
+
+
+def bf16_config3_phase(torch, tlm, tgen, cd, ct, serve, device):
+    print("== phase 17d: phase 13's burst at config 3's width in bf16",
+          flush=True)
+    for c in (cd.counts_bf16, ct.fwd_bf16u_counts):
+        c.reset()
+    r = config3_burst(torch, tlm, tgen, cd, serve, device,
+                      compute_dtype="bfloat16")
+    prefill = ct.fwd_bf16u_counts.kernel
+    if prefill < 1:
+        fail("config 3 bf16: the prefills launched lstm_tiled_fwd_bf16u no "
+             "time")
+    print(f"  6 concurrent requests at L=2 H=650 V=33278 in bf16: tokens "
+          f"identical to the plain generate on the CPU in bf16; "
+          f"{burst_line(r)} (decode_window_bf16); lstm_tiled_fwd_bf16u "
+          f"launches {prefill}", flush=True)
+    return {"decode_window_bf16": r["launches"],
+            "lstm_tiled_fwd_bf16u": prefill}
+
+
+def phase17(torch, cli, tlm, tgen, cd, cs, cl, ct, serve, draft_config,
+            device):
+    """Phase 17 (a)-(d); returns the kernel report's rows of the four
+    forms it adds."""
+    t = bf16_windows_phase(torch, tlm, tgen, cd, cs, cl, ct, draft_config,
+                           device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    atexit.register(shutil.rmtree, tmp, True)
+    ckpt_dir = timed(resume_phase, torch, cli, tmp)
+    served = timed(bf16_serve_phase, torch, cli, tgen, tlm, ckpt_dir)
+    c3 = timed(bf16_config3_phase, torch, tlm, tgen, cd, ct, serve, device)
+    launches = {
+        "decode_window_bf16": served["plain"].get("decode_window_bf16", 0)
+        + served["speculative"].get("decode_window_bf16", 0)
+        + c3["decode_window_bf16"],
+        "spec_window_bf16": served["speculative"]["spec_window_bf16"],
+        "lstm_fwd_bf16u": served["plain"]["lstm_fwd_bf16u"]
+        + served["speculative"]["lstm_fwd_bf16u"],
+        "lstm_tiled_fwd_bf16u": c3["lstm_tiled_fwd_bf16u"]}
+    rows = []
+    for name, (src, replaces) in BF16_SERVE_ROWS.items():
+        r = t[name]
+        main = r.get("config1", r)  # the windows: config 1, the main path
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"lstm_tensorspark_torch/csrc/{src}.cu",
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": r["max_err"], "ms": main["kernel_ms"],
+                     "plain_ms": main["plain_ms"],
+                     "bound_ms": main["bound_ms"],
+                     "bound_by": main["bound_by"], "library_ms": None})
+    return rows
+
+
+BF16_SERVE_ROWS = {
+    "decode_window_bf16": ("decode_window",
+                           "lstm_tensorspark_tpu/ops/pallas_decode.py:109"),
+    "spec_window_bf16": ("spec_window",
+                         "lstm_tensorspark_tpu/ops/pallas_decode.py:367"),
+    "lstm_fwd_bf16u": ("lstm_fwd",
+                       "lstm_tensorspark_tpu/ops/pallas_lstm.py:528"),
+    "lstm_tiled_fwd_bf16u": ("lstm_tiled_fwd",
+                             "lstm_tensorspark_tpu/ops/pallas_lstm.py:670")}
+
+
 def timed(fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -3455,6 +3997,8 @@ def main() -> int:
     bf16_launches = timed(bf16_train_phase, torch, cli, cl, cx, ct, device)
     bf16x_launches = timed(bf16x_train_phase, torch, cli, cl, cx, ct, device,
                            host)
+    serve_rows = timed(phase17, torch, cli, tlm, tgen, cd, cs, cl, ct, serve,
+                       draft_config, device)
 
     main_path = timings["config1"]
     lstm_rows = [{
@@ -3535,7 +4079,8 @@ def main() -> int:
         "bound_ms": spec_timings["config1"]["bound_ms"],
         "bound_by": spec_timings["config1"]["bound_by"],
         "library_ms": None,
-    }] + lstm_rows + lstmx_rows + tiled_rows + bf16_rows}), flush=True)
+    }] + lstm_rows + lstmx_rows + tiled_rows + bf16_rows + serve_rows}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3760,7 +4305,8 @@ def bf16(label: str) -> int:
     """The bf16 work alone (the bf16 parts of phases 5, 7 and 9, phases 15
     and 16), from the checkout in the working directory, tagged ``label``;
     ``label`` ``kernels`` skips phases 15 and 16, ``residentx`` runs phase
-    7's bf16 part and phase 16 alone."""
+    7's bf16 part and phase 16 alone, ``windows`` phase 17a alone and
+    ``serve`` phase 17."""
     torch, dev = _checkout(label)
     from lstm_tensorspark_torch import cli, kernels
     from lstm_tensorspark_torch.ops import cuda_lstm as cl
@@ -3769,6 +4315,26 @@ def bf16(label: str) -> int:
 
     print(f"bf16 phases of {label} ({os.getcwd()}; {card_line()}); kernels "
           f"built in {kernels.build(kernels.SOURCES):.1f} s", flush=True)
+    if label in ("windows", "serve"):
+        from lstm_tensorspark_torch import serve
+        from lstm_tensorspark_torch.models import generate as tgen
+        from lstm_tensorspark_torch.models import lstm_lm as tlm
+        from lstm_tensorspark_torch.ops import cuda_decode as cd
+        from lstm_tensorspark_torch.ops import cuda_spec as cs
+        from lstm_tensorspark_torch.train.distill import draft_config
+
+        for name in ("decode_window", "decode_window_bf16", "spec_window",
+                     "spec_window_bf16", "lstm_fwd", "lstm_tiled_fwd"):
+            print(f"  ptxas {name}: {ptxas_registers(kernels, name)}",
+                  flush=True)
+        if label == "windows":
+            timed(bf16_windows_phase, torch, tlm, tgen, cd, cs, cl, ct,
+                  draft_config, dev)
+        else:
+            print(json.dumps(timed(phase17, torch, cli, tlm, tgen, cd, cs,
+                                   cl, ct, serve, draft_config, dev)),
+                  flush=True)
+        return 0
     host = HostRuns()
     atexit.register(host.stop)
     if label != "kernels":

@@ -16,7 +16,13 @@
   ``--logits-dtype`` is an LM flag, which imdb ignores as JAX's does.
   ``--dataset uci_electricity`` exits with ``USAGE_RC`` (not ported yet).
   A run of ``--anomaly-limit`` consecutive non-finite steps exits with
-  ``ANOMALY_RC``.
+  ``ANOMALY_RC``. ``--checkpoint-dir`` with ``--checkpoint-every N`` saves
+  the run's whole state every N calls (``train/checkpoint.py``);
+  ``--resume`` restarts from the newest valid one, bit for bit where the
+  uninterrupted run would be (params, optimizer state, carries, the
+  dropout generators and the data cursor), and refuses, as JAX's
+  ``_wire_checkpoint`` does, a directory whose checkpoints were all
+  quarantined (an empty directory is a fresh start).
 - ``serve --selftest`` decodes ``--sessions`` concurrent sessions through
   the full server path and checks that the greedy tokens equal the plain
   ``models/generate.generate`` on the CPU for the same weights (rc 0 on
@@ -27,9 +33,13 @@
 - ``serve --http`` warms the engine and serves ``POST /v1/generate``,
   ``GET /healthz`` and ``GET /v1/stats`` until interrupted.
 
-Weights are drawn from ``--seed`` (serving a trained checkpoint waits for
-the port's checkpoints). ``--device`` defaults to ``cuda`` and
-fails without a card unless ``--device cpu`` is given.
+Serve weights come from ``--checkpoint-dir`` (the newest valid
+checkpoint: the port's ``step_<N>.pt`` or the JAX package's
+``step_<N>.msgpack``; a directory whose checkpoints are all corrupt is
+refused, never served as random init), else are drawn from ``--seed``.
+``--compute-dtype bfloat16`` serves through the windows' bfloat16 forms.
+``--device`` defaults to ``cuda`` and fails without a card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -64,7 +74,24 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden-units", type=int, default=64)
     p.add_argument("--num-layers", type=int, default=2)
     p.add_argument("--tie-embeddings", action="store_true")
+    p.add_argument("--compute-dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="dtype of the recurrence's products (bfloat16: the "
+                        "decode and spec windows' bfloat16 forms)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="serve the trained params of the newest valid "
+                        "checkpoint there (step_<N>.pt of this package or "
+                        "step_<N>.msgpack of the JAX package; the model "
+                        "flags must match the training run's); seeded "
+                        "random weights otherwise")
+    p.add_argument("--optimizer", type=str, default="sgd",
+                   choices=OPTIMIZERS,
+                   help="the training run's optimizer (a checkpoint's "
+                        "optimizer state must match it)")
+    p.add_argument("--learning-rate", type=float, default=1.0,
+                   help="accepted as the JAX command takes it (restore "
+                        "only)")
     p.add_argument("--num-slots", type=int, default=64,
                    help="device state-cache slots (concurrent sessions)")
     p.add_argument("--prefill-buckets", type=str, default="8,16,32,64,128",
@@ -137,6 +164,46 @@ def _parse_spec_ladder(spec: str) -> tuple[int, ...]:
     return rungs
 
 
+def _checkpoint_params(args, params):
+    """The params of the newest valid checkpoint in ``--checkpoint-dir``
+    (CPU tensors), checked against ``params``'s shapes (the model flags)
+    and, for the port's own files, the optimizer state against
+    ``--optimizer``'s (a JAX file is read for its params alone). Exits when
+    the directory holds none, or when every one is corrupt (quarantined):
+    a serve command never falls back to random weights."""
+    from .convert import params_from_numpy
+    from .train.checkpoint import Checkpointer
+    from .train.jax_checkpoint import params_tree
+    from .train.loop import init_train_state, param_leaves, restore_state
+    from .train.optimizer import make_optimizer
+
+    found = [c for c in (Checkpointer(args.checkpoint_dir, fmt=f)
+                         for f in ("torch", "jax")) if c.has_checkpoint()]
+    if not found:
+        raise SystemExit(f"serve: no checkpoint in {args.checkpoint_dir}")
+    ckpt = max(found, key=lambda c: c.latest_step())  # the port's on a tie
+    like = init_train_state(params, make_optimizer(args.optimizer,
+                                                   args.learning_rate))
+
+    def parse(state):
+        if ckpt.fmt == "jax":
+            got = params_from_numpy(params_tree(state), device="cpu")
+            state = {"step": int(np.asarray(state["step"])),
+                     "params": param_leaves(got),
+                     "opt_state": like.opt_state, "generators": [],
+                     "start_step": 0}
+        return restore_state(like, dict(state, carries=None))[0]
+
+    state = ckpt.restore_latest(parse)
+    if state is None:
+        raise SystemExit(
+            f"serve: every checkpoint in {args.checkpoint_dir} is corrupt "
+            "(now quarantined); refusing to serve an untrained model")
+    print(f"serve: params of step {state.step} "
+          f"({ckpt.path_for(state.step)})", flush=True)
+    return state.params
+
+
 def _build_serve_stack(args):
     """(cpu params, cfg, server) from the serve flags."""
     from .models.lstm_lm import LMConfig, init_lm
@@ -145,9 +212,12 @@ def _build_serve_stack(args):
 
     cfg = LMConfig(vocab_size=args.vocab_size, hidden_size=args.hidden_units,
                    num_layers=args.num_layers,
-                   tie_embeddings=args.tie_embeddings)
+                   tie_embeddings=args.tie_embeddings,
+                   compute_dtype=args.compute_dtype)
     gen = torch.Generator().manual_seed(args.seed)
     params = init_lm(gen, cfg)
+    if args.checkpoint_dir:
+        params = _checkpoint_params(args, params)
     engine = ServeEngine(
         params, cfg, device=args.device, num_slots=args.num_slots,
         prefill_buckets=_parse_buckets(args.prefill_buckets,
@@ -218,6 +288,7 @@ def _serve_selftest(args) -> int:
         "sessions": len(prompts), "tokens_per_session": n_new,
         "mismatches": bad,
         "decode_kernel": stats["engine"]["decode_kernel"],
+        "window_form": stats["engine"]["window_form"],
         "kernel_launches": stats["engine"]["kernel_launches"],
         "spec_kernel_launches": stats["engine"]["spec_kernel_launches"],
         **stats["batcher"],
@@ -329,6 +400,13 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="cap each eval pass at N batches")
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="where the run's checkpoints go (step_<N>.pt)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save a checkpoint every N calls (0 = never)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest valid checkpoint in "
+                        "--checkpoint-dir (an empty one: a fresh start)")
     p.add_argument("--anomaly-limit", type=int, default=0,
                    help="exit with ANOMALY_RC after K consecutive non-finite "
                         "steps (one host sync per step while on; 0 = off)")
@@ -354,6 +432,10 @@ def _refusal(args) -> str | None:
                 "periodic eval pass into the train call)")
     if args.device_data and args.prefetch:
         return "--device-data has no host feed; drop --prefetch"
+    if args.checkpoint_every < 0:
+        return f"--checkpoint-every must be >= 0, got {args.checkpoint_every}"
+    if (args.resume or args.checkpoint_every) and not args.checkpoint_dir:
+        return "--resume and --checkpoint-every need --checkpoint-dir"
     return None
 
 
@@ -421,6 +503,7 @@ def _lm_training(args, dev, logger, graph):
                         make_device_lm_train_step, make_eval_step,
                         make_multi_train_step, make_optimizer,
                         make_train_step)
+    from .train.checkpoint import wire_checkpoint
     from .train.loop import Training, device_batches, eval_metrics
 
     seq_len = args.seq_len or 64
@@ -459,6 +542,8 @@ def _lm_training(args, dev, logger, graph):
     state = init_train_state(
         params, optimizer,
         carries=init_carries(cfg, B, device=dev) if stateful else None)
+    state, start, checkpoint_fn = wire_checkpoint(args, logger, state,
+                                                  [drop_gen])
     train_tokens, valid_tokens = data["train"], data["valid"]
     steps_per_epoch = max((len(train_tokens) - 1) // (B * seq_len), 1)
     # the valid split can be smaller than one training-size window:
@@ -495,13 +580,14 @@ def _lm_training(args, dev, logger, graph):
         train_step = make_device_lm_train_step(
             train_loss_fn, optimizer, ddata, steps_per_call=k, **fused_kw,
             **kw)
-        feed = window_index_stream(ddata, k)
+        feed = window_index_stream(ddata, k, start_step=start)
     else:
         stacked = k > 1 or fused_eval
         train_step = (make_multi_train_step(train_loss_fn, optimizer,
                                             **fused_kw, **kw) if stacked
                       else make_train_step(train_loss_fn, optimizer, **kw))
-        feed = host_feed(lm_batch_stream(train_tokens, B, seq_len), dev,
+        feed = host_feed(lm_batch_stream(train_tokens, B, seq_len,
+                                         start_step=start), dev,
                          steps_per_call=k, stacked=stacked,
                          prefetch=args.prefetch)
 
@@ -510,13 +596,16 @@ def _lm_training(args, dev, logger, graph):
                 "device_name": (torch.cuda.get_device_name(dev)
                                 if dev.type == "cuda" else "cpu"),
                 "steps_per_epoch": steps_per_epoch, "backend": "single"})
-    total = (args.num_steps if args.num_steps is not None
-             else args.epochs * steps_per_epoch)
+    # a resumed run trains the rest of the budget
+    total = max((args.num_steps if args.num_steps is not None
+                 else args.epochs * steps_per_epoch) - state.step, 0)
     return Training(
         state, train_step, feed, eval_fn,
         # each loop iteration is one K-step call: round up so the step
         # budget is never undershot
         dict(num_steps=-(-total // k), log_every=args.log_every,
+             checkpoint_fn=checkpoint_fn,
+             checkpoint_every=args.checkpoint_every,
              eval_fn=(None if fused_eval
                       else eval_fn if args.eval_every else None),
              eval_every=args.eval_every, tokens_per_batch=B * seq_len,

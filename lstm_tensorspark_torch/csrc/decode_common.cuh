@@ -1,5 +1,5 @@
-// The step body of an L-layer LSTM language model's decode, float32, spread
-// over many blocks: the embedding rows, L fused LSTM cells and the head's
+// The step body of an L-layer LSTM language model's decode, spread over many
+// blocks: the embedding rows, L fused LSTM cells and the head's
 // argmax, for every row of the batch at once. Shared by decode_window.cu (the
 // K-step decode window) and spec_window.cu (the speculative draft-and-verify
 // window).
@@ -43,6 +43,20 @@
 //
 // Math is expf / tanhf (no fast-math intrinsics) with f32 accumulation, so the
 // kernels agree with their plain PyTorch versions to float32 rounding.
+//
+// Two forms of the layers (template TW, the element type of W and U): float,
+// and __nv_bfloat16 under bf16 compute (JAX's fuse_params: W and U bfloat16,
+// the bias float32; pallas_decode.py's dot(x.astype(w.dtype), w,
+// preferred_element_type=float32)). The bfloat16 form keeps its weight
+// slices in shared memory as bfloat16 (half the bytes of the float form: the
+// plan sizes them at Model::es bytes an element), converts a weight to float
+// on load and rounds x and h to bfloat16 where it stages them for a layer's
+// product, so each product of two bfloat16 values is exact in float and the
+// float sum is JAX's up to its order. The embedding, the head, the carries
+// and the gate math stay float32 in both forms. Model::lbf16 (JAX's ldtype
+// bfloat16) rounds a logit as JAX's dot(..., preferred_element_type=bf16) +
+// bias.astype(bf16) does: the float sum to bfloat16, plus the bias rounded
+// to bfloat16, rounded again.
 
 #pragma once
 
@@ -52,6 +66,7 @@
 #include <stdint.h>
 
 #include "cluster_common.cuh"
+#include "stream_dtype.cuh"
 
 #define MAX_LAYERS 8
 #define THREADS 256
@@ -64,12 +79,14 @@
 
 struct Model {
   const float* emb;  // [V, E]
-  const float* W[MAX_LAYERS];  // [D_l, 4H]
-  const float* U[MAX_LAYERS];  // [H, 4H]
+  const void* W[MAX_LAYERS];  // [D_l, 4H], TW
+  const void* U[MAX_LAYERS];  // [H, 4H], TW
   const float* b[MAX_LAYERS];  // [4H]
   const float* head_w;  // [H, V]
   const float* head_b;  // [V]
   int E, L, H;
+  int es;     // bytes of an element of W and U: sizeof(TW)
+  int lbf16;  // the logits rounded to bfloat16 (JAX's ldtype bfloat16)
 };
 
 // The launch plan (ops/cuda_decode.plan mirrors it)
@@ -111,17 +128,25 @@ __host__ __device__ __forceinline__ size_t r4(size_t n) {
   return (n + 3) & ~(size_t)3;
 }
 
-// floats of a block's slice of a model's layers (nu units: [(D_l + H)][4nu]
-// unit-major — the four gates of a unit side by side — then the bias [4nu],
-// layer after layer) and of its head (nv columns: [H][nv] then the bias
-// [nv])
-__host__ __device__ __forceinline__ size_t layers_floats(const Model& m,
-                                                         int nu) {
+// A block's slice of a model's layers (nu units), layer after layer: the
+// weights [(D_l + H)][4nu] in TW, unit-major (the four gates of a unit side
+// by side), from a 16-byte boundary, then the bias [4nu] in float.
+// layer_wbytes is the weights' bytes of layer l (rounded up to 16),
+// layers_bytes the whole slice's.
+__host__ __device__ __forceinline__ size_t layer_wbytes(const Model& m, int nu,
+                                                        int l) {
+  return (((size_t)((l == 0 ? m.E : m.H) + m.H) * 4 * nu * m.es) + 15) &
+         ~(size_t)15;
+}
+
+__host__ __device__ __forceinline__ size_t layers_bytes(const Model& m,
+                                                        int nu) {
   size_t n = 0;
-  for (int l = 0; l < m.L; ++l)
-    n += (size_t)((l == 0 ? m.E : m.H) + m.H + 1) * 4 * nu;
+  for (int l = 0; l < m.L; ++l) n += layer_wbytes(m, nu, l) + 16 * (size_t)nu;
   return n;
 }
+
+// floats of a block's head slice (nv columns: [H][nv] then the bias [nv])
 
 __host__ __device__ __forceinline__ size_t head_floats(const Model& m,
                                                        int nv) {
@@ -146,15 +171,16 @@ __host__ __device__ __forceinline__ size_t window_smem_bytes(
     const Plan& p, const Model* models, const int* copies, int nmodels,
     int V, int B, int fields) {
   size_t floats = (size_t)p.stage * MAX_RT + THREADS * MAX_RT + 2 * MAX_RT;
+  size_t bytes = 0;
   if (p.rsm) floats += r4((size_t)fields * B);
   for (int i = 0; i < nmodels; ++i) {
     const Model& m = models[i];
     if (p.cluster)
       floats += copies[i] * r4((size_t)m.L * B * m.H) + r4((size_t)V * m.E);
-    if (p.wsm) floats += r4(layers_floats(m, ceil_div(m.H, p.blocks)));
+    if (p.wsm) bytes += layers_bytes(m, ceil_div(m.H, p.blocks));
     if (p.hsm) floats += r4(head_floats(m, head_cols(p, V)));
   }
-  return sizeof(float) * floats;
+  return sizeof(float) * floats + bytes;
 }
 
 struct Smem {
@@ -171,8 +197,8 @@ struct Smem {
 struct Slice {
   int u0, nu;  // hidden units [u0, u0 + nu)
   int v0, nv;  // head columns [v0, v0 + nv)
-  float* ws;   // layer l at ws + layer_off(m, nu, l) (shared memory), or
-               // null: global
+  char* ws;    // layer l at ws + layer_off(m, nu, l) bytes (shared memory),
+               // or null: global
   float* hs;   // the head slice (shared memory), or null: global
   float* es;   // the embedding (shared memory), or null: global
 };
@@ -196,6 +222,13 @@ __device__ __forceinline__ Smem carve(float* base, const Plan& p,
 __device__ __forceinline__ float* take(float** tail, size_t n) {
   float* p = *tail;
   *tail += r4(n);
+  return p;
+}
+
+// n bytes (a multiple of 16) of shared memory at *tail
+__device__ __forceinline__ char* take_bytes(float** tail, size_t n) {
+  char* p = (char*)*tail;
+  *tail += n / sizeof(float);
   return p;
 }
 
@@ -227,13 +260,13 @@ __device__ __forceinline__ void push_units(const Smem& sm, float* hnew, int H,
   }
 }
 
-// Where layer l starts in a slice of nu units (layers_floats' order): no
-// array indexed at run time, so a Slice stays in registers and its
-// pointers keep their shared address space
+// The byte where layer l starts in a slice of nu units (layers_bytes'
+// order): no array indexed at run time, so a Slice stays in registers and
+// its pointers keep their shared address space
 __device__ __forceinline__ size_t layer_off(const Model& m, int nu, int l) {
   return l == 0 ? 0
-                : ((size_t)(m.E + m.H + 1) + (size_t)(l - 1) * (2 * m.H + 1)) *
-                      4 * nu;
+                : layer_wbytes(m, nu, 0) + 16 * (size_t)nu +
+                      (size_t)(l - 1) * (layer_wbytes(m, nu, 1) + 16 * nu);
 }
 
 // A model's share in block blk, and its layer slice's place in shared
@@ -248,7 +281,7 @@ __device__ __forceinline__ Slice slice_of(const Model& m, const Plan& p, int V,
   s.ws = nullptr;
   s.hs = nullptr;
   s.es = nullptr;
-  if (p.wsm) s.ws = take(tail, layers_floats(m, ceil_div(m.H, p.blocks)));
+  if (p.wsm) s.ws = take_bytes(tail, layers_bytes(m, ceil_div(m.H, p.blocks)));
   return s;
 }
 
@@ -277,10 +310,12 @@ __device__ __forceinline__ void copy_in(float* dst, const float* src,
 }
 
 // Copy the slices the plan keeps on chip into shared memory, by cp.async
-// (the caller waits). A slice of a layer is a gather (unit-major: the four
-// gates of a unit side by side): a warp per row of weights, lanes over the
-// row's columns (coalesced, no division). The whole head and the
-// embedding are contiguous copies.
+// (the caller waits; a bfloat16 weight, too small for cp.async, by a plain
+// load and store, which the caller's block barrier publishes). A slice of a
+// layer is a gather (unit-major: the four gates of a unit side by side): a
+// warp per row of weights, lanes over the row's columns (coalesced, no
+// division). The whole head and the embedding are contiguous copies.
+template <typename TW>
 __device__ __forceinline__ void load_slices(const Model& m, const Slice& s,
                                             int V) {
   const int H = m.H, G = 4 * H, nc = 4 * s.nu;
@@ -288,21 +323,30 @@ __device__ __forceinline__ void load_slices(const Model& m, const Slice& s,
   if (s.ws != nullptr) {
     for (int l = 0; l < m.L; ++l) {
       const int D = l == 0 ? m.E : H;
-      const float* W = m.W[l];
-      const float* U = m.U[l];
+      const TW* W = (const TW*)m.W[l];
+      const TW* U = (const TW*)m.U[l];
       const float* b = m.b[l];
-      float* dst = s.ws + layer_off(m, s.nu, l);
+      TW* dst = (TW*)(s.ws + layer_off(m, s.nu, l));
+      float* bdst = (float*)((char*)dst + layer_wbytes(m, s.nu, l));
       const int rows = D + H + 1;  // the bias is row D + H
       for (int q = lane; q < nc; q += 32) {
         // column q of the slice's row: gate g of unit ul, stored at 4ul + g
         const int g = (q >= s.nu) + (q >= 2 * s.nu) + (q >= 3 * s.nu);
         const int ul = q - g * s.nu;
         const int col = g * H + s.u0 + ul;
-        for (int d = warp; d < rows; d += NWARPS)
-          cp_async4(dst + (size_t)d * nc + 4 * ul + g,
-                    d < D       ? W + (size_t)d * G + col
-                    : d < D + H ? U + (size_t)(d - D) * G + col
-                                : b + col);
+        for (int d = warp; d < rows; d += NWARPS) {
+          if (d == D + H) {
+            cp_async4(bdst + 4 * ul + g, b + col);
+            continue;
+          }
+          const TW* src = d < D ? W + (size_t)d * G + col
+                                : U + (size_t)(d - D) * G + col;
+          TW* to = dst + (size_t)d * nc + 4 * ul + g;
+          if constexpr (sizeof(TW) == sizeof(float))
+            cp_async4((float*)to, (const float*)src);
+          else
+            *to = *src;
+        }
       }
     }
   }
@@ -413,12 +457,24 @@ __device__ __forceinline__ float wload(const float* p, uint64_t pol) {
   return v;
 }
 
+// a bfloat16 weight as float (its bits are a float's upper half)
+template <int MODE>
+__device__ __forceinline__ float wload(const __nv_bfloat16* p, uint64_t pol) {
+  if (MODE == LD_SMEM) return __bfloat162float(*p);
+  unsigned short v;
+  asm volatile("ld.global.nc.L2::cache_hint.b16 %0, [%1], %2;"
+               : "=h"(v)
+               : "l"(p), "l"(pol));
+  return __uint_as_float((unsigned)v << 16);
+}
+
 // The four weights of row p (columns p, p + js, p + 2js, p + 3js; the first
-// jn of them). kVec: one aligned float4 in shared memory.
-template <int MODE, bool kVec>
-__device__ __forceinline__ float4 w4(const float* p, int js, int jn,
+// jn of them), as float. kVec: four neighbours in shared memory, one aligned
+// load (16 bytes of float, 8 of bfloat16).
+template <int MODE, bool kVec, typename TW>
+__device__ __forceinline__ float4 w4(const TW* p, int js, int jn,
                                      uint64_t pol) {
-  if (kVec) return *reinterpret_cast<const float4*>(p);
+  if (kVec) return load4(p);
   float4 q;
   q.x = wload<MODE>(p, pol);
   q.y = jn > 1 ? wload<MODE>(p + js, pol) : 0.0f;
@@ -444,10 +500,10 @@ __device__ __forceinline__ void fma4x4(float (&acc)[4][4], float4 x, float4 w) {
 // and of x are loaded before any is used (16 weight loads in flight a
 // thread from L2, 32 from device memory, 8 rows from shared memory), then
 // a remainder loop.
-template <int RT, int MODE, bool kVec>
+template <int RT, int MODE, bool kVec, typename TW>
 __device__ __forceinline__ void seg_dot(float (&acc)[4][4],
                                         const float* __restrict__ xs,
-                                        const float* w, size_t stride, int js,
+                                        const TW* w, size_t stride, int js,
                                         int jn, int n, uint64_t pol) {
   constexpr int UNR = MODE == LD_L2 ? 4 : 8;
   int i = 0;
@@ -468,11 +524,12 @@ __device__ __forceinline__ void seg_dot(float (&acc)[4][4],
 }
 
 // The weights a pass reads: rows [0, da) of a, then rows [da, ...) of b
+template <typename TW>
 struct WSrc {
-  const float* a;
+  const TW* a;
   size_t sa;
   int da;
-  const float* b;
+  const TW* b;
   size_t sb;
 };
 
@@ -489,12 +546,13 @@ struct XSrc {
   int db;
 };
 
-// xs[dd * RT + r] <- x[row0 + r][g0 + dd] for dd < len (rows past nr: 0).
+// xs[dd * RT + r] <- x[row0 + r][g0 + dd] for dd < len (rows past nr: 0),
+// rounded to TW's precision (JAX's x.astype(w.dtype) before the product).
 // Eight consecutive d of one row per eight lanes, so a warp reads whole
 // sectors; THREADS is a multiple of 8 RT, so a thread keeps its row r for
 // the whole chunk and looks its row up (token, row pointers) once, then
 // walks d STEP apart, eight loads in flight.
-template <int RT, bool kC>
+template <int RT, bool kC, typename TW>
 __device__ __forceinline__ void stage(const Smem& sm, const XSrc& s, int g0,
                                       int len, int row0, int nr) {
   constexpr int N = 8;
@@ -527,7 +585,7 @@ __device__ __forceinline__ void stage(const Smem& sm, const XSrc& s, int g0,
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const int d = d0 + j * STEP;
-      if (d < len) sm.xs[d * RT + r] = v[j];
+      if (d < len) sm.xs[d * RT + r] = round_to<TW>(v[j]);
     }
   }
 }
@@ -543,10 +601,10 @@ struct Cols {
 // its four rows and four columns, and leaves its partials in
 // red[(kg * RT + r) * 4nq + 4cq + j]; returns ks (at most ksmax). *staged
 // says the whole of x is already in xs (a single chunk staged by an earlier
-// pass of the same tile).
-template <int RT, int MODE, bool kVec, bool kC>
+// pass of the same tile, and of the same TW).
+template <int RT, int MODE, bool kVec, bool kC, typename TW>
 __device__ __forceinline__ int pass_products(const Smem& sm, const XSrc& xsrc,
-                                             int dtot, const WSrc& w,
+                                             int dtot, const WSrc<TW>& w,
                                              const Cols& c, int ksmax,
                                              int row0, int nr, bool* staged) {
   const int cap = sm.stage * (MAX_RT / RT);
@@ -568,7 +626,7 @@ __device__ __forceinline__ int pass_products(const Smem& sm, const XSrc& xsrc,
     const int len = min(cap, dtot - g0);
     if (!(*staged && len == dtot)) {
       if (g0 > 0) __syncthreads();
-      stage<RT, kC>(sm, xsrc, g0, len, row0, nr);
+      stage<RT, kC, TW>(sm, xsrc, g0, len, row0, nr);
       __syncthreads();
     }
     if (kg < ks) {
@@ -608,7 +666,7 @@ __device__ __forceinline__ int pass_products(const Smem& sm, const XSrc& xsrc,
 // update of those units: h of the unit to hnew ([B, H]), c in place in cbuf
 // ([B, H]). A row whose emit flag is 0 keeps its h (copied from hold) and
 // its c. emit null: every row emits.
-template <int RT, bool kC>
+template <int RT, bool kC, typename TW>
 __device__ __forceinline__ void layer_tile(const Smem& sm, const Model& m,
                                            const Slice& s, int l,
                                            const XSrc& xsrc, const float* hold,
@@ -621,15 +679,16 @@ __device__ __forceinline__ void layer_tile(const Smem& sm, const Model& m,
     const float* bias_s = nullptr;
     int ks;
     if (kC || s.ws != nullptr) {  // a one-cluster launch: on chip
-      const float* wl = s.ws + layer_off(m, s.nu, l);
-      const WSrc w{wl, (size_t)(4 * s.nu), D + H, nullptr, 0};
-      ks = pass_products<RT, LD_SMEM, true, kC>(
+      const char* wl = s.ws + layer_off(m, s.nu, l);
+      const WSrc<TW> w{(const TW*)wl, (size_t)(4 * s.nu), D + H, nullptr, 0};
+      ks = pass_products<RT, LD_SMEM, true, kC, TW>(
           sm, xsrc, D + H, w, Cols{nup, 4 * ua, 4, 1, 4 * nup}, KS_SMEM, row0,
           nr, &staged);
-      bias_s = wl + (size_t)(D + H) * 4 * s.nu + 4 * ua;
+      bias_s = (const float*)(wl + layer_wbytes(m, s.nu, l)) + 4 * ua;
     } else {
-      const WSrc w{m.W[l], (size_t)(4 * H), D, m.U[l], (size_t)(4 * H)};
-      ks = pass_products<RT, LD_L2, false, kC>(
+      const WSrc<TW> w{(const TW*)m.W[l], (size_t)(4 * H), D,
+                       (const TW*)m.U[l], (size_t)(4 * H)};
+      ks = pass_products<RT, LD_L2, false, kC, TW>(
           sm, xsrc, D + H, w, Cols{nup, s.u0 + ua, 1, H, 4 * nup}, THREADS,
           row0, nr, &staged);
     }
@@ -667,7 +726,7 @@ __device__ __forceinline__ void layer_tile(const Smem& sm, const Model& m,
 }
 
 // Layer l for every row (tiles of MAX_RT rows)
-template <bool kC>
+template <bool kC, typename TW>
 __device__ __forceinline__ void layer_rows(const Smem& sm, const Model& m,
                                            const Slice& s, int l,
                                            const XSrc& xsrc, const float* hold,
@@ -676,11 +735,14 @@ __device__ __forceinline__ void layer_rows(const Smem& sm, const Model& m,
   for (int row0 = 0; row0 < B; row0 += MAX_RT) {
     const int nr = min(MAX_RT, B - row0);
     if (nr <= 4)
-      layer_tile<4, kC>(sm, m, s, l, xsrc, hold, emit, cbuf, hnew, row0, nr);
+      layer_tile<4, kC, TW>(sm, m, s, l, xsrc, hold, emit, cbuf, hnew, row0,
+                               nr);
     else if (nr <= 8)
-      layer_tile<8, kC>(sm, m, s, l, xsrc, hold, emit, cbuf, hnew, row0, nr);
+      layer_tile<8, kC, TW>(sm, m, s, l, xsrc, hold, emit, cbuf, hnew, row0,
+                               nr);
     else
-      layer_tile<16, kC>(sm, m, s, l, xsrc, hold, emit, cbuf, hnew, row0, nr);
+      layer_tile<16, kC, TW>(sm, m, s, l, xsrc, hold, emit, cbuf, hnew, row0,
+                               nr);
   }
 }
 
@@ -731,12 +793,12 @@ __device__ __forceinline__ void head_tile(const Smem& sm, const Model& m,
     const int ncp = min(THREADS, s.nv - va), nq = ceil_div(ncp, 4);
     int ks;
     if (kC || s.hs != nullptr)
-      ks = pass_products<RT, LD_SMEM, false, kC>(
-          sm, xsrc, H, WSrc{s.hs, (size_t)s.nv, H, nullptr, 0},
+      ks = pass_products<RT, LD_SMEM, false, kC, float>(
+          sm, xsrc, H, WSrc<float>{s.hs, (size_t)s.nv, H, nullptr, 0},
           Cols{nq, va, 4, 1, ncp}, KS_SMEM, row0, nr, &staged);
     else
-      ks = pass_products<RT, LD_STREAM, false, kC>(
-          sm, xsrc, H, WSrc{m.head_w, (size_t)V, H, nullptr, 0},
+      ks = pass_products<RT, LD_STREAM, false, kC, float>(
+          sm, xsrc, H, WSrc<float>{m.head_w, (size_t)V, H, nullptr, 0},
           Cols{nq, s.v0 + va, 4, 1, ncp}, THREADS, row0, nr, &staged);
     for (int r = warp; r < nr; r += NWARPS) {
       float bv = -INFINITY;
@@ -746,8 +808,12 @@ __device__ __forceinline__ void head_tile(const Smem& sm, const Model& m,
         for (int kg = 0; kg < ks; ++kg)
           acc += sm.red[(kg * RT + r) * 4 * nq + c];
         const int v = s.v0 + va + c;
-        float val = acc + (s.hs != nullptr ? s.hs[(size_t)H * s.nv + va + c]
-                                           : __ldg(m.head_b + v));
+        const float hb = s.hs != nullptr ? s.hs[(size_t)H * s.nv + va + c]
+                                         : __ldg(m.head_b + v);
+        float val = m.lbf16 ? round_to<__nv_bfloat16>(
+                                  round_to<__nv_bfloat16>(acc) +
+                                  round_to<__nv_bfloat16>(hb))
+                            : acc + hb;
         if (kSampled) {
           if (scale) val = val / tdiv;
           val = val + nz[(size_t)(row0 + r) * V + v];
@@ -927,12 +993,12 @@ static Plan make_plan(int blocks, int cluster, int wsm, int hsm, int stage,
 static Model make_model(const void* emb, int E, int L, int H,
                         const void* const* Ws, const void* const* Us,
                         const void* const* bs, const void* head_w,
-                        const void* head_b) {
+                        const void* head_b, int es, int lbf16) {
   Model m;
   m.emb = (const float*)emb;
   for (int l = 0; l < MAX_LAYERS; ++l) {
-    m.W[l] = l < L ? (const float*)Ws[l] : nullptr;
-    m.U[l] = l < L ? (const float*)Us[l] : nullptr;
+    m.W[l] = l < L ? Ws[l] : nullptr;
+    m.U[l] = l < L ? Us[l] : nullptr;
     m.b[l] = l < L ? (const float*)bs[l] : nullptr;
   }
   m.head_w = (const float*)head_w;
@@ -940,5 +1006,7 @@ static Model make_model(const void* emb, int E, int L, int H,
   m.E = E;
   m.L = L;
   m.H = H;
+  m.es = es;
+  m.lbf16 = lbf16;
   return m;
 }

@@ -1,7 +1,14 @@
 // Fused K-step decode window of an L-layer LSTM language model, for Hopper
-// (sm_90a), float32.
+// (sm_90a), in two forms: float32 (decode_window_launch) and bfloat16
+// layers (decode_window_bf16_launch: W and U bfloat16 under bf16 compute,
+// x and h rounded at the products, everything else float32; see
+// decode_common.cuh). The bfloat16 form is built from this file as its own
+// library (decode_window_bf16.cu defines WINDOW_BF16), so the two forms'
+// builds run side by side.
 //
-// Replaces lstm_tensorspark_tpu/ops/pallas_decode.py::_decode_window_kernel.
+// Replaces lstm_tensorspark_tpu/ops/pallas_decode.py::_decode_window_kernel
+// (its bfloat16 form: the same kernel at a bfloat16 w_ref.dtype, and its
+// ldtype; lbf16 here).
 // Per step and per live row: embedding row, L fused LSTM cells
 // (z = x @ W + h @ U + b, gate order i, f, g, o), the head, greedy argmax or
 // argmax(logits / max(t, 1e-6) + noise[k]), then the EOS / budget / alive
@@ -20,8 +27,9 @@
 // cluster, the merge of the blocks' partials in a grid), so the copies agree
 // and the loop ends in every block at the same step when no row is alive.
 //
-// Plain C interface for ctypes: decode_window_launch returns the CUDA error
-// code of the launch (0 = success). It allocates nothing and does not
+// Plain C interface for ctypes: decode_window_launch and
+// decode_window_bf16_launch return the CUDA error code of the launch (0 =
+// success). It allocates nothing and does not
 // synchronise; it runs on the stream it is given. Scratch (h buffers, the
 // head's partials, the rows' latches) comes from the wrapper; the barrier's
 // two counters are zero before the launch and after it.
@@ -35,7 +43,7 @@
 #define R_NX 3
 #define R_FIELDS 4
 
-template <bool kC>
+template <bool kC, typename TW>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_window_kernel(Model m, Plan p, int V, int B, int K,
                      const float* __restrict__ h_in,
@@ -68,7 +76,7 @@ decode_window_kernel(Model m, Plan p, int V, int B, int K,
   }
   Slice s = slice_of(m, p, V, blk, &tail);
   place_head(m, p, V, s, &tail);
-  load_slices(m, s, V);
+  load_slices<TW>(m, s, V);
   Sync sync{counters, counters + 1, p.blocks, p.cluster, 0};
   int* tok = rs + R_TOK * B;
   int* alive = rs + R_ALIVE * B;
@@ -99,7 +107,7 @@ decode_window_kernel(Model m, Plan p, int V, int B, int K,
       const XSrc x = layer_x(m, s, l, V, tok,
                              l > 0 ? hnew + (size_t)(l - 1) * B * H : nullptr,
                              hcur + (size_t)l * B * H);
-      layer_rows<kC>(sm, m, s, l, x, hcur + (size_t)l * B * H, alive,
+      layer_rows<kC, TW>(sm, m, s, l, x, hcur + (size_t)l * B * H, alive,
                      cst + (size_t)l * B * H, hnew + (size_t)l * B * H, B);
       CLK_MARK(1)
       sync_blocks(sync);
@@ -153,29 +161,39 @@ decode_window_kernel(Model m, Plan p, int V, int B, int K,
   sync_exit(sync);
 }
 
-extern "C" int decode_window_launch(
-    const void* emb, int V, int E, int L, int H,
-    const void* const* Ws, const void* const* Us, const void* const* bs,
-    const void* head_w, const void* head_b,
-    const void* h_in, const void* c_in,
-    const void* tok_in, const void* alive_in, const void* rem_in,
-    const void* eos_in, const void* noise,
-    int B, int K, float tdiv, int scale, int greedy,
-    int blocks, int cluster, int wsm, int hsm, int stage, int rsm,
-    void* hbuf, void* part_v, void* part_i, void* rows, void* counters,
-    void* toks_out, void* next_out, void* alive_out, void* rem_out,
-    void* h_out, void* c_out, void* stream) {
+// The arguments of both forms: the model (lbf16: the logits rounded to
+// bfloat16), the carries and rows, the sampling, the plan, the scratch, the
+// outputs, the stream
+#define WINDOW_PARAMS                                                        \
+  const void *emb, int V, int E, int L, int H, const void *const *Ws,        \
+      const void *const *Us, const void *const *bs, const void *head_w,      \
+      const void *head_b, int lbf16, const void *h_in, const void *c_in,     \
+      const void *tok_in, const void *alive_in, const void *rem_in,          \
+      const void *eos_in, const void *noise, int B, int K, float tdiv,       \
+      int scale, int greedy, int blocks, int cluster, int wsm, int hsm,      \
+      int stage, int rsm, void *hbuf, void *part_v, void *part_i, void *rows, \
+      void *counters, void *toks_out, void *next_out, void *alive_out,       \
+      void *rem_out, void *h_out, void *c_out, void *stream
+#define WINDOW_ARGS                                                          \
+  emb, V, E, L, H, Ws, Us, bs, head_w, head_b, lbf16, h_in, c_in, tok_in,    \
+      alive_in, rem_in, eos_in, noise, B, K, tdiv, scale, greedy, blocks,    \
+      cluster, wsm, hsm, stage, rsm, hbuf, part_v, part_i, rows, counters,   \
+      toks_out, next_out, alive_out, rem_out, h_out, c_out, stream
+
+template <typename TW>
+static int launch_form(WINDOW_PARAMS) {
   if (L < 1 || L > MAX_LAYERS || B < 1 || K < 1 || H < 1 || E < 1 || V < 1 ||
       stage < 8)
     return (int)cudaErrorInvalidValue;
   if (!greedy && noise == nullptr) return (int)cudaErrorInvalidValue;
-  const Model m = make_model(emb, E, L, H, Ws, Us, bs, head_w, head_b);
+  const Model m = make_model(emb, E, L, H, Ws, Us, bs, head_w, head_b,
+                             (int)sizeof(TW), lbf16);
   const Plan p = make_plan(blocks, cluster, wsm, hsm, stage, rsm);
   const int copies = 3;  // h of two steps, c
   const size_t smem = window_smem_bytes(p, &m, &copies, 1, V, B, R_FIELDS);
   // the one-cluster launch and the grid launch are two builds of the kernel
-  auto kernel = p.cluster ? decode_window_kernel<true>
-                          : decode_window_kernel<false>;
+  auto kernel = p.cluster ? decode_window_kernel<true, TW>
+                          : decode_window_kernel<false, TW>;
   static bool opted[2][64];  // by build (grid, one cluster) and device
   return (int)launch_window(
       kernel, p, smem, (cudaStream_t)stream, opted[p.cluster ? 1 : 0], m, p,
@@ -188,9 +206,20 @@ extern "C" int decode_window_launch(
       (float*)h_out, (float*)c_out);
 }
 
+#ifdef WINDOW_BF16
+extern "C" int decode_window_bf16_launch(WINDOW_PARAMS) {
+  return launch_form<__nv_bfloat16>(WINDOW_ARGS);
+}
+#else
+extern "C" int decode_window_launch(WINDOW_PARAMS) {
+  return launch_form<float>(WINDOW_ARGS);
+}
+
 // clusters of C blocks of the window kernel at `smem` bytes each that the
 // card keeps resident at once (the plan takes one-cluster launches only
 // where this is at least 1)
 extern "C" int decode_window_max_clusters(int C, int smem, int* out) {
-  return (int)window_max_clusters(decode_window_kernel<true>, C, smem, out);
+  return (int)window_max_clusters(decode_window_kernel<true, float>, C, smem,
+                                  out);
 }
+#endif  // WINDOW_BF16

@@ -42,10 +42,16 @@
 // sits in shared memory as bfloat16 in U_SMEM), keeps the h buffers holding
 // h rounded to bfloat16 (the only reader is the product: the mask blend
 // takes each lane's float32 h from its registers), feeds the gates the
-// float32 z and stores z rounded once.
+// float32 z and stores z rounded once. A third form, lstm_fwd_bf16u_launch
+// (TX = float, TS = __nv_bfloat16: xproj float32, U bfloat16, no
+// residuals), is the rounding of JAX's plain XLA scan under bf16 compute
+// (ops/scan.py there: zx stays float32, x and h are rounded only at the
+// products), which JAX's serve prefill runs: the port's prefill takes it so
+// that its first tokens argmax as JAX's serve and the port's CPU run do.
 //
-// Plain C interface for ctypes: lstm_fwd_launch (float32) and
-// lstm_fwd_bf16_launch (bfloat16) return the CUDA error code (0 = success).
+// Plain C interface for ctypes: lstm_fwd_launch (float32),
+// lstm_fwd_bf16_launch (bfloat16) and lstm_fwd_bf16u_launch return the CUDA
+// error code (0 = success).
 // They allocate nothing and do not synchronise; they run on the stream they
 // are given.
 
@@ -125,9 +131,9 @@ __device__ __forceinline__ void cell_update(float zi, float zf, float zg,
   h_out = h_new;
 }
 
-template <typename TS, int UMODE>
+template <typename TX, typename TS, int UMODE>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_fwd_kernel(const TS* __restrict__ xproj, const TS* __restrict__ U,
+lstm_fwd_kernel(const TX* __restrict__ xproj, const TS* __restrict__ U,
                 const float* __restrict__ h0, const float* __restrict__ c0,
                 const float* __restrict__ mask, float* __restrict__ ys,
                 float* __restrict__ hT, float* __restrict__ cT,
@@ -414,14 +420,14 @@ lstm_fwd_kernel(const TS* __restrict__ xproj, const TS* __restrict__ U,
   cluster.sync();
 }
 
-template <typename TS, int UMODE>
-static cudaError_t launch(const TS* xproj, const TS* U, const float* h0,
+template <typename TX, typename TS, int UMODE>
+static cudaError_t launch(const TX* xproj, const TS* U, const float* h0,
                           const float* c0, const float* mask, float* ys,
                           float* hT, float* cT, TS* z, float* cs, int T,
                           int B, int H, int CS, int UPC, int RB, int RB4,
                           int KS, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      lstm_fwd_kernel<TS, UMODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_fwd_kernel<TX, TS, UMODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const int groups = (B + RB - 1) / RB;
@@ -437,7 +443,7 @@ static cudaError_t launch(const TS* xproj, const TS* U, const float* h0,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<TS, UMODE>, xproj, U, h0, c0,
+  return cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<TX, TS, UMODE>, xproj, U, h0, c0,
                             mask, ys, hT, cT, z, cs, T, B, H, UPC, RB, RB4,
                             KS);
 }
@@ -447,9 +453,10 @@ static cudaError_t launch(const TS* xproj, const TS* U, const float* h0,
 // (RB4 = RB rounded up to 4), KS lanes that share a unit's h @ U sum (a
 // power of two, at most 32, KS * UPC * RB4 / 4 <= 256), umode where U's
 // slice lives (0 registers: ceil(H / KS) <= 16; 1 shared memory; 2 read
-// through L2). mask, z and cs may be null (z and cs together). xproj, U
-// and z are TS (float, or __nv_bfloat16 in lstm_fwd_bf16_launch).
-template <typename TS>
+// through L2). mask, z and cs may be null (z and cs together). U and z are
+// TS (float, or __nv_bfloat16 in lstm_fwd_bf16_launch and
+// lstm_fwd_bf16u_launch), xproj TX (TS, or float in lstm_fwd_bf16u_launch).
+template <typename TX, typename TS>
 static int launch_form(const void* xproj, const void* U, const void* h0,
                        const void* c0, const void* mask, void* ys, void* hT,
                        void* cT, void* z, void* cs, int T, int B, int H,
@@ -465,22 +472,22 @@ static int launch_form(const void* xproj, const void* U, const void* h0,
   const size_t smem = fwd_smem_bytes(H, UPC, RB4, umode, sizeof(TS));
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  const TS* xp = (const TS*)xproj;
+  const TX* xp = (const TX*)xproj;
   const TS* u = (const TS*)U;
   const float* args[3] = {(const float*)h0, (const float*)c0,
                           (const float*)mask};
   if (umode == U_REGS)
-    e = launch<TS, U_REGS>(xp, u, args[0], args[1], args[2], (float*)ys,
+    e = launch<TX, TS, U_REGS>(xp, u, args[0], args[1], args[2], (float*)ys,
                            (float*)hT, (float*)cT, (TS*)z, (float*)cs, T, B,
                            H, CS, UPC, RB, RB4, KS, smem,
                            (cudaStream_t)stream);
   else if (umode == U_SMEM)
-    e = launch<TS, U_SMEM>(xp, u, args[0], args[1], args[2], (float*)ys,
+    e = launch<TX, TS, U_SMEM>(xp, u, args[0], args[1], args[2], (float*)ys,
                            (float*)hT, (float*)cT, (TS*)z, (float*)cs, T, B,
                            H, CS, UPC, RB, RB4, KS, smem,
                            (cudaStream_t)stream);
   else
-    e = launch<TS, U_L2>(xp, u, args[0], args[1], args[2], (float*)ys,
+    e = launch<TX, TS, U_L2>(xp, u, args[0], args[1], args[2], (float*)ys,
                          (float*)hT, (float*)cT, (TS*)z, (float*)cs, T, B, H,
                          CS, UPC, RB, RB4, KS, smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
@@ -493,8 +500,9 @@ extern "C" int lstm_fwd_launch(const void* xproj, const void* U,
                                void* z, void* cs, int T, int B, int H, int CS,
                                int UPC, int RB, int RB4, int KS, int umode,
                                void* stream) {
-  return launch_form<float>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs, T, B,
-                            H, CS, UPC, RB, RB4, KS, umode, stream);
+  return launch_form<float, float>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs,
+                                   T, B, H, CS, UPC, RB, RB4, KS, umode,
+                                   stream);
 }
 
 extern "C" int lstm_fwd_bf16_launch(const void* xproj, const void* U,
@@ -503,7 +511,21 @@ extern "C" int lstm_fwd_bf16_launch(const void* xproj, const void* U,
                                     void* cT, void* z, void* cs, int T, int B,
                                     int H, int CS, int UPC, int RB, int RB4,
                                     int KS, int umode, void* stream) {
-  return launch_form<__nv_bfloat16>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs,
-                                    T, B, H, CS, UPC, RB, RB4, KS, umode,
-                                    stream);
+  return launch_form<__nv_bfloat16, __nv_bfloat16>(
+      xproj, U, h0, c0, mask, ys, hT, cT, z, cs, T, B, H, CS, UPC, RB, RB4, KS,
+      umode, stream);
+}
+
+// xproj float32, U bfloat16, no residuals (z and cs null)
+extern "C" int lstm_fwd_bf16u_launch(const void* xproj, const void* U,
+                                     const void* h0, const void* c0,
+                                     const void* mask, void* ys, void* hT,
+                                     void* cT, void* z, void* cs, int T,
+                                     int B, int H, int CS, int UPC, int RB,
+                                     int RB4, int KS, int umode,
+                                     void* stream) {
+  if (z != nullptr || cs != nullptr) return (int)cudaErrorInvalidValue;
+  return launch_form<float, __nv_bfloat16>(xproj, U, h0, c0, mask, ys, hT, cT,
+                                           z, cs, T, B, H, CS, UPC, RB, RB4,
+                                           KS, umode, stream);
 }

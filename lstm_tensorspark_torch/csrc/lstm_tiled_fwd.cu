@@ -45,11 +45,14 @@
 // lanes' registers hold float32 values; the rows past them sit in shared
 // memory as bfloat16), publishes h_t rounded to bfloat16 (the global h
 // array only feeds the product; the cell keeps its float32 h in shared
-// memory), feeds the gates the float32 z and stores z rounded once.
+// memory), feeds the gates the float32 z and stores z rounded once. A
+// third form, lstm_tiled_fwd_bf16u_launch (TX = float: xproj float32, U
+// bfloat16, no residuals), rounds as JAX's plain XLA scan does under bf16
+// compute (the serve prefill's rounding; lstm_fwd.cu says why).
 //
-// Plain C interface for ctypes: lstm_tiled_fwd_launch (float32) and
-// lstm_tiled_fwd_bf16_launch (bfloat16) return the CUDA error code (0 =
-// success). They allocate nothing (the caller passes the h scratch and the
+// Plain C interface for ctypes: lstm_tiled_fwd_launch (float32),
+// lstm_tiled_fwd_bf16_launch (bfloat16) and lstm_tiled_fwd_bf16u_launch
+// return the CUDA error code (0 = success). They allocate nothing (the caller passes the h scratch and the
 // zeroed counters) and do not synchronise; they run on the stream they are
 // given.
 
@@ -118,9 +121,9 @@ __device__ __forceinline__ void load_x(float (&xp)[4], float& mk,
   mk = (ok && mask != nullptr) ? __ldg(mask + (size_t)t * B + row) : 1.0f;
 }
 
-template <typename TS>
+template <typename TX, typename TS>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_tiled_fwd_kernel(const TS* __restrict__ xproj,
+lstm_tiled_fwd_kernel(const TX* __restrict__ xproj,
                       const TS* __restrict__ U,
                       const float* __restrict__ h0,
                       const float* __restrict__ c0,
@@ -356,9 +359,10 @@ lstm_tiled_fwd_kernel(const TS* __restrict__ xproj,
 // C blocks a cluster (they share the copy of h), UPB hidden units a block;
 // the grid is blocks = C * ceil(H / (C * UPB)). hx is a scratch of 2 * H *
 // BP floats (BP = B rounded up to 16), flags C zeroed ints. mask, z and cs
-// may be null (z and cs together). xproj, U and z are TS (float, or
-// __nv_bfloat16 in lstm_tiled_fwd_bf16_launch).
-template <typename TS>
+// may be null (z and cs together). U and z are TS (float, or __nv_bfloat16
+// in lstm_tiled_fwd_bf16_launch and lstm_tiled_fwd_bf16u_launch), xproj TX
+// (TS, or float in lstm_tiled_fwd_bf16u_launch).
+template <typename TX, typename TS>
 static int launch_form(const void* xproj, const void* U, const void* h0,
                        const void* c0, const void* mask, void* ys, void* hT,
                        void* cT, void* z, void* cs, void* hx, void* flags,
@@ -371,8 +375,8 @@ static int launch_form(const void* xproj, const void* U, const void* h0,
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   const int blocks = C * ((H + C * UPB - 1) / (C * UPB));
   return (int)launch_clusters(
-      lstm_tiled_fwd_kernel<TS>, blocks, C, smem, (cudaStream_t)stream,
-      (const TS*)xproj, (const TS*)U, (const float*)h0, (const float*)c0,
+      lstm_tiled_fwd_kernel<TX, TS>, blocks, C, smem, (cudaStream_t)stream,
+      (const TX*)xproj, (const TS*)U, (const float*)h0, (const float*)c0,
       (const float*)mask, (float*)ys, (float*)hT, (float*)cT, (TS*)z,
       (float*)cs, (float*)hx, (int*)flags, T, B, H, UPB);
 }
@@ -383,8 +387,8 @@ extern "C" int lstm_tiled_fwd_launch(const void* xproj, const void* U,
                                      void* cT, void* z, void* cs, void* hx,
                                      void* flags, int T, int B, int H,
                                      int C, int UPB, void* stream) {
-  return launch_form<float>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs, hx,
-                            flags, T, B, H, C, UPB, stream);
+  return launch_form<float, float>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs,
+                                   hx, flags, T, B, H, C, UPB, stream);
 }
 
 extern "C" int lstm_tiled_fwd_bf16_launch(const void* xproj, const void* U,
@@ -394,8 +398,23 @@ extern "C" int lstm_tiled_fwd_bf16_launch(const void* xproj, const void* U,
                                           void* cs, void* hx, void* flags,
                                           int T, int B, int H, int C, int UPB,
                                           void* stream) {
-  return launch_form<__nv_bfloat16>(xproj, U, h0, c0, mask, ys, hT, cT, z, cs,
-                                    hx, flags, T, B, H, C, UPB, stream);
+  return launch_form<__nv_bfloat16, __nv_bfloat16>(
+      xproj, U, h0, c0, mask, ys, hT, cT, z, cs, hx, flags, T, B, H, C, UPB,
+      stream);
+}
+
+// xproj float32, U bfloat16, no residuals (z and cs null)
+extern "C" int lstm_tiled_fwd_bf16u_launch(const void* xproj, const void* U,
+                                           const void* h0, const void* c0,
+                                           const void* mask, void* ys,
+                                           void* hT, void* cT, void* z,
+                                           void* cs, void* hx, void* flags,
+                                           int T, int B, int H, int C,
+                                           int UPB, void* stream) {
+  if (z != nullptr || cs != nullptr) return (int)cudaErrorInvalidValue;
+  return launch_form<float, __nv_bfloat16>(xproj, U, h0, c0, mask, ys, hT, cT,
+                                           z, cs, hx, flags, T, B, H, C, UPB,
+                                           stream);
 }
 
 // How many clusters of C blocks the card keeps resident at once when each
@@ -405,5 +424,6 @@ extern "C" int lstm_tiled_fwd_bf16_launch(const void* xproj, const void* U,
 extern "C" int lstm_tiled_fwd_max_clusters(int C, int smem, int* out) {
   if (C < 2 || C > MAX_CLUSTER || smem < 0 || smem > MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
-  return (int)max_clusters_of(lstm_tiled_fwd_kernel<float>, C, smem, out);
+  return (int)max_clusters_of(lstm_tiled_fwd_kernel<float, float>, C, smem,
+                              out);
 }

@@ -1,9 +1,15 @@
 // Fused speculative greedy window of two L-layer LSTM language models (the
-// target and a small draft sharing its vocabulary), for Hopper (sm_90a),
-// float32.
+// target and a small draft sharing its vocabulary), for Hopper (sm_90a), in
+// two forms: float32 (spec_window_launch) and bfloat16 layers
+// (spec_window_bf16_launch: both models' W and U bfloat16 under bf16
+// compute, x and h rounded at the products, everything else float32; see
+// decode_common.cuh). The bfloat16 form is built from this file as its own
+// library (spec_window_bf16.cu defines WINDOW_BF16), so the two forms'
+// builds run side by side.
 //
 // Replaces lstm_tensorspark_tpu/ops/pallas_decode.py::_spec_window_kernel
-// (its per-model step is _model_step there, decode_common.cuh here). For the
+// (its per-model step is _model_step there, decode_common.cuh here; the
+// target's ldtype and the draft's dldtype are each model's lbf16). For the
 // batch, with k_draft = K and W = K + 1:
 //   1. propose: the draft decodes K greedy tokens from a COPY of its
 //      committed carries, fed its own argmax each step. The copy is
@@ -38,8 +44,9 @@
 // the same input), so it costs max(L, Ld) + 1 barriers; a propose step
 // Ld + 1.
 //
-// Plain C interface for ctypes: spec_window_launch returns the CUDA error
-// code of the launch (0 = success). It allocates nothing and does not
+// Plain C interface for ctypes: spec_window_launch and
+// spec_window_bf16_launch return the CUDA error code of the launch (0 =
+// success). It allocates nothing and does not
 // synchronise; it runs on the stream it is given. Scratch comes from the
 // wrapper; the barrier's two counters are zero before the launch and after.
 
@@ -56,7 +63,7 @@
 #define S_NX 7     // the merged argmax
 #define S_FIELDS 8  // then the K proposals
 
-template <bool kC>
+template <bool kC, typename TW>
 __global__ void __launch_bounds__(THREADS, 1)
 spec_window_kernel(Model tm, Model dm, Plan p, int V, int B, int K,
                    const float* __restrict__ h_in,
@@ -99,8 +106,8 @@ spec_window_kernel(Model tm, Model dm, Plan p, int V, int B, int K,
   Slice ds = slice_of(dm, p, V, blk, &tail);
   place_head(tm, p, V, ts, &tail);
   place_head(dm, p, V, ds, &tail);
-  load_slices(tm, ts, V);
-  load_slices(dm, ds, V);
+  load_slices<TW>(tm, ts, V);
+  load_slices<TW>(dm, ds, V);
   Sync sync{counters, counters + 1, p.blocks, p.cluster, 0};
   int* tok = rs + S_TOK * B;
   int* win = rs + S_WIN * B;
@@ -147,7 +154,7 @@ spec_window_kernel(Model tm, Model dm, Plan p, int V, int B, int K,
         const float* prev = l > 0 ? pnew + (size_t)(l - 1) * B * Hd : nullptr;
         const XSrc x =
             layer_x(dm, ds, l, V, ptok, prev, pcur + (size_t)l * B * Hd);
-        layer_rows<kC>(sm, dm, ds, l, x, pcur + (size_t)l * B * Hd, nullptr,
+        layer_rows<kC, TW>(sm, dm, ds, l, x, pcur + (size_t)l * B * Hd, nullptr,
                        pc + (size_t)l * B * Hd, pnew + (size_t)l * B * Hd,
                        B);
         CLK_MARK(2)
@@ -180,7 +187,7 @@ spec_window_kernel(Model tm, Model dm, Plan p, int V, int B, int K,
           const float* prev = l > 0 ? hnew + (size_t)(l - 1) * B * H : nullptr;
           const XSrc x =
               layer_x(tm, ts, l, V, inp, prev, hcur + (size_t)l * B * H);
-          layer_rows<kC>(sm, tm, ts, l, x, hcur + (size_t)l * B * H, win,
+          layer_rows<kC, TW>(sm, tm, ts, l, x, hcur + (size_t)l * B * H, win,
                          cst + (size_t)l * B * H, hnew + (size_t)l * B * H,
                          B);
         }
@@ -190,7 +197,7 @@ spec_window_kernel(Model tm, Model dm, Plan p, int V, int B, int K,
               l > 0 ? dnew + (size_t)(l - 1) * B * Hd : nullptr;
           const XSrc x =
               layer_x(dm, ds, l, V, inp, prev, dcur + (size_t)l * B * Hd);
-          layer_rows<kC>(sm, dm, ds, l, x, dcur + (size_t)l * B * Hd, win,
+          layer_rows<kC, TW>(sm, dm, ds, l, x, dcur + (size_t)l * B * Hd, win,
                          dcst + (size_t)l * B * Hd,
                          dnew + (size_t)l * B * Hd, B);
         }
@@ -253,36 +260,48 @@ spec_window_kernel(Model tm, Model dm, Plan p, int V, int B, int K,
   sync_exit(sync);
 }
 
-extern "C" int spec_window_launch(
-    int V,
-    const void* emb, int E, int L, int H,
-    const void* const* Ws, const void* const* Us, const void* const* bs,
-    const void* head_w, const void* head_b,
-    const void* demb, int Ed, int Ld, int Hd,
-    const void* const* dWs, const void* const* dUs, const void* const* dbs,
-    const void* dhead_w, const void* dhead_b,
-    const void* h_in, const void* c_in, const void* dh_in, const void* dc_in,
-    const void* tok_in, const void* alive_in, const void* rem_in,
-    const void* eos_in, int B, int K,
-    int blocks, int cluster, int wsm, int hsm, int stage, int rsm,
-    void* hbuf, void* dbuf, void* pbuf, void* pc, void* part_v, void* part_i,
-    void* rows, void* counters,
-    void* toks_out, void* next_out, void* alive_out, void* rem_out,
-    void* h_out, void* c_out, void* dh_out, void* dc_out, void* stream) {
+// The arguments of both forms: the target (lbf16: its logits rounded to
+// bfloat16), the draft (dlbf16), the carries and rows, the plan, the
+// scratch, the outputs, the stream
+#define SPEC_PARAMS                                                          \
+  int V, const void *emb, int E, int L, int H, const void *const *Ws,        \
+      const void *const *Us, const void *const *bs, const void *head_w,      \
+      const void *head_b, int lbf16, const void *demb, int Ed, int Ld,       \
+      int Hd, const void *const *dWs, const void *const *dUs,                \
+      const void *const *dbs, const void *dhead_w, const void *dhead_b,      \
+      int dlbf16, const void *h_in, const void *c_in, const void *dh_in,     \
+      const void *dc_in, const void *tok_in, const void *alive_in,           \
+      const void *rem_in, const void *eos_in, int B, int K, int blocks,      \
+      int cluster, int wsm, int hsm, int stage, int rsm, void *hbuf,         \
+      void *dbuf, void *pbuf, void *pc, void *part_v, void *part_i,          \
+      void *rows, void *counters, void *toks_out, void *next_out,            \
+      void *alive_out, void *rem_out, void *h_out, void *c_out,              \
+      void *dh_out, void *dc_out, void *stream
+#define SPEC_ARGS                                                            \
+  V, emb, E, L, H, Ws, Us, bs, head_w, head_b, lbf16, demb, Ed, Ld, Hd, dWs, \
+      dUs, dbs, dhead_w, dhead_b, dlbf16, h_in, c_in, dh_in, dc_in, tok_in,  \
+      alive_in, rem_in, eos_in, B, K, blocks, cluster, wsm, hsm, stage, rsm, \
+      hbuf, dbuf, pbuf, pc, part_v, part_i, rows, counters, toks_out,        \
+      next_out, alive_out, rem_out, h_out, c_out, dh_out, dc_out, stream
+
+template <typename TW>
+static int launch_form(SPEC_PARAMS) {
   if (L < 1 || L > MAX_LAYERS || Ld < 1 || Ld > MAX_LAYERS || B < 1 ||
       K < 1 || H < 1 || E < 1 || Hd < 1 || Ed < 1 || V < 1 || stage < 8)
     return (int)cudaErrorInvalidValue;
+  const int es = (int)sizeof(TW);
   const Model models[2] = {
-      make_model(emb, E, L, H, Ws, Us, bs, head_w, head_b),
-      make_model(demb, Ed, Ld, Hd, dWs, dUs, dbs, dhead_w, dhead_b)};
+      make_model(emb, E, L, H, Ws, Us, bs, head_w, head_b, es, lbf16),
+      make_model(demb, Ed, Ld, Hd, dWs, dUs, dbs, dhead_w, dhead_b, es,
+                 dlbf16)};
   const Plan p = make_plan(blocks, cluster, wsm, hsm, stage, rsm);
   // the target's h of two steps and c; the committed draft's and the
   // propose copy's
   const int copies[2] = {3, 6};
   const size_t smem =
       window_smem_bytes(p, models, copies, 2, V, B, S_FIELDS + K);
-  auto kernel =
-      p.cluster ? spec_window_kernel<true> : spec_window_kernel<false>;
+  auto kernel = p.cluster ? spec_window_kernel<true, TW>
+                          : spec_window_kernel<false, TW>;
   static bool opted[2][64];  // by build (grid, one cluster) and device
   return (int)launch_window(
       kernel, p, smem, (cudaStream_t)stream, opted[p.cluster ? 1 : 0],
@@ -294,3 +313,13 @@ extern "C" int spec_window_launch(
       (int*)next_out, (int*)alive_out, (int*)rem_out, (float*)h_out,
       (float*)c_out, (float*)dh_out, (float*)dc_out);
 }
+
+#ifdef WINDOW_BF16
+extern "C" int spec_window_bf16_launch(SPEC_PARAMS) {
+  return launch_form<__nv_bfloat16>(SPEC_ARGS);
+}
+#else
+extern "C" int spec_window_launch(SPEC_PARAMS) {
+  return launch_form<float>(SPEC_ARGS);
+}
+#endif  // WINDOW_BF16

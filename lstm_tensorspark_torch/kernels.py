@@ -23,6 +23,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -34,8 +35,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every kernel source of the port (csrc/<name>.cu), the set build() takes
-SOURCES = ("decode_window", "spec_window", "lstm_fwd", "lstm_bwd",
-           "lstmx_fwd", "lstmx_bwd", "lstm_tiled_fwd", "lstm_tiled_bwd")
+SOURCES = ("decode_window", "decode_window_bf16", "spec_window",
+           "spec_window_bf16", "lstm_fwd", "lstm_bwd", "lstmx_fwd",
+           "lstmx_bwd", "lstm_tiled_fwd", "lstm_tiled_bwd")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # Held while a CUDA graph is being captured (train/graphs.py). A thread
 # that allocates pinned memory or copies on another stream
@@ -83,9 +85,12 @@ def defined(*macros: str):
 
 
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library goes: named by a hash of its source,
-    the shared headers of ``csrc/`` and the flags."""
+    """Where kernel ``name``'s library goes: named by a hash of its source
+    (with the sources it includes, as ``<name>_bf16.cu`` includes
+    ``<name>.cu``), the shared headers of ``csrc/`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for inc in re.findall(rb'#include "(\w+\.cu)"', src):
+        src += (CSRC / inc.decode()).read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags()).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
@@ -179,12 +184,8 @@ def check_operand(name: str, t, shape, device, dtype=torch.float32) -> None:
 
 
 def check_f32(name: str, t, shape, device) -> None:
-    """:func:`check_operand` of a float32 tensor. A bfloat16 tensor here
-    raises ``TypeError`` naming what is missing: the kernel's bfloat16
-    form (the decode and spec windows' are not ported yet)."""
-    if t.dtype == torch.bfloat16:
-        raise TypeError(f"{name} is bfloat16: this kernel's bfloat16 form is "
-                        "not ported yet (float32 only)")
+    """:func:`check_operand` of a float32 tensor: an operand that is float32
+    in every form of its kernel (the carries, the bias, the head)."""
     check_operand(name, t, shape, device, torch.float32)
 
 

@@ -110,9 +110,13 @@ def init_carries(cfg: LMConfig, batch: int, device=None):
 def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig, *,
                 carries=None, mask: torch.Tensor | None = None,
                 dropout_gen: torch.Generator | None = None,
-                dropout_keeps: Iterator[torch.Tensor] | None = None):
+                dropout_keeps: Iterator[torch.Tensor] | None = None,
+                plain_rounding: bool = False):
     """tokens [B, T] → (per-layer final carries, top-layer activations
     [B, T, H]). ``mask`` [B, T] bool freezes the carries at False steps.
+    ``plain_rounding`` (forward only) rounds a bfloat16 recurrence on the
+    card as JAX's plain XLA scan does (``ops/scan.py``): the serve
+    prefill's, which JAX runs with ``use_pallas=False``.
     Dropout (``cfg.dropout``, between layers) is on only when a source of
     keep masks is given: drawn from ``dropout_gen``, or taken in order from
     ``dropout_keeps`` (the tests feed JAX's); without one the pass is
@@ -123,7 +127,8 @@ def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig, *,
                              dropout_rate=cfg.dropout,
                              dropout_gen=dropout_gen,
                              dropout_keeps=dropout_keeps,
-                             compute_dtype=cfg.cdtype)
+                             compute_dtype=cfg.cdtype,
+                             plain_rounding=plain_rounding)
 
 
 def _head_kernel(params, cfg: LMConfig):

@@ -19,7 +19,16 @@ step's entry emit ``PAD_TOKEN``, keep their carries frozen and feed token 0.
   for a card. :func:`sliced_argmax` is the plain twin of the kernels'
   argmax: per-block slices of V merged by value, then lower index.
 - :data:`counts` counts kernel launches (and reference dispatches), so a
-  run can show its decode steps went through the kernel.
+  run can show its decode steps went through the kernel;
+  :data:`counts_bf16` those of the bfloat16 form.
+
+Two forms, chosen by the dtype of the fused layers' W and U: float32, and
+bfloat16 under bf16 compute (JAX's ``_decode_window_kernel`` at a bfloat16
+``w_ref.dtype``): x and h are rounded to bfloat16 at the layers' products,
+which accumulate in float32; the embedding, the head, the bias, the
+carries and the gate math stay float32. ``DecodeWeights.ldtype`` bfloat16
+(JAX's ``ldtype``) rounds the logits as JAX's head does: the float32 sum to
+bfloat16, plus the bias rounded to bfloat16, in bfloat16, then widened.
 
 On the card the kernel is bound by memory traffic, not arithmetic: decode
 at serving batch sizes is matrix-vector work. The kernel spreads each step
@@ -104,11 +113,13 @@ def _r4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _layer_floats(L: int, H: int, E: int, nu: int) -> int:
+def _layer_bytes(L: int, H: int, E: int, nu: int, esize: int) -> int:
     """A block's slice of a model's layers in shared memory (csrc
-    ``layers_floats``): [(D_l + H)][4nu] (unit-major: a unit's four gates
-    side by side) and the bias [4nu] a layer."""
-    return sum(((E if l == 0 else H) + H + 1) * 4 * nu for l in range(L))
+    ``layers_bytes``): a layer's weights [(D_l + H)][4nu] (unit-major: a
+    unit's four gates side by side) at ``esize`` bytes an element, rounded
+    up to 16 bytes, then its float32 bias [4nu]."""
+    return sum(_r4(((E if l == 0 else H) + H) * nu * esize) * 4 + 16 * nu
+               for l in range(L))
 
 
 def _check_shapes(models, vocab: int) -> None:
@@ -125,7 +136,8 @@ def _check_shapes(models, vocab: int) -> None:
 
 def plan(models: Sequence[tuple[int, int, int]], vocab: int, batch: int,
          k_draft: int | None = None, num_sms: int = 132,
-         clusters: dict[int, int] | None = None) -> WindowPlan:
+         clusters: dict[int, int] | None = None,
+         esize: int = 4) -> WindowPlan:
     """The launch plan of a window over ``models`` ((num_layers, hidden,
     embed) each: the decode window's one model, or with ``k_draft`` the
     spec window's target and draft) sharing a vocabulary of ``vocab``, for
@@ -138,8 +150,10 @@ def plan(models: Sequence[tuple[int, int, int]], vocab: int, batch: int,
     if given, keeps one); else one block per SM, keeping in shared memory
     the latches and what fits of the weights (layers and heads, layers,
     heads, or neither), the rest read through L2 each step. Rows go in
-    tiles of 16. Raises ``ValueError`` for more than ``MAX_LAYERS`` layers
-    or an empty width."""
+    tiles of 16. ``esize`` is the bytes of an element of W and U (2 in the
+    bfloat16 form; the head and the embedding stay float32). Raises
+    ``ValueError`` for more than ``MAX_LAYERS`` layers or an empty
+    width."""
     _check_shapes(models, vocab)
     # csrc: decode_window.cu R_FIELDS, spec_window.cu S_FIELDS + K; the
     # state arrays of each model ([L, B, H] each): h of two steps and c,
@@ -147,8 +161,8 @@ def plan(models: Sequence[tuple[int, int, int]], vocab: int, batch: int,
     fields = 4 if k_draft is None else 8 + k_draft
     copies = (3,) if k_draft is None else (3, 6)
     dtot = _ceil(max(max(E, H) + H for L, H, E in models), 8) * 8
-    weights = [((E + H) * 4 * H + (L - 1) * 8 * H * H + 4 * H * L,
-                H * vocab + vocab) for L, H, E in models]
+    weights = [(esize * ((E + H) * 4 * H + (L - 1) * 8 * H * H) + 16 * H * L,
+                4 * (H * vocab + vocab)) for L, H, E in models]
 
     def build(blocks, cluster, wsm, hsm, rsm):
         units = tuple(_ceil(H, blocks) for _, H, _ in models)
@@ -158,8 +172,8 @@ def plan(models: Sequence[tuple[int, int, int]], vocab: int, batch: int,
         if cluster:
             floats += sum(n * _r4(L * batch * H) + _r4(vocab * E)
                           for n, (L, H, E) in zip(copies, models))
-        if wsm:
-            floats += sum(_r4(_layer_floats(L, H, E, nu))
+        if wsm:  # whole 16-byte pieces: a multiple of 4 floats
+            floats += sum(_layer_bytes(L, H, E, nu, esize) // 4
                           for (L, H, E), nu in zip(models, units))
         if hsm:
             floats += sum(_r4((H + 1) * cols) for _, H, _ in models)
@@ -167,7 +181,7 @@ def plan(models: Sequence[tuple[int, int, int]], vocab: int, batch: int,
         stage = min(dtot, room)
         if stage < (min(dtot, MIN_STAGE) if wsm or hsm or cluster else 8):
             return None
-        offchip = tuple((0 if wsm else 4 * lw, 0 if hsm else 4 * hw)
+        offchip = tuple((0 if wsm else lw, 0 if hsm else hw)
                         for lw, hw in weights)
         return WindowPlan(blocks, cluster, units, cols, wsm, hsm, rsm, stage, 4 * (floats + stage * MAX_RT), offchip)
 
@@ -190,20 +204,20 @@ _plans: dict[tuple, WindowPlan] = {}
 
 
 def card_plan(models: Sequence[tuple[int, int, int]], vocab: int, batch: int,
-              k_draft: int | None, dev) -> WindowPlan:
+              k_draft: int | None, dev, esize: int = 4) -> WindowPlan:
     """:func:`plan` for the card ``dev``: its SM count and the clusters of
     window blocks it keeps resident, each block asking for the most shared
     memory (``csrc/decode_window.cu::decode_window_max_clusters``; cached by
     shape). Refuses a shape :func:`plan` refuses
     before it asks the card anything."""
-    key = (dev.index or 0, tuple(models), vocab, batch, k_draft)
+    key = (dev.index or 0, tuple(models), vocab, batch, k_draft, esize)
     p = _plans.get(key)
     if p is None:
         _check_shapes(models, vocab)
         p = _plans[key] = plan(
             models, vocab, batch, k_draft, cuda_lstm._num_sms(dev),
             {C: kernels.max_clusters("decode_window", dev, C, MAX_SMEM_BYTES)
-             for C in CLUSTERS})
+             for C in CLUSTERS}, esize)
     return p
 
 
@@ -260,33 +274,62 @@ def sliced_argmax(logits: torch.Tensor, blocks: int) -> torch.Tensor:
 
 class DecodeWeights(NamedTuple):
     """The weights one decode window reads, laid out for the kernel:
-    embedding [V, E], fused layers (kernel [D, 4H], recurrent [H, 4H],
-    bias [4H]), head kernel [H, V] (contiguous; for a tied head a copy of
-    ``embedding.T`` made once) and head bias [V]."""
+    embedding [V, E], fused layers (kernel [D, 4H], recurrent [H, 4H] —
+    both float32, or both bfloat16 — and a float32 bias [4H]), head kernel
+    [H, V] (contiguous; for a tied head a copy of ``embedding.T`` made
+    once) and head bias [V], and ``ldtype``, the dtype of the logits (JAX's
+    ``LMConfig.ldtype``)."""
 
     embedding: torch.Tensor
     layers: tuple[FusedLSTMParams, ...]
     head_kernel: torch.Tensor
     head_bias: torch.Tensor
+    ldtype: torch.dtype = torch.float32
 
 
-def decode_weights(params, fused_layers, tie_embeddings: bool) -> DecodeWeights:
+def decode_weights(params, fused_layers, tie_embeddings: bool,
+                   ldtype: torch.dtype = torch.float32) -> DecodeWeights:
     kernel = (params["embedding"].T if tie_embeddings
               else params["head"]["kernel"])
     return DecodeWeights(params["embedding"].contiguous(),
                          tuple(fused_layers), kernel.contiguous(),
-                         params["head"]["bias"].contiguous())
+                         params["head"]["bias"].contiguous(), ldtype)
+
+
+def layers_dtype(weights: DecodeWeights) -> torch.dtype:
+    """The form a window runs, by the dtype of its fused W and U: float32
+    or bfloat16 (``TypeError`` for another, or for a mix)."""
+    dts = {t.dtype for f in weights.layers for t in (f.kernel, f.recurrent)}
+    if len(dts) != 1 or not dts <= {torch.float32, torch.bfloat16}:
+        raise TypeError(f"the layers' W and U must all be float32 or all "
+                        f"bfloat16, got {sorted(map(str, dts))}")
+    return dts.pop()
+
+
+@torch.no_grad()
+def window_logits(x: torch.Tensor, weights: DecodeWeights) -> torch.Tensor:
+    """The head of the plain versions, float32 out: ``x @ kernel + bias``,
+    or under a bfloat16 ``ldtype`` the float32 product rounded to bfloat16
+    plus the bias rounded to bfloat16, in bfloat16 (JAX's ``dot(...,
+    preferred_element_type=ldtype) + bias.astype(ldtype)``)."""
+    if weights.ldtype == torch.float32:
+        return x @ weights.head_kernel + weights.head_bias
+    ld = weights.ldtype
+    return ((x @ weights.head_kernel).to(ld)
+            + weights.head_bias.to(ld)).float()
 
 
 counts = kernels.LaunchCounts("decode_window")
+counts_bf16 = kernels.LaunchCounts("decode_window_bf16")
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _pp = ctypes.POINTER(ctypes.c_void_p)
-# csrc/decode_window.cu::decode_window_launch: the model, the carries and
-# rows, B, K, tdiv, scale, greedy, the plan (blocks, cluster, layers,
-# head and rows in shared memory, stage), the scratch,
-# the outputs, the stream
-_ARGTYPES = ([_p, _i, _i, _i, _i, _pp, _pp, _pp, _p, _p]
+# csrc/decode_window.cu::decode_window_launch (and decode_window_bf16.cu::
+# decode_window_bf16_launch): the model
+# (lbf16 last), the carries and rows, B, K, tdiv, scale, greedy, the plan
+# (blocks, cluster, layers, head and rows in shared memory, stage), the
+# scratch, the outputs, the stream
+_ARGTYPES = ([_p, _i, _i, _i, _i, _pp, _pp, _pp, _p, _p, _i]
              + [_p] * 7 + [_i, _i, ctypes.c_float, _i, _i]
              + [_i] * 6 + [_p] * 5 + [_p] * 6 + [_p])
 
@@ -300,8 +343,9 @@ def decode_window(weights: DecodeWeights, h, c, tokens, alive, remaining,
     int32 (``eos_ids`` -1 = none); ``alive`` [B] int32 (1 live, 0 dead; a
     bool tensor is taken too); ``noise`` [K, B, V] f32 Gumbel draws (None
     when greedy). Returns ``(h_out, c_out, toks [K, B] int32, next_tok [B]
-    int32, alive_out [B] int32, rem_out [B] int32)``. CPU tensors run the plain version; CUDA tensors launch the
-    kernel on the current stream, without synchronising.
+    int32, alive_out [B] int32, rem_out [B] int32)``. CPU tensors run the
+    plain version; CUDA tensors launch the kernel's form of the layers'
+    dtype on the current stream, without synchronising.
     """
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -309,7 +353,8 @@ def decode_window(weights: DecodeWeights, h, c, tokens, alive, remaining,
         return _launch(weights, h, c, tokens, alive, remaining, eos_ids,
                        noise, window, temperature, greedy)
     if h.device.type == "cpu":
-        counts.bump("reference")
+        cuda_lstm.counts_of(layers_dtype(weights), counts, counts_bf16).bump(
+            "reference")
         return decode_window_reference(
             weights, h, c, tokens, alive, remaining, eos_ids, noise,
             window=window, temperature=temperature, greedy=greedy)
@@ -345,7 +390,7 @@ def decode_window_reference(weights: DecodeWeights, h, c, tokens, alive,
         for l, fused in enumerate(weights.layers):
             (hn, cn), x = lstm_step(fused, (hs[l], cs[l]), x)
             new.append((hn, cn))
-        logits = x @ weights.head_kernel + weights.head_bias
+        logits = window_logits(x, weights)
         if greedy:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         else:
@@ -375,6 +420,40 @@ def _int_row(name, t, B, device):
     return t.to(torch.int32).contiguous()
 
 
+def source(dtype: torch.dtype, name: str) -> str:
+    """The kernel source (library) of a window's form: ``name``, or
+    ``name + "_bf16"`` for the bfloat16 form."""
+    return name + "_bf16" if dtype == torch.bfloat16 else name
+
+
+def lbf16(weights: DecodeWeights) -> int:
+    """The kernels' flag of a bfloat16 ``ldtype`` (``TypeError`` for a
+    dtype they do not take)."""
+    if weights.ldtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"logits dtype must be float32 or bfloat16, got "
+                        f"{weights.ldtype}")
+    return int(weights.ldtype == torch.bfloat16)
+
+
+def check_weights(who: str, w: DecodeWeights, L: int, H: int, V: int,
+                  dev) -> None:
+    """Raise unless ``w`` is what the window kernels read for a model of
+    ``L`` layers of width ``H`` over ``V`` tokens on ``dev``: W and U in
+    the form's dtype, the rest float32, contiguous."""
+    wd = layers_dtype(w)
+    E = w.embedding.shape[1]
+    kernels.check_f32(f"{who}embedding", w.embedding, (V, E), dev)
+    for l, f in enumerate(w.layers):
+        D = E if l == 0 else H
+        kernels.check_operand(f"{who}layer {l} kernel", f.kernel,
+                              (D, 4 * H), dev, wd)
+        kernels.check_operand(f"{who}layer {l} recurrent", f.recurrent,
+                              (H, 4 * H), dev, wd)
+        kernels.check_f32(f"{who}layer {l} bias", f.bias, (4 * H,), dev)
+    kernels.check_f32(f"{who}head kernel", w.head_kernel, (H, V), dev)
+    kernels.check_f32(f"{who}head bias", w.head_bias, (V,), dev)
+
+
 def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
             temperature, greedy):
     dev = h.device
@@ -383,17 +462,11 @@ def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
     if len(weights.layers) != L:
         raise ValueError(f"the carries have {L} layers, the weights "
                          f"{len(weights.layers)}")
-    pl = card_plan(((L, H, E),), V, B, None, dev)
+    wd = layers_dtype(weights)
+    pl = card_plan(((L, H, E),), V, B, None, dev, cuda_lstm.esize_of(wd))
     kernels.check_f32("h", h, (L, B, H), dev)
     kernels.check_f32("c", c, (L, B, H), dev)
-    kernels.check_f32("embedding", weights.embedding, (V, E), dev)
-    for l, f in enumerate(weights.layers):
-        D = E if l == 0 else H
-        kernels.check_f32(f"layer {l} kernel", f.kernel, (D, 4 * H), dev)
-        kernels.check_f32(f"layer {l} recurrent", f.recurrent, (H, 4 * H), dev)
-        kernels.check_f32(f"layer {l} bias", f.bias, (4 * H,), dev)
-    kernels.check_f32("head kernel", weights.head_kernel, (H, V), dev)
-    kernels.check_f32("head bias", weights.head_bias, (V,), dev)
+    check_weights("", weights, L, H, V, dev)
     tok = _int_row("tokens", tokens, B, dev)
     alv = _int_row("alive", alive, B, dev)
     rem = _int_row("remaining", remaining, B, dev)
@@ -428,13 +501,13 @@ def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
     Us = ptrs(*(f.recurrent.data_ptr() for f in weights.layers))
     bs = ptrs(*(f.bias.data_ptr() for f in weights.layers))
     scale = int(not greedy and temperature != 1.0)
-    launch = kernels.launcher("decode_window", _ARGTYPES)
+    launch = kernels.launcher(source(wd, "decode_window"), _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
             weights.embedding.data_ptr(), V, E, L, H, Ws, Us, bs,
             weights.head_kernel.data_ptr(), weights.head_bias.data_ptr(),
-            h.data_ptr(), c.data_ptr(), tok.data_ptr(), alv.data_ptr(),
+            lbf16(weights), h.data_ptr(), c.data_ptr(), tok.data_ptr(), alv.data_ptr(),
             rem.data_ptr(), eos.data_ptr(), noise_ptr, B, window,
             max(temperature, 1e-6), scale, int(greedy), pl.blocks,
             pl.cluster, int(pl.layers_smem), int(pl.head_smem), pl.stage,
@@ -446,6 +519,6 @@ def _launch(weights, h, c, tokens, alive, remaining, eos_ids, noise, window,
     if rc != 0:
         raise RuntimeError(f"decode_window kernel launch failed: CUDA error "
                            f"{rc} (L={L} B={B} H={H} E={E} V={V} K={window}, "
-                           f"{pl})")
-    counts.bump("kernel")
+                           f"{wd}, {pl})")
+    cuda_lstm.counts_of(wd, counts, counts_bf16).bump("kernel")
     return h_out, c_out, toks, row_out[0], row_out[1], row_out[2]

@@ -41,7 +41,10 @@ h is rounded to bfloat16 at the product (dz is rounded once, at its store,
 and dh formed from the rounded dz), every product accumulates in float32,
 and ys, cs, the carries, dys and the mask stay float32. Their launches
 count apart (:data:`fwd_bf16_counts`, :data:`bwd_bf16_counts`). A mixed
-call raises ``TypeError``.
+call raises ``TypeError``, but for one: the forward's third form, a float32
+xproj with a bfloat16 U and no residuals (:data:`fwd_bf16u_counts`), the
+rounding of JAX's plain XLA scan under bf16 compute, which JAX's serve
+prefill runs (``cuda_lstm_scan(..., plain_rounding=True)``).
 """
 
 from __future__ import annotations
@@ -65,6 +68,8 @@ bwd_counts = kernels.LaunchCounts("lstm_bwd")
 # the bfloat16 forms of the same sources
 fwd_bf16_counts = kernels.LaunchCounts("lstm_fwd_bf16")
 bwd_bf16_counts = kernels.LaunchCounts("lstm_bwd_bf16")
+# the forward's plain-rounding form: xproj float32, U bfloat16
+fwd_bf16u_counts = kernels.LaunchCounts("lstm_fwd_bf16u")
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 F32 = torch.float32
 
@@ -85,6 +90,13 @@ def esize_of(dtype: torch.dtype) -> int:
 def counts_of(dtype, f32_counts, bf16_counts):
     """The launch counter of ``dtype``'s form."""
     return bf16_counts if dtype == torch.bfloat16 else f32_counts
+
+
+def forward_entry(xproj, sd: torch.dtype) -> str:
+    """The C entry of a forward call's form: the form of ``sd`` (U's
+    dtype, :func:`check_forward`), or ``"bf16u_launch"`` for a float32
+    xproj with a bfloat16 U."""
+    return "bf16u_launch" if xproj.dtype != sd else entry(sd)
 
 
 class Plan(NamedTuple):
@@ -363,9 +375,10 @@ def lstm_backward_factored(z, c_prev, dys, U, dhT, dcT, mask=None):
 
 def check_forward(xproj, U, h0, c0, mask):
     """The forward's operands: ``xproj`` [T>=1, B, 4H] and ``U`` [H, 4H] in
-    one form's dtype (float32 or bfloat16), ``h0``, ``c0`` [B, H] and the
-    mask [T, B] float32, contiguous, on one device. Returns (T, B, H, the
-    form's dtype); raises otherwise."""
+    one form's dtype (float32 or bfloat16; or xproj float32 with U
+    bfloat16, the plain-rounding form), ``h0``, ``c0`` [B, H] and the mask
+    [T, B] float32, contiguous, on one device. Returns (T, B, H, U's
+    dtype); raises otherwise."""
     if xproj.dim() != 3 or xproj.shape[2] % 4 or xproj.shape[0] < 1:
         raise ValueError(f"xproj must be [T >= 1, B, 4H], got "
                          f"{tuple(xproj.shape)}")
@@ -373,6 +386,8 @@ def check_forward(xproj, U, h0, c0, mask):
     H = G // 4
     dev, sd = xproj.device, stream_dtype("xproj", xproj)
     kernels.check_operand("xproj", xproj, (T, B, G), dev, sd)
+    if sd == F32 and U.dtype == torch.bfloat16:
+        sd = torch.bfloat16  # the plain-rounding form
     kernels.check_operand("U", U, (H, G), dev, sd)
     kernels.check_operand("h0", h0, (B, H), dev, F32)
     kernels.check_operand("c0", c0, (B, H), dev, F32)
@@ -406,15 +421,30 @@ def lstm_forward(xproj, U, h0, c0, mask=None, *, save_residuals: bool = False):
     [B,H], ``mask`` [T,B] float32 or None. Returns ``(ys [T,B,H], hT,
     cT)`` and, with ``save_residuals``, ``z`` [T,B,4H] (in xproj's dtype)
     and ``cs`` [T,B,H]. CUDA tensors launch ``csrc/lstm_fwd.cu`` in the
-    form of xproj's dtype; CPU tensors run the plain version."""
+    form of the operands' dtypes (:func:`forward_entry`); CPU tensors run
+    the plain version."""
     if xproj.device.type == "cuda":
         return _launch_fwd(xproj, U, h0, c0, mask, save_residuals)
     if xproj.device.type != "cpu":
         raise ValueError(f"unsupported device {xproj.device}")
     *_, sd = check_forward(xproj, U, h0, c0, mask)
-    counts_of(sd, fwd_counts, fwd_bf16_counts).bump("reference")
+    fwd_form_counts(xproj, sd).bump("reference")
     return lstm_forward_reference(xproj, U, h0, c0, mask,
                                   save_residuals=save_residuals)
+
+
+def fwd_form_counts(xproj, sd):
+    """The launch counter of a resident forward call's form."""
+    return {"launch": fwd_counts, "bf16_launch": fwd_bf16_counts,
+            "bf16u_launch": fwd_bf16u_counts}[forward_entry(xproj, sd)]
+
+
+def check_plain_rounding(xproj, sd, save_residuals: bool) -> None:
+    """The plain-rounding form (float32 xproj, bfloat16 U) runs forward
+    only: it writes no residuals."""
+    if save_residuals and xproj.dtype != sd:
+        raise ValueError("a float32 xproj with a bfloat16 U (the "
+                         "plain-rounding form) saves no residuals")
 
 
 def lstm_backward(z, c0, cs, dys, U, dhT, dcT, mask=None):
@@ -462,6 +492,7 @@ def entry(dtype) -> str:
 def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     dev = xproj.device
     T, B, H, sd = check_forward(xproj, U, h0, c0, mask)
+    check_plain_rounding(xproj, sd, save_residuals)
     G = 4 * H
     pl = plan("fwd", B, H, _num_sms(dev), esize=esize_of(sd))
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
@@ -471,7 +502,8 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     if save_residuals:
         z = torch.empty((T, B, G), dtype=sd, device=dev)
         cs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    launch = kernels.launcher("lstm_fwd", _FWD_ARGTYPES, entry(sd))
+    launch = kernels.launcher("lstm_fwd", _FWD_ARGTYPES,
+                              forward_entry(xproj, sd))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
@@ -482,7 +514,7 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     if rc != 0:
         raise RuntimeError(f"lstm_fwd kernel launch failed: CUDA error {rc} "
                            f"(T={T} B={B} H={H}, {sd}, {pl})")
-    counts_of(sd, fwd_counts, fwd_bf16_counts).bump("kernel")
+    fwd_form_counts(xproj, sd).bump("kernel")
     return (ys, hT, cT, z, cs) if save_residuals else (ys, hT, cT)
 
 
@@ -565,7 +597,10 @@ def run_recurrence(function, forward, xproj, U, h0, c0, mask=None):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xproj, U, h0, c0)):
         return function.apply(xproj, U, h0, c0, mask)
-    return forward(xproj, U.to(xproj.dtype), h0, c0, mask)
+    # a bfloat16 U stays bfloat16 (with a float32 xproj: the plain-rounding
+    # form)
+    Uf = U if U.dtype == torch.bfloat16 else U.to(xproj.dtype)
+    return forward(xproj, Uf, h0, c0, mask)
 
 
 class BF16Projection(torch.autograd.Function):
@@ -608,13 +643,17 @@ def lstm_recurrence(xproj, U, h0, c0, mask=None):
 
 def cuda_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
                    mask: torch.Tensor | None = None, reverse: bool = False,
-                   recurrence=lstm_recurrence, compute_dtype=None):
+                   recurrence=lstm_recurrence, compute_dtype=None,
+                   plain_rounding: bool = False):
     """One LSTM layer over ``xs`` [B, T, D] through ``recurrence`` (the
     resident pair's :func:`lstm_recurrence` unless told otherwise): the
     same contract as ``ops.scan.lstm_scan`` (``carry`` (h, c) each [B, H]
     or None; ``mask`` bool [B, T]; ``reverse``; ``compute_dtype``, whose
-    bfloat16 takes the kernels' bfloat16 forms). Returns ``((hT, cT), ys
-    [B, T, H])``."""
+    bfloat16 takes the kernels' bfloat16 forms). ``plain_rounding`` under
+    bfloat16 rounds as JAX's plain XLA scan does (the projection float32
+    from bfloat16 operands, U bfloat16: the forward's plain-rounding form),
+    forward only, where the kernel route stores xproj in bfloat16. Returns
+    ``((hT, cT), ys [B, T, H])``."""
     B, T, _ = xs.shape
     fused = fuse_params(params)
     H = fused.hidden_size
@@ -627,9 +666,19 @@ def cuda_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
         c0 = torch.zeros_like(h0)
     else:
         h0, c0 = carry[0].contiguous(), carry[1].contiguous()
-    xproj = project(xs.transpose(0, 1), fused, compute_dtype)
+    U = fused.recurrent
+    if plain_rounding and resolve_dtype(compute_dtype) == torch.bfloat16:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in params):
+            raise ValueError("plain_rounding is a forward-only form (no "
+                             "gradient flows through it)")
+        bf = torch.bfloat16
+        xproj = (mm_f32(xs.transpose(0, 1).to(bf), fused.kernel.to(bf))
+                 + fused.bias)
+        U = U.to(bf)
+    else:
+        xproj = project(xs.transpose(0, 1), fused, compute_dtype)
     m = None if mask is None else mask.transpose(0, 1).to(torch.float32).contiguous()
-    ys, hT, cT = recurrence(xproj.contiguous(), fused.recurrent, h0, c0, m)
+    ys, hT, cT = recurrence(xproj.contiguous(), U, h0, c0, m)
     ys = ys.transpose(0, 1)
     if reverse:
         ys = torch.flip(ys, dims=(1,))

@@ -38,7 +38,9 @@ float32 values and the rest of its share in shared memory as bfloat16.
   outside, as ``_pallas_backward`` does); :func:`lstm_tiled_recurrence`
   and :func:`cuda_lstm_tiled_scan` are the entries ``ops/scan.py`` routes
   to.
-- :data:`fwd_counts` / :data:`bwd_counts` count launches and plain runs.
+- :data:`fwd_counts` / :data:`bwd_counts` count launches and plain runs;
+  the bfloat16 forms and the forward's plain-rounding form (float32 xproj,
+  bfloat16 U: ``cuda_lstm.forward_entry``) count apart.
 """
 
 from __future__ import annotations
@@ -83,6 +85,8 @@ fwd_counts = kernels.LaunchCounts("lstm_tiled_fwd")
 bwd_counts = kernels.LaunchCounts("lstm_tiled_bwd")
 # the bfloat16 forms of the same sources
 fwd_bf16_counts = kernels.LaunchCounts("lstm_tiled_fwd_bf16")
+# the forward's plain-rounding form: xproj float32, U bfloat16
+fwd_bf16u_counts = kernels.LaunchCounts("lstm_tiled_fwd_bf16u")
 bwd_bf16_counts = kernels.LaunchCounts("lstm_tiled_bwd_bf16")
 
 
@@ -261,7 +265,7 @@ def lstm_tiled_forward(xproj, U, h0, c0, mask=None, *,
     if xproj.device.type != "cpu":
         raise ValueError(f"unsupported device {xproj.device}")
     *_, sd = check_forward(xproj, U, h0, c0, mask)
-    counts_of(sd, fwd_counts, fwd_bf16_counts).bump("reference")
+    fwd_form_counts(xproj, sd).bump("reference")
     return lstm_forward_reference(xproj, U, h0, c0, mask,
                                   save_residuals=save_residuals)
 
@@ -292,6 +296,7 @@ _BWD_ARGTYPES = [_p] * 13 + [_i] * 5 + [_p]
 def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     dev = xproj.device
     T, B, H, sd = check_forward(xproj, U, h0, c0, mask)
+    cuda_lstm.check_plain_rounding(xproj, sd, save_residuals)
     pl = card_plan("fwd", B, H, dev, esize_of(sd))
     f32 = dict(dtype=torch.float32, device=dev)
     ys = torch.empty((T, B, H), **f32)
@@ -303,7 +308,8 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     if save_residuals:
         z = torch.empty((T, B, 4 * H), dtype=sd, device=dev)
         cs = torch.empty((T, B, H), **f32)
-    launch = kernels.launcher("lstm_tiled_fwd", _FWD_ARGTYPES, entry(sd))
+    launch = kernels.launcher("lstm_tiled_fwd", _FWD_ARGTYPES,
+                              cuda_lstm.forward_entry(xproj, sd))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
@@ -314,8 +320,15 @@ def _launch_fwd(xproj, U, h0, c0, mask, save_residuals):
     if rc != 0:
         raise RuntimeError(f"lstm_tiled_fwd kernel launch failed: CUDA error "
                            f"{rc} (T={T} B={B} H={H}, {sd}, {pl})")
-    counts_of(sd, fwd_counts, fwd_bf16_counts).bump("kernel")
+    fwd_form_counts(xproj, sd).bump("kernel")
     return (ys, hT, cT, z, cs) if save_residuals else (ys, hT, cT)
+
+
+def fwd_form_counts(xproj, sd):
+    """The launch counter of a tiled forward call's form."""
+    return {"launch": fwd_counts, "bf16_launch": fwd_bf16_counts,
+            "bf16u_launch": fwd_bf16u_counts}[
+                cuda_lstm.forward_entry(xproj, sd)]
 
 
 def _launch_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
@@ -374,10 +387,12 @@ def lstm_tiled_recurrence(xproj, U, h0, c0, mask=None):
 
 def cuda_lstm_tiled_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
                          mask: torch.Tensor | None = None,
-                         reverse: bool = False, compute_dtype=None):
+                         reverse: bool = False, compute_dtype=None,
+                         plain_rounding: bool = False):
     """One LSTM layer over ``xs`` [B, T, D] through the tiled pair, with
-    ``ops.scan.lstm_scan``'s contract."""
+    ``cuda_lstm.cuda_lstm_scan``'s contract."""
     return cuda_lstm.cuda_lstm_scan(params, xs, carry, mask=mask,
                                     reverse=reverse,
                                     recurrence=lstm_tiled_recurrence,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype,
+                                    plain_rounding=plain_rounding)

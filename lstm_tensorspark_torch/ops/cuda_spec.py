@@ -30,7 +30,14 @@ arrays unchanged.
 - The launch plan is ``cuda_decode.plan`` over both models (the two
   kernels share their step body, ``csrc/decode_common.cuh``); a shape it
   refuses is refused before launch.
-- :data:`counts` counts kernel launches (and reference dispatches).
+- :data:`counts` counts kernel launches (and reference dispatches);
+  :data:`counts_bf16` those of the bfloat16 form.
+
+Two forms, as the decode window's (``ops/cuda_decode.py``): float32, and
+bfloat16 layers under bf16 compute, chosen by the dtype of the target's
+and the draft's fused W and U (one form for both, as JAX's draft inherits
+the target's ``compute_dtype``); each model's head rounds its logits to its
+own ``DecodeWeights.ldtype`` (JAX's ``ldtype`` and ``dldtype``).
 """
 
 from __future__ import annotations
@@ -41,22 +48,30 @@ import torch
 
 from .. import kernels
 from ..ops.lstm_cell import lstm_step
+from . import cuda_lstm
 from .cuda_decode import (
     PAD_TOKEN,
     DecodeWeights,
     _int_row,
     card_plan,
+    check_weights,
+    layers_dtype,
+    lbf16,
+    source,
     sync_counters,
+    window_logits,
 )
 
 counts = kernels.LaunchCounts("spec_window")
+counts_bf16 = kernels.LaunchCounts("spec_window_bf16")
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _pp = ctypes.POINTER(ctypes.c_void_p)
-# csrc/spec_window.cu::spec_window_launch
+# csrc/spec_window.cu::spec_window_launch (and spec_window_bf16.cu::
+# spec_window_bf16_launch)
 _ARGTYPES = ([_i]
-             + [_p, _i, _i, _i, _pp, _pp, _pp, _p, _p]      # target
-             + [_p, _i, _i, _i, _pp, _pp, _pp, _p, _p]      # draft
+             + [_p, _i, _i, _i, _pp, _pp, _pp, _p, _p, _i]  # target
+             + [_p, _i, _i, _i, _pp, _pp, _pp, _p, _p, _i]  # draft
              + [_p] * 8 + [_i, _i]                          # carries, rows
              + [_i] * 6                                     # the plan
              + [_p] * 8                                     # scratch
@@ -73,19 +88,29 @@ def spec_window(tw: DecodeWeights, dw: DecodeWeights, h, c, dh, dc, tokens,
     ``alive`` [B] int32 or bool. Returns ``(h_out, c_out, dh_out, dc_out,
     toks [W, B] int32, next_tok [B] int32, alive_out [B] int32 (the
     session latch), rem_out [B] int32)`` with ``W = k_draft + 1``. CPU
-    tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream, without synchronising.
+    tensors run the plain version; CUDA tensors launch the kernel's form
+    of the layers' dtype on the current stream, without synchronising.
     """
     if k_draft < 1:
         raise ValueError(f"k_draft must be >= 1, got {k_draft}")
+    wd = _form(tw, dw)
     if h.device.type == "cuda":
         return _launch(tw, dw, h, c, dh, dc, tokens, alive, remaining,
                        eos_ids, k_draft)
     if h.device.type == "cpu":
-        counts.bump("reference")
+        cuda_lstm.counts_of(wd, counts, counts_bf16).bump("reference")
         return spec_window_reference(tw, dw, h, c, dh, dc, tokens, alive,
                                      remaining, eos_ids, k_draft=k_draft)
     raise ValueError(f"unsupported device {h.device}")
+
+
+def _form(tw: DecodeWeights, dw: DecodeWeights) -> torch.dtype:
+    """The form both models run (``TypeError`` when they differ)."""
+    wd, dd = layers_dtype(tw), layers_dtype(dw)
+    if wd != dd:
+        raise TypeError(f"the target's layers are {wd}, the draft's {dd}: "
+                        "one window runs one form")
+    return wd
 
 
 def _model_step(weights: DecodeWeights, hs, cs, tok, *, head: bool):
@@ -102,7 +127,7 @@ def _model_step(weights: DecodeWeights, hs, cs, tok, *, head: bool):
         (h, c), x = lstm_step(fused, (h, c), x)
         new_hs.append(h)
         new_cs.append(c)
-    logits = x @ weights.head_kernel + weights.head_bias if head else None
+    logits = window_logits(x, weights) if head else None
     return logits, new_hs, new_cs
 
 
@@ -159,19 +184,6 @@ def spec_window_reference(tw: DecodeWeights, dw: DecodeWeights, h, c, dh,
             sess_alive.to(torch.int32), rem)
 
 
-def _check_weights(who: str, w: DecodeWeights, L: int, H: int, V: int, dev):
-    E = w.embedding.shape[1]
-    kernels.check_f32(f"{who} embedding", w.embedding, (V, E), dev)
-    for l, f in enumerate(w.layers):
-        D = E if l == 0 else H
-        kernels.check_f32(f"{who} layer {l} kernel", f.kernel, (D, 4 * H), dev)
-        kernels.check_f32(f"{who} layer {l} recurrent", f.recurrent,
-                          (H, 4 * H), dev)
-        kernels.check_f32(f"{who} layer {l} bias", f.bias, (4 * H,), dev)
-    kernels.check_f32(f"{who} head kernel", w.head_kernel, (H, V), dev)
-    kernels.check_f32(f"{who} head bias", w.head_bias, (V,), dev)
-
-
 def _ptr_arrays(w: DecodeWeights):
     ptrs = ctypes.c_void_p * len(w.layers)
     return (ptrs(*(f.kernel.data_ptr() for f in w.layers)),
@@ -193,13 +205,15 @@ def _launch(tw, dw, h, c, dh, dc, tokens, alive, remaining, eos_ids,
     if dw.embedding.shape[0] != V:
         raise ValueError(f"draft vocab {dw.embedding.shape[0]} != target "
                          f"vocab {V}")
-    pl = card_plan(((L, H, E), (Ld, Hd, Ed)), V, B, k_draft, dev)
+    wd = _form(tw, dw)
+    pl = card_plan(((L, H, E), (Ld, Hd, Ed)), V, B, k_draft, dev,
+                   cuda_lstm.esize_of(wd))
     kernels.check_f32("h", h, (L, B, H), dev)
     kernels.check_f32("c", c, (L, B, H), dev)
     kernels.check_f32("draft h", dh, (Ld, B, Hd), dev)
     kernels.check_f32("draft c", dc, (Ld, B, Hd), dev)
-    _check_weights("target", tw, L, H, V, dev)
-    _check_weights("draft", dw, Ld, Hd, V, dev)
+    check_weights("target ", tw, L, H, V, dev)
+    check_weights("draft ", dw, Ld, Hd, V, dev)
     tok = _int_row("tokens", tokens, B, dev)
     alv = _int_row("alive", alive, B, dev)
     rem = _int_row("remaining", remaining, B, dev)
@@ -231,15 +245,15 @@ def _launch(tw, dw, h, c, dh, dc, tokens, alive, remaining, eos_ids,
     rows = part_i + 4 * B * pl.blocks
     Ws, Us, bs = _ptr_arrays(tw)
     dWs, dUs, dbs = _ptr_arrays(dw)
-    launch = kernels.launcher("spec_window", _ARGTYPES)
+    launch = kernels.launcher(source(wd, "spec_window"), _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
             V,
             tw.embedding.data_ptr(), E, L, H, Ws, Us, bs,
-            tw.head_kernel.data_ptr(), tw.head_bias.data_ptr(),
+            tw.head_kernel.data_ptr(), tw.head_bias.data_ptr(), lbf16(tw),
             dw.embedding.data_ptr(), Ed, Ld, Hd, dWs, dUs, dbs,
-            dw.head_kernel.data_ptr(), dw.head_bias.data_ptr(),
+            dw.head_kernel.data_ptr(), dw.head_bias.data_ptr(), lbf16(dw),
             h.data_ptr(), c.data_ptr(), dh.data_ptr(), dc.data_ptr(),
             tok.data_ptr(), alv.data_ptr(), rem.data_ptr(), eos.data_ptr(),
             B, k_draft, pl.blocks, pl.cluster, int(pl.layers_smem),
@@ -254,7 +268,7 @@ def _launch(tw, dw, h, c, dh, dc, tokens, alive, remaining, eos_ids,
         raise RuntimeError(
             f"spec_window kernel launch failed: CUDA error {rc} (L={L} "
             f"H={H} E={E} Ld={Ld} Hd={Hd} Ed={Ed} V={V} B={B} "
-            f"k_draft={k_draft}, {pl})")
-    counts.bump("kernel")
+            f"k_draft={k_draft}, {wd}, {pl})")
+    cuda_lstm.counts_of(wd, counts, counts_bf16).bump("kernel")
     return (hc[0], hc[1], dhc[0], dhc[1], toks, row_out[0], row_out[1],
             row_out[2])

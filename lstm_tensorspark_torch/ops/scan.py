@@ -32,6 +32,9 @@ loop casts the fused matrices and rounds x and h only at the products
 their [T, B, 4H] streams (xproj, z, dz) in bfloat16, as JAX's Pallas
 route does (the residentx pair keeps its projection in float32, as JAX's
 does, and stores dz in bfloat16). Every route has its bfloat16 form.
+``plain_rounding`` (forward only: JAX's serve prefill, which runs the
+plain XLA scan) keeps the resident and tiled routes' projection float32,
+as the plain loop and the residentx pair keep it.
 
 The parallel-scan backward (``bptt="assoc"``) is not ported and raises.
 """
@@ -180,12 +183,18 @@ def chosen_bwd_strategy(B: int, T: int, H: int, D: int, *,
     return fwd
 
 
-def _route_scan(route: str, params, xs, carry, mask, reverse, cd):
-    """The layer scan of kernel route ``route`` in compute dtype ``cd``."""
-    scan = {"residentx": cuda_lstmx_scan, "resident": cuda_lstm_scan,
-            "tiled": cuda_lstm_tiled_scan}[route]
+def _route_scan(route: str, params, xs, carry, mask, reverse, cd,
+                plain_rounding: bool = False):
+    """The layer scan of kernel route ``route`` in compute dtype ``cd``
+    (``plain_rounding``: the resident and tiled routes' forward-only form
+    with a float32 projection; the residentx pair keeps its projection
+    float32 in every form)."""
+    if route == "residentx":
+        return cuda_lstmx_scan(params, xs, carry, mask=mask, reverse=reverse,
+                               compute_dtype=cd)
+    scan = {"resident": cuda_lstm_scan, "tiled": cuda_lstm_tiled_scan}[route]
     return scan(params, xs, carry, mask=mask, reverse=reverse,
-                compute_dtype=cd)
+                compute_dtype=cd, plain_rounding=plain_rounding)
 
 
 _ROUTES = ("residentx", "resident", "tiled")
@@ -221,10 +230,13 @@ class _KernelForwardRecompute(torch.autograd.Function):
 
 def kernel_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
                      mask: torch.Tensor | None = None, reverse: bool = False,
-                     remat_chunk: int | None = None, compute_dtype=None):
+                     remat_chunk: int | None = None, compute_dtype=None,
+                     plain_rounding: bool = False):
     """:func:`lstm_scan`'s contract through the kernels that
     :func:`chosen_bwd_strategy` picks (on CPU tensors their plain
-    versions run, which is how the tests reach each route)."""
+    versions run, which is how the tests reach each route).
+    ``plain_rounding`` runs :func:`chosen_fwd_strategy`'s forward alone,
+    rounding as the plain loop does (no gradient flows)."""
     B, T, D = xs.shape
     H = params.hidden_size
     cd = resolve_dtype(compute_dtype)
@@ -232,6 +244,10 @@ def kernel_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
     num_sms = cuda_lstm._num_sms(xs.device) if on_card else 132
     dev = xs.device if on_card else None
     _check_remat(T, remat_chunk)
+    if plain_rounding:
+        fwd = chosen_fwd_strategy(B, T, H, D, num_sms=num_sms, dev=dev,
+                                  esize=cuda_lstm.esize_of(cd))
+        return _route_scan(fwd, params, xs, carry, mask, reverse, cd, True)
     bwd = chosen_bwd_strategy(B, T, H, D, remat_chunk=remat_chunk,
                               num_sms=num_sms, dev=dev, esize=cuda_lstm.esize_of(cd))
     if bwd in _ROUTES:
@@ -262,16 +278,18 @@ def _check_bptt(bptt: str) -> None:
 def auto_lstm_scan(params: LSTMParams, xs: torch.Tensor, carry=None, *,
                    mask: torch.Tensor | None = None, reverse: bool = False,
                    remat_chunk: int | None = None, bptt: str = "sequential",
-                   compute_dtype=None):
+                   compute_dtype=None, plain_rounding: bool = False):
     """:func:`lstm_scan`'s contract, through the kernels for CUDA tensors
-    (:func:`kernel_lstm_scan`) and the plain loop for CPU tensors.
+    (:func:`kernel_lstm_scan`, ``plain_rounding`` included) and the plain
+    loop for CPU tensors (whose rounding is the plain one).
     ``bptt="auto"`` is the sequential backward (the parallel-scan backward
     it could pick is not ported); an explicit ``"assoc"`` raises."""
     _check_bptt(bptt)
     if xs.device.type == "cuda":
         return kernel_lstm_scan(params, xs, carry, mask=mask, reverse=reverse,
                                 remat_chunk=remat_chunk,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype,
+                                plain_rounding=plain_rounding)
     return lstm_scan(params, xs, carry, mask=mask, reverse=reverse,
                      remat_chunk=remat_chunk, compute_dtype=compute_dtype)
 
@@ -319,14 +337,15 @@ def stacked_lstm_scan(layer_params: Sequence[LSTMParams], xs: torch.Tensor,
                       bptt: str = "sequential", dropout_rate: float = 0.0,
                       dropout_gen: torch.Generator | None = None,
                       dropout_keeps: Iterator[torch.Tensor] | None = None,
-                      compute_dtype=None):
+                      compute_dtype=None, plain_rounding: bool = False):
     """Stack layers over the same time axis, each through
     :func:`auto_lstm_scan`. With ``dropout_rate`` > 0 and a source of keep
     masks — drawn from ``dropout_gen``, or taken in order from
     ``dropout_keeps`` (the tests feed JAX's) — inverted dropout is applied
     to the full [B, T, H] output between layers, never after the top layer
     (JAX ``stacked_lstm_scan``; no source is its ``deterministic``).
-    ``compute_dtype`` goes to every layer's scan. Returns (per-layer final carries, top-layer outputs [B, T, H])."""
+    ``compute_dtype`` and ``plain_rounding`` go to every layer's scan.
+    Returns (per-layer final carries, top-layer outputs [B, T, H])."""
     ys = xs
     finals = []
     n = len(layer_params)
@@ -334,7 +353,8 @@ def stacked_lstm_scan(layer_params: Sequence[LSTMParams], xs: torch.Tensor,
         c0 = None if carries is None else carries[idx]
         final, ys = auto_lstm_scan(p, ys, c0, mask=mask, reverse=reverse,
                                    remat_chunk=remat_chunk, bptt=bptt,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype,
+                                   plain_rounding=plain_rounding)
         finals.append(final)
         if idx < n - 1 and dropout_rate > 0.0:
             if dropout_keeps is not None:

@@ -6,8 +6,16 @@ Port of the single-device, single-model part of
 - **prefill** — gather each row's carries by slot, run the masked
   ``lm_backbone`` over the right-padded prompt (the mask freezes carries at
   padded steps), scatter the advanced carries back, and sample the first
-  token from the head at each row's last true position. Plain PyTorch, as
-  the JAX package runs it as an XLA scan outside any kernel.
+  token from the head at each row's last true position, in the config's
+  logits dtype (``head_logits``). On the card the recurrence runs the
+  recurrence kernels' forward; under bf16 compute in their plain-rounding
+  form (``plain_rounding``: a float32 projection), since JAX's serve
+  prefill is the plain XLA scan, whose rounding the windows' first tokens
+  must follow.
+- **bf16** — a ``compute_dtype`` bfloat16 config serves through the
+  windows' bfloat16 forms (W and U fused in bfloat16, the bias, the
+  embedding and the head float32, as JAX's ``fuse_params`` leaves them);
+  ``logits_dtype`` bfloat16 rounds every head's logits as JAX's does.
 - **decode windows** — every decode step goes through
   ``ops/cuda_decode.decode_window``: on the card that is the hand-written
   window kernel, on the CPU its plain version. ``decode`` (K=1) is the
@@ -46,9 +54,12 @@ import numpy as np
 import torch
 
 from ..device import configure_precision, resolve_device
+from ..kernels import LaunchCounts
 from ..models.generate import check_sampling, fuse_layers, gumbel_noise, sample_logits
-from ..models.lstm_lm import LMConfig, _head_kernel, lm_backbone, params_to
+from ..models.lstm_lm import (LMConfig, _head_kernel, head_logits,
+                              lm_backbone, params_to)
 from ..ops import cuda_decode, cuda_spec
+from ..ops.cuda_lstm import counts_of
 from ..ops.cuda_decode import PAD_TOKEN
 from .state_cache import StateCache
 
@@ -108,17 +119,6 @@ def _bucket_for(value: int, buckets: tuple[int, ...], what: str) -> int:
     raise ValueError(f"{what} {value} exceeds the largest bucket {buckets[-1]}")
 
 
-def _float32_only(cfg: LMConfig) -> None:
-    """Serving decodes through the windows (csrc/decode_window.cu,
-    csrc/spec_window.cu), whose bfloat16 forms are not ported yet."""
-    for name in ("compute_dtype", "logits_dtype"):
-        if getattr(cfg, name) != "float32":
-            raise TypeError(
-                f"serving a {name}={getattr(cfg, name)!r} model takes the "
-                "bfloat16 forms of the decode and spec windows, which are "
-                "not ported yet (float32 only)")
-
-
 class ServeEngine:
     """Owns the params, the fused decode weights, the state cache and the
     sampling generator. Thread-safe: one lock serialises dispatch."""
@@ -131,7 +131,6 @@ class ServeEngine:
                  rng_seed: int = 0):
         self.device = resolve_device(device)
         configure_precision()
-        _float32_only(cfg)
         # serving never rematerialises (the same override as generate())
         if cfg.remat_chunk is not None:
             cfg = dataclasses.replace(cfg, remat_chunk=None)
@@ -139,7 +138,7 @@ class ServeEngine:
         self.params = params_to(params, self.device)
         self.fused_layers = fuse_layers(self.params, cfg)  # once, at init
         self.weights = cuda_decode.decode_weights(
-            self.params, self.fused_layers, cfg.tie_embeddings)
+            self.params, self.fused_layers, cfg.tie_embeddings, cfg.ldtype)
         self.decode_kernel = "cuda" if self.device.type == "cuda" else "reference"
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self.batch_buckets = tuple(sorted(batch_buckets))
@@ -185,14 +184,19 @@ class ServeEngine:
                 f"draft vocab {draft_cfg.vocab_size} != target vocab "
                 f"{self.cfg.vocab_size} — proposals must share the token "
                 "space they are verified in")
-        _float32_only(draft_cfg)
+        if draft_cfg.compute_dtype != self.cfg.compute_dtype:
+            raise ValueError(
+                f"draft compute dtype {draft_cfg.compute_dtype} != target "
+                f"{self.cfg.compute_dtype}: one spec window runs one form "
+                "(the draft inherits the target's, train/distill.py)")
         if draft_cfg.remat_chunk is not None:
             draft_cfg = dataclasses.replace(draft_cfg, remat_chunk=None)
         params = params_to(draft_params, self.device)
         fused = fuse_layers(params, draft_cfg)
         draft = {"params": params, "cfg": draft_cfg,
                  "weights": cuda_decode.decode_weights(
-                     params, fused, draft_cfg.tie_embeddings)}
+                     params, fused, draft_cfg.tie_embeddings,
+                     draft_cfg.ldtype)}
         cache = StateCache(draft_cfg.num_layers, self.cache.num_slots,
                            draft_cfg.hidden_size, device=self.device)
         with self._lock:
@@ -264,7 +268,7 @@ class ServeEngine:
         mask = (torch.arange(prompts.shape[1], device=self.device)[None, :]
                 < lens_d[:, None])
         finals, ys = lm_backbone(params, prompts_d, cfg, carries=carries,
-                                 mask=mask)
+                                 mask=mask, plain_rounding=True)
         cache.write_slots(slots_d, torch.stack([f[0] for f in finals]),
                           torch.stack([f[1] for f in finals]))
         return ys, lens_d, n
@@ -284,7 +288,7 @@ class ServeEngine:
             rows = torch.arange(ys.shape[0], device=self.device)
             last = ys[rows, (lens_d - 1).to(torch.long)]  # [B, H]
             kernel, bias = _head_kernel(self.params, self.cfg)
-            logits = last @ kernel + bias
+            logits = head_logits(last, kernel, bias, self.cfg)
             noise = None if sampling.greedy else self._noise(logits.shape)
             token = sample_logits(logits, temperature=sampling.temperature,
                                   greedy=sampling.greedy, noise=noise)
@@ -544,17 +548,28 @@ class ServeEngine:
         return runs
 
     def stats(self) -> dict:
+        """The engine's counts. ``kernel_launches`` / ``reference_windows``
+        (and the spec window's) count the window form this engine runs
+        (``window_form``: float32, or bfloat16 under bf16 compute);
+        ``launch_counts`` is every kernel counter of the process that
+        launched, by name (the prefill's recurrence forwards too)."""
         with self._counts_lock:
             dispatches = dict(self.dispatches)
+        wd = cuda_decode.layers_dtype(self.weights)
+        dc = counts_of(wd, cuda_decode.counts, cuda_decode.counts_bf16)
+        sc = counts_of(wd, cuda_spec.counts, cuda_spec.counts_bf16)
         return {
             "device": str(self.device),
             "decode_kernel": self.decode_kernel,
+            "window_form": str(wd).removeprefix("torch."),
             "dispatches": dispatches,
-            "kernel_launches": cuda_decode.counts.kernel,
-            "reference_windows": cuda_decode.counts.reference,
+            "kernel_launches": dc.kernel,
+            "reference_windows": dc.reference,
             "has_draft": self.draft is not None,
-            "spec_kernel_launches": cuda_spec.counts.kernel,
-            "spec_reference_windows": cuda_spec.counts.reference,
+            "spec_kernel_launches": sc.kernel,
+            "spec_reference_windows": sc.reference,
+            "launch_counts": {c.name: c.kernel
+                              for c in LaunchCounts.every() if c.kernel},
             "cache": self.cache.stats(),
             "prefill_buckets": list(self.prefill_buckets),
             "batch_buckets": list(self.batch_buckets),

@@ -38,6 +38,7 @@ def classifier_training(args, dev: torch.device, logger, *,
     from ..train import (evaluate_classifier, host_feed, init_train_state,
                          make_device_train_step, make_multi_train_step,
                          make_optimizer, make_train_step)
+    from ..train.checkpoint import wire_checkpoint
     from ..train.loop import Training, device_batches
 
     if args.stateful:
@@ -75,6 +76,8 @@ def classifier_training(args, dev: torch.device, logger, *,
         clip_norm=args.clip_norm, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, decay_steps=args.decay_steps)
     state = init_train_state(params, optimizer)
+    state, start, checkpoint_fn = wire_checkpoint(args, logger, state,
+                                                  [drop_gen])
     steps_per_epoch = max(len(train_seqs) // B, 1)
 
     fused_eval = args.fused_eval
@@ -133,7 +136,7 @@ def classifier_training(args, dev: torch.device, logger, *,
         feed = index_groups(
             lambda epoch: example_order(lengths_all,
                                         shuffle_seed=args.seed + epoch),
-            B, k)
+            B, k, start_step=start)
     else:
         stacked = k > 1 or fused_eval
         train_step = (make_multi_train_step(loss_fn, optimizer, **fused_kw,
@@ -144,7 +147,7 @@ def classifier_training(args, dev: torch.device, logger, *,
                 lambda epoch: padded_batches(train_seqs, train_labels, B,
                                              max_len,
                                              shuffle_seed=args.seed + epoch),
-                steps_per_epoch=steps_per_epoch),
+                steps_per_epoch=steps_per_epoch, start_step=start),
             dev, steps_per_call=k, stacked=stacked, prefetch=args.prefetch)
 
     logger.log({"note": "start", "dataset": "imdb", "vocab": len(vocab),
@@ -152,11 +155,14 @@ def classifier_training(args, dev: torch.device, logger, *,
                 "device_name": (torch.cuda.get_device_name(dev)
                                 if dev.type == "cuda" else "cpu"),
                 "steps_per_epoch": steps_per_epoch, "backend": "single"})
-    total = (args.num_steps if args.num_steps is not None
-             else args.epochs * steps_per_epoch)
+    # a resumed run trains the rest of the budget
+    total = max((args.num_steps if args.num_steps is not None
+                 else args.epochs * steps_per_epoch) - state.step, 0)
     return Training(
         state, train_step, feed, eval_fn,
         dict(num_steps=-(-total // k),  # K-step calls, rounded up
+             checkpoint_fn=checkpoint_fn,
+             checkpoint_every=args.checkpoint_every,
              log_every=args.log_every,
              eval_fn=None if fused_eval else (eval_fn if args.eval_every
                                               else None),

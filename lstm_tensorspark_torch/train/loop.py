@@ -20,6 +20,11 @@ Params are a model's dict (the LM's ``embedding``, ``layers``, ``head``;
 the classifier's ``embedding``, ``fwd``, ``bwd``, ``head``); the optimizer
 sees them as a flat list in the JAX pytree's leaf order
 (:func:`param_leaves`).
+
+Checkpoints (``train/checkpoint.py``): :func:`checkpoint_state` is the dict
+a run's state is saved as, :func:`restore_state` its inverse onto a fresh
+run's state; ``train_loop(checkpoint_fn=, checkpoint_every=)`` saves every
+``checkpoint_every`` calls, as JAX's loop does.
 """
 
 from __future__ import annotations
@@ -101,6 +106,69 @@ def _detach_carries(carries):
 
 def init_train_state(params, optimizer: Optimizer, *, carries=None) -> TrainState:
     return TrainState(0, params, optimizer.init(param_leaves(params)), carries)
+
+
+def checkpoint_state(state: TrainState, generators=()) -> dict:
+    """What a checkpoint of ``state`` holds (``train/checkpoint.py``): the
+    step, the params' leaves (:func:`param_leaves` order), the optimizer
+    state, the carries, the states of ``generators`` (the run's dropout
+    generators, in the caller's order) and the data cursor ``start_step``
+    (the optimizer steps the feed has served: the step)."""
+    return {"step": int(state.step), "params": param_leaves(state.params),
+            "opt_state": state.opt_state,
+            "carries": (None if state.carries is None
+                        else [[h, c] for h, c in state.carries]),
+            "generators": [g.get_state() for g in generators],
+            "start_step": int(state.step)}
+
+
+def _match(what: str, saved, like) -> torch.Tensor:
+    if not isinstance(saved, torch.Tensor) or saved.shape != like.shape \
+            or saved.dtype != like.dtype:
+        got = (f"{tuple(saved.shape)} {saved.dtype}"
+               if isinstance(saved, torch.Tensor) else type(saved).__name__)
+        raise ValueError(f"checkpoint {what} is {got}, the run's "
+                         f"{tuple(like.shape)} {like.dtype}: the model or "
+                         "optimizer flags differ from the run that saved it")
+    return saved.to(like.device)
+
+
+def restore_state(like: TrainState, saved: dict):
+    """``(state, generator states, start_step)`` from a checkpoint dict,
+    shaped and placed as the fresh state ``like`` (its params, optimizer
+    state and carries). Raises ``ValueError`` when the checkpoint does not
+    fit: another model, optimizer or ``--stateful``."""
+    leaves = param_leaves(like.params)
+    if len(saved["params"]) != len(leaves):
+        raise ValueError(f"checkpoint has {len(saved['params'])} param "
+                         f"tensors, the run {len(leaves)}")
+    params = params_from_leaves(like.params, [
+        _match(f"param {i}", t, ref)
+        for i, (t, ref) in enumerate(zip(saved["params"], leaves))])
+    opt = saved["opt_state"]
+    if sorted(opt) != sorted(like.opt_state):
+        raise ValueError(f"checkpoint optimizer state {sorted(opt)}, the "
+                         f"run's {sorted(like.opt_state)}")
+    new_opt = {}
+    for k, ref in like.opt_state.items():
+        if isinstance(ref, list):
+            if not isinstance(opt[k], list) or len(opt[k]) != len(ref):
+                raise ValueError(f"checkpoint optimizer state {k!r} does "
+                                 "not match the run's")
+            new_opt[k] = [_match(f"{k}[{i}]", t, r)
+                          for i, (t, r) in enumerate(zip(opt[k], ref))]
+        else:
+            new_opt[k] = _match(k, opt[k], ref)
+    carries = saved["carries"]
+    if (carries is None) != (like.carries is None) or (
+            carries is not None and len(carries) != len(like.carries)):
+        raise ValueError("checkpoint carries do not match the run's "
+                         "(--stateful differs)")
+    if carries is not None:
+        carries = [(_match("h", h, rh), _match("c", c, rc))
+                   for (h, c), (rh, rc) in zip(carries, like.carries)]
+    state = TrainState(int(saved["step"]), params, new_opt, carries)
+    return state, list(saved["generators"]), int(saved["start_step"])
 
 
 def call_loss(loss_fn, params, batch, carries, *, stateful: bool):
@@ -285,8 +353,9 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
                examples_per_batch: int | None = None,
                anomaly_limit: int = 0,
                best_metric: str | None = None, steps_per_call: int = 1,
-               fused_eval: Callable[[dict], dict] | None = None
-               ) -> TrainState:
+               fused_eval: Callable[[dict], dict] | None = None,
+               checkpoint_fn: Callable[[TrainState], Any] | None = None,
+               checkpoint_every: int = 0) -> TrainState:
     """Drive ``train_step`` over ``batches``, logging every ``log_every``
     calls (loss, grad_norm, steps_per_sec, tokens_per_sec and
     examples_per_sec when given per batch) and calling ``eval_fn(params)``
@@ -300,7 +369,8 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
     by K to stay in optimizer steps, tokens and examples per second. With
     ``fused_eval`` the step is ``train_step(state, batch, do_eval)`` and
     runs the eval itself on the calls of the eval cadence; the eval record
-    is ``fused_eval(metrics)`` in place of ``eval_fn``.
+    is ``fused_eval(metrics)`` in place of ``eval_fn``. ``checkpoint_fn(
+    state)`` runs every ``checkpoint_every`` calls, after the call's eval.
 
     Reading the logged loss is the only host sync of a logged call; with
     ``anomaly_limit=K`` (off at 0) every call's ``anomalous`` count is read
@@ -374,6 +444,10 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
                                 "note": f"new best {best_metric}",
                                 best_metric: v})
             # the eval's time is not training throughput
+            window_start = time.perf_counter()
+        if (checkpoint_fn is not None and checkpoint_every
+                and step % checkpoint_every == 0):
+            checkpoint_fn(state)
             window_start = time.perf_counter()
     if last_metrics is not None:
         last_metrics["loss"].item()  # the last queued step has finished

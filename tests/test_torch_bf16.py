@@ -402,18 +402,21 @@ def test_bf16_refusals():
                                            args[2].to(BF), args[3])
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         cuda_lstm.lstm_forward(args[0].half(), args[1].half(), *args[2:])
-    # a kernel with no bf16 form (the windows) names it
+    # an operand that is float32 in every form refuses a bf16 tensor
     from lstm_tensorspark_torch import kernels
-    with pytest.raises(TypeError, match="bfloat16 form is not ported"):
+    with pytest.raises(TypeError, match="xs must be torch.float32"):
         kernels.check_f32("xs", args[0], tuple(args[0].shape),
                           args[0].device)
-    # bf16 serving takes the windows' bf16 forms: not ported
+    # bf16 serving takes the windows' bf16 forms: W and U bf16, the rest
+    # float32; no bf16 config is refused or turned into a float32 one
     from lstm_tensorspark_torch.serve import ServeEngine
     cfg = tlm.LMConfig(vocab_size=10, hidden_size=8,
                        compute_dtype="bfloat16")
     params = tlm.init_lm(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(TypeError, match="decode and spec windows"):
-        ServeEngine(params, cfg, device="cpu")
+    w = ServeEngine(params, cfg, device="cpu").weights
+    assert {t.dtype for f in w.layers for t in (f.kernel, f.recurrent)} \
+        == {BF}
+    assert w.embedding.dtype == w.head_kernel.dtype == torch.float32
     with pytest.raises(ValueError, match="logits_dtype"):
         tlm.LMConfig(vocab_size=10, logits_dtype="float16")
 

@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package.
 
 A fresh interpreter imports every module of ``lstm_tensorspark_torch`` and
-checks that no ``jax``/``flax``/``optax``/``lstm_tensorspark_tpu`` module
-was loaded; an AST scan of the package's sources finds no such import
-either (including imports inside functions, which the first check would
-not execute).
+checks that no ``jax``/``flax``/``optax``/``msgpack``/``lstm_tensorspark_tpu``
+module was loaded; an AST scan of the package's sources finds no such
+import either (including imports inside functions, which the first check
+would not execute). ``flax`` and ``msgpack`` are out too: the card's
+machine has neither, and the port reads the JAX package's checkpoints with
+a decoder of its own (``train/jax_checkpoint.py``).
 """
 
 import ast
@@ -16,7 +18,8 @@ import sys
 import lstm_tensorspark_torch
 
 PKG = pathlib.Path(lstm_tensorspark_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "lstm_tensorspark_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "lstm_tensorspark_tpu")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -44,7 +47,8 @@ def test_importing_every_module_loads_no_jax():
                 "train.loop", "train.metrics", "exit_codes",
                 "ops.cuda_lstmx", "ops.cuda_bilstm", "ops.masking",
                 "models.classifier", "tasks.classification", "ops.cuda_spec",
-                "train.distill"):
+                "train.distill", "train.checkpoint",
+                "train.jax_checkpoint"):
         assert f"lstm_tensorspark_torch.{mod}" in report["modules"]
 
 
