@@ -206,10 +206,28 @@ Phases (each one fails the run):
    windows' and the prefill form's launches from the server's
    ``/v1/stats`` (no other kernel, no plain twin), tokens/s, TTFT and the
    largest gap between tokens; (d) phase 13's burst at config 3's width in
-   bf16.
+   bf16;
+18. train config 4, the seq2seq forecaster, as ``configs/uci_forecast.sh``
+   runs it (the uci_electricity stand-in, F=8 series, context 168 h,
+   horizon 24 h, H=128, B=64, Adam 1e-3, clip 1.0, bf16): (a) the resident
+   pair at its shapes chained under autograd as the forecaster chains it
+   (the encoder at T=168 from non-zero carries, its final carries the
+   decoder's at T=24, the encoder's ys unused), f32 and bf16, against the
+   same chain through the plain twins (ys, hT, cT; the gradients of both
+   xprojs, both Us, h0, c0 and the encoder's inputs; phase 5's limits),
+   each kernel timed at its shape beside its twin and its bound; (b) the
+   command through the CLI, captured, in bf16 and in float32: the first 5
+   losses against the CPU run of the same command (a host run beside the
+   card; 2e-3 of the loss in bf16, phase 6's limit in float32), the
+   launches of a 40-step run with an eval every 20 (the pair's forms twice
+   a step and once an eval batch, no other kernel, no plain twin, the
+   capture warm-ups taken out), K=8 ``--device-data --fused-eval`` against
+   host-fed K=1, and resume bit for bit at K=1 and K=8 ``--device-data``;
+   (c) steps/s, device ms a step and the idle share, eager against
+   captured in turns.
 
 Each phase prints the seconds it took. ``python3 <this file>
---train-calls LABEL`` runs phase 14 alone; ``--bf16 train`` the bf16
+--forecast`` runs phase 18 alone; ``--train-calls LABEL`` phase 14 alone; ``--bf16 train`` the bf16
 parts of phases 5, 7 and 9 and phases 15 and 16 (``--bf16 kernels``
 without phases 15 and 16, ``--bf16 residentx`` phase 7's bf16 part and
 phase 16 alone, ``--bf16 windows`` phase 17a alone, ``--bf16 serve``
@@ -305,7 +323,8 @@ def first_flags(flags, n):
 def host_references():
     """(name, flags) of the host runs the card's first losses are held
     against (HostRuns): config 2 in float32 (phase 8) and in bf16 (phase
-    16)."""
+    16). Config 4's (phase 18, :func:`config4_references`) start when
+    phase 16 has read config 2's."""
     return (("config2 f32", first_flags(CONFIG2_FLAGS, CONFIG2_FIRST)),
             ("config2 bf16", first_flags(CONFIG2_BF16_FLAGS, BF16_FIRST)))
 AWKWARD = dict(B=8, T=257, D=72, H=200)
@@ -3660,9 +3679,18 @@ RESUME_RUNS = (("k1", ["--num-steps", "24", "--checkpoint-every", "8"]),
 def resume_phase(torch, cli, tmp):
     print("== phase 17b: config 1 in bf16 with checkpoints, resumed bit for "
           "bit", flush=True)
-    base = CONFIG1_BF16_FLAGS + ["--log-every", "1"]
+    return resumed_bit_for_bit(cli, tmp, CONFIG1_BF16_FLAGS,
+                               RESUME_RUNS)["k1"]
+
+
+def resumed_bit_for_bit(cli, tmp, flags, runs):
+    """Each (name, extra flags) of ``runs``: the whole run of ``flags``
+    with checkpoints, then a run resumed from the oldest checkpoint it
+    kept, whose every logged loss must equal the whole run's bit for bit.
+    Returns {name: the whole run's checkpoint directory}."""
+    base = flags + ["--log-every", "1"]
     out = {}
-    for name, extra in RESUME_RUNS:
+    for name, extra in runs:
         whole_dir = os.path.join(tmp, f"{name}-whole")
         logs = {}
 
@@ -3705,7 +3733,7 @@ def resume_phase(torch, cli, tmp):
               f"run's (last {resumed[want[-1]]:.6f}); whole run {t_whole:.1f}"
               f" s, resumed {t_res:.1f} s", flush=True)
         out[name] = whole_dir
-    return out["k1"]
+    return out
 
 
 # (c) serve that checkpoint in bf16: `serve --http --compute-dtype bfloat16
@@ -3917,6 +3945,445 @@ BF16_SERVE_ROWS = {
                              "lstm_tensorspark_tpu/ops/pallas_lstm.py:670")}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: config 4, the seq2seq forecaster, as configs/uci_forecast.sh
+# runs it (F=8 series, context 168 h -> horizon 24 h, H=128, one layer,
+# B=64, Adam 1e-3, clip 1.0, bf16 compute). Its path is the resident pair
+# alone, two recurrences a step (the encoder at T=168, the decoder at
+# T=24), the encoder's final carries the decoder's initial carries
+# ---------------------------------------------------------------------------
+
+CONFIG4 = dict(B=64, T=168, Td=24, F=8, H=128)
+CONFIG4_FLAGS = ["train", "--dataset", "uci_electricity", "--hidden-units",
+                 "128", "--num-layers", "1", "--batch-size", "64",
+                 "--seq-len", "168", "--optimizer", "adam",
+                 "--learning-rate", "1e-3", "--clip-norm", "1.0",
+                 "--compute-dtype", "bfloat16"]
+CONFIG4_F32_FLAGS = CONFIG4_FLAGS[:-1] + ["float32"]
+CONFIG4_FIRST = 5
+# the main runs: steps, an eval every so many calls, batches an eval
+CONFIG4_STEPS, CONFIG4_EVAL_EVERY, CONFIG4_EVAL_BATCHES = 40, 20, 2
+CONFIG4_RESUME_RUNS = (
+    ("config4-k1", ["--num-steps", "12", "--checkpoint-every", "4"]),
+    ("config4-k8-device-data", ["--num-steps", "32", "--steps-per-call",
+                                "8", "--device-data",
+                                "--checkpoint-every", "1"]))
+
+
+def config4_references():
+    """(name, flags) of config 4's CPU runs (HostRuns): the first losses
+    of the bf16 and the float32 command."""
+    return (("config4 bf16", first_flags(CONFIG4_FLAGS, CONFIG4_FIRST)),
+            ("config4 f32", first_flags(CONFIG4_F32_FLAGS, CONFIG4_FIRST)))
+
+
+class _Records:
+    """A logger keeping a run's records (``cli.training(logger=)``)."""
+
+    def __init__(self):
+        self.recs = []
+
+    def log(self, rec):
+        self.recs.append(rec)
+
+
+# phase 18a holds the bf16 chain end to end against the twins' chain
+# (each rounds its own h, z and dz, so a rounding that falls the other way
+# in the encoder travels into the decoder) as tests/test_torch_bf16.py
+# holds the kernels' twins against JAX's Pallas kernels: gradients within
+# 1e-2 of their max; each launch of the chain is held against its twin on
+# the same inputs within phase 5's limits. The chain's weights are the
+# forecaster's own init (forget bias 1): the gradient reaching h0, c0
+# through 168 steps is ~1e-20 of what enters the encoder, where a share of
+# its own max holds rounding noise, so dh0 and dc0 are held to a share of
+# the larger of their max and the cotangents' entering the call
+CHAIN_GRAD_SHARE = 1e-2
+# phase 18a's encoder backward with a long memory: the forget gates'
+# pre-activations raised by this much (sigmoid(5)^168 ~ 0.3), so dh0, dc0
+# from zero dys are held at a size where a wrong hand-off would show
+MEMORY_FORGET_SHIFT = 4.0
+
+
+def forecast_pair_phase(torch, cl, device):
+    """Phase 18a: the resident pair at config 4's shapes, chained under
+    autograd as the forecaster chains it (the encoder at T=168 from
+    non-zero carries, its final carries the decoder's at T=24, the
+    encoder's ys unused), f32 and bf16: every launch of the chain held
+    against its plain twin on the same inputs (phase 5's limits), and the
+    chain's ys, hT, cT and the gradients of both xprojs, both Us, h0, c0
+    and the encoder's inputs against the same chain through the twins;
+    then each kernel timed at its shape (CUDA events) beside its twin and
+    its bound."""
+    print("== phase 18a: the resident pair at config 4's shapes, the "
+          "encoder's carries into the decoder under autograd", flush=True)
+    from lstm_tensorspark_torch.ops.lstm_cell import (LSTMParams, fuse_params,
+                                                      init_lstm_params)
+
+    B, T, Td, F, H = (CONFIG4[k] for k in ("B", "T", "Td", "F", "H"))
+
+    def twin_fwd(xproj, U, h0, c0, mask, save_residuals=False):
+        return cl.lstm_forward_reference(xproj, U, h0, c0, mask,
+                                         save_residuals=save_residuals)
+
+    def twin_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
+        return cl.lstm_backward_reference(z, torch.cat([c0[None], cs[:-1]]),
+                                          dys, U, dhT, dcT, mask)
+
+    # (role, names, kernel's outputs, twin's outputs, cotangents' max)
+    launches = []
+
+    def held_fwd(xproj, U, h0, c0, mask, save_residuals=False):
+        out = cl.lstm_forward(xproj, U, h0, c0, mask,
+                              save_residuals=save_residuals)
+        launches.append((f"fwd T={xproj.shape[0]}",
+                         ("ys", "hT", "cT", "z", "cs"), out,
+                         twin_fwd(xproj, U, h0, c0, mask, save_residuals),
+                         None))
+        return out
+
+    def held_bwd(z, c0, cs, dys, U, dhT, dcT, mask):
+        out = cl.lstm_backward(z, c0, cs, dys, U, dhT, dcT, mask)
+        launches.append((f"bwd T={z.shape[0]}", ("dz", "dh0", "dc0"), out,
+                         twin_bwd(z, c0, cs, dys, U, dhT, dcT, mask),
+                         max(float(t.abs().max()) for t in (dys, dhT, dcT))))
+        return out
+
+    def grad_held(n, a, r, share, cot, label, bad):
+        """max |a - r| of a float32 gradient, within ``share`` of the larger
+        of max |r| and ``cot``."""
+        err = float((a.float() - r.float()).abs().max())
+        tol = share * max(float(r.abs().max()), cot)
+        if not err <= tol:
+            bad.append(f"{label}: {n} differs from the twin by {err:.3e} > "
+                       f"{tol:.3e}")
+        return err
+
+    def function(fwd, bwd):
+        class Pair(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, xproj, U, h0, c0, mask):
+                return cl.recurrence_forward(ctx, fwd, xproj, U, h0, c0,
+                                             mask)
+
+            @staticmethod
+            def backward(ctx, dys, dhT, dcT):
+                return cl.recurrence_backward(ctx, bwd, dys, dhT, dcT)
+
+        return lambda xproj, U, h0, c0, mask=None: cl.run_recurrence(
+            Pair, fwd, xproj, U, h0, c0, mask)
+
+    kernel_chain, twin_chain = (function(held_fwd, held_bwd),
+                                function(twin_fwd, twin_bwd))
+    g = torch.Generator().manual_seed(4)
+
+    enc, dec = init_lstm_params(g, F, H), init_lstm_params(g, F, H)
+    xs, xd = torch.randn(B, T, F, generator=g), torch.randn(B, Td, F,
+                                                            generator=g)
+    h0, c0 = (torch.randn(B, H, generator=g) * 0.5 for _ in range(2))
+    wy = torch.randn(B, Td, H, generator=g)
+    enc, dec = (LSTMParams(*(t.to(device).requires_grad_() for t in p))
+                for p in (enc, dec))
+    xs, h0, c0 = (t.to(device).requires_grad_() for t in (xs, h0, c0))
+    xd, wy = xd.to(device), wy.to(device)
+    grad_names = ("dxproj_enc", "dxproj_dec", "dU_enc", "dU_dec", "dh0",
+                  "dc0", "dxs_enc")
+
+    def chain(cd, recurrence):
+        """(ys_e, hT_e, cT_e, ys_d, hT_d, cT_d), the gradients of
+        ``grad_names`` and the operands of each recurrence."""
+        outs, xps, Us, carry = [], [], [], (h0, c0)
+        for p, x in ((enc, xs), (dec, xd)):
+            fused = fuse_params(p)
+            xproj = cl.project(x.transpose(0, 1), fused, cd).contiguous()
+            ys, hT, cT = recurrence(xproj, fused.recurrent, *carry)
+            outs += [ys, hT, cT]
+            xps.append(xproj)
+            Us.append(fused.recurrent)
+            carry = (hT, cT)
+        loss = (outs[3] * wy.transpose(0, 1)).sum()
+        grads = torch.autograd.grad(loss, [*xps, *Us, h0, c0, xs])
+        return ([o.detach() for o in outs], grads,
+                [(xp.detach(), U.detach()) for xp, U in zip(xps, Us)])
+
+    times, card = {}, card_line()
+    for dt, cd in (("f32", None), ("bf16", torch.bfloat16)):
+        label = f"config 4 chain {dt} B={B} T={T}+{Td} F={F} H={H}"
+        launches.clear()
+        got, ggot, ops = chain(cd, kernel_chain)
+        ref, gref, _ = chain(cd, twin_chain)
+        torch.cuda.synchronize()
+        roles = [role for role, *_ in launches]
+        if roles != [f"fwd T={T}", f"fwd T={Td}", f"bwd T={Td}",
+                     f"bwd T={T}"]:
+            fail(f"{label}: the chain launched {roles}")
+        bad, per_launch = [], {}
+        for role, names, out, twin, cot in launches:
+            e = []
+            for n, a, r in zip(names, out, twin):
+                a = a.detach()  # the Function's outputs require grad
+                if cd is None:
+                    e.append(held(torch, n, a, r, f"{label} {role}",
+                                  scaled=n in ("z", "dz", "dh0", "dc0")))
+                elif n in ("dh0", "dc0"):
+                    e.append(grad_held(n, a, r, BF16_GRAD_SHARE, cot,
+                                       f"{label} {role}", bad))
+                else:
+                    e.append(bf16_held(torch, n, a, r, f"{label} {role}",
+                                       n in ("z", "dz"), bad)[0])
+            per_launch[role] = max(e)
+        enc_cot = launches[-1][-1]  # the decoder's dh0, dc0 into the encoder
+        errs = {}
+        for n, a, r in zip(("ys_enc", "hT_enc", "cT_enc", "ys_dec",
+                            "hT_dec", "cT_dec"), got, ref):
+            errs[n] = float((a - r).abs().max())
+            tol = ((LSTM_TOL if cd is None else BF16_TOL)
+                   * (max(1.0, float(r.abs().max())) if n[:2] == "cT"
+                      else 1.0))
+            if not errs[n] <= tol:
+                bad.append(f"{label}: {n} differs from the twins' chain by "
+                           f"{errs[n]:.3e} > {tol:.3e}")
+        for n, a, r in zip(grad_names, ggot, gref):
+            if cd is None:
+                errs[n] = grad_held(n, a, r, LSTM_TOL, 1.0, label, bad)
+            else:
+                errs[n] = grad_held(n, a, r, CHAIN_GRAD_SHARE,
+                                    enc_cot if n in ("dh0", "dc0") else 0.0,
+                                    f"{label}, the twins' chain", bad)
+        # the encoder's backward with a long memory (forget gates raised):
+        # from zero dys, dh0 and dc0 keep a size a wrong hand-off would move
+        (xe, Ue), _ = ops
+        xm = xe.float().clone()
+        xm[..., H:2 * H] += MEMORY_FORGET_SHIFT
+        xm = xm.to(xe.dtype)
+        Um = Ue.to(xe.dtype)
+        with torch.no_grad():
+            _, _, _, zm, csm = cl.lstm_forward(xm, Um, h0.detach(),
+                                               c0.detach(),
+                                               save_residuals=True)
+            cots = (torch.zeros(T, B, H, device=device),
+                    *(t.detach().contiguous() for t in launches[-2][2][1:]))
+            launches.clear()
+            mg = held_bwd(zm, c0.detach(), csm, cots[0], Um, *cots[1:], None)
+        _, names, out, twin, _ = launches[0]
+        mem = {}
+        for n, a, r in zip(names, out, twin):
+            if cd is None:
+                mem[n] = held(torch, n, a, r, f"{label} memory",
+                              scaled=True)
+            else:
+                mem[n] = bf16_held(torch, n, a, r, f"{label} memory",
+                                   n == "dz", bad)[0]
+        if not float(mg[1].abs().max()) > 1e-3 * enc_cot:
+            bad.append(f"{label} memory: max |dh0| "
+                       f"{float(mg[1].abs().max()):.3e}: the gradient did "
+                       "not reach t = 0")
+        if bad:
+            fail("; ".join(bad))
+        print(f"  {label}: each launch against its twin, max |d| "
+              + ", ".join(f"{k} {v:.2e}" for k, v in per_launch.items())
+              + "; the chain against the twins' chain, max |d| "
+              + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+              + f" (max |dh0| {float(gref[4].abs().max()):.3e}, the "
+              f"cotangents into the encoder {enc_cot:.3e}); the encoder's "
+              "backward with a long memory against its twin, max |d| "
+              + ", ".join(f"{n} {v:.2e}" for n, v in mem.items())
+              + f" (max |dh0| {float(mg[1].abs().max()):.3e})", flush=True)
+        # each kernel at its shape: the encoder's backward from zero dys and
+        # the decoder's dh0, dc0; the decoder's from its ys' cotangent
+        bound = lstm_bound if cd is None else lstm_bound_bf16
+        (xe, Ue), (xde, Ude) = ops
+        Ue, Ude = Ue.to(xe.dtype), Ude.to(xde.dtype)
+        ys_e, hT_e, cT_e = got[:3]
+        with torch.no_grad():
+            h0d, c0d = h0.detach(), c0.detach()
+            _, _, _, ze, cse = cl.lstm_forward(xe, Ue, h0d, c0d,
+                                               save_residuals=True)
+            _, _, _, zd, csd = cl.lstm_forward(xde, Ude, hT_e, cT_e,
+                                               save_residuals=True)
+            zero = torch.zeros_like(ys_e)
+            dhd = torch.zeros_like(hT_e)
+            wyt = wy.transpose(0, 1).contiguous()
+            _, dh0_d, dc0_d = cl.lstm_backward(zd, cT_e, csd, wyt, Ude, dhd,
+                                               dhd)
+        cases = {
+            "fwd_enc": (T, "fwd", (xe, Ue, h0d, c0d)),
+            "fwd_dec": (Td, "fwd", (xde, Ude, hT_e, cT_e)),
+            "bwd_enc": (T, "bwd", (ze, c0d, cse, zero, Ue, dh0_d, dc0_d)),
+            "bwd_dec": (Td, "bwd", (zd, cT_e, csd, wyt, Ude, dhd, dhd))}
+        for name, (Tk, kind, args) in cases.items():
+            if kind == "fwd":
+                kern = functools.partial(cl.lstm_forward, *args,
+                                         save_residuals=True)
+                plain = functools.partial(twin_fwd, *args, None, True)
+            else:
+                kern = functools.partial(cl.lstm_backward, *args)
+                plain = functools.partial(twin_bwd, *args, None)
+            with torch.no_grad():
+                ms = time_ms(torch, kern, 50)
+                plain_ms = time_ms(torch, plain, 5)
+            b_ms, b_by = bound(B, Tk, H, kind)
+            times[dt, name] = ms
+            print(f"  {dt} {name} (T={Tk}): kernel {ms:.4f} ms "
+                  f"({1e3 * ms / Tk:.2f} us a step), twin {plain_ms:.4f} ms,"
+                  f" bound {b_ms:.6f} ms ({b_by}; {card})",
+                  flush=True)
+    return times
+
+
+def config4_phase(torch, cli, cl, cx, ct, device, host):
+    """Phase 18b: ``configs/uci_forecast.sh`` through the CLI, captured (the
+    default), in bf16 and in float32: the first losses against the CPU run
+    of the same command, the launches of the main run (rows 3b and 4b, or 3
+    and 4, twice a step and once an eval batch, no other kernel and no
+    plain twin), K=8 ``--device-data --fused-eval`` against host-fed K=1,
+    and resume bit for bit at K=1 and K=8 ``--device-data``. Returns the
+    main runs' launches by counter."""
+    print("== phase 18b: configs/uci_forecast.sh through the CLI, captured",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_config4_")
+    atexit.register(shutil.rmtree, tmp, True)
+    counters = all_counters(cl, cx, ct)
+    S, E, EB = CONFIG4_STEPS, CONFIG4_EVAL_EVERY, CONFIG4_EVAL_BATCHES
+    main_launches = {}
+    refs = dict(config4_references())
+    for dt, flags, stem in (("bf16", CONFIG4_FLAGS, "_bf16"),
+                            ("f32", CONFIG4_F32_FLAGS, "")):
+        recs, launches, warm = bf16_cli_run(
+            cli, counters, tmp, f"config4 {dt} main", flags + [
+                "--num-steps", str(S), "--log-every", "1", "--eval-every",
+                str(E), "--eval-batches", str(EB), "--device", "cuda"])
+        card_l = [r["loss"] for r in recs if "loss" in r][:CONFIG4_FIRST]
+        cpu_l = host.losses(f"config4 {dt}", refs[f"config4 {dt}"])
+        if len(card_l) != CONFIG4_FIRST or len(cpu_l) != CONFIG4_FIRST:
+            fail(f"config4 {dt}: logged {len(card_l)} / {len(cpu_l)} first "
+                 f"losses, not {CONFIG4_FIRST}")
+        if dt == "bf16":
+            gap = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+            limit = BF16_LOSS_RTOL
+        else:
+            gap = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+            limit = TRAIN_LOSS_TOL
+        print(f"  config4 {dt}, first {CONFIG4_FIRST} losses: card "
+              f"{[round(x, 6) for x in card_l]}; CPU "
+              f"{[round(x, 6) for x in cpu_l]}; max "
+              f"{'relative ' if dt == 'bf16' else ''}|d| {gap:.2e} (limit "
+              f"{limit})", flush=True)
+        if not gap <= limit:
+            fail(f"config4 {dt}: card losses differ from the CPU run by "
+                 f"{gap:.3e} > {limit}")
+        evals = [r for r in recs if "eval_mse" in r and "note" not in r]
+        final = recs[-1]
+        if ([r["step"] for r in evals] != list(range(E, S + 1, E))
+                or final.get("note") != "final"
+                or not 0 < final["eval_mse"] < 1e9
+                or not any(r.get("note") == "new best eval_mse"
+                           for r in recs)):
+            fail(f"config4 {dt}: eval records {evals}, final {final}")
+        fw, bw = f"lstm_fwd{stem}", f"lstm_bwd{stem}"
+        want = {fw: 2 * S + (S // E + 1) * EB, bw: 2 * S}
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            fail(f"config4 {dt} main: launches {got} (the capture warm-ups' "
+                 f"taken out), wanted {want}: the resident pair's {dt} "
+                 "forms alone, twice a step and once an eval batch")
+        for k in (fw, bw):
+            main_launches[k] = launches[k] + warm[k]
+        print(f"  config4 {dt} main ({S} steps, an eval every {E} of {EB} "
+              f"batches): loss {card_l[0]:.4f} -> "
+              f"{[r['loss'] for r in recs if 'loss' in r][-1]:.4f}, "
+              f"eval_mse {evals[0]['eval_mse']:.4f} -> "
+              f"{final['eval_mse']:.4f}; launches {got} (+ warm-ups "
+              f"{ {k: v for k, v in warm.items() if v} })", flush=True)
+
+    # K=8 --device-data --fused-eval against host-fed K=1: the same
+    # windows, so the same losses; the fused eval against the host eval of
+    # the same params
+    def drive(flags, calls):
+        for c in counters.values():
+            c.reset()
+        log = _Records()
+        run = cli.training(flags[1:] + ["--device", "cuda"], logger=log)
+        state, feed, ms = run.state, iter(run.feed), []
+        fused = run.loop_kw["fused_eval"] is not None
+        for i in range(calls):
+            if fused:
+                state, m = run.step(state, next(feed), i == calls - 1)
+            else:
+                state, m = run.step(state, next(feed))
+            ms.append({k: float(v) for k, v in m.items()})
+        warm = warmup_launches(log.recs, counters)
+        launches = {k: c.kernel - warm[k] for k, c in counters.items()
+                    if c.kernel - warm[k]}
+        return ms, state, run, launches
+
+    base = CONFIG4_FLAGS + ["--eval-every", "1", "--eval-batches", str(EB)]
+    host_ms, host_state, host_run, host_l = drive(base, 16)
+    dev_ms, dev_state, _, dev_l = drive(base + [
+        "--steps-per-call", "8", "--device-data", "--fused-eval"], 2)
+    d_loss = max(abs(a["loss_last"] - host_ms[8 * i + 7]["loss"])
+                 for i, a in enumerate(dev_ms))
+    ev = host_run.eval_fn(dev_state.params)
+    d_eval = max(abs(dev_ms[-1][k] - ev[k]) for k in ("eval_mse",
+                                                      "eval_mae"))
+    want_host = {"lstm_fwd_bf16": 32, "lstm_bwd_bf16": 32}
+    want_dev = {"lstm_fwd_bf16": 32 + EB, "lstm_bwd_bf16": 32}
+    print(f"  config4 K=8 --device-data --fused-eval against host-fed K=1: "
+          f"loss at steps 8, 16 max |d| {d_loss:.2e} (limit {CALLS_TOL}); "
+          f"fused eval_mse {dev_ms[-1]['eval_mse']:.6f} against the host "
+          f"eval's {ev['eval_mse']:.6f}, max |d| {d_eval:.2e} (limit "
+          f"{FUSED_EVAL_TOL}); launches host-fed {host_l}, device-fed "
+          f"{dev_l}", flush=True)
+    if not (d_loss <= CALLS_TOL and d_eval <= FUSED_EVAL_TOL):
+        fail("config4: the K=8 device-fed fused run differs from host-fed "
+             "K=1")
+    if host_l != want_host or dev_l != want_dev:
+        fail(f"config4: launches host-fed {host_l} (wanted {want_host}), "
+             f"device-fed {dev_l} (wanted {want_dev})")
+    resumed_bit_for_bit(cli, tmp, CONFIG4_FLAGS + ["--device", "cuda"],
+                        CONFIG4_RESUME_RUNS)
+    return main_launches
+
+
+def config4_rate_phase(torch, cli):
+    """Phase 18c: steps/s (host clock over 60 calls), device ms a step and
+    the idle share (torch.profiler over 10 calls) of
+    ``configs/uci_forecast.sh`` eager and captured, in turns (eager,
+    captured, captured, eager)."""
+    print("== phase 18c: configs/uci_forecast.sh, eager against captured",
+          flush=True)
+    flags = CONFIG4_FLAGS + ["--device", "cuda"]
+    runs = {"eager": cli_calls(cli, flags, graph=False),
+            "captured": cli_calls(cli, flags)}
+    for calls in runs.values():
+        calls(3)
+    got = {}
+    for mode in ("eager", "captured", "captured", "eager"):
+        got.setdefault(mode, []).append(rate_and_profile(torch, runs[mode],
+                                                         60, 10))
+    print(f"  config4 bf16 in turns (eager, captured, captured, eager; "
+          f"{card_line()}): " + "; ".join(
+              f"{mode} " + ", ".join(
+                  f"{s:.2f} steps/s, device "
+                  + ("not measured" if d is None else f"{d:.4f} ms a step, "
+                     f"idle {i:.3f}") for s, d, i in got[mode])
+              for mode in ("eager", "captured")), flush=True)
+    parts = step_parts(torch, runs["captured"], 10)
+    print("  config4 captured step by part (ms a step over 10 calls): "
+          + ("not measured" if parts is None else "; ".join(
+              f"{k} {v:.4f}" for k, v in parts.items())), flush=True)
+    return got
+
+
+def phase18(torch, cli, cl, cx, ct, device, host):
+    """Phase 18 (a)-(c); returns the launches of the main runs by
+    counter."""
+    timed(forecast_pair_phase, torch, cl, device)
+    launches = timed(config4_phase, torch, cli, cl, cx, ct, device, host)
+    timed(config4_rate_phase, torch, cli)
+    return launches
+
+
+
 def timed(fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -3997,8 +4464,16 @@ def main() -> int:
     bf16_launches = timed(bf16_train_phase, torch, cli, cl, cx, ct, device)
     bf16x_launches = timed(bf16x_train_phase, torch, cli, cl, cx, ct, device,
                            host)
+    for name, flags in config4_references():  # beside phases 17 and 18a
+        host.start(name, flags)
     serve_rows = timed(phase17, torch, cli, tlm, tgen, cd, cs, cl, ct, serve,
                        draft_config, device)
+    config4_launches = phase18(torch, cli, cl, cx, ct, device, host)
+    for k, v in config4_launches.items():
+        if k in bf16_launches:
+            bf16_launches[k] += v
+        else:
+            train_launches[k.split("_")[1]] += v
 
     main_path = timings["config1"]
     lstm_rows = [{
@@ -4354,7 +4829,28 @@ def bf16(label: str) -> int:
     return 0
 
 
+def forecast() -> int:
+    """Phase 18 alone, from the checkout in the working directory (the
+    resident pair built first); prints the main runs' launches."""
+    torch, dev = _checkout("forecast")
+    from lstm_tensorspark_torch import cli, kernels
+    from lstm_tensorspark_torch.ops import cuda_lstm as cl
+    from lstm_tensorspark_torch.ops import cuda_lstm_tiled as ct
+    from lstm_tensorspark_torch.ops import cuda_lstmx as cx
+
+    host = HostRuns()
+    atexit.register(host.stop)
+    for name, flags in config4_references():
+        host.start(name, flags)
+    print(f"phase 18 ({os.getcwd()}; {card_line()}); resident pair built "
+          f"in {kernels.build(['lstm_fwd', 'lstm_bwd']):.1f} s", flush=True)
+    print(json.dumps(phase18(torch, cli, cl, cx, ct, dev, host)), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--forecast"]:
+        sys.exit(forecast())
     for flag, fn in (("--train-calls", train_calls),
                      ("--bf16", bf16),
                      ("--windows", windows),

@@ -11,10 +11,13 @@
   ``tasks/classification.py``). ``--remat-chunk`` takes the recompute
   backward (JAX's choice when it is set). ``--compute-dtype`` defaults to
   bfloat16 and ``--logits-dtype`` to float32, as JAX's command: the
-  recurrences of every task (the LM and imdb) run the kernels' bfloat16
+  recurrences of every task run the kernels' bfloat16
   forms on the card unless ``--compute-dtype float32`` is given;
   ``--logits-dtype`` is an LM flag, which imdb ignores as JAX's does.
-  ``--dataset uci_electricity`` exits with ``USAGE_RC`` (not ported yet).
+  ``--dataset uci_electricity`` trains the seq2seq forecaster
+  (BASELINE.md config 4, ``tasks/forecasting.py``): ``--seq-len`` is its
+  context (default 168 hours) before a 24-hour horizon; it ignores
+  ``--logits-dtype`` and ``--dropout``, as JAX's does.
   A run of ``--anomaly-limit`` consecutive non-finite steps exits with
   ``ANOMALY_RC``. ``--checkpoint-dir`` with ``--checkpoint-every N`` saves
   the run's whole state every N calls (``train/checkpoint.py``);
@@ -326,15 +329,16 @@ def _serve_http(args) -> int:
 def build_train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="lstm_tensorspark_torch train",
-        description="train the LSTM language model or, with --dataset "
-                    "imdb, the bi-LSTM classifier on PyTorch/CUDA (one "
-                    "device)")
+        description="train the LSTM language model, with --dataset "
+                    "imdb the bi-LSTM classifier, or with --dataset "
+                    "uci_electricity the seq2seq forecaster on "
+                    "PyTorch/CUDA (one device)")
     p.add_argument("--dataset", type=str, default="ptb_char",
                    choices=["ptb_char", "wikitext2", "wikitext103", "imdb",
                             "uci_electricity"],
-                   help="ptb_char, wikitext2, wikitext103 (LM) and imdb "
-                        "(bi-LSTM classifier); uci_electricity is not "
-                        "ported")
+                   help="ptb_char, wikitext2, wikitext103 (LM), imdb "
+                        "(bi-LSTM classifier) and uci_electricity (seq2seq "
+                        "forecaster)")
     p.add_argument("--data-path", type=str, default=None,
                    help="corpus directory (falls back to the synthetic "
                         "stand-in)")
@@ -346,7 +350,8 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--seq-len", type=int, default=None,
                    help="window length (default 64; imdb: padded "
-                        "example length, default 400)")
+                        "example length, default 400; uci_electricity: "
+                        "context length, default 168)")
     p.add_argument("--learning-rate", type=float, default=1.0)
     p.add_argument("--optimizer", type=str, default="sgd",
                    choices=OPTIMIZERS)
@@ -361,21 +366,23 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "warmup-cosine schedule)")
     p.add_argument("--dropout", type=float, default=0.0,
                    help="dropout between layers (the classifier, imdb: "
-                        "also on the final states); training steps only")
+                        "also on the final states; the forecaster ignores "
+                        "it); training steps only")
     p.add_argument("--remat-chunk", type=int, default=None,
                    help="checkpoint the recurrence in chunks of N steps: "
                         "the backward recomputes them (T % N == 0)")
     p.add_argument("--tie-embeddings", action="store_true")
     p.add_argument("--compute-dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"],
-                   help="dtype of the recurrence's products (the LM and "
-                        "imdb); parameters, optimizer state and cell state "
+                   help="dtype of the recurrence's products (every "
+                        "task); parameters, optimizer state and cell state "
                         "stay float32")
     p.add_argument("--logits-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="dtype of the materialized [B,T,V] LM logits (the "
                         "NLL still runs in float32 over the upcast "
-                        "values); LM tasks only: imdb ignores it")
+                        "values); LM tasks only: imdb and uci_electricity "
+                        "ignore it")
     p.add_argument("--stateful", action="store_true",
                    help="carry recurrent state across contiguous windows")
     p.add_argument("--steps-per-call", type=int, default=1,
@@ -464,6 +471,10 @@ def _training(args, dev, logger, graph):
         from .tasks.classification import classifier_training
 
         return classifier_training(args, dev, logger, graph=graph)
+    if args.dataset == "uci_electricity":
+        from .tasks.forecasting import forecaster_training
+
+        return forecaster_training(args, dev, logger, graph=graph)
     return _lm_training(args, dev, logger, graph)
 
 

@@ -6,8 +6,10 @@ per layer carrying the 12 per-gate arrays as attributes ``W_i`` … ``b_o`` —
 read by name, so the JAX class is never imported; plain mappings work too)
 and ``head`` (``kernel`` and ``bias``, or ``bias`` alone for a tied head).
 :func:`classifier_params_from_numpy` takes the bi-LSTM classifier's
-(``embedding``, ``fwd`` and ``bwd`` lists of layers, ``head``). Both
-directions copy the values bit for bit.
+(``embedding``, ``fwd`` and ``bwd`` lists of layers, ``head``);
+:func:`seq2seq_params_from_numpy` the forecaster's (``encoder`` and
+``decoder`` lists of layers, ``proj``). Both directions copy the values
+bit for bit.
 """
 
 from __future__ import annotations
@@ -82,3 +84,26 @@ def params_to_numpy(params) -> dict:
                    for layer in params["layers"]],
         "head": {k: arr(v) for k, v in params["head"].items()},
     }
+
+
+def seq2seq_params_from_numpy(tree, device: str | torch.device = "cuda") -> dict:
+    """JAX forecaster params (numpy leaves) → the port's dict on
+    ``device``."""
+    dev = resolve_device(device)
+    return {"encoder": _layers(tree["encoder"], dev),
+            "decoder": _layers(tree["decoder"], dev),
+            "proj": {k: _tensor(v, dev) for k, v in tree["proj"].items()}}
+
+
+def seq2seq_params_to_numpy(params) -> dict:
+    """The port's forecaster dict → numpy leaves, layers as dicts keyed by
+    the 12 gate-field names."""
+    def arr(t):
+        return t.detach().cpu().numpy().copy()
+
+    def layers(ls):
+        return [{f: arr(getattr(layer, f)) for f in _GATE_FIELDS} for layer in ls]
+
+    return {"encoder": layers(params["encoder"]),
+            "decoder": layers(params["decoder"]),
+            "proj": {k: arr(v) for k, v in params["proj"].items()}}

@@ -1,7 +1,8 @@
 """Batching (host, numpy): a token stream → contiguous [B, T] LM windows,
-and variable-length examples → padded, length-bucketed batches.
+variable-length examples → padded, length-bucketed batches, and a [N, F]
+series → (context, horizon) forecast windows.
 
-Port of the LM and classification parts of
+Port of the LM, classification and forecasting parts of
 ``lstm_tensorspark_tpu/data/batching.py``. The LM stream is split into
 ``batch_size`` parallel row streams so window t's final recurrent state
 can seed window t+1 (stateful truncated BPTT). :func:`stacked_batches` and
@@ -137,6 +138,46 @@ def example_order(lengths: list[int], *, shuffle_seed: int | None = None,
     if bucket:
         order = order[np.argsort([lengths[i] for i in order], kind="stable")]
     return order
+
+
+def forecast_starts(n_windows: int, *,
+                    shuffle_seed: int | None = None) -> np.ndarray:
+    """The forecast windows' start order, a seeded shuffle: shared by
+    :func:`forecast_windows` and the series staged on the device."""
+    starts = np.arange(0, n_windows)
+    if shuffle_seed is not None:
+        np.random.RandomState(shuffle_seed).shuffle(starts)
+    return starts
+
+
+def forecast_windows(series: np.ndarray, context_len: int, horizon: int,
+                     batch_size: int, *, shuffle_seed: int | None = None,
+                     drop_remainder: bool = True) -> Iterator[dict]:
+    """(context, horizon) windows slid over a [N, F] series, batched:
+    {"context" [B, C, F] float32, "targets" [B, horizon, F] float32,
+    "valid" [B] bool}. With ``drop_remainder=False`` the last short batch
+    keeps its shape by repeating its final window as filler rows marked
+    ``valid=False``, so metrics weight rows and count no window twice."""
+    N = len(series)
+    n_windows = N - context_len - horizon + 1
+    if n_windows < 1:
+        raise ValueError(
+            f"series length {N} < context {context_len} + horizon {horizon}")
+    starts = forecast_starts(n_windows, shuffle_seed=shuffle_seed)
+    for b0 in range(0, len(starts), batch_size):
+        idx = starts[b0:b0 + batch_size]
+        valid = np.ones((batch_size,), bool)
+        if len(idx) < batch_size:
+            if drop_remainder:
+                break
+            valid[len(idx):] = False
+            idx = np.concatenate(
+                [idx, np.repeat(idx[-1:], batch_size - len(idx))])
+        ctx = np.stack([series[i:i + context_len] for i in idx])
+        tgt = np.stack([series[i + context_len:i + context_len + horizon]
+                        for i in idx])
+        yield {"context": ctx.astype(np.float32),
+               "targets": tgt.astype(np.float32), "valid": valid}
 
 
 def padded_batches(sequences: list[np.ndarray], labels: np.ndarray,

@@ -1,22 +1,24 @@
 """Dataset registry (host side): BASELINE.md config 1's char-level corpus,
-config 2's IMDB sentiment examples and the word-level corpora of configs 3
-and 5.
+config 2's IMDB sentiment examples, the word-level corpora of configs 3
+and 5 and config 4's electricity load series.
 
-Port of ``lstm_tensorspark_tpu/data/datasets.py`` for ``ptb_char``,
-``imdb``, ``wikitext2`` and ``wikitext103``. Real files under
-``data_path`` are used when present; otherwise the synthetic stand-in,
-whose splits, vocabulary and encoded arrays are byte-equal to the JAX
-package's (the word-level stand-ins are regenerated in every process: the
-JAX package's on-disk cache of the stream is an optimisation the port
-does without). ``uci_electricity`` is not ported yet and raises.
+Port of ``lstm_tensorspark_tpu/data/datasets.py`` (every name of its
+registry). Real files under ``data_path`` are used when present;
+otherwise the synthetic stand-in, whose splits, vocabulary and arrays are
+byte-equal to the JAX package's (the word-level stand-ins are regenerated
+in every process: the JAX package's on-disk cache of the stream is an
+optimisation the port does without). The UCI file is parsed by the JAX
+package's pure-Python loop, whose output its native parser matches byte
+for byte; the native parser is not ported.
 
-Returned dict: {"train", "valid", "test"} int32 token arrays (LM) or
-(sequences, labels) pairs (classification), "vocab", and "synthetic":
-bool.
+Returned dict: {"train", "valid", "test"} int32 token arrays (LM),
+(sequences, labels) pairs (classification) or float32 [N, F] series
+(forecasting), "vocab" or "num_features", and "synthetic": bool.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -24,10 +26,6 @@ import numpy as np
 from .corpus import (build_char_vocab, build_word_vocab, load_text,
                      resolve_split_files, synthetic_text,
                      synthetic_word_corpus)
-
-# the JAX registry's other names, refused with a clear message
-_NOT_PORTED = ("uci_electricity",)
-
 
 def _lm_dataset(data_path: str | None, basenames: list[str], level: str, *,
                 synthetic_tokens: int, max_vocab: int | None = None,
@@ -196,14 +194,98 @@ def imdb(data_path=None, *, num_examples: int | None = None,
     }
 
 
+def _resolve_uci_file(data_path: str | None) -> str | None:
+    """Locate the UCI ElectricityLoadDiagrams file (``LD2011_2014.txt``):
+    the file itself or a directory holding it; None when absent."""
+    if not data_path:
+        return None
+    if os.path.isfile(data_path):
+        return data_path
+    if os.path.isdir(data_path):
+        p = os.path.join(data_path, "LD2011_2014.txt")
+        if os.path.isfile(p):
+            return p
+    return None
+
+
+def _split_series(data: np.ndarray, *, synthetic: bool):
+    """80/10/10 time-ordered splits, normalised per series with the train
+    split's statistics alone (full-series statistics would leak the valid
+    and test splits into the scored data)."""
+    n_train = int(len(data) * 0.8)
+    n_valid = int(len(data) * 0.1)
+    mu = data[:n_train].mean(axis=0)
+    sd = data[:n_train].std(axis=0)
+    data = (data - mu) / (sd + 1e-6)
+    return {"train": data[:n_train],
+            "valid": data[n_train:n_train + n_valid],
+            "test": data[n_train + n_valid:],
+            "num_features": data.shape[1], "synthetic": synthetic}
+
+
+def _uci_real(path: str, *, num_series: int):
+    """The UCI semicolon-separated CSV: a timestamp column, then one load
+    column per customer written with decimal commas. Keeps the first
+    ``num_series`` customers; an empty field reads as 0; rows with too
+    few fields are skipped."""
+    # text mode: universal newlines for the header and the body alike
+    with open(path, encoding="utf-8", errors="replace") as f:
+        ncols = f.readline().count(";")
+        take = min(num_series, ncols) if ncols else num_series
+        rows = []
+        for line in f:
+            parts = line.rstrip("\n").split(";")
+            if len(parts) < take + 1:
+                continue
+            rows.append([float(v.replace(",", ".") or 0.0)
+                         for v in parts[1:take + 1]])
+    if not rows:
+        raise ValueError(
+            f"{path} does not look like the UCI LD2011_2014 format "
+            "(semicolon-separated, timestamp + per-customer columns)")
+    return _split_series(np.asarray(rows, np.float32), synthetic=False)
+
+
+def uci_electricity(data_path=None, *, num_series: int = 8,
+                    length: int = 10_000, seed: int = 0):
+    """BASELINE.md config 4: multivariate load forecasting. Real data:
+    ``data_path`` at ``LD2011_2014.txt`` (or a directory holding it).
+    Otherwise the synthetic stand-in: per series a daily and a weekly
+    sinusoid of random phase plus AR(1) noise, ``length`` hours of
+    ``num_series`` series, drawn from ``np.random.RandomState(seed)``."""
+    uci_file = _resolve_uci_file(data_path)
+    if uci_file is not None:
+        return _uci_real(uci_file, num_series=num_series)
+    return _split_series(_uci_standin(num_series, length, seed),
+                         synthetic=True)
+
+
+@functools.lru_cache(maxsize=4)
+def _uci_standin(num_series: int, length: int, seed: int) -> np.ndarray:
+    """The stand-in's raw [length, num_series] float32 series, read-only
+    and kept for the process: its AR(1) loop steps through one element at
+    a time (about a second), and every train run of a process reads it."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(length, dtype=np.float32)
+    series = []
+    for i in range(num_series):
+        daily = np.sin(2 * np.pi * t / 24 + rng.uniform(0, 6.28))
+        weekly = 0.5 * np.sin(2 * np.pi * t / (24 * 7) + rng.uniform(0, 6.28))
+        noise = np.zeros(length, np.float32)
+        for k in range(1, length):
+            noise[k] = 0.8 * noise[k - 1] + 0.1 * rng.randn()
+        series.append((1 + 0.3 * i) * daily + weekly + noise)
+    data = np.stack(series, axis=1).astype(np.float32)
+    data.setflags(write=False)
+    return data
+
+
 DATASETS = {"ptb_char": ptb_char, "wikitext2": wikitext2_word,
-            "wikitext103": wikitext103_word, "imdb": imdb}
+            "wikitext103": wikitext103_word, "imdb": imdb,
+            "uci_electricity": uci_electricity}
 
 
 def get_dataset(name: str, data_path: str | None = None, **kw):
-    if name in _NOT_PORTED:
-        raise ValueError(f"dataset {name!r} is not ported to the PyTorch "
-                         f"port yet (have {sorted(DATASETS)})")
     if name not in DATASETS:
         raise ValueError(f"unknown dataset {name!r}; have {sorted(DATASETS)}")
     return DATASETS[name](data_path, **kw)

@@ -12,13 +12,16 @@ Port of the single-device part of
 - classification examples go to the device as fixed-shape [N, ...] arrays
   (:func:`stage_examples`) and a step gathers its rows by a device index
   tensor (:func:`take_batch`);
+- the forecaster's [N, F] series goes to the device once
+  (:func:`stage_series`) and a step gathers its (context, horizon)
+  windows by a device tensor of window starts (:func:`slice_forecast_batch`);
 - :func:`stage_stacked_batches` stacks the exact batches a host eval would
   see into one [n, ...] dict on the device, for the eval fused into a
   train call.
 
 The window order is :func:`lm_epoch_batches`' own, so a device-fed run
 takes the same windows as a host-fed one and stateful carries stay
-aligned. (The forecaster's series staging waits for that task's port.)
+aligned; the forecast windows' order is ``forecast_starts``'.
 """
 
 from __future__ import annotations
@@ -117,3 +120,41 @@ def take_batch(arrays: dict, idx: torch.Tensor) -> dict:
     """Row indices [B] (a device tensor) → the batch {key: [B, ...]}."""
     rows = idx.to(torch.long)
     return {k: a.index_select(0, rows) for k, a in arrays.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSeries:
+    """A [N, F] float32 series on the device (``arrays`` is {"series"}),
+    its (context, horizon) windows gathered there by their starts."""
+
+    arrays: dict
+    context_len: int
+    horizon: int
+    num_windows: int
+
+
+def stage_series(series: np.ndarray, context_len: int, horizon: int, *,
+                 device) -> DeviceSeries:
+    n_windows = len(series) - context_len - horizon + 1
+    if n_windows < 1:
+        raise ValueError(f"series length {len(series)} < context "
+                         f"{context_len} + horizon {horizon}")
+    return DeviceSeries(arrays={"series": _put(series.astype(np.float32),
+                                               device)},
+                        context_len=context_len, horizon=horizon,
+                        num_windows=n_windows)
+
+
+def slice_forecast_batch(arrays: dict, starts: torch.Tensor, context_len: int,
+                         horizon: int) -> dict:
+    """Window starts [B] (a device tensor) → {"context" [B, C, F],
+    "targets" [B, horizon, F], "valid" [B]}: ``forecast_windows``' layout,
+    one row gather of the series for the B·(C + horizon) steps."""
+    series = arrays["series"]
+    B, F = starts.shape[0], series.shape[-1]
+    span = context_len + horizon
+    rows = (starts.to(torch.long)[:, None]
+            + torch.arange(span, device=starts.device)).reshape(-1)
+    win = series.index_select(0, rows).reshape(B, span, F)
+    return {"context": win[:, :context_len], "targets": win[:, context_len:],
+            "valid": torch.ones((B,), dtype=torch.bool, device=series.device)}

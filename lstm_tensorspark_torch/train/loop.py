@@ -352,16 +352,18 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
                eval_every: int = 0, tokens_per_batch: int | None = None,
                examples_per_batch: int | None = None,
                anomaly_limit: int = 0,
-               best_metric: str | None = None, steps_per_call: int = 1,
+               best_metric: str | None = None, best_mode: str = "max",
+               steps_per_call: int = 1,
                fused_eval: Callable[[dict], dict] | None = None,
                checkpoint_fn: Callable[[TrainState], Any] | None = None,
                checkpoint_every: int = 0) -> TrainState:
     """Drive ``train_step`` over ``batches``, logging every ``log_every``
     calls (loss, grad_norm, steps_per_sec, tokens_per_sec and
     examples_per_sec when given per batch) and calling ``eval_fn(params)``
-    every ``eval_every`` calls. With ``best_metric`` (higher is better,
-    e.g. ``eval_accuracy``), an eval that raises it (NaN never counts) is
-    logged as a ``new best`` record.
+    every ``eval_every`` calls. With ``best_metric`` (e.g.
+    ``eval_accuracy`` under ``best_mode="max"``, ``eval_mse`` under
+    ``"min"``), an eval that improves it (NaN never counts) is logged as a
+    ``new best`` record.
 
     With ``steps_per_call=K`` each iteration is one K-step call
     (``train/multistep.py``, ``train/device_step.py``): ``num_steps``,
@@ -377,6 +379,9 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
     too, and K consecutive anomalous steps raise
     :class:`AnomalousTrainingError` (a call whose steps were all anomalous
     extends the run, any other resets it)."""
+    if best_mode not in ("min", "max"):
+        raise ValueError(f"best_mode must be 'min' or 'max', got "
+                         f"{best_mode!r}")
     if num_steps is not None and num_steps <= 0:
         return state  # eval-only budget: never pull a batch from the feed
     window_start = time.perf_counter()
@@ -437,7 +442,9 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable, *,
             if logger is not None:
                 logger.log({"step": state.step, **ev})
             v = ev.get(best_metric) if best_metric else None
-            if v is not None and v == v and (best is None or v > best):
+            if v is not None and v == v and (
+                    best is None
+                    or (v < best if best_mode == "min" else v > best)):
                 best = v
                 if logger is not None:
                     logger.log({"step": state.step,

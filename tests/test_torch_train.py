@@ -33,7 +33,7 @@ from lstm_tensorspark_torch import cli as tcli
 from lstm_tensorspark_torch.convert import params_from_numpy
 from lstm_tensorspark_torch.data import batching as tbatch
 from lstm_tensorspark_torch.data import corpus as tcorpus
-from lstm_tensorspark_torch.exit_codes import ANOMALY_RC, USAGE_RC
+from lstm_tensorspark_torch.exit_codes import ANOMALY_RC, OK_RC
 from lstm_tensorspark_torch.models import lstm_lm as tlm
 from lstm_tensorspark_torch.train import loop as tloop
 from lstm_tensorspark_torch.train import optimizer as topt
@@ -260,9 +260,16 @@ def test_anomaly_limit_exits_77(capsys):
      "--logits-dtype", "bfloat16"],
     ["--dataset", "uci_electricity"]])
 def test_train_refuses_what_is_not_ported(flags, capsys):
-    rc = tcli.main(["train", "--device", "cpu", "--num-steps", "1", *flags])
-    assert rc == USAGE_RC
-    assert "not ported" in capsys.readouterr().err
+    """The forecaster is ported: the flags that were refused as "not
+    ported" now train it one step and exit 0, in both compute dtypes
+    (``--logits-dtype`` ignored, as JAX's forecaster ignores it)."""
+    rc = tcli.main(["train", "--device", "cpu", "--num-steps", "1",
+                    "--hidden-units", "8", "--batch-size", "4", "--seq-len",
+                    "12", "--log-every", "1", *flags])
+    assert rc == OK_RC
+    out = capsys.readouterr()
+    assert "not ported" not in out.err
+    assert "loss=" in out.out and "eval_mse=" in out.out
 
 
 def test_cli_train_end_to_end(tmp_path):
