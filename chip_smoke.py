@@ -224,10 +224,31 @@ Phases (each one fails the run):
    capture warm-ups taken out), K=8 ``--device-data --fused-eval`` against
    host-fed K=1, and resume bit for bit at K=1 and K=8 ``--device-data``;
    (c) steps/s, device ms a step and the idle share, eager against
-   captured in turns.
+   captured in turns;
+19. serve as ``cli serve`` runs by default (the prefix cache and the
+   session tiers on): the resident forward (f32 and its plain-rounding
+   bf16 form) at a config-1 prefill batch (B=8, T=16) and the tiled
+   forward's plain-rounding form at config 3's width (B=4, T=64) from
+   non-zero carries over masked rows against their plain twins (1e-5 in
+   f32, 1e-3 in bf16); (a) 24 conversations x 3 turns at config 1, f32
+   and bf16, over 8 slots, a host tier of 8 and a disk tier (every
+   conversation ends a turn before any starts the next): each turn's
+   tokens equal the CPU plain ``generate`` of the whole context so far,
+   with the fills by tier (device slot, pending spill, host, disk) and the
+   spills printed, and no miss; (b) 16 prompts sharing a 96-token prefix
+   after one request that inserts it, with the prefix cache off, on, and
+   on with speculative windows: identical tokens, hits, tokens saved, TTFT
+   p50 / p99; (c) prompts of 300, 517, 800 and 1000 tokens at
+   ``prefill_chunk`` 64 beside 8 decoding sessions: tokens against the
+   CPU, chunk dispatches, the short sessions' largest gap while the long
+   ones prefill; (d) ``serve --http --session-dir D`` as a subprocess: 4
+   kept sessions, their files awaited, SIGKILL, a boot on D, the sessions
+   continued identical to the uninterrupted run from 4 disk fills; (e)
+   config 3's width in bf16, 4 conversations x 2 turns, one of 200 tokens
+   chunked at 64. Its launches join the kernel report's rows.
 
 Each phase prints the seconds it took. ``python3 <this file>
---forecast`` runs phase 18 alone; ``--train-calls LABEL`` phase 14 alone; ``--bf16 train`` the bf16
+--sessions`` runs phase 19 alone; ``--forecast`` runs phase 18 alone; ``--train-calls LABEL`` phase 14 alone; ``--bf16 train`` the bf16
 parts of phases 5, 7 and 9 and phases 15 and 16 (``--bf16 kernels``
 without phases 15 and 16, ``--bf16 residentx`` phase 7's bf16 part and
 phase 16 alone, ``--bf16 windows`` phase 17a alone, ``--bf16 serve``
@@ -4384,6 +4405,559 @@ def phase18(torch, cli, cl, cx, ct, device, host):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 19: serve as `cli serve` runs it by default — kept sessions over the
+# host and disk session tiers, the prefix cache and chunked prefill
+# ---------------------------------------------------------------------------
+
+# (a) multi-turn conversations at config 1 over 8 slots and a host tier of
+# 8: a turn's prompt is the last token served plus a user fragment, and
+# the tokens of every turn must equal the CPU plain generate of the whole
+# context so far; turns 1 and 2 keep the session, turn 3 ends it
+SESSION_CONVS, SESSION_TURNS, SESSION_NEW = 24, 3, 8
+# (b) 16 prompts: a 96-token system prompt plus suffixes of 8-24 tokens;
+# (c) long prompts chunked at 64 beside 8 short sessions that decode;
+# (d) 4 kept sessions across a SIGKILL of the serve command; (e) config 3's
+# width in bf16, 4 conversations x 2 turns, one 200 tokens long
+PREFIX_SHARED, PREFIX_PROMPTS = 96, 16
+LONG_PROMPTS, LONG_CHUNK, SHORT_SESSIONS = (300, 517, 800, 1000), 64, 8
+RESTART_SESSIONS = 4
+# the prefill forwards held from non-zero carries over masked rows: the
+# resident f32 and bf16u forms at a config 1 prefill batch, the tiled bf16u
+# form at config 3's width
+SESSION_HOLDS = (("lstm_fwd", dict(B=8, T=16, H=128), None),
+                 ("lstm_fwd_bf16u", dict(B=8, T=16, H=128), "bfloat16"),
+                 ("lstm_tiled_fwd_bf16u", dict(B=4, T=64, H=650),
+                  "bfloat16"))
+# the kernels phase 19's runs must launch
+SESSION_KERNELS = ("decode_window", "spec_window", "lstm_fwd",
+                   "decode_window_bf16", "lstm_fwd_bf16u",
+                   "lstm_tiled_fwd_bf16u")
+
+
+def session_holds_phase(torch, cl, ct, device):
+    print("== phase 19: the prefill forwards from non-zero carries over "
+          "masked rows vs their plain twins", flush=True)
+    for name, sh, dtype in SESSION_HOLDS:
+        B, T, H = sh["B"], sh["T"], sh["H"]
+        (xp, U, h0, c0, mask), _ = lstm_inputs(torch, B, T, H, True, 19,
+                                               device)
+        if dtype is not None:
+            U = U.to(torch.bfloat16)
+        fwd = ct.lstm_tiled_forward if "tiled" in name else cl.lstm_forward
+        got = fwd(xp, U, h0, c0, mask)
+        ref = cl.lstm_forward_reference(xp, U, h0, c0, mask)
+        label = f"{name} B={B} T={T} H={H} masked, non-zero carries"
+        if dtype is None:
+            err = max(held(torch, name, g, r, label, False)
+                      for g, r in zip(got, ref))
+        else:
+            err = held_bf16(got, ref, label, ("ys", "hT", "cT"), 0)
+        print(f"  {label}: ys/hT/cT within {err:.3e} (limit "
+              f"{LSTM_TOL if dtype is None else BF16_TOL})", flush=True)
+
+
+class Counted:
+    """The launches of the runs inside ``with``: every counter set to 0
+    on entry, read on exit; a plain twin run on the card fails the run."""
+
+    def __init__(self, label):
+        self.label = label
+        self.launches = {}
+
+    def __enter__(self):
+        from lstm_tensorspark_torch.kernels import LaunchCounts
+
+        for c in LaunchCounts.every():
+            c.reset()
+        return self
+
+    def __exit__(self, *exc):
+        from lstm_tensorspark_torch.kernels import LaunchCounts
+
+        if exc[0] is not None:
+            return False
+        plain = {c.name: c.reference for c in LaunchCounts.every()
+                 if c.reference}
+        if plain:
+            fail(f"{self.label}: plain twins ran on the card: {plain}")
+        self.launches = {c.name: c.kernel for c in LaunchCounts.every()
+                         if c.kernel}
+        return False
+
+
+def cpu_generate(tgen, params_cpu, cfg, context, n_new):
+    return tgen.generate(params_cpu, [list(context)], cfg,
+                         max_new_tokens=n_new, greedy=True,
+                         device="cpu")[0, len(context):].tolist()
+
+
+def conversations(tgen, params_cpu, cfg, n_conv, turns, first_lens, n_new,
+                  seed):
+    """Each conversation's turn prompts and the CPU plain generate of the
+    whole context before each turn (the tokens that turn must serve)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    V = cfg.vocab_size
+    out = []
+    for i in range(n_conv):
+        context, prompts, refs = [], [], []
+        for t in range(turns):
+            if t == 0:
+                prompt = rng.randint(0, V, size=first_lens[i]).tolist()
+            else:
+                prompt = [refs[-1][-1]] + rng.randint(
+                    0, V, size=int(rng.randint(2, 9))).tolist()
+            context = context + prompt if t == 0 else \
+                context + refs[-1][:-1] + prompt
+            prompts.append(prompt)
+            refs.append(cpu_generate(tgen, params_cpu, cfg, context, n_new))
+        out.append((prompts, refs))
+    return out
+
+
+def run_conversations(server, convs, n_new, label, flush_turns=False):
+    """Serve every conversation's turns in order (a thread each, all
+    concurrent), keeping the session until its last turn; fails unless
+    every turn's tokens equal its reference. Returns the responses.
+    ``flush_turns``: land every spill at each turn boundary."""
+    got = [[None] * len(p) for p, _ in convs]
+    errors = []
+
+    def flush():
+        if not server.engine.tiers.flush(timeout=60):
+            errors.append("the tiers did not flush within 60 s")
+
+    # every conversation finishes a turn before any starts the next, so
+    # the turns after the first find their sessions spread over the tiers.
+    # The worker polls, so without a flush how many spills have landed,
+    # and so how many overflowed to disk, depends on the host's timing:
+    # a flush at the boundary makes the next turn find sessions on disk,
+    # while sessions evicted within a turn still fill from pending spills
+    turn_done = threading.Barrier(len(convs),
+                                  action=flush if flush_turns else None)
+
+    def one(i):
+        prompts, _ = convs[i]
+        sid = None
+        try:
+            for t, prompt in enumerate(prompts):
+                req = server.generate(
+                    prompt, max_new_tokens=n_new, session_id=sid,
+                    keep_session=t < len(prompts) - 1, timeout=300)
+                sid = req.session_id
+                got[i][t] = req
+                turn_done.wait(300)
+        except Exception as e:  # noqa: BLE001 — reported below
+            turn_done.abort()
+            errors.append(f"conversation {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(convs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{label}: {errors or 'a conversation did not finish'}")
+    for i, (prompts, refs) in enumerate(convs):
+        for t, ref in enumerate(refs):
+            if got[i][t].tokens != ref:
+                fail(f"{label}: conversation {i} turn {t + 1}: served "
+                     f"{got[i][t].tokens} != the CPU plain generate of the "
+                     f"whole context {ref}")
+    return got
+
+
+def tier_line(stats):
+    tiers = stats["tiers"]
+    return (f"fills host {tiers['fills']['host']} (of them from a pending "
+            f"spill {tiers['fills_pending']}), disk {tiers['fills']['disk']};"
+            f" spills host {tiers['spills']['host']}, disk "
+            f"{tiers['spills']['disk']}; misses {tiers['misses']}, lost "
+            f"{tiers['lost']}; spill ms mean "
+            f"{1e3 * tiers['spill_seconds']['sum'] / max(1, tiers['spill_seconds']['count']):.3f}"
+            f" max {1e3 * tiers['spill_seconds']['max']:.3f}; fill ms mean "
+            f"{1e3 * tiers['fill_seconds']['sum'] / max(1, tiers['fill_seconds']['count']):.3f}"
+            f" max {1e3 * tiers['fill_seconds']['max']:.3f}")
+
+
+def multi_turn_phase(torch, tlm, tgen, serve, device, compute_dtype):
+    print(f"== phase 19a: {SESSION_CONVS} conversations x {SESSION_TURNS} "
+          f"turns at config 1 in {compute_dtype} over 8 slots, a host tier "
+          "of 8 and a disk tier", flush=True)
+    import dataclasses
+
+    import numpy as np
+
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG1)
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    rng = np.random.RandomState(7)
+    firsts = rng.randint(4, 25, size=SESSION_CONVS).tolist()
+    convs = conversations(tgen, params_cpu, cfg, SESSION_CONVS, SESSION_TURNS,
+                          firsts, SESSION_NEW, 19)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sessions_")
+    atexit.register(shutil.rmtree, tmp, True)
+    engine = serve.ServeEngine(params_cpu, cfg, device=device, num_slots=8,
+                               rng_seed=0, prefix_cache=True,
+                               tiered_cache=True, host_tier_entries=8,
+                               session_dir=tmp)
+    server = serve.ServeServer(engine, max_active=8)
+    server.warmup(prompt_lens=tuple(sorted({len(p) for ps, _ in convs
+                                            for p in ps})))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Counted(f"phase 19a {compute_dtype}") as counted:
+        with server:
+            run_conversations(server, convs, SESSION_NEW,
+                              f"phase 19a {compute_dtype}", flush_turns=True)
+    wall = time.perf_counter() - t0
+    stats = server.stats()
+    fills = stats["engine"]["tiers"]["fills"]
+    continued = SESSION_CONVS * (SESSION_TURNS - 1)
+    in_slot = continued - fills["host"] - fills["disk"]
+    if stats["engine"]["tiers"]["misses"] or in_slot < 0:
+        fail(f"phase 19a {compute_dtype}: a continuation missed its state:"
+             f" {stats['engine']['tiers']}")
+    if not fills["host"] or not fills["disk"]:
+        fail(f"phase 19a {compute_dtype}: no continuation filled from "
+             f"{'host RAM' if not fills['host'] else 'disk'}: {fills}")
+    print(f"  {SESSION_CONVS * SESSION_TURNS} turns in {wall:.3f} s, every "
+          f"turn identical to the CPU plain generate of its whole context; "
+          f"{continued} continuations: {in_slot} from their device slot, "
+          f"{tier_line(stats['engine'])}; launches {counted.launches}",
+          flush=True)
+    return counted.launches
+
+
+def prefix_burst(server, prompts, warm, n_new):
+    """The warm request (it inserts the shared prefix), then the prompts
+    concurrently; returns (responses, TTFT ms of each)."""
+    server.generate(warm, max_new_tokens=n_new, timeout=300)
+    out = [None] * len(prompts)
+
+    def one(i):
+        out[i] = server.generate(prompts[i], max_new_tokens=n_new,
+                                 timeout=300)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if any(r is None for r in out):
+        fail("phase 19b: a request failed")
+    return out, sorted(1e3 * (r.t_first_token - r.t_submit) for r in out)
+
+
+def percentile(xs, q):
+    return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+
+
+def shared_prefix_phase(torch, tlm, tgen, serve, draft_config, device):
+    print(f"== phase 19b: {PREFIX_PROMPTS} prompts sharing a "
+          f"{PREFIX_SHARED}-token prefix, prefix cache off, on, and on with "
+          "speculative windows", flush=True)
+    import numpy as np
+
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG1)
+    rng = np.random.RandomState(21)
+    shared = rng.randint(0, cfg.vocab_size, size=PREFIX_SHARED).tolist()
+    # the warm request's prompt ends within a stride of the shared prefix,
+    # so its one insert is the shared prefix itself
+    warm = shared + rng.randint(0, cfg.vocab_size, size=8).tolist()
+    prompts = [shared + rng.randint(0, cfg.vocab_size,
+                                    size=int(rng.randint(8, 25))).tolist()
+               for _ in range(PREFIX_PROMPTS)]
+    n_new = 16
+    refs = [cpu_generate(tgen, params_cpu, cfg, p, n_new) for p in prompts]
+    dcfg = draft_config(cfg)
+    dparams = tlm.init_lm(torch.Generator().manual_seed(1), dcfg)
+    launches, rows = {}, {}
+    for mode in ("off", "on", "on+speculative"):
+        engine = serve.ServeEngine(params_cpu, cfg, device=device,
+                                   num_slots=32, rng_seed=0,
+                                   prefix_cache=mode != "off")
+        kw = {}
+        if mode.endswith("speculative"):
+            engine.attach_draft(dparams, dcfg)
+            kw = {"speculative": True, "spec_ladder": (2, 4)}
+        server = serve.ServeServer(engine, max_active=16, **kw)
+        server.warmup(prompt_lens=tuple(sorted({len(p) for p in prompts}
+                                               | {len(warm)})))
+        torch.cuda.synchronize()
+        with Counted(f"phase 19b {mode}") as counted:
+            with server:
+                out, ttft = prefix_burst(server, prompts, warm, n_new)
+        for i, r in enumerate(out):
+            if r.tokens != refs[i]:
+                fail(f"phase 19b prefix {mode}: request {i}: served "
+                     f"{r.tokens} != the CPU plain generate {refs[i]}")
+        for k, v in counted.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        st = server.stats()
+        px = st["engine"]["prefix_cache"] or {}
+        rows[mode] = (px.get("hits", 0), st["batcher"]["prefix_tokens_saved"])
+        print(f"  prefix cache {mode}: tokens identical to the CPU plain "
+              f"generate; hits {px.get('hits', 0)}, misses "
+              f"{px.get('misses', 0)}, inserts {px.get('inserts', 0)}, "
+              f"prefix_tokens_saved {st['batcher']['prefix_tokens_saved']}, "
+              f"prefill tokens computed "
+              f"{st['batcher']['prefill_tokens_computed']}; TTFT ms p50 "
+              f"{percentile(ttft, 50):.3f} p99 {percentile(ttft, 99):.3f}; "
+              f"spec windows {st['batcher']['spec_windows_dispatched']}; "
+              f"launches {counted.launches}", flush=True)
+    if rows["on"][0] < PREFIX_PROMPTS or rows["on"][1] < (
+            PREFIX_PROMPTS * PREFIX_SHARED):
+        fail(f"phase 19b: the prompts did not resume from the shared prefix "
+             f"(hits, tokens saved) = {rows['on']}")
+    return launches
+
+
+def long_prompt_phase(torch, tlm, tgen, serve, device):
+    print(f"== phase 19c: prompts of {', '.join(map(str, LONG_PROMPTS))} "
+          f"tokens chunked at {LONG_CHUNK} beside {SHORT_SESSIONS} decoding "
+          "sessions", flush=True)
+    import numpy as np
+
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG1)
+    rng = np.random.RandomState(23)
+    V = cfg.vocab_size
+    longs = [rng.randint(0, V, size=t).tolist() for t in LONG_PROMPTS]
+    shorts = [rng.randint(0, V, size=int(rng.randint(4, 13))).tolist()
+              for _ in range(SHORT_SESSIONS)]
+    n_long, n_short = 8, 96
+    long_refs = [cpu_generate(tgen, params_cpu, cfg, p, n_long)
+                 for p in longs]
+    short_refs = [cpu_generate(tgen, params_cpu, cfg, p, n_short)
+                  for p in shorts]
+    engine = serve.ServeEngine(params_cpu, cfg, device=device, num_slots=32,
+                               rng_seed=0, prefix_cache=True,
+                               tiered_cache=True)
+    server = serve.ServeServer(engine, max_active=16,
+                               prefill_chunk=LONG_CHUNK)
+    server.warmup(prompt_lens=tuple(sorted({len(p) for p in longs + shorts})))
+    torch.cuda.synchronize()
+    b = server.batcher
+    with Counted("phase 19c") as counted:
+        with server:
+            short_reqs = [serve.Request(p, n_short) for p in shorts]
+            for r in short_reqs:
+                b.submit(r)
+            t_end = time.perf_counter() + 60
+            while not all(r.t_first_token for r in short_reqs):
+                if time.perf_counter() > t_end:
+                    fail("phase 19c: the short sessions did not start")
+                time.sleep(0.001)
+            chunks0 = b.prefill_chunks_dispatched
+            t_long = time.perf_counter()
+            long_reqs = [serve.Request(p, n_long) for p in longs]
+            for r in long_reqs:
+                b.submit(r)
+            for r in short_reqs + long_reqs:
+                if not r.done.wait(300):
+                    fail("phase 19c: a request did not finish")
+            chunks = b.prefill_chunks_dispatched - chunks0
+    for r, ref, what in [(r, ref, "long") for r, ref in zip(long_reqs,
+                                                             long_refs)] + \
+            [(r, ref, "short") for r, ref in zip(short_reqs, short_refs)]:
+        if r.error is not None or r.tokens != ref:
+            fail(f"phase 19c: a {what} request: {r.error or r.tokens} != "
+                 f"the CPU plain generate {ref}")
+    t_prefilled = max(r.t_first_token for r in long_reqs)
+    gaps = [b2 - a for r in short_reqs
+            for a, b2 in zip(r.t_tokens, r.t_tokens[1:])
+            if t_long <= a < t_prefilled]
+    ttft = [1e3 * (r.t_first_token - r.t_submit) for r in long_reqs]
+    print(f"  tokens identical to the CPU plain generate; {chunks} head-less "
+          f"chunk dispatches for the long prompts; their TTFT ms "
+          f"{', '.join(f'{t:.3f}' for t in ttft)}; the short sessions' "
+          f"largest gap between tokens while they prefilled "
+          f"{1e3 * max(gaps, default=0.0):.3f} ms; launches "
+          f"{counted.launches}", flush=True)
+    # the long prompts' chunks ride in one batch: the longest sets the count
+    if chunks < max(LONG_PROMPTS) // LONG_CHUNK:
+        fail(f"phase 19c: only {chunks} chunk dispatches")
+    return counted.launches
+
+
+def boot_serve(cmd, label):
+    """Start the serve command; returns (process, port, boot s)."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    lines, port = [], None
+    t0 = time.perf_counter()
+    while port is None:
+        line = proc.stdout.readline()
+        if not line:
+            fail(f"{label}: serve exited {proc.wait()} before serving: "
+                 + "".join(lines)[-3000:])
+        lines.append(line)
+        if line.startswith("serving on http://"):
+            port = int(line.split()[2].rsplit(":", 1)[1])
+        if time.perf_counter() - t0 > SERVE_BOOT_LIMIT_S:
+            proc.kill()
+            fail(f"{label}: serve did not boot in {SERVE_BOOT_LIMIT_S} s")
+    # drain the rest of its output so the pipe never fills
+    threading.Thread(target=proc.stdout.read, daemon=True).start()
+    return proc, port, time.perf_counter() - t0
+
+
+def get_stats(port):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/v1/stats")
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def post_all(port, bodies):
+    out = [None] * len(bodies)
+
+    def one(i):
+        out[i] = post(port, bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    return out
+
+
+def restart_phase(torch, tlm, tgen, serve, device):
+    print(f"== phase 19d: {RESTART_SESSIONS} kept sessions over HTTP across "
+          "a SIGKILL of `serve --http --session-dir` and a boot on the same "
+          "directory", flush=True)
+    import signal
+
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG1)
+    n_new = 12
+    convs = conversations(tgen, params_cpu, cfg, RESTART_SESSIONS, 2,
+                          (5, 11, 19, 30), n_new, 29)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    atexit.register(shutil.rmtree, tmp, True)
+    cmd = [sys.executable, "-m", "lstm_tensorspark_torch", "serve", "--http",
+           "--port", "0", "--vocab-size", str(cfg.vocab_size),
+           "--hidden-units", str(cfg.hidden_size), "--num-layers",
+           str(cfg.num_layers), "--compute-dtype", "float32", "--seed", "0",
+           "--num-slots", "16", "--prefill-buckets", "8,16,32,64",
+           "--batch-buckets", "1,2,4,8", "--session-dir", tmp,
+           "--device", device.type]
+    launches = {}
+
+    def burst(port, turn, sids):
+        before = get_stats(port)["engine"]["launch_counts"]
+        bodies = [{"prompt": prompts[turn], "max_new_tokens": n_new,
+                   "greedy": True, "keep_session": turn == 0,
+                   **({} if sids is None else {"session_id": sids[i]})}
+                  for i, (prompts, _) in enumerate(convs)]
+        out = post_all(port, bodies)
+        after = get_stats(port)
+        for k, v in after["engine"]["launch_counts"].items():
+            launches[k] = launches.get(k, 0) + v - before.get(k, 0)
+        for i, r in enumerate(out):
+            if r is None or r[0] != 200:
+                fail(f"phase 19d turn {turn + 1}: request {i} failed: {r}")
+            if r[1]["tokens"] != convs[i][1][turn]:
+                fail(f"phase 19d turn {turn + 1}: session {i}: served "
+                     f"{r[1]['tokens']} != the uninterrupted run "
+                     f"{convs[i][1][turn]}")
+        return [r[1]["session_id"] for r in out], after
+
+    proc, port, boot1 = boot_serve(cmd, "phase 19d (first boot)")
+    try:
+        sids, _ = burst(port, 0, None)
+        paths = [serve.session_file_path(tmp, sid) for sid in sids]
+        t_end = time.perf_counter() + 30
+        while not all(os.path.exists(p) for p in paths):
+            if time.perf_counter() > t_end:
+                fail("phase 19d: the kept sessions' files were not written")
+            time.sleep(0.01)
+        waited = 30 - (t_end - time.perf_counter())
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(30)
+    proc, port, boot2 = boot_serve(cmd, "phase 19d (second boot)")
+    try:
+        _, stats = burst(port, 1, sids)
+    finally:
+        proc.send_signal(2)
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    tiers = stats["engine"]["tiers"]
+    if tiers["fills"]["disk"] != RESTART_SESSIONS:
+        fail(f"phase 19d: {tiers['fills']} fills after the restart, expected "
+             f"{RESTART_SESSIONS} from disk")
+    print(f"  booted in {boot1:.1f} s, files after {waited:.3f} s, SIGKILL, "
+          f"booted again in {boot2:.1f} s: every continued session identical"
+          f" to the uninterrupted run; {tier_line(stats['engine'])}; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def config3_sessions_phase(torch, tlm, tgen, serve, device):
+    print("== phase 19e: 4 conversations x 2 turns at config 3's width in "
+          f"bf16, one of 200 tokens, chunked at {LONG_CHUNK}", flush=True)
+    import dataclasses
+
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG3)
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    convs = conversations(tgen, params_cpu, cfg, 4, 2, (200, 9, 17, 24), 8,
+                          31)
+    engine = serve.ServeEngine(params_cpu, cfg, device=device, num_slots=8,
+                               rng_seed=0, prefix_cache=True,
+                               tiered_cache=True)
+    server = serve.ServeServer(engine, max_active=4, prefill_chunk=LONG_CHUNK)
+    server.warmup(prompt_lens=tuple(sorted({len(p) for ps, _ in convs
+                                            for p in ps})))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Counted("phase 19e") as counted:
+        with server:
+            run_conversations(server, convs, 8, "phase 19e")
+    st = server.stats()
+    print(f"  8 turns in {time.perf_counter() - t0:.3f} s, identical to the "
+          f"CPU plain generate in bf16 of each whole context; "
+          f"{st['batcher']['prefill_chunks_dispatched']} head-less chunks; "
+          f"launches {counted.launches}", flush=True)
+    return counted.launches
+
+
+def phase19(torch, tlm, tgen, cl, ct, serve, draft_config, device):
+    """Phase 19 (holds, a-e); returns the launches of its runs by
+    counter, and fails unless each of SESSION_KERNELS launched."""
+    t0 = time.perf_counter()
+    timed(session_holds_phase, torch, cl, ct, device)
+    launches = {}
+    for got in (timed(multi_turn_phase, torch, tlm, tgen, serve, device,
+                      "float32"),
+                timed(multi_turn_phase, torch, tlm, tgen, serve, device,
+                      "bfloat16"),
+                timed(shared_prefix_phase, torch, tlm, tgen, serve,
+                      draft_config, device),
+                timed(long_prompt_phase, torch, tlm, tgen, serve, device),
+                timed(restart_phase, torch, tlm, tgen, serve, device),
+                timed(config3_sessions_phase, torch, tlm, tgen, serve,
+                      device)):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    missing = [k for k in SESSION_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"phase 19: {missing} launched no time ({launches})")
+    print(f"  phase 19: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def timed(fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -4469,6 +5043,8 @@ def main() -> int:
     serve_rows = timed(phase17, torch, cli, tlm, tgen, cd, cs, cl, ct, serve,
                        draft_config, device)
     config4_launches = phase18(torch, cli, cl, cx, ct, device, host)
+    session_launches = phase19(torch, tlm, tgen, cl, ct, serve, draft_config,
+                               device)
     for k, v in config4_launches.items():
         if k in bf16_launches:
             bf16_launches[k] += v
@@ -4530,7 +5106,7 @@ def main() -> int:
                  for name in bf16_launches]
     bf16_rows += [bf16_row(name, bf16x_timings[name], bf16x_launches[name])
                   for name in BF16X_ROWS]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "decode_window",
         "route": "cuda",
         "source": "lstm_tensorspark_torch/csrc/decode_window.cu",
@@ -4554,8 +5130,15 @@ def main() -> int:
         "bound_ms": spec_timings["config1"]["bound_ms"],
         "bound_by": spec_timings["config1"]["bound_by"],
         "library_ms": None,
-    }] + lstm_rows + lstmx_rows + tiled_rows + bf16_rows + serve_rows}),
-          flush=True)
+    }] + lstm_rows + lstmx_rows + tiled_rows + bf16_rows + serve_rows
+    # phase 19 drives the serve path again: its launches join the rows
+    by_name = {r["name"]: r for r in rows}
+    stray = set(session_launches) - set(by_name)
+    if stray:
+        fail(f"phase 19 launched kernels the report has no row of: {stray}")
+    for name, n in session_launches.items():
+        by_name[name]["launches"] += n
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4848,9 +5431,31 @@ def forecast() -> int:
     return 0
 
 
+def sessions() -> int:
+    """Phase 19 alone, from the checkout in the working directory (the
+    serve path's kernels built first); prints its launches."""
+    torch, dev = _checkout("sessions")
+    from lstm_tensorspark_torch import kernels, serve
+    from lstm_tensorspark_torch.models import generate as tgen
+    from lstm_tensorspark_torch.models import lstm_lm as tlm
+    from lstm_tensorspark_torch.ops import cuda_lstm as cl
+    from lstm_tensorspark_torch.ops import cuda_lstm_tiled as ct
+    from lstm_tensorspark_torch.train.distill import draft_config
+
+    built = kernels.build(["decode_window", "decode_window_bf16",
+                           "spec_window", "lstm_fwd", "lstm_tiled_fwd"])
+    print(f"phase 19 ({os.getcwd()}; {card_line()}); serve kernels built "
+          f"in {built:.1f} s", flush=True)
+    print(json.dumps(phase19(torch, tlm, tgen, cl, ct, serve, draft_config,
+                             dev)), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--forecast"]:
         sys.exit(forecast())
+    if sys.argv[1:] == ["--sessions"]:
+        sys.exit(sessions())
     for flag, fn in (("--train-calls", train_calls),
                      ("--bf16", bf16),
                      ("--windows", windows),

@@ -36,6 +36,14 @@
 - ``serve --http`` warms the engine and serves ``POST /v1/generate``,
   ``GET /healthz`` and ``GET /v1/stats`` until interrupted.
 
+Serving runs as JAX's ``cli serve`` does by default: the prefix cache on
+(``--prefix-cache``, ``--prefix-stride``, ``--prefix-entries``) and the
+tiered session cache on (``--tiered-cache``, ``--host-tier-entries``);
+``--session-dir`` adds the disk tier and the kept sessions' checkpoints (a
+server restarted on it continues them), ``--prefill-chunk N`` consumes
+prompts N tokens a dispatch and serves prompts longer than the largest
+prefill bucket.
+
 Serve weights come from ``--checkpoint-dir`` (the newest valid
 checkpoint: the port's ``step_<N>.pt`` or the JAX package's
 ``step_<N>.msgpack``; a directory whose checkpoints are all corrupt is
@@ -122,6 +130,44 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--spec-k", type=int, default=None,
                    help="initial K_draft (a --spec-ladder rung or 0; "
                         "default: the top rung)")
+    p.add_argument("--prefix-cache", type=str, default="on",
+                   choices=["on", "off"],
+                   help="shared-prompt prefix-state cache: fresh prompts "
+                        "resume prefill from the longest cached prefix (an "
+                        "LSTM prefix state is one (h, c) pair: reuse is a "
+                        "slot copy). Greedy output is token-identical on or "
+                        "off; 'off' frees the backing slots")
+    p.add_argument("--prefix-stride", type=int, default=8,
+                   help="prefix-cache insert granularity (tokens): entries "
+                        "live at stride-aligned prompt lengths")
+    p.add_argument("--prefix-entries", type=int, default=16,
+                   help="max cached prefix entries (each holds one "
+                        "state-cache slot; LRU beyond this)")
+    p.add_argument("--tiered-cache", type=str, default="on",
+                   choices=["on", "off"],
+                   help="tiered session-state cache: evicted session states "
+                        "spill asynchronously to host RAM, with a durable "
+                        "disk tier below (--session-dir); continuations of "
+                        "spilled sessions fill back instead of failing "
+                        "'expired'. 'off' keeps the fixed-slot behaviour "
+                        "(evicted = expired)")
+    p.add_argument("--host-tier-entries", type=int, default=256,
+                   help="max spilled session states held in host RAM; "
+                        "overflow cascades to --session-dir or is dropped")
+    p.add_argument("--session-dir", type=str, default=None,
+                   help="disk tier and serve-session checkpoints: kept "
+                        "sessions are written behind here at each request "
+                        "boundary (sha256-verified atomic files), so a "
+                        "killed and restarted server continues them "
+                        "token-identically; also the overflow tier below "
+                        "--host-tier-entries. Implies the tiered cache even "
+                        "with --tiered-cache off")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="chunked prefill: consume prompts <= N tokens a "
+                        "dispatch, at most one prefill dispatch a scheduler "
+                        "iteration, which bounds how long a long prompt "
+                        "stalls running sessions and lifts the "
+                        "prompt-length cap. 0 = off")
     p.add_argument("--max-new-tokens", type=int, default=16)
     p.add_argument("--sessions", type=int, default=8,
                    help="--selftest: concurrent sessions")
@@ -213,6 +259,15 @@ def _build_serve_stack(args):
     from .serve import ServeEngine, ServeServer
     from .train.distill import draft_config
 
+    chunk = args.prefill_chunk or None
+    if (chunk is not None and chunk > 0 and args.prefix_cache == "on"
+            and chunk % args.prefix_stride != 0
+            and args.prefix_stride % chunk != 0):
+        # the batcher's own rule, checked before the weights are made
+        raise SystemExit(
+            f"--prefill-chunk {chunk} must be a multiple or divisor of "
+            f"--prefix-stride {args.prefix_stride} (chunk stops are "
+            "stride-aligned prefix insert points), or use --prefix-cache off")
     cfg = LMConfig(vocab_size=args.vocab_size, hidden_size=args.hidden_units,
                    num_layers=args.num_layers,
                    tie_embeddings=args.tie_embeddings,
@@ -221,12 +276,22 @@ def _build_serve_stack(args):
     params = init_lm(gen, cfg)
     if args.checkpoint_dir:
         params = _checkpoint_params(args, params)
-    engine = ServeEngine(
-        params, cfg, device=args.device, num_slots=args.num_slots,
-        prefill_buckets=_parse_buckets(args.prefill_buckets,
-                                       "--prefill-buckets"),
-        batch_buckets=_parse_buckets(args.batch_buckets, "--batch-buckets"),
-        rng_seed=args.seed)
+    try:
+        engine = ServeEngine(
+            params, cfg, device=args.device, num_slots=args.num_slots,
+            prefill_buckets=_parse_buckets(args.prefill_buckets,
+                                           "--prefill-buckets"),
+            batch_buckets=_parse_buckets(args.batch_buckets,
+                                         "--batch-buckets"),
+            rng_seed=args.seed,
+            prefix_cache=args.prefix_cache == "on",
+            prefix_stride=args.prefix_stride,
+            prefix_entries=args.prefix_entries,
+            tiered_cache=args.tiered_cache == "on",
+            host_tier_entries=args.host_tier_entries,
+            session_dir=args.session_dir)
+    except ValueError as e:  # e.g. --prefix-stride 0
+        raise SystemExit(f"serve: {e}")
     spec_kw = {}
     if args.speculative:
         dcfg = draft_config(cfg)
@@ -238,7 +303,8 @@ def _build_serve_stack(args):
     try:
         server = ServeServer(
             engine, max_active=args.max_active, queue_size=args.queue_size,
-            window_ladder=_parse_window_ladder(args.decode_window), **spec_kw)
+            window_ladder=_parse_window_ladder(args.decode_window),
+            prefill_chunk=chunk, **spec_kw)
     except ValueError as e:  # e.g. --spec-k off the ladder
         raise SystemExit(f"serve: {e}")
     return params, cfg, server

@@ -37,6 +37,20 @@ Port of the single-device, single-model part of
   the verify pass. ``spec_window_next`` chains from device handles as
   ``decode_window_next`` does.
 
+**Sessions and prefixes** — prefill items are ``(dst_slot, src_slot,
+fresh, prompt)`` quads (a ``(slot, fresh, prompt)`` triple means src ==
+dst): each row's carries are gathered from ``src`` (a prefix-cache slot
+for a resumed prefill, the session's own slot otherwise, zero when
+``fresh``) and the advanced carries are written to ``dst``. The gather
+copies before anything is written, so a refcounted prefix slot is only
+ever read. ``prefill_chunk`` runs an intermediate chunk of a long prompt:
+the same body without the head. With ``prefix_cache`` the engine owns a
+:class:`~.state_cache.PrefixCache` (``prefix``); with ``tiered_cache`` or
+a ``session_dir`` a :class:`~.state_cache.SessionTiers` (``tiers``):
+evicted sessions spill to host RAM and to disk and fill back. The cache
+stays float32 in both compute dtypes, so a session file holds the same
+bytes whichever dtype served it.
+
 Every host-visible batch is padded to a bucket: prompts to a length
 bucket, batches to a batch bucket with dead rows at the cache's scratch
 slot. Sampling: greedy, or temperature sampling by Gumbel-argmax with noise
@@ -61,7 +75,7 @@ from ..models.lstm_lm import (LMConfig, _head_kernel, head_logits,
 from ..ops import cuda_decode, cuda_spec
 from ..ops.cuda_lstm import counts_of
 from ..ops.cuda_decode import PAD_TOKEN
-from .state_cache import StateCache
+from .state_cache import DetachedState, PrefixCache, SessionTiers, StateCache
 
 __all__ = ["PAD_TOKEN", "GREEDY", "SamplingParams", "DecodeWindow",
            "ServeEngine"]
@@ -128,7 +142,13 @@ class ServeEngine:
                  num_slots: int = 64,
                  prefill_buckets: tuple[int, ...] = (8, 16, 32, 64, 128),
                  batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16),
-                 rng_seed: int = 0):
+                 rng_seed: int = 0,
+                 prefix_cache: bool = False,
+                 prefix_stride: int = 8,
+                 prefix_entries: int = 16,
+                 tiered_cache: bool = False,
+                 host_tier_entries: int = 256,
+                 session_dir: str | None = None):
         self.device = resolve_device(device)
         configure_precision()
         # serving never rematerialises (the same override as generate())
@@ -144,12 +164,25 @@ class ServeEngine:
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.cache = StateCache(cfg.num_layers, num_slots, cfg.hidden_size,
                                 device=self.device)
+        # a session_dir alone implies the tiers: durability needs the
+        # spill plane
+        self.tiers = (
+            SessionTiers(self.cache, host_entries=host_tier_entries,
+                         directory=session_dir)
+            if (tiered_cache or session_dir is not None) else None)
+        # with tiers attached, an evicted backing slot spills the entry
+        # instead of invalidating it
+        self.prefix = (
+            PrefixCache(self.cache, stride=prefix_stride,
+                        max_entries=prefix_entries, tiers=self.tiers)
+            if prefix_cache else None)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
         self._lock = threading.RLock()
         self._counts_lock = threading.Lock()
-        self.dispatches = {"prefill": 0, "decode": 0, "decode_window": 0,
-                           "draft_prefill": 0, "spec_window": 0}
+        self.dispatches = {"prefill": 0, "prefill_chunk": 0, "decode": 0,
+                           "decode_window": 0, "draft_prefill": 0,
+                           "spec_window": 0}
         # speculative serving: the draft's weights and config, and its
         # per-slot state (attach_draft)
         self.draft: dict | None = None
@@ -220,13 +253,15 @@ class ServeEngine:
         with self._counts_lock:
             self.dispatches[phase] += 1
 
-    def _to_device(self, slots: np.ndarray, *rows: np.ndarray):
+    def _to_device(self, slots: np.ndarray, *rows: np.ndarray,
+                   n_index: int = 1):
         """Host slot indices + int32 rows → device tensors in ONE
-        host-to-device copy; the slots come back int64 (the index type of
-        ``index_select``/``index_copy_``)."""
+        host-to-device copy; the first ``n_index`` rows (slot indices) come
+        back int64, the index type of ``index_select``/``index_copy_``."""
         packed = torch.from_numpy(np.stack([slots, *rows]).astype(np.int32))
         out = list(packed.to(self.device).unbind(0))
-        out[0] = out[0].to(torch.long)
+        for i in range(n_index):
+            out[i] = out[i].to(torch.long)
         return out
 
     def _noise(self, shape) -> torch.Tensor:
@@ -234,33 +269,55 @@ class ServeEngine:
 
     # ---- prefill ---------------------------------------------------------
 
+    @staticmethod
+    def _norm_prefill_items(items):
+        """Prefill items as ``(dst_slot, src_slot, fresh, prompt)`` quads;
+        a ``(slot, fresh, prompt)`` triple prefills in place (src == dst)."""
+        out = []
+        for it in items:
+            if len(it) == 3:
+                slot, fresh, prompt = it
+                out.append((slot, slot, fresh, prompt))
+            else:
+                out.append(tuple(it))
+        return out
+
     def _pack_prefill(self, items):
+        """Pad normalised items to the (batch, length) buckets: ``(src,
+        dst, fresh, lens, prompts, n)`` host arrays. Final and intermediate
+        chunks share one length-bucket lattice (``prefill_buckets``)."""
         n = len(items)
-        lengths = [int(np.asarray(p).size) for _, _, p in items]
+        lengths = [int(np.asarray(p).size) for _, _, _, p in items]
         if min(lengths) < 1:
             raise ValueError("empty prompt")
         batch_b = _bucket_for(n, self.batch_buckets, "prefill batch")
         len_b = _bucket_for(max(lengths), self.prefill_buckets, "prompt length")
-        slots = np.full((batch_b,), self.cache.scratch_slot, np.int32)
+        scratch = self.cache.scratch_slot
+        src = np.full((batch_b,), scratch, np.int32)
+        dst = np.full((batch_b,), scratch, np.int32)
         fresh = np.ones((batch_b,), np.int32)
         lens = np.ones((batch_b,), np.int32)
         prompts = np.zeros((batch_b, len_b), np.int32)
-        for i, (slot, is_fresh, prompt) in enumerate(items):
+        for i, (d, sl, is_fresh, prompt) in enumerate(items):
             p = np.asarray(prompt, np.int32).reshape(-1)
-            slots[i], fresh[i], lens[i] = slot, bool(is_fresh), p.size
+            dst[i], src[i], fresh[i], lens[i] = d, sl, bool(is_fresh), p.size
             prompts[i, :p.size] = p
-        return slots, fresh, lens, prompts, n
+        return src, dst, fresh, lens, prompts, n
 
     def _consume(self, params, cfg: LMConfig, cache: StateCache, items):
-        """The prefill body both models share: gather each row's carries
-        by slot (fresh rows from zero), run the masked ``lm_backbone`` over
-        the right-padded prompts (the mask freezes carries at padded steps)
-        and scatter the advanced carries back. Returns ``(ys [B, T, H],
-        lengths [B] on the device, n)``."""
-        slots, fresh, lens, prompts, n = self._pack_prefill(items)
-        slots_d, fresh_d, lens_d = self._to_device(slots, fresh, lens)
+        """The prefill body every prefill shares: gather each row's carries
+        from its src slot (fresh rows from zero), run the masked
+        ``lm_backbone`` over the right-padded prompts (the mask freezes
+        carries at padded steps) and scatter the advanced carries to the
+        dst slots. The gather copies first, so a prefix slot read here is
+        never written. Returns ``(ys [B, T, H], lengths [B] on the device,
+        n)``."""
+        src, dst, fresh, lens, prompts, n = self._pack_prefill(
+            self._norm_prefill_items(items))
+        src_d, dst_d, fresh_d, lens_d = self._to_device(src, dst, fresh, lens,
+                                                        n_index=2)
         prompts_d = torch.from_numpy(prompts).to(self.device)
-        h_in, c_in = cache.read_slots(slots_d)
+        h_in, c_in = cache.read_slots(src_d)
         live = (fresh_d == 0)[None, :, None]
         h_in = torch.where(live, h_in, torch.zeros_like(h_in))
         c_in = torch.where(live, c_in, torch.zeros_like(c_in))
@@ -269,16 +326,18 @@ class ServeEngine:
                 < lens_d[:, None])
         finals, ys = lm_backbone(params, prompts_d, cfg, carries=carries,
                                  mask=mask, plain_rounding=True)
-        cache.write_slots(slots_d, torch.stack([f[0] for f in finals]),
+        cache.write_slots(dst_d, torch.stack([f[0] for f in finals]),
                           torch.stack([f[1] for f in finals]))
         return ys, lens_d, n
 
     @torch.no_grad()
     def prefill(self, items, sampling: SamplingParams = GREEDY) -> np.ndarray:
-        """Run one bucketed prefill batch. ``items`` are ``(slot, fresh,
-        prompt)`` triples (``prompt`` 1-D int, 1..max_prompt_len tokens;
-        ``fresh`` rows start from zero carries). Returns the first sampled
-        token per item, ``[len(items)]`` int32."""
+        """Run one bucketed prefill batch: the final (or only) chunk of
+        each row's prompt, ending with the head and the sampler. ``items``
+        are ``(slot, fresh, prompt)`` triples or ``(dst_slot, src_slot,
+        fresh, prompt)`` quads (``prompt`` 1-D int, 1..max_prompt_len
+        tokens; ``fresh`` rows start from zero carries). Returns the first
+        sampled token per item, ``[len(items)]`` int32."""
         if len(items) == 0:
             return np.zeros((0,), np.int32)
         self.check_sampling(sampling)
@@ -297,12 +356,29 @@ class ServeEngine:
         return out[:n]
 
     @torch.no_grad()
+    def prefill_chunk(self, items) -> None:
+        """Dispatch one INTERMEDIATE prefill chunk batch: advance each
+        row's state over its chunk tokens and scatter it — no head, no
+        sampling, nothing returned (the final chunk, through
+        :meth:`prefill`, emits the first token). ``items`` as in
+        :meth:`prefill`."""
+        if len(items) == 0:
+            return
+        with self._lock:
+            self._consume(self.params, self.cfg, self.cache, items)
+            self._count("prefill_chunk")
+
+    @torch.no_grad()
     def draft_prefill(self, items) -> None:
-        """Advance the draft's slot state over prompts, as :meth:`prefill`
-        advances the target's (the same masked body, no head): the batcher
-        mirrors every prefill dispatch with one of these, so the draft's
-        carries track the context each session consumed. ``items`` are
-        ``(slot, fresh, prompt)`` triples. Enqueued, nothing returned."""
+        """Advance the draft's slot state over prompt fragments, as
+        :meth:`prefill_chunk` advances the target's: the batcher mirrors
+        every prefill dispatch (chunks and finals) with one of these, so
+        the draft's carries track the context each session consumed.
+        ``items`` are ``(slot, fresh, fragment)`` triples; ``fresh`` starts
+        the draft from zero (a session's first fragment, prefix-resumed
+        and tier-filled rows included: the draft has no prefix entries or
+        tier copies, and starting cold only lowers acceptance). Enqueued,
+        nothing returned."""
         draft = self._require_draft("draft_prefill")
         if len(items) == 0:
             return
@@ -511,23 +587,32 @@ class ServeEngine:
     def warmup(self, sampling: SamplingParams = GREEDY,
                prompt_lens: tuple[int, ...] = (1,),
                windows: tuple[int, ...] = (1,),
-               spec_windows: tuple[int, ...] = ()) -> int:
-        """Run every (batch bucket x length bucket) prefill, and every
-        (batch bucket x K) decode window once against the scratch slot
-        before traffic: on the card this builds and loads the window
-        kernel, so the first request pays neither. With a draft attached,
+               spec_windows: tuple[int, ...] = (),
+               chunk_lens: tuple[int, ...] = ()) -> int:
+        """Run every (batch bucket x length bucket) prefill, every (batch
+        bucket x length bucket of ``chunk_lens``) intermediate chunk, and
+        every (batch bucket x K) decode window once against the scratch
+        slot before traffic: on the card this builds and loads the
+        kernels, so the first request pays neither. With a draft attached,
         also a draft prefill per length bucket and a speculative window per
-        ``spec_windows`` rung (k_draft >= 1). Returns the number of warm-up
-        dispatches."""
+        ``spec_windows`` rung (k_draft >= 1); with tiers, the fill path's
+        scatters. Returns the number of warm-up dispatches."""
         len_buckets = sorted({_bucket_for(t, self.prefill_buckets,
                                           "prompt length")
                               for t in prompt_lens})
+        chunk_buckets = sorted({_bucket_for(t, self.prefill_buckets,
+                                            "chunk length")
+                                for t in chunk_lens})
         scratch = self.cache.scratch_slot
         runs = 0
         for bb in self.batch_buckets:
             for t in len_buckets:
                 self.prefill([(scratch, True, np.zeros((t,), np.int32))] * bb,
                              sampling)
+                runs += 1
+            for t in chunk_buckets:
+                self.prefill_chunk(
+                    [(scratch, True, np.zeros((t,), np.int32))] * bb)
                 runs += 1
             for k in sorted({1, *windows}):
                 win = self.decode_window([scratch] * bb, [0] * bb, [k] * bb,
@@ -536,7 +621,7 @@ class ServeEngine:
                 runs += 1
             if self.draft is None:
                 continue
-            for t in len_buckets:
+            for t in sorted({*len_buckets, *chunk_buckets}):
                 self.draft_prefill(
                     [(scratch, True, np.zeros((t,), np.int32))] * bb)
                 runs += 1
@@ -545,7 +630,26 @@ class ServeEngine:
                                        [k + 1] * bb, k_draft=k)
                 self.fetch_window(win)
                 runs += 1
+        if self.tiers is not None:
+            self.tiers.warmup_fills(self.max_batch)
         return runs
+
+    # ---- session lifecycle (over the cache) --------------------------------
+
+    def detach_session(self, session_id: str) -> DetachedState:
+        with self._lock:
+            return self.cache.detach(session_id)
+
+    def restore_session(self, session_id: str, state: DetachedState) -> int:
+        with self._lock:
+            return self.cache.restore(session_id, state)
+
+    def has_session(self, session_id: str) -> bool:
+        """True when the session is in a device slot or restorable from a
+        tier (host RAM, disk)."""
+        if session_id in self.cache:
+            return True
+        return self.tiers is not None and self.tiers.has(session_id)
 
     def stats(self) -> dict:
         """The engine's counts. ``kernel_launches`` / ``reference_windows``
@@ -571,6 +675,8 @@ class ServeEngine:
             "launch_counts": {c.name: c.kernel
                               for c in LaunchCounts.every() if c.kernel},
             "cache": self.cache.stats(),
+            "prefix_cache": None if self.prefix is None else self.prefix.stats(),
+            "tiers": None if self.tiers is None else self.tiers.stats(),
             "prefill_buckets": list(self.prefill_buckets),
             "batch_buckets": list(self.batch_buckets),
         }

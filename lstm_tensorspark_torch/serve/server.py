@@ -10,17 +10,24 @@ path both front-ends use:
 - :func:`make_http_server` — a ``ThreadingHTTPServer`` JSON endpoint:
 
   - ``POST /v1/generate`` body ``{"prompt": [ids], "max_new_tokens": N,
-    "greedy": bool, "temperature": t, "eos_id": id, "timeout": s}`` →
-    ``{"tokens": [...], "latency_ms": ..., "ttft_ms": ..., "max_itl_ms":
-    ...}``;
+    "greedy": bool, "temperature": t, "eos_id": id, "timeout": s,
+    "session_id": str, "keep_session": bool, "use_prefix": bool}`` →
+    ``{"tokens": [...], "session_id": ..., "latency_ms": ..., "ttft_ms":
+    ..., "max_itl_ms": ...}``. ``keep_session`` keeps the session's state
+    after the request and returns its id; a later request naming that
+    ``session_id`` continues it (its prompt is the next fragment);
   - ``GET /healthz`` → scheduler liveness (200 ``ok``, 503 ``down``);
-  - ``GET /v1/stats`` (alias ``/stats``) → engine, cache and batcher
-    counters, including the window kernels' launch counts and, when
-    speculative, the spec windows and accepted proposals.
+  - ``GET /v1/stats`` (alias ``/stats``) → engine, cache, prefix-cache,
+    tier and batcher counters, including the window kernels' launch
+    counts and, when speculative, the spec windows and accepted proposals.
 
-  A full queue gets 429; a bad body or an unsupported sampling config
-  (top-k, top-p) gets 400; a scheduler-side failure 500; a client-side
-  wait past ``timeout`` 504.
+  A full queue gets 429; a bad body, a reserved ``session_id`` or an
+  unsupported sampling config (top-k, top-p) gets 400; a scheduler-side
+  failure (an unknown or busy session) 500 ``internal`` with the
+  scheduler's message; a client-side wait past ``timeout`` 504.
+
+:meth:`ServeServer.stop` flushes the engine's tiers, so a clean stop lands
+every kept session's checkpoint on the disk tier.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ class ServeServer:
     def __init__(self, engine: ServeEngine, *, max_active: int = 16,
                  queue_size: int = 64,
                  window_ladder: tuple[int, ...] = Batcher.DEFAULT_WINDOW_LADDER,
+                 prefill_chunk: int | None = None,
                  speculative: bool = False,
                  spec_ladder: tuple[int, ...] = Batcher.DEFAULT_SPEC_LADDER,
                  spec_k: int | None = None):
@@ -51,6 +59,7 @@ class ServeServer:
         self.batcher = Batcher(engine, max_active=max_active,
                                queue_size=queue_size,
                                window_ladder=window_ladder,
+                               prefill_chunk=prefill_chunk,
                                speculative=speculative,
                                spec_ladder=spec_ladder, spec_k=spec_k)
         self._stop = threading.Event()
@@ -77,6 +86,12 @@ class ServeServer:
             if self._thread.is_alive():
                 raise RuntimeError("scheduler thread did not stop")
             self._thread = None
+        tiers = self.engine.tiers
+        if tiers is not None:
+            # the durability barrier: every kept session's write-behind
+            # checkpoint lands before stop returns; then park the worker
+            tiers.flush(timeout=10.0)
+            tiers.close()
 
     def __enter__(self) -> "ServeServer":
         return self.start()
@@ -90,12 +105,18 @@ class ServeServer:
 
     def generate(self, prompt, *, max_new_tokens: int,
                  sampling: SamplingParams = GREEDY, eos_id: int | None = None,
+                 session_id: str | None = None, keep_session: bool = False,
+                 use_prefix: bool = True,
                  timeout: float = 120.0) -> Request:
         """Submit and block until done; returns the filled
-        :class:`Request`. Raises ``ValueError`` (a request the engine will
-        not serve), :class:`QueueFullError`, ``TimeoutError`` (the request
-        is then cancelled), or ``RuntimeError`` on a scheduler failure."""
-        req = Request(prompt, max_new_tokens, sampling=sampling, eos_id=eos_id)
+        :class:`Request` (``.tokens``, ``.session_id``, timestamps). Raises
+        ``ValueError`` (a request the engine will not serve),
+        :class:`QueueFullError`, ``TimeoutError`` (the request is then
+        cancelled), or ``RuntimeError`` on a scheduler failure (an unknown
+        or busy session among them)."""
+        req = Request(prompt, max_new_tokens, sampling=sampling, eos_id=eos_id,
+                      session_id=session_id, keep_session=keep_session,
+                      use_prefix=use_prefix)
         self.batcher.submit(req)
         if not req.done.wait(timeout):
             req.cancelled = True
@@ -192,6 +213,11 @@ class _Handler(BaseHTTPRequestHandler):
             timeout = float(body.get("timeout", 120.0))
             eos_id = body.get("eos_id")
             eos_id = None if eos_id is None else int(eos_id)
+            session_id = body.get("session_id")
+            if session_id is not None and not isinstance(session_id, str):
+                raise ValueError("session_id must be a string")
+            keep_session = bool(body.get("keep_session", False))
+            use_prefix = bool(body.get("use_prefix", True))
         except (KeyError, ValueError, TypeError, json.JSONDecodeError) as e:
             self._error(400, "bad_request", f"bad request: {e}")
             return
@@ -199,6 +225,9 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             req = self._serve.generate(prompt, max_new_tokens=max_new,
                                        sampling=sampling, eos_id=eos_id,
+                                       session_id=session_id,
+                                       keep_session=keep_session,
+                                       use_prefix=use_prefix,
                                        timeout=timeout)
         except QueueFullError as e:
             self._error(429, "queue_full", str(e))
@@ -215,6 +244,7 @@ class _Handler(BaseHTTPRequestHandler):
         gaps = req.itl_gaps()
         self._reply(200, {
             "tokens": list(req.tokens),
+            "session_id": req.session_id,
             "latency_ms": round((time.perf_counter() - t0) * 1e3, 3),
             "ttft_ms": round((req.t_first_token - req.t_submit) * 1e3, 3),
             "max_itl_ms": round(max(gaps) * 1e3, 3) if gaps else None,
