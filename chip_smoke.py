@@ -158,7 +158,8 @@ Phases (each one fails the run):
    launch from the host (config 1 at K=1, K=8 ``--device-data`` and K=8
    ``--prefetch 2``); steps/s, device ms a step and the idle share of
    configs 1, 5 and 2 (with and without remat), eager and captured in
-   turns. Phases 6, 8 and 10 run captured too: their launch counts are
+   turns (in the whole smoke config 1's alone: ``--train-calls`` times
+   them all). Phases 6, 8 and 10 run captured too: their launch counts are
    checked with the warm-up launches taken out, and their profiled steps
    are the runs the CLI builds.
 
@@ -173,7 +174,8 @@ Phases (each one fails the run):
    CPU's plain loop does not), the bf16 forms' launches (and no other
    recurrence kernel, no plain twin), 60 steps at the script's dropout,
    and steps/s, device ms a step and the idle share beside the float32
-   run of the same command, in turns (f32, bf16, bf16, f32);
+   run of the same command, in turns (f32, bf16, bf16, f32; a remat
+   run's turns under ``--bf16 train`` only);
 16. train config 2 in bf16 through the CLI as ``configs/imdb_bilstm.sh``
    runs it (B=32, T=400, H=256, Adam 1e-3, clip 1.0, dropout 0.2,
    ``--remat-chunk 50``: the residentx forward's bf16 form a direction,
@@ -185,7 +187,8 @@ Phases (each one fails the run):
    counter and the plain twins at 0), a 30-step run at the script's
    dropout, and steps/s, device ms a step, the idle share and the device
    ms a step by part beside the float32 run of the same command, in
-   turns;
+   turns (the remat run's under ``--bf16 train`` or ``--bf16 residentx``
+   only);
 17. train, checkpoint, resume and serve that checkpoint in bf16: (a) the
    decode and spec windows' bf16 forms (W and U bfloat16) against their
    plain twins at config 1 (decode B=16, K=8, greedy, sampled and with
@@ -245,10 +248,25 @@ Phases (each one fails the run):
    kept sessions, their files awaited, SIGKILL, a boot on D, the sessions
    continued identical to the uninterrupted run from 4 disk fills; (e)
    config 3's width in bf16, 4 conversations x 2 turns, one of 200 tokens
-   chunked at 64. Its launches join the kernel report's rows.
+   chunked at 64. Its launches join the kernel report's rows;
+20. serve under load as ``cli serve`` runs by default (the router's
+   admission classes and deadlines, the registry): (a) at config 1, f32
+   and bf16, a 1 ms request, then a burst of 32 over HTTP at
+   ``--queue-size 8``, half best_effort, every eighth with a deadline it
+   cannot meet: only best_effort shed below the full bound, every shed
+   with ``Retry-After`` >= 1 s and a hint >= 0.05 s, completed tokens
+   equal to the CPU plain ``generate``, partial tokens of a timeout a
+   prefix of it, and afterwards no pinned slot, no session and no tier
+   copy of a timed-out request; (b) ``serve --loadgen`` as a subprocess,
+   closed-loop and ``--idle-churn``: a strict-JSON report whose counts add
+   up per class, its tokens/s, TTFT and gaps printed; (c) ``serve --http``
+   with default flags: ``GET /metrics`` parses, and its completed count and
+   TTFT histogram count equal the requests served. Its launches (a, c)
+   join the kernel report's rows.
 
 Each phase prints the seconds it took. ``python3 <this file>
---sessions`` runs phase 19 alone; ``--forecast`` runs phase 18 alone; ``--train-calls LABEL`` phase 14 alone; ``--bf16 train`` the bf16
+--loadgen`` runs phase 20 alone (about 2 minutes of the tool's time);
+``--sessions`` runs phase 19 alone; ``--forecast`` runs phase 18 alone; ``--train-calls LABEL`` phase 14 alone; ``--bf16 train`` the bf16
 parts of phases 5, 7 and 9 and phases 15 and 16 (``--bf16 kernels``
 without phases 15 and 16, ``--bf16 residentx`` phase 7's bf16 part and
 phase 16 alone, ``--bf16 windows`` phase 17a alone, ``--bf16 serve``
@@ -2041,7 +2059,7 @@ def host_launches(torch, calls, n):
             if "Launch" in e.key or "Memcpy" in e.key or "Memset" in e.key}
 
 
-def train_calls_phase(torch, cli, cl, cx, ct, device):
+def train_calls_phase(torch, cli, cl, cx, ct, device, all_turns=True):
     print("== phase 14: train with K steps a call (every call a CUDA "
           "graph on the card)", flush=True)
     card = card_line()
@@ -2178,6 +2196,11 @@ def train_calls_phase(torch, cli, cl, cx, ct, device):
          CONFIG2_FLAGS + on + ["--dropout", "0.2", "--remat-chunk", "50"],
          (4, 1), (("captured K=1", []),)),
     )
+    if not all_turns:
+        # the whole smoke times config 1 alone (its host-launch checks are
+        # holds); the other turns' readings are in PERF.md §5, and
+        # --train-calls times them all
+        cases = cases[:1]
     for label, flags, (n, m), variants in cases:
         runs = {"eager": cli_calls(cli, flags, graph=False)}
         for name, extra in variants:
@@ -3109,7 +3132,7 @@ def bf16_in_turns(torch, cli, cfg, flags, drop, card, n_rate):
     gc.collect()
 
 
-def bf16_train_phase(torch, cli, cl, cx, ct, device):
+def bf16_train_phase(torch, cli, cl, cx, ct, device, all_turns=True):
     """Phase 15: configs 1, 3 and 5's shard in bf16 through the CLI, as
     their scripts run them (captured, the default): the first losses
     against the CPU run, the bf16 forms' launches (the float32 forms and
@@ -3177,8 +3200,11 @@ def bf16_train_phase(torch, cli, cl, cx, ct, device):
               f"launches { {k: v for k, v in launches.items() if v} }",
               flush=True)
 
-        bf16_in_turns(torch, cli, cfg, flags, drop, card,
-                      {"config1": 300, "config3": 40}.get(cfg, 20))
+        if all_turns or "remat" not in cfg:
+            # a remat run's turns (two captures of 100,000-node graphs)
+            # are left to --bf16 train: PERF.md §5 has their readings
+            bf16_in_turns(torch, cli, cfg, flags, drop, card,
+                          {"config1": 300, "config3": 40}.get(cfg, 20))
     return main_launches
 
 
@@ -3363,7 +3389,8 @@ def bf16_residentx_phase(torch, cx, device):
     return timings
 
 
-def bf16x_train_phase(torch, cli, cl, cx, ct, device, host):
+def bf16x_train_phase(torch, cli, cl, cx, ct, device, host,
+                      all_turns=True):
     """Phase 16: config 2 as configs/imdb_bilstm.sh runs it (bf16,
     --remat-chunk 50: the residentx forward's bf16 form a direction, then
     the plain recompute), the same without remat (the stacked pair's bf16
@@ -3440,7 +3467,8 @@ def bf16x_train_phase(torch, cli, cl, cx, ct, device, host):
               f"(+ warm-up { {k: v for k, v in warm.items() if v} })",
               flush=True)
 
-        bf16_in_turns(torch, cli, cfg, flags, drop, card, 100)
+        if all_turns or "remat" not in cfg:  # as in phase 15
+            bf16_in_turns(torch, cli, cfg, flags, drop, card, 100)
     return main_path
 
 
@@ -4958,6 +4986,319 @@ def phase19(torch, tlm, tgen, cl, ct, serve, draft_config, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: serve under load as `cli serve` runs by default — admission
+# classes and deadlines behind the one-replica router, the registry's
+# GET /metrics, and `serve --loadgen`
+# ---------------------------------------------------------------------------
+
+# (a) a burst of LOAD_BURST requests over HTTP at --queue-size LOAD_QUEUE
+# (best_effort sheds at half of it), every other one best_effort; every
+# eighth asks for more tokens with a deadline, keeping its session (a
+# timeout must discard it); one request before the burst has a 1 ms
+# deadline. In float32 the deadline requests ask for 8,192 tokens in 80
+# ms, which they cannot meet, and their partial output is held to the CPU
+# plain generate whatever its length. In bfloat16 a greedy run on the card
+# departs from the CPU's bf16 twin after some hundred tokens (a near tie
+# of the argmax: the bf16 forms hold carries to 1e-3, not bit for bit), so
+# there they ask for 64 tokens in 10 ms: a timeout is then likely during
+# the burst, and either outcome is held to the CPU
+LOAD_QUEUE, LOAD_BURST, LOAD_NEW = 8, 32, 24
+LOAD_LONG = {"float32": (8192, 0.08), "bfloat16": (64, 0.01)}
+# (b) `serve --loadgen`, closed-loop and --idle-churn
+LOADGEN_FLAGS = ["--sessions", "8", "--requests-per-session", "4",
+                 "--priority-frac", "0.5", "--retry-max", "2"]
+# the kernels phase 20's runs must launch
+LOAD_KERNELS = ("decode_window", "lstm_fwd", "decode_window_bf16",
+                "lstm_fwd_bf16u")
+CONFIG1_FLAGS = ["--vocab-size", str(CONFIG1["vocab"]), "--hidden-units",
+                 str(CONFIG1["hidden"]), "--num-layers",
+                 str(CONFIG1["layers"]), "--seed", "0"]
+
+
+def post_with_headers(port, body):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/v1/generate", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def admission_phase(torch, tlm, tgen, serve, device, compute_dtype):
+    print(f"== phase 20a: a burst of {LOAD_BURST} requests at config 1 in "
+          f"{compute_dtype} over HTTP, --queue-size {LOAD_QUEUE}, half "
+          "best_effort, some with deadlines", flush=True)
+    import dataclasses
+
+    import numpy as np
+
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG1)
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    rng = np.random.RandomState(37)
+    prompts = [rng.randint(0, cfg.vocab_size,
+                           size=int(rng.randint(3, 25))).tolist()
+               for _ in range(LOAD_BURST + 1)]
+    long_new, long_deadline = LOAD_LONG[compute_dtype]
+    bodies = []
+    for i, p in enumerate(prompts[1:]):
+        body = {"prompt": p, "max_new_tokens": LOAD_NEW, "greedy": True,
+                "class": "best_effort" if i % 2 else "priority"}
+        if i % 8 == 3:
+            body.update(max_new_tokens=long_new, keep_session=True,
+                        deadline_s=long_deadline)
+        bodies.append(body)
+    first = {"prompt": prompts[0], "max_new_tokens": long_new,
+             "greedy": True, "deadline_s": 0.001}
+    # as `cli serve` builds it: prefix cache and tiers on, 64 slots
+    engine = serve.ServeEngine(params_cpu, cfg, device=device, num_slots=64,
+                               rng_seed=0, prefix_cache=True,
+                               tiered_cache=True)
+    server = serve.ServeServer(engine, max_active=16, queue_size=LOAD_QUEUE)
+    server.warmup(prompt_lens=tuple(sorted({len(p) for p in prompts})))
+    torch.cuda.synchronize()
+    httpd = serve.make_http_server(server, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    out = [None] * len(bodies)
+
+    def one(i):
+        out[i] = post_with_headers(port, bodies[i])
+
+    t0 = time.perf_counter()
+    try:
+        with Counted(f"phase 20a {compute_dtype}") as counted:
+            with server:
+                lone = post_with_headers(port, first)
+                threads = [threading.Thread(target=one, args=(i,))
+                           for i in range(len(bodies))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(300)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    wall = time.perf_counter() - t0
+    label = f"phase 20a {compute_dtype}"
+    if lone[0] != 504 or lone[2].get("code") != "deadline_exceeded":
+        fail(f"{label}: the 1 ms deadline got {lone[0]} {lone[2]}")
+    results = [(first, lone)] + list(zip(bodies, out))
+    shed = {"priority": 0, "best_effort": 0}
+    timeouts, partial, done_tokens, ttft, retry = 0, 0, 0, [], []
+    kept = set()  # sessions of completed keep_session requests
+    for body, r in results:
+        if r is None:
+            fail(f"{label}: a request got no reply")
+        status, headers, reply = r
+        klass = body.get("class", "priority")
+        if status == 429:
+            hdr = int(headers.get("Retry-After", "0"))
+            full = f"bound {LOAD_QUEUE})" in reply["error"]
+            if reply["code"] != "queue_full" or hdr < 1 or not (
+                    reply["retry_after_s"] >= 0.05):
+                fail(f"{label}: a shed without its Retry-After: {headers} "
+                     f"{reply}")
+            if klass == "priority" and not full:
+                fail(f"{label}: priority shed below the full bound: "
+                     f"{reply['error']}")
+            shed[klass] += 1
+            retry.append((hdr, reply["retry_after_s"]))
+        elif status == 504:
+            if reply["code"] != "deadline_exceeded":
+                fail(f"{label}: 504 {reply}")
+            got = reply["tokens"]
+            ref = cpu_generate(tgen, params_cpu, cfg, body["prompt"],
+                               len(got)) if got else []
+            if got != ref:
+                fail(f"{label}: a timed-out request's partial tokens {got} "
+                     f"are not a prefix of the CPU plain generate {ref}")
+            timeouts += 1
+            partial += bool(got)
+        elif status == 200:
+            ref = cpu_generate(tgen, params_cpu, cfg, body["prompt"],
+                               body["max_new_tokens"])
+            if reply["tokens"] != ref:
+                fail(f"{label}: served {reply['tokens']} != the CPU plain "
+                     f"generate {ref}")
+            done_tokens += len(reply["tokens"])
+            ttft.append(reply["ttft_ms"])
+            if body.get("keep_session"):
+                kept.add(reply["session_id"])
+        else:
+            fail(f"{label}: status {status}: {reply}")
+    if not shed["best_effort"]:
+        fail(f"{label}: the burst shed no best_effort request")
+    bstats, rstats = server.batcher.stats(), server.router.stats()
+    if rstats["shed_by_class"] != shed or bstats["timed_out"] != timeouts:
+        fail(f"{label}: the router's sheds {rstats['shed_by_class']} or the "
+             f"batcher's timeouts {bstats['timed_out']} disagree with the "
+             f"replies ({shed}, {timeouts})")
+    cache = engine.cache.stats()
+    left = [sid for sid in engine.cache.session_ids() if sid not in kept
+            and (not sid.startswith(serve.PREFIX_SID_NAMESPACE)
+                 or sid.startswith(serve.PREFIX_SID_NAMESPACE + "timed-out/"))]
+    tiers = engine.tiers.stats()["entries"]
+    if cache["pinned"] or left or any(tiers.values()):
+        fail(f"{label}: after the burst pinned {cache['pinned']}, sessions "
+             f"{left}, tier entries {tiers}")
+    ttft.sort()
+    print(f"  {len(results)} requests in {wall:.3f} s: "
+          f"{len(ttft)} completed ({done_tokens} tokens, "
+          f"{done_tokens / wall:.1f} tokens/s; TTFT ms p50 "
+          f"{percentile(ttft, 50):.3f} p99 {percentile(ttft, 99):.3f}), "
+          f"shed {shed} (Retry-After header {min(h for h, _ in retry)}–"
+          f"{max(h for h, _ in retry)} s, hint "
+          f"{min(s for _, s in retry):.3f}–{max(s for _, s in retry):.3f} s),"
+          f" {timeouts} timed out ({partial} with partial tokens, each a "
+          f"prefix of the CPU plain generate); every slot free but the "
+          f"{len(kept)} completed kept sessions', no tier copy left; "
+          f"launches {counted.launches}; {card_line()}",
+          flush=True)
+    return counted.launches
+
+
+def strict_json(text, label):
+    def refuse(c):
+        fail(f"{label}: the report holds {c}: not strict JSON")
+    return json.loads(text, parse_constant=refuse)
+
+
+def loadgen_phase(torch, device):
+    print("== phase 20b: `serve --loadgen` at config 1, closed-loop and "
+          "--idle-churn", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loadgen_")
+    atexit.register(shutil.rmtree, tmp, True)
+    for mode, extra in (("closed", ["--compare", ""]),
+                        ("idle-churn", ["--idle-churn", "--num-slots", "4",
+                                        "--max-active", "4"])):
+        path = os.path.join(tmp, f"{mode}.json")
+        cmd = [sys.executable, "-m", "lstm_tensorspark_torch", "serve",
+               "--loadgen", *CONFIG1_FLAGS, *LOADGEN_FLAGS, *extra,
+               "--json", path, "--device", device.type]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 20b {mode}: serve --loadgen ran past 300 s")
+        if proc.returncode != 0:
+            fail(f"phase 20b {mode}: rc {proc.returncode}: "
+                 f"{(proc.stdout + proc.stderr)[-3000:]}")
+        with open(path) as f:
+            report = strict_json(f.read(), f"phase 20b {mode}")
+        if report["failed"] or report["requests"] != (
+                report["completed"] + report["rejected"] + report["failed"]
+                + report.get("timeouts", 0)):
+            fail(f"phase 20b {mode}: the counts do not add up: {report}")
+        if mode == "closed":
+            classes = report.get("classes")
+            if not classes or any(
+                    c["completed"] + c["shed"] + c["timeouts"] != 16
+                    for c in classes.values()):
+                fail(f"phase 20b: per-class counts {classes}")
+        print(f"  {mode}: {report['completed']} of {report['requests']} "
+              f"requests in {time.perf_counter() - t0:.1f} s (the process); "
+              f"{report['tokens_per_sec']} tokens/s; TTFT ms p50 "
+              f"{report['p50_ttft_ms']} p99 {report['p99_ttft_ms']}; gap ms "
+              f"p50 {report['p50_itl_ms']} p99 {report['p99_itl_ms']} max "
+              f"{report['max_itl_ms']}; kernel launches of the process "
+              f"{report['engine']['launch_counts']}; {card_line()}",
+              flush=True)
+
+
+def metrics_phase(torch, tlm, tgen, serve, device):
+    print("== phase 20c: `serve --http` with default flags: GET /metrics "
+          "after a burst", flush=True)
+    from lstm_tensorspark_torch.obs import parse_exposition
+
+    import numpy as np
+
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **CONFIG1)
+    rng = np.random.RandomState(41)
+    prompts = [rng.randint(0, cfg.vocab_size,
+                           size=int(rng.randint(3, 30))).tolist()
+               for _ in range(8)]
+    refs = [cpu_generate(tgen, params_cpu, cfg, p, 16) for p in prompts]
+    cmd = [sys.executable, "-m", "lstm_tensorspark_torch", "serve", "--http",
+           "--port", "0", *CONFIG1_FLAGS, "--device", device.type]
+    proc, port, boot = boot_serve(cmd, "phase 20c")
+    try:
+        before = get_stats(port)["engine"]["launch_counts"]
+        out = post_all(port, [{"prompt": p, "max_new_tokens": 16,
+                               "greedy": True} for p in prompts])
+        stats = get_stats(port)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.request("GET", "/metrics")
+            resp = conn.getresponse()
+            ctype, text = resp.getheader("Content-Type"), resp.read().decode()
+        finally:
+            conn.close()
+    finally:
+        proc.send_signal(2)
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    for i, r in enumerate(out):
+        if r is None or r[0] != 200 or r[1]["tokens"] != refs[i]:
+            fail(f"phase 20c: request {i}: {r} != the CPU plain generate "
+                 f"{refs[i]}")
+    try:
+        fams = parse_exposition(text)
+    except ValueError as e:
+        fail(f"phase 20c: GET /metrics is no valid exposition: {e}")
+
+    def sample(fam, name, labels):
+        got = [v for n, lab, v in fams[fam]["samples"]
+               if n == name and lab == labels]
+        return got[0] if len(got) == 1 else None
+
+    ok = sample("serve_requests_total", "serve_requests_total",
+                {"outcome": "completed", "replica": "0"})
+    ttft_n = sample("serve_ttft_seconds", "serve_ttft_seconds_count",
+                    {"replica": "0"})
+    if not ctype.startswith("text/plain") or ok != len(prompts) or (
+            ttft_n != len(prompts)):
+        fail(f"phase 20c: {ctype}; serve_requests_total completed {ok}, "
+             f"TTFT count {ttft_n}, expected {len(prompts)}")
+    launches = {k: v - before.get(k, 0)
+                for k, v in stats["engine"]["launch_counts"].items()
+                if v - before.get(k, 0)}
+    print(f"  booted in {boot:.1f} s; {len(prompts)} requests identical to "
+          f"the CPU plain generate; /metrics: {len(fams)} families, "
+          f"{len(text)} bytes, completed {ok:.0f}, TTFT count {ttft_n:.0f} "
+          f"(server p50 {stats['metrics']['serve_ttft_seconds']['p50']} s); "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def phase20(torch, tlm, tgen, serve, device):
+    """Phase 20 (a-c); returns the launches of its in-process and
+    ``serve --http`` runs by counter, and fails unless each of
+    LOAD_KERNELS launched."""
+    t0 = time.perf_counter()
+    launches = {}
+    for got in (timed(admission_phase, torch, tlm, tgen, serve, device,
+                      "float32"),
+                timed(admission_phase, torch, tlm, tgen, serve, device,
+                      "bfloat16"),
+                timed(metrics_phase, torch, tlm, tgen, serve, device)):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    timed(loadgen_phase, torch, device)
+    missing = [k for k in LOAD_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"phase 20: {missing} launched no time ({launches})")
+    print(f"  phase 20: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def timed(fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -5034,10 +5375,13 @@ def main() -> int:
     spec_launches = timed(spec_serve_phase, torch, tlm, tgen, cd, cs, cl,
                           serve, draft_config, device)
     timed(config3_phase, torch, tlm, tgen, cd, serve, device)
-    timed(train_calls_phase, torch, cli, cl, cx, ct, device)
-    bf16_launches = timed(bf16_train_phase, torch, cli, cl, cx, ct, device)
+    # the whole smoke leaves out the timing turns PERF.md §5 already has
+    # readings of (the flags that run these phases alone time them all)
+    timed(train_calls_phase, torch, cli, cl, cx, ct, device, False)
+    bf16_launches = timed(bf16_train_phase, torch, cli, cl, cx, ct, device,
+                          False)
     bf16x_launches = timed(bf16x_train_phase, torch, cli, cl, cx, ct, device,
-                           host)
+                           host, False)
     for name, flags in config4_references():  # beside phases 17 and 18a
         host.start(name, flags)
     serve_rows = timed(phase17, torch, cli, tlm, tgen, cd, cs, cl, ct, serve,
@@ -5045,6 +5389,7 @@ def main() -> int:
     config4_launches = phase18(torch, cli, cl, cx, ct, device, host)
     session_launches = phase19(torch, tlm, tgen, cl, ct, serve, draft_config,
                                device)
+    load_launches = phase20(torch, tlm, tgen, serve, device)
     for k, v in config4_launches.items():
         if k in bf16_launches:
             bf16_launches[k] += v
@@ -5131,13 +5476,16 @@ def main() -> int:
         "bound_by": spec_timings["config1"]["bound_by"],
         "library_ms": None,
     }] + lstm_rows + lstmx_rows + tiled_rows + bf16_rows + serve_rows
-    # phase 19 drives the serve path again: its launches join the rows
+    # phases 19 and 20 drive the serve path again: their launches join the
+    # rows
     by_name = {r["name"]: r for r in rows}
-    stray = set(session_launches) - set(by_name)
-    if stray:
-        fail(f"phase 19 launched kernels the report has no row of: {stray}")
-    for name, n in session_launches.items():
-        by_name[name]["launches"] += n
+    for phase, got in (("19", session_launches), ("20", load_launches)):
+        stray = set(got) - set(by_name)
+        if stray:
+            fail(f"phase {phase} launched kernels the report has no row of: "
+                 f"{stray}")
+        for name, n in got.items():
+            by_name[name]["launches"] += n
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5451,7 +5799,25 @@ def sessions() -> int:
     return 0
 
 
+def loadgen() -> int:
+    """Phase 20 alone, from the checkout in the working directory (the
+    serve path's kernels built first); prints its launches."""
+    torch, dev = _checkout("loadgen")
+    from lstm_tensorspark_torch import kernels, serve
+    from lstm_tensorspark_torch.models import generate as tgen
+    from lstm_tensorspark_torch.models import lstm_lm as tlm
+
+    built = kernels.build(["decode_window", "decode_window_bf16",
+                           "lstm_fwd"])
+    print(f"phase 20 ({os.getcwd()}; {card_line()}); serve kernels built "
+          f"in {built:.1f} s", flush=True)
+    print(json.dumps(phase20(torch, tlm, tgen, serve, dev)), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--loadgen"]:
+        sys.exit(loadgen())
     if sys.argv[1:] == ["--forecast"]:
         sys.exit(forecast())
     if sys.argv[1:] == ["--sessions"]:

@@ -34,7 +34,24 @@
   shape proposes, the target verifies), and the run also fails when no
   speculative window was dispatched;
 - ``serve --http`` warms the engine and serves ``POST /v1/generate``,
-  ``GET /healthz`` and ``GET /v1/stats`` until interrupted.
+  ``GET /healthz``, ``GET /v1/stats`` and ``GET /metrics`` until
+  interrupted;
+- ``serve --loadgen`` drives the load generator (``serve/loadgen.py``)
+  against an in-process server and prints its JSON report (``--json
+  PATH`` also writes it, as strict JSON: a value that is not finite is
+  null): a closed-loop concurrency sweep (``--compare``, default 1,8) or
+  one run (``--compare ''``, ``--mode open`` with an arrival shape, or a
+  prefix / inject probe), ``--idle-churn`` (the Zipf kept-session
+  workload) or ``--workload template-mix``. Requests are greedy.
+
+Admission runs as JAX's ``cli serve`` does by default: the router sheds
+``best_effort`` at ``--best-effort-queue-frac`` (0.5) of ``--queue-size``
+with a ``Retry-After`` from the queue-wait p99, the batcher dequeues the
+classes 4:1 (``--class-weights``), no class has a default deadline
+(``--deadline-priority-s``, ``--deadline-best-effort-s``), and no tenant is
+rate-limited (``--tenant-rate``). ``--telemetry off`` swaps the registry
+for no-op instruments. ``--replicas`` other than 1 is refused (the port
+serves one replica).
 
 Serving runs as JAX's ``cli serve`` does by default: the prefix cache on
 (``--prefix-cache``, ``--prefix-stride``, ``--prefix-entries``) and the
@@ -79,6 +96,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
     mode.add_argument("--selftest", action="store_true",
                       help="decode concurrent sessions and check greedy "
                            "output against the plain generate on the CPU")
+    mode.add_argument("--loadgen", action="store_true",
+                      help="offline load generation: p50/p99 latency, "
+                           "tokens/sec, concurrency sweep (--compare)")
     mode.add_argument("--http", action="store_true",
                       help="serve POST /v1/generate until interrupted")
     p.add_argument("--vocab-size", type=int, default=89)
@@ -112,7 +132,48 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-active", type=int, default=16,
                    help="sessions decoding at once (<= --num-slots)")
     p.add_argument("--queue-size", type=int, default=64,
-                   help="bounded submit queue (full -> HTTP 429)")
+                   help="bounded submit queue; beyond it requests are "
+                        "rejected (HTTP 429). This is the PRIORITY-class "
+                        "bound; best-effort sheds earlier "
+                        "(--best-effort-queue-frac)")
+    p.add_argument("--replicas", type=str, default="1",
+                   help="serving replicas; the port serves one, and "
+                        "refuses any other count")
+    p.add_argument("--class-weights", type=str, default="4,1",
+                   help="weighted-dequeue shares 'priority,best_effort': "
+                        "out of every P+B admissions with both classes "
+                        "waiting, P are priority")
+    p.add_argument("--best-effort-queue-frac", type=float, default=0.5,
+                   help="best-effort requests are 429-shed once the live "
+                        "queue reaches this fraction of --queue-size "
+                        "(priority keeps the remaining headroom); sheds "
+                        "carry Retry-After from the live queue-wait p99")
+    p.add_argument("--deadline-priority-s", type=float, default=0,
+                   help="default request deadline (seconds) for the "
+                        "priority class; expiry is enforced in the queue, "
+                        "between prefill chunks and at decode-window "
+                        "boundaries, producing a 'timeout' outcome with "
+                        "partial output. 0 = no default (clients can "
+                        "still send deadline_s / X-Deadline-S)")
+    p.add_argument("--deadline-best-effort-s", type=float, default=0,
+                   help="default request deadline (seconds) for the "
+                        "best_effort class; 0 = no default")
+    p.add_argument("--tenant-rate", type=float, default=0,
+                   help="per-tenant token-bucket rate limit (requests/s "
+                        "per distinct 'tenant' request field) on top of "
+                        "the class policy; over-rate requests 429 with a "
+                        "Retry-After (time to the next token, floored by "
+                        "the queue-drain policy). 0 = off; untenanted "
+                        "requests are never limited")
+    p.add_argument("--tenant-burst", type=float, default=5.0,
+                   help="token-bucket burst allowance per tenant")
+    p.add_argument("--telemetry", type=str, default="on",
+                   choices=["on", "off"],
+                   help="metrics registry: 'on' serves GET /metrics "
+                        "(Prometheus text: server-side TTFT/ITL/queue-wait "
+                        "histograms, outcome, shed and cache counters) and "
+                        "histogram summaries in /stats; 'off' swaps in "
+                        "no-op instruments")
     p.add_argument("--decode-window", type=str, default="auto",
                    help="'auto' = window ladder 1/4/8; an int N caps the "
                         "ladder at N (1 pins one token per step)")
@@ -170,7 +231,93 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "prompt-length cap. 0 = off")
     p.add_argument("--max-new-tokens", type=int, default=16)
     p.add_argument("--sessions", type=int, default=8,
-                   help="--selftest: concurrent sessions")
+                   help="--selftest: concurrent sessions; --loadgen: "
+                        "client sessions (--idle-churn: live kept "
+                        "sessions; template-mix: one request each)")
+    # --- loadgen workload (the JAX command's flags and defaults) ---
+    p.add_argument("--requests-per-session", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=8)
+    p.add_argument("--mode", type=str, default="closed",
+                   choices=["closed", "open"])
+    p.add_argument("--rate", type=float, default=None,
+                   help="open-loop arrival rate (req/s)")
+    p.add_argument("--arrival", type=str, default="fixed",
+                   choices=["fixed", "burst", "sine"],
+                   help="open-loop arrival shape: 'fixed' = constant "
+                        "--rate; 'burst' = --burst-n simultaneous arrivals "
+                        "every --burst-gap seconds; 'sine' = rate "
+                        "--rate*(1+amp*sin(2pi*t/period))")
+    p.add_argument("--arrival-trace", type=str, default=None,
+                   help="open-loop trace replay: a file of sorted "
+                        "seconds-from-start arrival offsets, one per line "
+                        "('#' comments ignored); a trace shorter than the "
+                        "workload loops. Overrides --arrival/--rate")
+    p.add_argument("--burst-n", type=int, default=8,
+                   help="--arrival burst: requests per burst")
+    p.add_argument("--burst-gap", type=float, default=0.5,
+                   help="--arrival burst: seconds between burst starts")
+    p.add_argument("--sine-period", type=float, default=2.0,
+                   help="--arrival sine: modulation period (seconds)")
+    p.add_argument("--sine-amp", type=float, default=0.8,
+                   help="--arrival sine: modulation amplitude in [0, 1)")
+    p.add_argument("--compare", type=str, default=None,
+                   help="closed-loop concurrency sweep levels (default "
+                        "1,8; empty string: single run at --sessions)")
+    p.add_argument("--shared-prefix-len", type=int, default=0,
+                   help="every prompt shares its first N tokens (the "
+                        "shared-system-prompt workload); 0 = random")
+    p.add_argument("--inject-prompt-len", type=int, default=0,
+                   help="submit ONE extra cold request with a prompt this "
+                        "long mid-run (head-of-line-blocking probe, "
+                        "reported separately); 0 = off")
+    p.add_argument("--inject-delay", type=float, default=0.25,
+                   help="seconds into the run to submit the injected "
+                        "request")
+    p.add_argument("--workload", type=str, default="random",
+                   choices=["random", "template-mix"],
+                   help="prompt shape: 'random' = per-session random "
+                        "prompts; 'template-mix' = tenant preamble x "
+                        "few-shot template x unique suffix, on a bounded "
+                        "worker pool (--tenants/--templates/"
+                        "--preamble-len/--template-len/--suffix-len/"
+                        "--workers)")
+    p.add_argument("--tenants", type=int, default=4,
+                   help="--workload template-mix: distinct tenant "
+                        "preambles")
+    p.add_argument("--templates", type=int, default=25,
+                   help="--workload template-mix: templates per tenant")
+    p.add_argument("--preamble-len", type=int, default=128,
+                   help="--workload template-mix: tenant preamble tokens")
+    p.add_argument("--template-len", type=int, default=32,
+                   help="--workload template-mix: template tokens")
+    p.add_argument("--suffix-len", type=int, default=8,
+                   help="--workload template-mix: unique suffix tokens")
+    p.add_argument("--workers", type=int, default=32,
+                   help="--workload template-mix: worker-pool size")
+    p.add_argument("--idle-churn", action="store_true",
+                   help="long-tail workload: --sessions live kept "
+                        "sessions continued by Zipf-popularity draws "
+                        "(--zipf-s), so the idle tail is evicted and fills "
+                        "from the tiers; reports per-tier hit rates, "
+                        "re-prefill cost and hot-set tokens/s")
+    p.add_argument("--zipf-s", type=float, default=1.1,
+                   help="--idle-churn popularity exponent: rank r has "
+                        "weight (r+1)^-s")
+    p.add_argument("--priority-frac", type=float, default=1.0,
+                   help="fraction of traffic submitted as the priority "
+                        "class (the rest best_effort, interleaved); "
+                        "per-class counts and percentiles land in the "
+                        "report's 'classes' section")
+    p.add_argument("--deadline-s", type=float, default=0,
+                   help="per-request deadline in seconds (server-side; "
+                        "expiry = timeout with partial output). 0 = none")
+    p.add_argument("--retry-max", type=int, default=0,
+                   help="retry a 429 shed up to N times, sleeping the "
+                        "server's Retry-After floored by the capped "
+                        "exponential backoff + jitter. 0 = no retry")
+    p.add_argument("--json", type=str, default=None,
+                   help="also write the loadgen report (strict JSON) to "
+                        "this path")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -211,6 +358,36 @@ def _parse_spec_ladder(spec: str) -> tuple[int, ...]:
         raise SystemExit(f"--spec-ladder: need at least one rung >= 1, got "
                          f"{spec!r}")
     return rungs
+
+
+def _parse_class_weights(spec: str) -> tuple[int, int]:
+    try:
+        wp, wb = (int(x) for x in spec.split(","))
+    except ValueError:
+        raise SystemExit(
+            f"--class-weights: expected 'P,B' positive ints, got {spec!r}")
+    if wp < 1 or wb < 1:
+        raise SystemExit(
+            f"--class-weights: weights must be >= 1, got {spec!r}")
+    return wp, wb
+
+
+def _parse_replicas(spec: str) -> int:
+    """--replicas: the JAX command's parse (an int or a comma list of
+    positive ints), then the port's refusal of anything but one."""
+    try:
+        levels = tuple(int(x) for x in spec.split(",") if x.strip())
+    except ValueError:
+        raise SystemExit(f"--replicas: expected an int or comma-separated "
+                         f"ints, got {spec!r}")
+    if not levels or any(n < 1 for n in levels):
+        raise SystemExit(f"--replicas: need positive replica counts, got "
+                         f"{spec!r}")
+    if levels != (1,):
+        raise SystemExit(
+            f"--replicas {spec}: the port serves one replica (multi-replica "
+            "serving and the replica sweep are not ported); use --replicas 1")
+    return 1
 
 
 def _checkpoint_params(args, params):
@@ -255,6 +432,7 @@ def _checkpoint_params(args, params):
 
 def _build_serve_stack(args):
     """(cpu params, cfg, server) from the serve flags."""
+    from . import obs
     from .models.lstm_lm import LMConfig, init_lm
     from .serve import ServeEngine, ServeServer
     from .train.distill import draft_config
@@ -268,6 +446,8 @@ def _build_serve_stack(args):
             f"--prefill-chunk {chunk} must be a multiple or divisor of "
             f"--prefix-stride {args.prefix_stride} (chunk stops are "
             "stride-aligned prefix insert points), or use --prefix-cache off")
+    weights = _parse_class_weights(args.class_weights)
+    _parse_replicas(args.replicas)
     cfg = LMConfig(vocab_size=args.vocab_size, hidden_size=args.hidden_units,
                    num_layers=args.num_layers,
                    tie_embeddings=args.tie_embeddings,
@@ -289,7 +469,8 @@ def _build_serve_stack(args):
             prefix_entries=args.prefix_entries,
             tiered_cache=args.tiered_cache == "on",
             host_tier_entries=args.host_tier_entries,
-            session_dir=args.session_dir)
+            session_dir=args.session_dir,
+            registry=obs.NULL_REGISTRY if args.telemetry == "off" else None)
     except ValueError as e:  # e.g. --prefix-stride 0
         raise SystemExit(f"serve: {e}")
     spec_kw = {}
@@ -304,7 +485,13 @@ def _build_serve_stack(args):
         server = ServeServer(
             engine, max_active=args.max_active, queue_size=args.queue_size,
             window_ladder=_parse_window_ladder(args.decode_window),
-            prefill_chunk=chunk, **spec_kw)
+            prefill_chunk=chunk, class_weights=weights,
+            best_effort_queue_frac=args.best_effort_queue_frac,
+            deadline_defaults={
+                "priority": args.deadline_priority_s or None,
+                "best_effort": args.deadline_best_effort_s or None},
+            tenant_rate=args.tenant_rate or None,
+            tenant_burst=args.tenant_burst, **spec_kw)
     except ValueError as e:  # e.g. --spec-k off the ladder
         raise SystemExit(f"serve: {e}")
     return params, cfg, server
@@ -381,7 +568,8 @@ def _serve_http(args) -> int:
     httpd = make_http_server(server, args.host, args.port)
     host, port = httpd.server_address[:2]
     print(f"serving on http://{host}:{port} (POST /v1/generate, "
-          "GET /healthz, GET /v1/stats) — ctrl-C to stop", flush=True)
+          "GET /healthz, GET /v1/stats, GET /metrics) — ctrl-C to stop",
+          flush=True)
     with server:
         try:
             httpd.serve_forever()
@@ -390,6 +578,221 @@ def _serve_http(args) -> int:
         finally:
             httpd.server_close()
     return OK_RC
+
+
+def _strict(obj):
+    """``obj`` with every float that is not finite replaced by None: the
+    loadgen report as strict JSON (a class or a run without samples has
+    no percentile)."""
+    if isinstance(obj, float):
+        return obj if np.isfinite(obj) else None
+    if isinstance(obj, dict):
+        return {k: _strict(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_strict(v) for v in obj]
+    return obj
+
+
+def _emit_report(args, out: dict, summary: str) -> int:
+    """Print the report (one strict-JSON line) and its one-line summary
+    (stderr), and write ``--json`` when given."""
+    out = _strict(out)
+    print(json.dumps(out, allow_nan=False))
+    print(summary, file=sys.stderr)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1, sort_keys=True, allow_nan=False)
+        print(f"loadgen: report written to {args.json}", file=sys.stderr)
+    return OK_RC
+
+
+def _read_arrival_trace(path: str | None) -> list[float] | None:
+    """``--arrival-trace``: sorted seconds-from-start offsets, one float a
+    line, blank lines and '#' comments ignored (the load generator checks
+    order and sign)."""
+    if not path:
+        return None
+    try:
+        with open(path) as f:
+            lines = f.read().splitlines()
+    except OSError as e:
+        raise SystemExit(f"--arrival-trace: cannot read {path!r}: {e}")
+    out: list[float] = []
+    for ln in lines:
+        ln = ln.split("#", 1)[0].strip()
+        if not ln:
+            continue
+        try:
+            out.append(float(ln))
+        except ValueError:
+            raise SystemExit(
+                f"--arrival-trace: bad offset {ln!r} in {path!r}")
+    if not out:
+        raise SystemExit(f"--arrival-trace: {path!r} has no offsets")
+    return out
+
+
+def _loadgen_engine(server) -> dict:
+    """The report's engine section: dispatches, kernel launches, prefix
+    totals and the state cache's counters."""
+    from .serve.loadgen import prefix_totals
+
+    es = server.engine.stats()
+    return {"device": es["device"], "decode_kernel": es["decode_kernel"],
+            "window_form": es["window_form"], "dispatches": es["dispatches"],
+            "kernel_launches": es["kernel_launches"],
+            "launch_counts": es["launch_counts"],
+            "prefix_cache": prefix_totals(server), **es["cache"]}
+
+
+def _serve_loadgen(args) -> int:
+    from .serve import GREEDY, concurrency_sweep, run_loadgen
+
+    if args.shared_prefix_len and args.shared_prefix_len >= args.prompt_len:
+        print(f"error: --shared-prefix-len {args.shared_prefix_len} must be "
+              f"< --prompt-len {args.prompt_len} (each prompt needs >= 1 "
+              "unshared token)", file=sys.stderr)
+        return USAGE_RC
+    if (args.arrival != "fixed" or args.arrival_trace) and args.mode != "open":
+        print("error: --arrival burst/sine and --arrival-trace shape "
+              "OPEN-loop arrivals; add --mode open", file=sys.stderr)
+        return USAGE_RC
+    _parse_replicas(args.replicas)
+    if args.idle_churn:
+        return _serve_loadgen_longtail(args)
+    if args.workload == "template-mix":
+        return _serve_loadgen_template_mix(args)
+    _, cfg, server = _build_serve_stack(args)
+    sampling = GREEDY
+    # the prefix and inject probes are single-run workloads
+    probe_run = bool(args.shared_prefix_len or args.inject_prompt_len)
+    if probe_run and args.compare:
+        print("note: --shared-prefix-len/--inject-prompt-len run single-run "
+              f"at --sessions {args.sessions}; ignoring --compare "
+              f"{args.compare!r}", file=sys.stderr)
+    compare = "1,8" if args.compare is None else args.compare
+    with server:
+        if compare and args.mode == "closed" and not probe_run:
+            try:
+                levels = {int(x) for x in compare.split(",") if x.strip()}
+            except ValueError:
+                raise SystemExit(f"--compare: expected comma-separated "
+                                 f"ints, got {compare!r}")
+            out = concurrency_sweep(
+                server, vocab_size=cfg.vocab_size,
+                levels=tuple(sorted(levels | {args.sessions})),
+                requests_per_session=args.requests_per_session,
+                prompt_len=args.prompt_len,
+                max_new_tokens=args.max_new_tokens,
+                sampling=sampling, seed=args.seed)
+        else:
+            lens = {args.prompt_len}
+            # an unchunked inject past the largest bucket has nothing to
+            # warm: admission refuses it and the report says so
+            if args.inject_prompt_len and (
+                    server.batcher.prefill_chunk is not None
+                    or args.inject_prompt_len
+                    <= server.engine.max_prompt_len):
+                lens.add(args.inject_prompt_len)
+            server.warmup(sampling, prompt_lens=tuple(lens))
+            out = run_loadgen(
+                server, vocab_size=cfg.vocab_size, sessions=args.sessions,
+                requests_per_session=args.requests_per_session,
+                prompt_len=args.prompt_len,
+                max_new_tokens=args.max_new_tokens,
+                sampling=sampling, mode=args.mode, rate=args.rate,
+                seed=args.seed, shared_prefix_len=args.shared_prefix_len,
+                inject_prompt_len=args.inject_prompt_len,
+                inject_delay_s=args.inject_delay,
+                priority_frac=args.priority_frac,
+                deadline_s=args.deadline_s or None,
+                retry_max=args.retry_max, arrival=args.arrival,
+                arrival_times=_read_arrival_trace(args.arrival_trace),
+                burst_n=args.burst_n, burst_gap_s=args.burst_gap,
+                sine_period_s=args.sine_period, sine_amp=args.sine_amp)
+    out["engine"] = _loadgen_engine(server)
+    bstats = server.batcher.stats()
+    out["batcher"] = {
+        k: bstats[k]
+        for k in ("window_ladder", "windows_dispatched", "windows_pipelined",
+                  "prefill_chunk", "prefill_chunks_dispatched",
+                  "prefix_resumed", "prefix_tokens_saved", "timed_out",
+                  "class_weights")}
+    out["router_totals"] = server.router.stats()
+    out["server_metrics"] = server.metrics_summary()
+    r = out.get("levels", {}).get(args.sessions, out)
+    px = r.get("prefix_cache") or {}
+    return _emit_report(args, out, (
+        f"loadgen summary: {r.get('completed', '?')} req, "
+        f"{r.get('tokens_per_sec', '?')} tok/s, "
+        f"ttft p50 {r.get('p50_ttft_ms', '?')} ms, "
+        f"itl p99 {r.get('p99_itl_ms', '?')} ms, "
+        f"prefix hit rate {px.get('hit_rate', 'n/a')}, "
+        f"kernel launches {out['engine']['kernel_launches']}, "
+        f"swap generation {out['engine']['generation']}"))
+
+
+def _serve_loadgen_longtail(args) -> int:
+    """``serve --loadgen --idle-churn``: the long-tail kept-session
+    workload, with per-tier hit rates, re-prefill cost and hot-set
+    tokens/s."""
+    from .serve import GREEDY, run_longtail
+
+    _, cfg, server = _build_serve_stack(args)
+    with server:
+        # re-prefills replay whole histories, which land on any bucket:
+        # warm every final-prefill length
+        server.warmup(GREEDY, prompt_lens=tuple(
+            set(server.engine.prefill_buckets) | {args.prompt_len}))
+        out = run_longtail(
+            server, vocab_size=cfg.vocab_size, sessions=args.sessions,
+            requests_per_session=args.requests_per_session,
+            prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
+            sampling=GREEDY, zipf_s=args.zipf_s, seed=args.seed)
+        out["tier_stats_total"] = {
+            r.index: r.engine.stats()["tiers"] for r in server.replicas}
+    out["engine"] = _loadgen_engine(server)
+    out["server_metrics"] = server.metrics_summary()
+    t = out.get("tiers") or {}
+    hr = t.get("hit_rates", {})
+    hot = out.get("hot_set", {})
+    return _emit_report(args, out, (
+        f"longtail summary: {out['completed']} req over {args.sessions} "
+        f"sessions, {out['tokens_per_sec']} tok/s "
+        f"(hot set {hot.get('tokens_per_sec', '?')} tok/s), tier hits "
+        f"device {hr.get('device', '?')} / host {hr.get('host', '?')} / "
+        f"disk {hr.get('disk', '?')}, re-prefills {out['re_prefills']} "
+        f"({out['re_prefill_tokens']} tokens)"))
+
+
+def _serve_loadgen_template_mix(args) -> int:
+    """``serve --loadgen --workload template-mix``: tenant preamble x
+    template x unique suffix on a bounded worker pool, with the
+    computed-vs-offered prefill tokens."""
+    from .serve import GREEDY, run_template_mix
+
+    _, cfg, server = _build_serve_stack(args)
+    prompt_len = args.preamble_len + args.template_len + args.suffix_len
+    with server:
+        server.warmup(GREEDY, prompt_lens=(prompt_len,))
+        out = run_template_mix(
+            server, vocab_size=cfg.vocab_size, sessions=args.sessions,
+            tenants=args.tenants, templates=args.templates,
+            preamble_len=args.preamble_len, template_len=args.template_len,
+            suffix_len=args.suffix_len, max_new_tokens=args.max_new_tokens,
+            sampling=GREEDY, workers=args.workers, seed=args.seed)
+    out["engine"] = _loadgen_engine(server)
+    out["server_metrics"] = server.metrics_summary()
+    pf = out.get("prefill", {})
+    px = out.get("prefix_cache") or {}
+    return _emit_report(args, out, (
+        f"template-mix summary: {out['completed']} req over "
+        f"{args.sessions} sessions ({args.tenants}x{args.templates} "
+        f"pairs), {out.get('tokens_per_sec', '?')} tok/s, prefill "
+        f"computed {pf.get('tokens_computed', '?')}/"
+        f"{pf.get('tokens_offered', '?')} offered "
+        f"(ratio {pf.get('compute_ratio', '?')}), prefix mode "
+        f"{px.get('mode', 'n/a')} hit rate {px.get('hit_rate', 'n/a')}"))
 
 
 def build_train_parser() -> argparse.ArgumentParser:
@@ -705,4 +1108,6 @@ def main(argv=None, *, graph: bool = True) -> int:
     args = build_serve_parser().parse_args(argv[1:])
     if args.selftest:
         return _serve_selftest(args)
+    if args.loadgen:
+        return _serve_loadgen(args)
     return _serve_http(args)

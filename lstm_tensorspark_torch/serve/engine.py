@@ -51,6 +51,11 @@ evicted sessions spill to host RAM and to disk and fill back. The cache
 stays float32 in both compute dtypes, so a session file holds the same
 bytes whichever dtype served it.
 
+**Telemetry** — ``registry`` (default ``obs.REGISTRY``; ``obs.
+NULL_REGISTRY`` disables it) is the stack's one registry: the engine keeps
+it as ``metrics`` and hands it to the state cache, the prefix cache and
+the tiers, and the batcher, the router and the server read it from here.
+
 Every host-visible batch is padded to a bucket: prompts to a length
 bucket, batches to a batch bucket with dead rows at the cache's scratch
 slot. Sampling: greedy, or temperature sampling by Gumbel-argmax with noise
@@ -67,6 +72,7 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import configure_precision, resolve_device
 from ..kernels import LaunchCounts
 from ..models.generate import check_sampling, fuse_layers, gumbel_noise, sample_logits
@@ -148,7 +154,8 @@ class ServeEngine:
                  prefix_entries: int = 16,
                  tiered_cache: bool = False,
                  host_tier_entries: int = 256,
-                 session_dir: str | None = None):
+                 session_dir: str | None = None,
+                 registry=None):
         self.device = resolve_device(device)
         configure_precision()
         # serving never rematerialises (the same override as generate())
@@ -162,19 +169,25 @@ class ServeEngine:
         self.decode_kernel = "cuda" if self.device.type == "cuda" else "reference"
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self.batch_buckets = tuple(sorted(batch_buckets))
+        # the one model this engine serves, under the JAX engine's default
+        # id (the server's serve_model_info gauge reads it)
+        self.model_id = "default"
+        self.model_version = 0
+        self.metrics = obs.REGISTRY if registry is None else registry
         self.cache = StateCache(cfg.num_layers, num_slots, cfg.hidden_size,
-                                device=self.device)
+                                device=self.device, registry=self.metrics)
         # a session_dir alone implies the tiers: durability needs the
         # spill plane
         self.tiers = (
             SessionTiers(self.cache, host_entries=host_tier_entries,
-                         directory=session_dir)
+                         directory=session_dir, registry=self.metrics)
             if (tiered_cache or session_dir is not None) else None)
         # with tiers attached, an evicted backing slot spills the entry
         # instead of invalidating it
         self.prefix = (
             PrefixCache(self.cache, stride=prefix_stride,
-                        max_entries=prefix_entries, tiers=self.tiers)
+                        max_entries=prefix_entries, tiers=self.tiers,
+                        registry=self.metrics)
             if prefix_cache else None)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
@@ -230,8 +243,11 @@ class ServeEngine:
                  "weights": cuda_decode.decode_weights(
                      params, fused, draft_cfg.tie_embeddings,
                      draft_cfg.ldtype)}
+        # the draft's slots record no telemetry (the JAX engine keeps
+        # them as bare arrays, outside the cache families)
         cache = StateCache(draft_cfg.num_layers, self.cache.num_slots,
-                           draft_cfg.hidden_size, device=self.device)
+                           draft_cfg.hidden_size, device=self.device,
+                           registry=obs.NULL_REGISTRY)
         with self._lock:
             self.draft, self.draft_cache = draft, cache
 
@@ -643,6 +659,10 @@ class ServeEngine:
     def restore_session(self, session_id: str, state: DetachedState) -> int:
         with self._lock:
             return self.cache.restore(session_id, state)
+
+    def resident_models(self) -> dict[str, int]:
+        """``{model_id: version}`` of the resident model (one here)."""
+        return {self.model_id: self.model_version}
 
     def has_session(self, session_id: str) -> bool:
         """True when the session is in a device slot or restorable from a

@@ -51,12 +51,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..train.checkpoint import CorruptCheckpointError, atomic_write, read_verified
 
 #: session-id namespace of the prefix cache's backing slots. A client
 #: naming one would inherit (and corrupt) the shared prefix state, so the
 #: batcher's ``Request`` refuses ids under it.
 PREFIX_SID_NAMESPACE = "prefix/"
+
+#: configuration keys of a prefix store's ``stats()``: a sum over stores
+#: (the load generator's ``prefix_totals``) keeps the first store's value
+#: for these and adds the rest (the JAX package's tuple, its radix store's
+#: keys included)
+PREFIX_STATS_CONFIG_KEYS = ("stride", "max_entries", "max_nodes",
+                            "host_bytes", "state_bytes", "mode")
 
 
 class CacheFullError(RuntimeError):
@@ -82,7 +90,7 @@ class Capture(NamedTuple):
 
 class StateCache:
     def __init__(self, num_layers: int, num_slots: int, hidden_size: int,
-                 device: torch.device):
+                 device: torch.device, registry=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.num_layers = num_layers
@@ -103,6 +111,15 @@ class StateCache:
         # LRU-evicted session: the prefix cache invalidates or spills the
         # dependent entry, the session tiers capture the evicted rows
         self.evict_listeners: list = []
+        # /metrics mirrors of the ints above (which stay this instance's
+        # stats()); the JAX package's family names and help strings
+        reg = obs.REGISTRY if registry is None else registry
+        self._m_evictions = reg.counter(
+            "serve_state_cache_evictions_total",
+            "LRU evictions of unpinned session slots")
+        self._m_swaps = reg.counter(
+            "serve_state_cache_swaps_total",
+            "device programs applied to the cache arrays (generation)")
 
     @property
     def scratch_slot(self) -> int:
@@ -142,6 +159,7 @@ class StateCache:
             if sid not in self._pinned:
                 slot = self._slots.pop(sid)
                 self.evictions += 1
+                self._m_evictions.inc()
                 for listener in self.evict_listeners:
                     listener(sid, slot)
                 return slot
@@ -156,6 +174,19 @@ class StateCache:
             slot = self._slots.pop(session_id, None)
             if slot is not None:
                 self._free.append(slot)
+
+    def rename(self, session_id: str, new_id: str) -> bool:
+        """Move a live session's slot to ``new_id``, pinned (the batcher
+        parks a timed-out row's slot this way until the window still
+        writing it is fetched). False when ``session_id`` holds no slot."""
+        with self._lock:
+            slot = self._slots.pop(session_id, None)
+            if slot is None:
+                return False
+            self._pinned.discard(session_id)
+            self._slots[new_id] = slot
+            self._pinned.add(new_id)
+            return True
 
     def pin(self, session_id: str) -> None:
         with self._lock:
@@ -217,6 +248,7 @@ class StateCache:
         self.c.index_copy_(1, idx, self._rows(c))
         with self._lock:
             self.generation += 1
+        self._m_swaps.inc()
 
     def gather_scatter(self, dst_slots, src_h, src_c, src_slots) -> None:
         """Gather rows ``src_slots`` of ``src_h``/``src_c`` (``[L, S', H]``
@@ -368,7 +400,7 @@ class PrefixCache:
     """
 
     def __init__(self, cache: StateCache, *, stride: int = 8,
-                 max_entries: int = 16, tiers=None):
+                 max_entries: int = 16, tiers=None, registry=None):
         if stride < 1:
             raise ValueError(f"stride must be >= 1, got {stride}")
         if max_entries < 1:
@@ -391,6 +423,15 @@ class PrefixCache:
         self.invalidated = 0   # backing slot evicted, state lost
         self.spilled = 0       # backing slot evicted, state kept in a tier
         self.promoted = 0      # spilled entry restored to a device slot
+        reg = obs.REGISTRY if registry is None else registry
+        fam = reg.counter(
+            "serve_prefix_cache_events_total",
+            "prefix-cache outcomes (hit/miss/insert/evict/invalidate/"
+            "spill/promote)",
+            labelnames=("event",))
+        self._m = {e: fam.labels(event=e)
+                   for e in ("hit", "miss", "insert", "evict", "invalidate",
+                             "spill", "promote")}
         cache.evict_listeners.append(self._on_slot_evicted_locked)
 
     @staticmethod
@@ -442,8 +483,10 @@ class PrefixCache:
                     self.cache.pin(entry.sid)
                 entry.refs += 1
                 self.hits += 1
+                self._m["hit"].inc()
                 return entry, entry.length
             self.misses += 1
+            self._m["miss"].inc()
             return None, 0
 
     def _promote_locked(self, entry: PrefixEntry) -> bool:
@@ -463,9 +506,11 @@ class PrefixCache:
             if self._entries.pop(entry.key, None) is not None:
                 self._length_drop_locked(entry.length)
             self.invalidated += 1
+            self._m["invalidate"].inc()
             return False
         entry.slot = slot
         self.promoted += 1
+        self._m["promote"].inc()
         return True
 
     def release(self, entry: PrefixEntry) -> None:
@@ -507,6 +552,7 @@ class PrefixCache:
             self._by_sid[sid] = key
             self._length_add_locked(length)
             self.inserts += 1
+            self._m["insert"].inc()
             return True
 
     def _evict_entry_locked(self, entry: PrefixEntry) -> None:
@@ -517,6 +563,7 @@ class PrefixCache:
         if self.tiers is not None:
             self.tiers.discard_memory(entry.sid)
         self.evictions += 1
+        self._m["evict"].inc()
 
     def _on_slot_evicted_locked(self, sid: str, slot: int) -> None:
         # the state cache's LRU took a backing slot. Untiered: the entry
@@ -529,12 +576,14 @@ class PrefixCache:
         if self.tiers is not None and entry is not None:
             entry.slot = None
             self.spilled += 1
+            self._m["spill"].inc()
             return
         self._by_sid.pop(sid, None)
         dropped = self._entries.pop(key, None)
         if dropped is not None:
             self._length_drop_locked(dropped.length)
         self.invalidated += 1
+        self._m["invalidate"].inc()
 
     def __len__(self) -> int:
         with self._lock:
@@ -775,7 +824,7 @@ class SessionTiers:
     SPILL_BATCH = 64
 
     def __init__(self, cache: StateCache, *, host_entries: int = 256,
-                 directory: str | None = None):
+                 directory: str | None = None, registry=None):
         if host_entries < 1:
             raise ValueError(f"host_entries must be >= 1, got {host_entries}")
         self.cache = cache
@@ -808,7 +857,47 @@ class SessionTiers:
         # written into a slot, in seconds
         self.spill_seconds = _Seconds()
         self.fill_seconds = _Seconds()
+        self._bind_metrics(obs.REGISTRY if registry is None else registry)
         cache.evict_listeners.append(self._on_slot_evicted_locked)
+
+    def _bind_metrics(self, reg) -> None:
+        """Resolve the labelled instruments once (the record sites read
+        them without the lock); ``replica`` is the stack's one, 0."""
+        rl = "0"
+        fam = reg.counter(
+            "serve_tier_spills_total",
+            "session states spilled into a tier (host = RAM spill of an "
+            "evicted slot; disk = durable session file written)",
+            labelnames=("tier", "replica"))
+        self._m_spill = {t: fam.labels(tier=t, replica=rl)
+                         for t in ("host", "disk")}
+        fam = reg.counter(
+            "serve_tier_fills_total",
+            "spilled session states restored into a device slot, by "
+            "source tier",
+            labelnames=("tier", "replica"))
+        self._m_fill = {t: fam.labels(tier=t, replica=rl)
+                        for t in ("host", "disk")}
+        fam = reg.counter(
+            "serve_tier_lost_total",
+            "tier state trouble, by reason (miss = no tier holds it, "
+            "corrupt = disk file quarantined, overflow = host tier full "
+            "with no disk tier; disk_error = a disk write failed — state "
+            "stays in RAM, durability lost, correctness kept)",
+            labelnames=("reason", "replica"))
+        self._m_lost = {r: fam.labels(reason=r, replica=rl)
+                        for r in ("miss", "corrupt", "overflow",
+                                  "disk_error")}
+        self._m_spill_lat = reg.histogram(
+            "serve_tier_spill_seconds",
+            "eviction → spilled state stored (device fetch + optional "
+            "disk write), per spill job",
+            labelnames=("replica",)).labels(replica=rl)
+        self._m_fill_lat = reg.histogram(
+            "serve_tier_fill_seconds",
+            "tier fill: probe → state written back into a device slot",
+            labelnames=("replica",)).labels(replica=rl)
+
 
     # ---- spill capture (under the cache lock) --------------------------
 
@@ -898,6 +987,7 @@ class SessionTiers:
         states = self.cache.fetch_detached_batch([job.cap for _, job in batch])
         disk_writes: list[tuple[str, DetachedState]] = []
         stored: list[_SpillJob] = []
+        dropped = 0
         with self._work:
             for (sid, job), state in zip(batch, states):
                 cur = self._pending.get(sid)
@@ -909,14 +999,19 @@ class SessionTiers:
                     self._host[sid] = state
                     self._host.move_to_end(sid)
                     self.spills["host"] += 1
-                    self._cascade_overflow_locked(disk_writes)
+                    self._m_spill["host"].inc()
+                    dropped += self._cascade_overflow_locked(disk_writes)
                 if job.to_disk:
                     disk_writes.append((sid, state))
+        if dropped:
+            self._m_lost["overflow"].inc(dropped)
         self._flush_disk_writes(disk_writes)
         end = time.perf_counter()
         with self._lock:
             for job in stored:
                 self.spill_seconds.add(end - job.t0)
+        for job in stored:
+            self._m_spill_lat.observe(end - job.t0)
 
     def _cascade_overflow_locked(self, disk_writes: list) -> int:
         """Pop host-tier overflow victims: disk-bound ones park in
@@ -963,7 +1058,9 @@ class SessionTiers:
                         if st is not None:
                             self._host[sid] = st
                             self._host.move_to_end(sid)
+                    self._m_lost["disk_error"].inc()
                     continue
+                self._m_spill["disk"].inc()
                 with self._lock:
                     self.spills["disk"] += 1
                     self._evacuating.pop(sid, None)
@@ -1099,6 +1196,7 @@ class SessionTiers:
                       f"for {sid!r}: {e}", flush=True)
                 with self._lock:
                     self.corrupt += 1
+                self._m_lost["corrupt"].inc()
             if state is None:
                 misses += 1
             else:
@@ -1112,8 +1210,19 @@ class SessionTiers:
         with self._lock:
             self.fills_pending += len(dev)
             self.misses += misses
-        for sid, _, _ in (*dev, *host, *disk):
+        n_host = len(dev) + len(host)
+        if n_host:
+            self._m_fill["host"].inc(n_host)
+        if disk:
+            self._m_fill["disk"].inc(len(disk))
+        if misses:
+            self._m_lost["miss"].inc(misses)
+        for sid, _, _ in (*dev, *host):
             results[sid] = True
+            self._m_fill_lat.observe(end_mem - t0)
+        for sid, _, _ in disk:
+            results[sid] = True
+            self._m_fill_lat.observe(end_disk - t0)
         return results
 
     def fill_memory(self, sid: str, slot: int) -> bool:
@@ -1125,11 +1234,15 @@ class SessionTiers:
             got = self._take_memory_locked(sid)
             if got is None:
                 self.misses += 1
+                self._m_lost["miss"].inc()
                 return False
             self._write([slot], [got])
-            self._count_fills("host", 1, time.perf_counter() - t0)
+            seconds = time.perf_counter() - t0
+            self._count_fills("host", 1, seconds)
             self.fills_pending += isinstance(got, Capture)
-            return True
+        self._m_fill["host"].inc()
+        self._m_fill_lat.observe(seconds)
+        return True
 
     def discard_memory(self, sid: str) -> None:
         """Memory-tiers-only :meth:`discard` (no file IO: safe under the
