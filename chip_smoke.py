@@ -262,10 +262,39 @@ Phases (each one fails the run):
    up per class, its tokens/s, TTFT and gaps printed; (c) ``serve --http``
    with default flags: ``GET /metrics`` parses, and its completed count and
    TTFT histogram count equal the requests served. Its launches (a, c)
-   join the kernel report's rows.
+   join the kernel report's rows;
+21. sample as JAX's ``cli serve`` does by default: (a) the decode window's
+   sampled form against its plain twin with shared noise (tokens
+   identical, carries within 1e-5, 1e-3 in bf16) at config 1 (B in {1,
+   16}, K in {1, 8}, temperature 1.0 and 0.7) and at config 3's full width
+   (B in {4, 16}, K in {4, 8}), in f32 and bf16, each shape timed in turns
+   against the greedy form, beside its plain twin and its bound with the
+   noise bytes; (b) the engine's scan window on the card against the same
+   engine on the CPU, the noise drawn on the CPU, at top-k 40, top-p 0.9
+   and both, at config 1 and config 3's width (B=16, K=8): tokens
+   identical, no window-kernel launch, every window a counted fallback,
+   then timed; (c) ``serve --http`` as a subprocess in bf16 at config 1
+   (48 tokens, with ``--autotune on``) and config 3's width (24 tokens):
+   a temperature request alone raises the window kernel's launches, then
+   a burst of greedy, temperature-1.0, top-k and top-p requests, twice:
+   greedy tokens equal to the CPU plain ``generate``, every sampled token
+   in the top-k set or nucleus of its own prefix on the CPU, except at a
+   tie, held to the bf16 rounding read on the CPU where it falls and
+   printed with its gap; the scan fallbacks equal to the windows the
+   kernel did not run; (d) ``serve
+   --loadgen`` with JAX's defaults (sampled) and ``--greedy
+   --decode-kernel pallas,scan`` (``kernel_sweep``, greedy parity), each
+   arm's tokens/s; (e) the ``--trace`` file of (c) loads with one timeline
+   row a request, its phases in order; (f) ``serve --loadgen --autotune on
+   --mode open --arrival burst``: moves recorded, each within its warmed
+   set, ``serve_autotune_moves_total`` equal to the stats' counts (and
+   (c)'s greedy tokens held with the controller on); (g) ``train
+   --generate-tokens 64 --top-k 5`` at config 1: the continuation and its
+   JSONL record. Its launches (c) join the kernel report's rows.
 
 Each phase prints the seconds it took. ``python3 <this file>
---loadgen`` runs phase 20 alone (about 2 minutes of the tool's time);
+--sampling`` runs phase 21 alone; ``--loadgen`` runs phase 20 alone
+(about 2 minutes of the tool's time);
 ``--sessions`` runs phase 19 alone; ``--forecast`` runs phase 18 alone; ``--train-calls LABEL`` phase 14 alone; ``--bf16 train`` the bf16
 parts of phases 5, 7 and 9 and phases 15 and 16 (``--bf16 kernels``
 without phases 15 and 16, ``--bf16 residentx`` phase 7's bf16 part and
@@ -857,7 +886,7 @@ def serve_phase(torch, tlm, tgen, cd, serve, device):
         http_thread.join(30)
     if launches < 1:
         fail("the serve run launched the decode-window kernel no time")
-    if plain_windows != 0 or stats["engine"]["decode_kernel"] != "cuda":
+    if plain_windows != 0 or stats["engine"]["decode_kernel"] != "pallas":
         fail(f"the engine ran {plain_windows} plain decode windows on the card")
     if not sum(stats["batcher"]["windows_dispatched"].values()):
         fail("the serve run dispatched no multi-token decode window")
@@ -3501,14 +3530,15 @@ def bf16_window_weights(torch, cd, tgen, params, cfg, ldtype=None):
                              cfg.tie_embeddings, ldtype or torch.float32)
 
 
-def window_bound_bf16(cfg, B, K, row_steps, draft=None, live=0, emitted=0):
+def window_bound_bf16(cfg, B, K, row_steps, draft=None, live=0, emitted=0,
+                      sampled=False):
     """Least time of a bfloat16 window: W and U at 2 bytes an element (the
     rest as :func:`bound` and :func:`spec_bound` count it) over HBM
     bandwidth, against the layers' products over the bf16 tensor-core peak
     plus the float32 head's over the float32 peak. A decode window runs
-    ``row_steps`` row steps; with a ``draft``, a spec window whose rows
-    ran K draft steps each (``live`` rows) and ``emitted`` target and
-    draft steps."""
+    ``row_steps`` row steps (``sampled``: it also reads the [K, B, V]
+    float32 noise); with a ``draft``, a spec window whose rows ran K draft
+    steps each (``live`` rows) and ``emitted`` target and draft steps."""
     def cell(m):
         return sum(((m.embed if l == 0 else m.hidden_size) + m.hidden_size)
                    * 4 * m.hidden_size for l in range(m.num_layers))
@@ -3520,6 +3550,7 @@ def window_bound_bf16(cfg, B, K, row_steps, draft=None, live=0, emitted=0):
                  + 4 * 4 * m.num_layers * B * m.hidden_size for m in models)
     if draft is None:
         nbytes += 4 * min(row_steps, V) * cfg.embed + 4 * B * (K + 7)
+        nbytes += 4 * K * B * V if sampled else 0
         mm = 2 * row_steps * cell(cfg)
         head = 2 * row_steps * cfg.hidden_size * V
     else:
@@ -5006,8 +5037,10 @@ def phase19(torch, tlm, tgen, cl, ct, serve, draft_config, device):
 LOAD_QUEUE, LOAD_BURST, LOAD_NEW = 8, 32, 24
 LOAD_LONG = {"float32": (8192, 0.08), "bfloat16": (64, 0.01)}
 # (b) `serve --loadgen`, closed-loop and --idle-churn
+# greedy, as phase 20b has run since before `serve --loadgen` sampled by
+# default (phase 21d runs the sampled default)
 LOADGEN_FLAGS = ["--sessions", "8", "--requests-per-session", "4",
-                 "--priority-frac", "0.5", "--retry-max", "2"]
+                 "--priority-frac", "0.5", "--retry-max", "2", "--greedy"]
 # the kernels phase 20's runs must launch
 LOAD_KERNELS = ("decode_window", "lstm_fwd", "decode_window_bf16",
                 "lstm_fwd_bf16u")
@@ -5299,6 +5332,600 @@ def phase20(torch, tlm, tgen, serve, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: sampling as JAX's `cli serve` samples by default
+# ---------------------------------------------------------------------------
+
+# (a) the sampled window's shapes: config 1 at B in {1, 16}, K in {1, 8},
+# and config 3's full width at B in {4, 16}, K in {4, 8}
+SAMPLED_SHAPES = (("config1", CONFIG1, (1, 16), (1, 8), 200),
+                  ("config3", CONFIG3, (4, 16), (4, 8), 20))
+# (b) the scan window's sampling configs (top-k, top-p, both)
+SCAN_KINDS = (("top_k 40", dict(top_k=40)), ("top_p 0.9", dict(top_p=0.9)),
+              ("top_k 40 top_p 0.9", dict(top_k=40, top_p=0.9)))
+
+
+def sampled_window_phase(torch, tlm, tgen, cd, device):
+    """(a) The decode window's sampled form against its plain twin with
+    shared noise (tokens, next, alive and remaining identical; h and c
+    within TOL in float32, BF16_TOL in bfloat16) at each shape, at
+    temperature 1.0 and 0.7, in float32 and bfloat16; each shape timed at
+    temperature 1.0 in turns against the greedy form (greedy, sampled,
+    sampled, greedy), beside its plain twin and its bound with the noise
+    bytes. Returns {(config, dtype, B, K): timings}."""
+    print("== phase 21a: the decode window's sampled form vs its plain "
+          "twin, timed against its greedy form", flush=True)
+    names = ("h", "c", "tokens", "next", "alive", "remaining")
+    out = {}
+    for name, spec, bs, ks, iters in SAMPLED_SHAPES:
+        cfg, _, params = make_model(torch, tlm, 1, device=device, **spec)
+        forms = (("float32", weights_of(cd, tgen, params, cfg)),
+                 ("bfloat16", bf16_window_weights(torch, cd, tgen, params,
+                                                  cfg)))
+        for dtype, w in forms:
+            esize = 2 if dtype == "bfloat16" else 4
+            for B in bs:
+                for K in ks:
+                    for j, t in enumerate((1.0, 0.7)):
+                        inputs = window_inputs(
+                            torch, cd, w, cfg, B, K, False, seed=400 + j,
+                            device=device, edge_rows=B > 2)
+                        args = dict(window=K, temperature=t, greedy=False)
+                        got = cd.decode_window(w, *inputs, **args)
+                        ref = cd.decode_window_reference(w, *inputs, **args)
+                        if dtype == "bfloat16":
+                            err = held_bf16(got, ref, f"21a {name} bf16 B={B}"
+                                            f" K={K} t={t}", names, 4)
+                        else:
+                            torch.cuda.synchronize()
+                            for n, a, b in zip(names[2:], got[2:], ref[2:]):
+                                if not torch.equal(a, b):
+                                    fail(f"21a {name} B={B} K={K} t={t}: "
+                                         f"kernel {n} {a.tolist()} != plain "
+                                         f"{b.tolist()}")
+                            err = max(float((got[0] - ref[0]).abs().max()),
+                                      float((got[1] - ref[1]).abs().max()))
+                            if err > TOL:
+                                fail(f"21a {name} B={B} K={K} t={t}: h/c "
+                                     f"differ by {err:.3e} > {TOL}")
+                    # timing at the serve default: every row live
+                    gin = window_inputs(torch, cd, w, cfg, B, K, True,
+                                        seed=7, device=device,
+                                        edge_rows=False)
+                    sin = window_inputs(torch, cd, w, cfg, B, K, False,
+                                        seed=7, device=device,
+                                        edge_rows=False)
+                    gargs = dict(window=K, temperature=1.0, greedy=True)
+                    sargs = dict(window=K, temperature=1.0, greedy=False)
+                    row_steps = int((cd.decode_window(w, *sin, **sargs)[2]
+                                     != cd.PAD_TOKEN).sum())
+                    greedy_ms, sampled_ms, turns = in_turns_ms(
+                        torch, lambda: cd.decode_window(w, *gin, **gargs),
+                        lambda: cd.decode_window(w, *sin, **sargs), iters)
+                    plain_ms = time_ms(
+                        torch, lambda: cd.decode_window_reference(
+                            w, *sin, **sargs), max(5, iters // 10))
+                    dev_ms = None
+                    if B == 16 and K == 8:
+                        dev_ms = profiled_ms(
+                            torch, lambda: cd.decode_window(w, *sin,
+                                                            **sargs),
+                            "decode_window", 20)
+                    if dtype == "bfloat16":
+                        b_ms, b_by = window_bound_bf16(cfg, B, K, row_steps,
+                                                       sampled=True)
+                    else:
+                        b_ms, b_by = bound(cfg, B, K, row_steps, sampled=True)
+                    plan = cd.card_plan(
+                        ((cfg.num_layers, cfg.hidden_size, cfg.embed),),
+                        cfg.vocab_size, B, None, device, esize)
+                    out[(name, dtype, B, K)] = dict(
+                        kernel_ms=sampled_ms, greedy_ms=greedy_ms,
+                        plain_ms=plain_ms, device_ms=dev_ms, bound_ms=b_ms,
+                        bound_by=b_by, max_err=err,
+                        noise_bytes=4 * K * B * cfg.vocab_size)
+                    print(f"  {name} {dtype} B={B} K={K}: t 1.0 and 0.7 "
+                          f"identical to the twin (max |dh|,|dc| "
+                          f"{err:.3e}); sampled kernel_ms {sampled_ms:.4f}, "
+                          f"greedy kernel_ms {greedy_ms:.4f} (turns g/s/s/g "
+                          f"{', '.join(f'{x:.4f}' for x in turns)}), "
+                          f"sampled device ms "
+                          f"{'not recorded' if dev_ms is None else f'{dev_ms:.4f}'}"
+                          f", plain twin {plain_ms:.4f} ms, bound "
+                          f"{b_ms:.6f} ms ({b_by}; noise "
+                          f"{4 * K * B * cfg.vocab_size} bytes); "
+                          f"{plan.blocks} blocks, cluster {plan.cluster}",
+                          flush=True)
+    return out
+
+
+def _fed_noise(torch, engine, noise):
+    """Make ``engine`` draw its Gumbel noise from ``noise`` [N, B, V] (CPU,
+    copied to the engine's device), one step a prefill, K a window."""
+    pos = [0]
+
+    def draw(shape):
+        k = 1 if len(shape) == 2 else shape[0]
+        got = noise[pos[0]:pos[0] + k].to(engine.device)
+        pos[0] += k
+        return got[0] if len(shape) == 2 else got
+
+    engine._noise = draw
+
+
+def scan_window_phase(torch, tlm, tgen, cd, serve, device):
+    """(b) The engine's scan window on the card against the same engine on
+    the CPU, the noise drawn on the CPU: a prefill of B rows then a K-token
+    window, at each of SCAN_KINDS, at config 1 (B=16, K=8) and config 3's
+    width (B=16, K=8): tokens identical, no window-kernel launch, and
+    ``decode_window_scan_fallbacks`` equal to the windows dispatched. Then
+    the scan window alone timed at each shape. Returns {config: ms}."""
+    import numpy as np
+
+    print("== phase 21b: the scan window (top-k / top-p) on the card vs the "
+          "CPU", flush=True)
+    out = {}
+    for name, spec in (("config1", CONFIG1), ("config3", CONFIG3)):
+        cfg, params_cpu, _ = make_model(torch, tlm, 1, device="cpu", **spec)
+        B, K, V = 16, 8, cfg.vocab_size
+        rng = np.random.RandomState(21)
+        prompts = [rng.randint(0, V, size=int(n))
+                   for n in rng.randint(3, 16, size=B)]
+        engines = {d: serve.ServeEngine(params_cpu, cfg, device=d,
+                                        num_slots=B + 2, batch_buckets=(B,),
+                                        prefill_buckets=(16,),
+                                        decode_kernel="pallas")
+                   for d in ("cpu", device)}
+        before = cd.counts.kernel, cd.counts.reference
+        for label, kw in SCAN_KINDS:
+            sampling = serve.SamplingParams(**kw)
+            noise = tgen.gumbel_noise(
+                (1 + K, B, V), generator=torch.Generator().manual_seed(5))
+            toks = {}
+            for d, eng in engines.items():
+                _fed_noise(torch, eng, noise)
+                slots = [eng.cache.acquire(f"{label}-{i}")[0]
+                         for i in range(B)]
+                first = eng.prefill([(s, True, p) for s, p in
+                                     zip(slots, prompts)], sampling)
+                win = eng.decode_window(slots, first, [K + 1] * B,
+                                        sampling=sampling, window=K)
+                toks[d] = np.concatenate(
+                    [first[:, None], eng.fetch_window(win)], axis=1)
+                for i in range(B):
+                    eng.cache.release(f"{label}-{i}")
+            if not np.array_equal(toks["cpu"], toks[device]):
+                fail(f"21b {name} {label}: the card's scan window "
+                     f"{toks[device].tolist()} != the CPU's "
+                     f"{toks['cpu'].tolist()}")
+        st = engines[device].stats()
+        launched = (cd.counts.kernel - before[0], cd.counts.reference
+                    - before[1])
+        if launched[0] != 0:
+            fail(f"21b {name}: {launched[0]} window-kernel launches during "
+                 "the scan windows")
+        if st["decode_window_scan_fallbacks"] != (
+                st["dispatches"]["decode_window"]) or not st[
+                "decode_window_scan_fallbacks"]:
+            fail(f"21b {name}: {st['decode_window_scan_fallbacks']} "
+                 f"fallbacks for {st['dispatches']['decode_window']} "
+                 "windows dispatched")
+        # the scan window alone: every row live, from the card's state
+        eng = engines[device]
+        g = torch.Generator().manual_seed(3)
+        L, H = cfg.num_layers, cfg.hidden_size
+        h = (torch.randn((L, B, H), generator=g) * 0.5).to(device)
+        c = (torch.randn((L, B, H), generator=g) * 0.5).to(device)
+        tok = torch.randint(0, V, (B,), generator=g,
+                            dtype=torch.int32).to(device)
+        alive = torch.ones(B, dtype=torch.int32, device=device)
+        rem = torch.full((B,), K + 1, dtype=torch.int32, device=device)
+        eos = torch.full((B,), -1, dtype=torch.int32, device=device)
+        noise = tgen.gumbel_noise((K, B, V), generator=g).to(device)
+        times = {}
+        for label, kw in SCAN_KINDS:
+            sampling = serve.SamplingParams(**kw)
+            times[label] = time_ms(torch, lambda: eng._scan_window(
+                h, c, tok, alive, rem, eos, noise, window=K,
+                sampling=sampling), 20 if name == "config1" else 5)
+        out[name] = times
+        print(f"  {name} L={L} H={H} V={V} B={B} K={K}: tokens identical to "
+              f"the CPU at {', '.join(l for l, _ in SCAN_KINDS)}; "
+              f"{st['decode_window_scan_fallbacks']} fallbacks = "
+              f"{st['dispatches']['decode_window']} windows, 0 window-kernel "
+              f"launches; scan window ms "
+              + ", ".join(f"{l} {v:.4f}" for l, v in times.items()),
+              flush=True)
+    return out
+
+
+# (c) in bf16 the card's forms and the CPU's plain loop round at other
+# points, so two logits closer than their rounding can order either way.
+# The rounding is read on the CPU at each such position: r = max over the
+# vocabulary of |bf16 logits - float32 logits| from the same prefix. A
+# difference of two logits moves by at most 2r in one bf16 computation,
+# so the card's and the CPU's differ by at most 2r + 2r', r' the card's
+# own (not measured; taken as r). A greedy token that is not the CPU's
+# argmax on its own prefix, or a sampled token below its set's least
+# logit, is a tie when it is within TIE_READINGS x r of it.
+TIE_READINGS = 4.0
+# (c) the mixed burst: the sampling configs of its requests, by kind
+MIXED_KINDS = {"greedy": {"greedy": True},
+               "temperature": {"temperature": 1.0},
+               "top_k": {"top_k": 5}, "top_p": {"top_p": 0.9},
+               "top_k_top_p": {"top_k": 5, "top_p": 0.9}}
+MIXED_BURST = ("greedy", "temperature", "top_k", "top_p", "greedy",
+               "top_k_top_p", "temperature", "top_p", "greedy", "top_k")
+
+
+def prefix_logits(torch, tlm, params_cpu, cfg, context, n_prompt, kw):
+    """The CPU's logits [n, V] (float32, divided by the request's
+    temperature) for each token after the prompt in ``context``, each from
+    its own prefix (one forward pass)."""
+    logits, _ = tlm.lm_forward(params_cpu, torch.tensor([context]), cfg)
+    out = logits[0, n_prompt - 1:len(context) - 1].float()
+    t = kw.get("temperature", 1.0)
+    return out / torch.tensor(t) if t != 1.0 else out
+
+
+def truncation_floors(torch, tgen, logits, kw):
+    """The least logit of each row's sampling set (JAX's top-k / top-p
+    truncation keeps exactly the tokens at or above it)."""
+    cut = tgen.truncate_logits(logits, kw.get("top_k"), kw.get("top_p"))
+    return [float(row[torch.isfinite(c)].min()) for row, c in zip(logits, cut)]
+
+
+def tie_check(torch, tlm, params_cpu, cfg, context, n_prompt, kw, logits,
+              short, what):
+    """Hold each ``short`` (position, amount a token falls short of the
+    CPU's argmax or its set's least logit) to TIE_READINGS x the bf16
+    rounding read at that position; returns one record a position."""
+    import dataclasses
+    f32 = prefix_logits(torch, tlm, params_cpu,
+                        dataclasses.replace(cfg, compute_dtype="float32"),
+                        context, n_prompt, kw)
+    out = []
+    for j, d in short:
+        r = float((logits[j] - f32[j]).abs().max())
+        if not d <= TIE_READINGS * r:
+            fail(f"21c {what}: the token at {j} falls {d:.6g} short on the "
+                 f"CPU, beyond {TIE_READINGS} x the bf16 rounding {r:.6g} "
+                 f"read there: not a tie")
+        out.append({"at": j, "short": d, "rounding": r, "ratio": d / r})
+    return out
+
+
+def mixed_burst_phase(torch, tlm, tgen, name, spec, compute_dtype, n_new,
+                      kinds, device, tmp, extra=()):
+    """(c) ``serve --http`` as a subprocess: one temperature request
+    alone (the window kernel's launches must rise, no fallback), then the
+    mixed burst twice: greedy tokens equal to the CPU plain ``generate``,
+    every sampled token in the top-k set or nucleus the CPU computes from
+    its own prefix, the fallbacks equal to the windows the kernel did not
+    run. In float32 every check is exact. In bfloat16 a greedy run is held
+    token for token to the CPU's until a tie, and a token that is not the
+    CPU's choice on its own prefix (or below its set's least logit) must
+    be within TIE_READINGS x the bf16 rounding read there; each such tie
+    is printed with its gap and rounding. (e)
+    the ``--trace`` file has one timeline row a request, its phases in
+    order. Returns the launches of the rounds and the autotuner's
+    moves."""
+    import dataclasses
+
+    import numpy as np
+
+    print(f"== phase 21c: `serve --http` at {name} ({compute_dtype}): a "
+          "burst of greedy, temperature, top-k and top-p requests",
+          flush=True)
+    cfg, params_cpu, _ = make_model(torch, tlm, 0, device="cpu", **spec)
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    rng = np.random.RandomState(43)
+    prompts = [rng.randint(0, cfg.vocab_size,
+                           size=int(rng.randint(3, 30))).tolist()
+               for _ in MIXED_BURST]
+    kw_of = {k: dict(v) for k, v in MIXED_KINDS.items()}
+    kw_of.update(kinds)
+    refs = {i: cpu_generate(tgen, params_cpu, cfg, prompts[i], n_new)
+            for i, k in enumerate(MIXED_BURST) if k == "greedy"}
+    trace = os.path.join(tmp, f"{name}-{compute_dtype}.trace.json")
+    flags = ["--vocab-size", str(spec["vocab"]), "--hidden-units",
+             str(spec["hidden"]), "--num-layers", str(spec["layers"]),
+             "--seed", "0", "--compute-dtype", compute_dtype]
+    cmd = [sys.executable, "-m", "lstm_tensorspark_torch", "serve", "--http",
+           "--port", "0", *flags, "--trace", trace, *extra,
+           "--device", device.type]
+    proc, port, boot = boot_serve(cmd, f"phase 21c {name}")
+    window = "decode_window_bf16" if compute_dtype == "bfloat16" else (
+        "decode_window")
+    rounds = []
+    try:
+        s0 = get_stats(port)
+        r = post(port, {"prompt": prompts[0], "max_new_tokens": 8,
+                        "temperature": 1.0})
+        s1 = get_stats(port)
+        if r[0] != 200:
+            fail(f"21c {name}: the temperature request failed: {r}")
+        rose = (s1["engine"]["launch_counts"].get(window, 0)
+                - s0["engine"]["launch_counts"].get(window, 0))
+        fell = (s1["engine"]["decode_window_scan_fallbacks"]
+                - s0["engine"]["decode_window_scan_fallbacks"])
+        if rose < 1 or fell != 0:
+            fail(f"21c {name}: the temperature request launched {window} "
+                 f"{rose} times with {fell} fallbacks")
+        for rnd in range(2):
+            before = get_stats(port)
+            t0 = time.perf_counter()
+            out = post_all(port, [
+                {"prompt": p, "max_new_tokens": n_new, **kw_of[k]}
+                for p, k in zip(prompts, MIXED_BURST)])
+            wall = time.perf_counter() - t0
+            rounds.append((before, out, get_stats(port), wall))
+            time.sleep(0.6)  # control windows for the autotuner, if on
+    finally:
+        proc.send_signal(2)
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    launches = {}
+    moves = None
+    ties = []  # the bf16 ties: request, kind, position, gap, rounding
+    sampled = 0
+    for rnd, (before, out, after, wall) in enumerate(rounds):
+        for i, (r, k) in enumerate(zip(out, MIXED_BURST)):
+            if r is None or r[0] != 200 or len(r[1]["tokens"]) != n_new:
+                fail(f"21c {name} round {rnd}: request {i} ({k}): {r}")
+            toks = r[1]["tokens"]
+            what = f"{name} round {rnd}: request {i} ({k})"
+            if k == "greedy" and toks == refs[i]:
+                continue
+            if k == "greedy" and compute_dtype == "float32":
+                fail(f"21c {what} {toks} != the CPU plain generate "
+                     f"{refs[i]}")
+            context, n_prompt = prompts[i] + toks, len(prompts[i])
+            logits = prefix_logits(torch, tlm, params_cpu, cfg, context,
+                                   n_prompt, kw_of[k])
+            if k == "greedy":
+                # equal to the CPU's run up to its first difference, where
+                # the CPU's token and the card's must tie; after it each
+                # token is the CPU's argmax on its own prefix or a tie
+                first = next(j for j, (a, b) in enumerate(zip(toks, refs[i]))
+                             if a != b)
+                short = [(first, float(logits[first][refs[i][first]]
+                                       - logits[first][toks[first]]))]
+                short += [(j, d) for j, d in (
+                    (j, float(logits[j].max() - logits[j][t]))
+                    for j, t in enumerate(toks) if j > first) if d > 0]
+            else:
+                sampled += len(toks)
+                floors = truncation_floors(torch, tgen, logits, kw_of[k])
+                short = [(j, d) for j, d in (
+                    (j, floor - float(logits[j][t]))
+                    for j, (t, floor) in enumerate(zip(toks, floors)))
+                    if d > 0]
+            if short and compute_dtype == "float32":
+                j, d = short[0]
+                fail(f"21c {what}: token {toks[j]} at {j} is {d:.6g} below "
+                     f"its set's least logit")
+            if short:
+                got = tie_check(torch, tlm, params_cpu, cfg, context,
+                                n_prompt, kw_of[k], logits, short, what)
+                of = ("the CPU's choice" if k == "greedy"
+                      else "its set's least logit")
+                for t in got:
+                    print(f"  21c {what}: a tie at token {t['at']}: "
+                          f"{t['short']:.6g} short of {of} on the CPU, bf16 "
+                          f"rounding there {t['rounding']:.6g} (ratio "
+                          f"{t['ratio']:.4f})", flush=True)
+                ties += [dict(t, request=i, kind=k, round=rnd) for t in got]
+        lc0, lc1 = (before["engine"]["launch_counts"],
+                    after["engine"]["launch_counts"])
+        delta = {n: v - lc0.get(n, 0) for n, v in lc1.items()
+                 if v - lc0.get(n, 0)}
+        # every decode dispatch is a window (a mixed batch decodes K=1
+        # windows, one a sampling group)
+        windows = (after["engine"]["dispatches"]["decode_window"]
+                   - before["engine"]["dispatches"]["decode_window"])
+        fell = (after["engine"]["decode_window_scan_fallbacks"]
+                - before["engine"]["decode_window_scan_fallbacks"])
+        if fell < 1 or fell != windows - delta.get(window, 0):
+            fail(f"21c {name} round {rnd}: {fell} fallbacks, {windows} "
+                 f"windows, {delta.get(window, 0)} window-kernel launches")
+        for n, v in delta.items():
+            launches[n] = launches.get(n, 0) + v
+        at = after.get("autotune")
+        moves = None if at is None else at["history"]
+        tokens = sum(len(r[1]["tokens"]) for r in out)
+        print(f"  round {rnd}: {len(out)} requests ({', '.join(MIXED_BURST)})"
+              f" in {wall:.3f} s, {tokens / wall:.1f} tokens/s; greedy "
+              f"identical to the CPU, sampled tokens inside their sets "
+              f"(ties so far {len(ties)}); "
+              f"{windows} windows = {delta.get(window, 0)} {window} launches "
+              f"+ {fell} scan fallbacks; launches {delta}; autotune moves "
+              f"so far {moves}", flush=True)
+    # (e) the trace the server wrote at its exit
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    rows = {}
+    for e in events:
+        if e["ph"] == "X" and isinstance(e.get("args"), dict) and (
+                "request" in e["args"]):
+            rows.setdefault(e["tid"], []).append(e)
+    served = 1 + len(MIXED_BURST) * len(rounds)
+    if len(rows) != served:
+        fail(f"21e {name}: {len(rows)} timeline rows for {served} requests")
+    for tid, row in rows.items():
+        kinds_ = [e["name"] for e in row]
+        dec = [j for j, n in enumerate(kinds_) if n.startswith("decode")]
+        if (kinds_[0] != "queue" or "prefill" not in kinds_
+                or (dec and kinds_.index("prefill") > dec[0])
+                or any(e["dur"] < 0 or e["ts"] < row[0]["ts"]
+                       for e in row)):
+            fail(f"21e {name}: request row {tid} out of order: {kinds_}")
+    worst = max((t["ratio"] for t in ties), default=None)
+    print(f"  {len(ties)} bf16 ties ({sum(t['kind'] != 'greedy' for t in ties)}"
+          f" of {sampled} sampled tokens outside their set on the CPU, "
+          f"{sum(t['kind'] == 'greedy' for t in ties)} greedy), the largest "
+          f"gap / rounding {worst}", flush=True)
+    print(f"  booted in {boot:.1f} s; (e) the --trace file loads: "
+          f"{len(events)} events, {len(rows)} request rows (one a "
+          f"request), each queue → prefill → decode → readback in order; "
+          f"{card_line()}", flush=True)
+    return launches, moves
+
+
+def loadgen_sampling_phase(torch, device, tmp):
+    """(d) ``serve --loadgen`` at config 1 with JAX's defaults (sampled at
+    temperature 1.0) and ``--greedy --decode-kernel pallas,scan``
+    (``kernel_sweep``, greedy parity), each arm's tokens/s; (f) ``serve
+    --loadgen --autotune on --mode open --arrival burst`` (greedy, a 0.5
+    ms SLO so the bursts press on it): moves recorded, each within its
+    warmed set, ``serve_autotune_moves_total`` equal to the stats'
+    counts."""
+    print("== phase 21d/f: `serve --loadgen` sampled by default, the "
+          "kernel sweep, and the autotuner under open-loop bursts",
+          flush=True)
+    small = ["--sessions", "8", "--requests-per-session", "2",
+             "--max-new-tokens", "16"]
+    runs = (("sampled", [*small, "--compare", ""]),
+            ("kernel-sweep", [*small, "--greedy", "--decode-kernel",
+                              "pallas,scan"]),
+            ("autotune", ["--sessions", "32", "--requests-per-session", "2",
+                          "--max-new-tokens", "16", "--compare", "",
+                          "--greedy", "--autotune", "on", "--mode", "open",
+                          "--arrival", "burst", "--rate", "1000",
+                          "--burst-n", "32", "--burst-gap", "0.4",
+                          "--slo-ms", "0.5", "--autotune-interval", "0.1"]))
+    out = {}
+    for label, extra in runs:
+        path = os.path.join(tmp, f"{label}.json")
+        cmd = [sys.executable, "-m", "lstm_tensorspark_torch", "serve",
+               "--loadgen", *CONFIG1_FLAGS, *extra, "--json", path,
+               "--device", device.type]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+        except subprocess.TimeoutExpired:
+            fail(f"21 {label}: serve --loadgen ran past 300 s")
+        if proc.returncode != 0:
+            fail(f"21 {label}: rc {proc.returncode}: "
+                 f"{(proc.stdout + proc.stderr)[-3000:]}")
+        with open(path) as f:
+            out[label] = rep = strict_json(f.read(), f"21 {label}")
+        secs = time.perf_counter() - t0
+        if label == "sampled":
+            eng = rep["engine"]
+            if (eng["decode_kernel"] != "pallas" or rep["failed"]
+                    or eng["decode_window_scan_fallbacks"] != 0
+                    or not eng["launch_counts"].get("decode_window")):
+                fail(f"21d sampled: {eng}")
+            print(f"  (d) JAX's defaults (temperature 1.0): "
+                  f"{rep['completed']} requests, {rep['tokens_per_sec']} "
+                  f"tokens/s, TTFT ms p50 {rep['p50_ttft_ms']}, gap ms p99 "
+                  f"{rep['p99_itl_ms']}; decode_window launches of the "
+                  f"process {eng['launch_counts']['decode_window']}, 0 "
+                  f"fallbacks ({secs:.1f} s)", flush=True)
+        elif label == "kernel-sweep":
+            if rep.get("parity_ok") is not True or rep["scan_fallbacks"] != {
+                    "pallas": 0, "scan": 0}:
+                fail(f"21d kernel sweep: parity {rep.get('parity_ok')}, "
+                     f"fallbacks {rep['scan_fallbacks']}")
+            arms = {k: r["tokens_per_sec"] for k, r in rep["kernels"].items()}
+            print(f"  (d) --greedy --decode-kernel pallas,scan: greedy "
+                  f"parity across the arms; tokens/s {arms}; pallas/scan "
+                  f"{rep['pallas_vs_scan']} ({secs:.1f} s)", flush=True)
+        else:
+            at = rep["autotune"]
+            hist = at["history"]
+            if not hist or at["errors"]:
+                fail(f"21f: no autotuner move, or errors: {at}")
+            warmed = {"window_k": set(at["knobs"]["window_k"]["ladder"]),
+                      "prefill_chunk": set(
+                          at["knobs"]["prefill_chunk"]["choices"])}
+            for m in hist:
+                if m["knob"] in warmed and m["to"] not in warmed[m["knob"]]:
+                    fail(f"21f: move {m} leaves its warmed set {warmed}")
+            metric = {k: v for k, v in rep["server_metrics"].items()
+                      if k.startswith("serve_autotune_moves_total{")}
+            for knob, dirs in at["moves"].items():
+                for d, n in dirs.items():
+                    key = (f'serve_autotune_moves_total{{knob="{knob}",'
+                           f'direction="{d}"}}')
+                    if metric.get(key, 0.0) != n:
+                        fail(f"21f: {key} = {metric.get(key)} != stats' {n}")
+            print(f"  (f) --autotune on, open-loop bursts: {len(hist)} moves "
+                  f"{[(m['knob'], m['from'], m['to']) for m in hist]} in "
+                  f"{at['ticks']} control windows, each within its warmed "
+                  f"set; serve_autotune_moves_total equals the stats; "
+                  f"{rep['completed']} of {rep['requests']} requests, "
+                  f"{rep['tokens_per_sec']} tokens/s ({secs:.1f} s)",
+                  flush=True)
+    return out
+
+
+def generate_phase(tmp):
+    """(g) ``train --generate-tokens 64 --top-k 5`` at config 1 on the card
+    (``configs/ptb_char.sh``'s model, 20 steps): the JSONL's ``note:
+    "generate"`` record carries JAX's fields and a continuation of 64
+    tokens (each decodes to one character or more)."""
+    from lstm_tensorspark_torch import cli
+
+    print("== phase 21g: `train --generate-tokens 64 --top-k 5` at config 1",
+          flush=True)
+    path = os.path.join(tmp, "generate.jsonl")
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--hidden-units", "128", "--batch-size", "64",
+                   "--seq-len", "64", "--num-steps", "20", "--log-every",
+                   "10", "--generate-tokens", "64", "--top-k", "5",
+                   "--jsonl", path])
+    if rc != 0:
+        fail(f"21g: train --generate-tokens exited {rc}")
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    gen = [r for r in recs if r.get("note") == "generate"]
+    if len(gen) != 1 or len(gen[0]["continuation"]) < 64 or {
+            k: gen[0][k] for k in ("temperature", "top_k", "top_p",
+                                   "greedy")} != {
+            "temperature": 1.0, "top_k": 5, "top_p": None, "greedy": False}:
+        fail(f"21g: the generate record {gen}")
+    print(f"  20 steps then 64 tokens in {time.perf_counter() - t0:.1f} s; "
+          f"continuation {gen[0]['continuation']!r}", flush=True)
+
+
+def phase21(torch, tlm, tgen, cd, serve, device):
+    """Phase 21 (a-g); returns the launches of its ``serve --http`` runs by
+    counter, and the timings of (a) and (b)."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sampling_")
+    atexit.register(shutil.rmtree, tmp, True)
+    sampled = timed(sampled_window_phase, torch, tlm, tgen, cd, device)
+    scan = timed(scan_window_phase, torch, tlm, tgen, cd, serve, device)
+    launches = {}
+    moves = None
+    # both in bf16: greedy tokens equal the CPU's up to a tie, and each
+    # tie is held to the bf16 rounding read where it falls (TIE_READINGS)
+    for name, spec, dtype, n_new, kinds, extra in (
+            ("config1", CONFIG1, "bfloat16", 48, {},
+             ("--autotune", "on", "--slo-ms", "0.5")),
+            ("config3", CONFIG3, "bfloat16", 24,
+             {"top_k": {"top_k": 40}, "top_k_top_p": {"top_k": 40,
+                                                      "top_p": 0.9}}, ())):
+        got, mv = timed(mixed_burst_phase, torch, tlm, tgen, name, spec,
+                        dtype, n_new, kinds, device, tmp, extra)
+        moves = mv if mv is not None else moves
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"  (f) the config-1 server ran with --autotune on: its greedy "
+          f"tokens stayed the CPU's over its moves {moves}", flush=True)
+    timed(loadgen_sampling_phase, torch, device, tmp)
+    timed(generate_phase, tmp)
+    print(f"  phase 21: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches, sampled, scan
+
+
 def timed(fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -5390,6 +6017,7 @@ def main() -> int:
     session_launches = phase19(torch, tlm, tgen, cl, ct, serve, draft_config,
                                device)
     load_launches = phase20(torch, tlm, tgen, serve, device)
+    sampling_launches = phase21(torch, tlm, tgen, cd, serve, device)[0]
     for k, v in config4_launches.items():
         if k in bf16_launches:
             bf16_launches[k] += v
@@ -5476,10 +6104,11 @@ def main() -> int:
         "bound_by": spec_timings["config1"]["bound_by"],
         "library_ms": None,
     }] + lstm_rows + lstmx_rows + tiled_rows + bf16_rows + serve_rows
-    # phases 19 and 20 drive the serve path again: their launches join the
-    # rows
+    # phases 19, 20 and 21 drive the serve path again: their launches join
+    # the rows
     by_name = {r["name"]: r for r in rows}
-    for phase, got in (("19", session_launches), ("20", load_launches)):
+    for phase, got in (("19", session_launches), ("20", load_launches),
+                       ("21", sampling_launches)):
         stray = set(got) - set(by_name)
         if stray:
             fail(f"phase {phase} launched kernels the report has no row of: "
@@ -5815,7 +6444,28 @@ def loadgen() -> int:
     return 0
 
 
+def sampling() -> int:
+    """Phase 21 alone, from the checkout in the working directory (the
+    serve path's kernels built first); prints its launches."""
+    torch, dev = _checkout("sampling")
+    from lstm_tensorspark_torch import kernels, serve
+    from lstm_tensorspark_torch.models import generate as tgen
+    from lstm_tensorspark_torch.models import lstm_lm as tlm
+    from lstm_tensorspark_torch.ops import cuda_decode as cd
+
+    # the serve path's kernels, and the resident backward (21g trains)
+    built = kernels.build(["decode_window", "decode_window_bf16",
+                           "lstm_fwd", "lstm_bwd", "lstm_tiled_fwd"])
+    print(f"phase 21 ({os.getcwd()}; {card_line()}); kernels built "
+          f"in {built:.1f} s", flush=True)
+    print(json.dumps(phase21(torch, tlm, tgen, cd, serve, dev)[0]),
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--sampling"]:
+        sys.exit(sampling())
     if sys.argv[1:] == ["--loadgen"]:
         sys.exit(loadgen())
     if sys.argv[1:] == ["--forecast"]:

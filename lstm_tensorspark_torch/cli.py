@@ -18,6 +18,10 @@
   (BASELINE.md config 4, ``tasks/forecasting.py``): ``--seq-len`` is its
   context (default 168 hours) before a 24-hour horizon; it ignores
   ``--logits-dtype`` and ``--dropout``, as JAX's does.
+  ``--generate-tokens N`` samples N tokens after an LM run (``--prompt``,
+  ``--temperature``, ``--top-k``, ``--top-p``, ``--greedy``) and logs
+  them as a ``note: "generate"`` record; ``--trace PATH`` writes the run's
+  host spans as a Chrome trace.
   A run of ``--anomaly-limit`` consecutive non-finite steps exits with
   ``ANOMALY_RC``. ``--checkpoint-dir`` with ``--checkpoint-every N`` saves
   the run's whole state every N calls (``train/checkpoint.py``);
@@ -42,7 +46,20 @@
   null): a closed-loop concurrency sweep (``--compare``, default 1,8) or
   one run (``--compare ''``, ``--mode open`` with an arrival shape, or a
   prefix / inject probe), ``--idle-churn`` (the Zipf kept-session
-  workload) or ``--workload template-mix``. Requests are greedy.
+  workload), ``--workload template-mix`` or, with ``--decode-kernel
+  pallas,scan``, the decode-window comparison (``kernel_sweep``).
+
+Requests of ``--loadgen`` and the ``--http`` warm-up sample as JAX's
+command does by default: ``--temperature 1.0``, with ``--top-k`` /
+``--top-p`` truncation when given, or argmax with ``--greedy``;
+``--selftest`` is greedy. ``--decode-kernel`` picks the decode-window
+program (``auto``, ``pallas``: the window kernel, ``scan``: the engine's
+scan window); top-k / top-p windows run the scan window, counted in
+``decode_window_scan_fallbacks``. ``--trace PATH`` writes a Chrome trace
+with one timeline row per request. ``--autotune on`` runs the online
+autotuner (``serve/autotune.py``; ``--autotune-interval``, ``--slo-ms``,
+``--autotune-chunks``, ``--autotune-host-tier-max``,
+``--autotune-be-floor``), off by default as in JAX.
 
 Admission runs as JAX's ``cli serve`` does by default: the router sheds
 ``best_effort`` at ``--best-effort-queue-frac`` (0.5) of ``--queue-size``
@@ -177,6 +194,16 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--decode-window", type=str, default="auto",
                    help="'auto' = window ladder 1/4/8; an int N caps the "
                         "ladder at N (1 pins one token per step)")
+    p.add_argument("--decode-kernel", type=str, default="auto",
+                   help="decode-window program: 'pallas' (the fused window "
+                        "kernel, csrc/decode_window.cu; its plain version on "
+                        "the CPU), 'scan' (the engine's scan window, plain "
+                        "PyTorch), or 'auto' (pallas when the window plan "
+                        "takes the model). Top-k / top-p windows fall back "
+                        "to scan, counted in decode_window_scan_fallbacks. "
+                        "With --loadgen a comma list (e.g. 'pallas,scan') "
+                        "runs the comparison: the same workload per "
+                        "kernel, tokens/s and ITL deltas, greedy parity")
     p.add_argument("--speculative", action="store_true",
                    help="lossless speculative decoding of greedy requests: "
                         "a draft LM (train/distill.draft_config of the "
@@ -229,6 +256,38 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "iteration, which bounds how long a long prompt "
                         "stalls running sessions and lifts the "
                         "prompt-length cap. 0 = off")
+    p.add_argument("--autotune", type=str, default="off",
+                   choices=["on", "off"],
+                   help="online serve autotuner (serve/autotune.py): a "
+                        "controller thread reads windowed deltas of the "
+                        "TTFT / ITL / queue-wait histograms and the tiers' "
+                        "counters and moves the decode-window cap, the "
+                        "prefill chunk, the host-tier bound, the "
+                        "best-effort fraction and spec_k, each within what "
+                        "warmup warmed. Moves land in /v1/stats 'autotune' "
+                        "and serve_autotune_moves_total{knob,direction}. "
+                        "Needs --telemetry on")
+    p.add_argument("--autotune-interval", type=float, default=0.25,
+                   help="seconds between autotuner control windows")
+    p.add_argument("--slo-ms", type=float, default=250.0,
+                   help="the TTFT p99 SLO (ms) the autotuner protects")
+    p.add_argument("--autotune-chunks", type=str, default=None,
+                   help="warmed prefill-chunk choices the autotuner moves "
+                        "--prefill-chunk among (comma list, each valid as "
+                        "--prefill-chunk). Default: half, base and double "
+                        "of --prefill-chunk, invalid ones dropped. Ignored "
+                        "without --prefill-chunk")
+    p.add_argument("--autotune-host-tier-max", type=int, default=0,
+                   help="ceiling the autotuner may grow --host-tier-entries "
+                        "to under spill thrash (0 = 4x the configured "
+                        "entries)")
+    p.add_argument("--autotune-be-floor", type=float, default=0.1,
+                   help="lowest best-effort fraction the autotuner may "
+                        "tighten --best-effort-queue-frac to")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top-k", type=int, default=None)
+    p.add_argument("--top-p", type=float, default=None)
+    p.add_argument("--greedy", action="store_true")
     p.add_argument("--max-new-tokens", type=int, default=16)
     p.add_argument("--sessions", type=int, default=8,
                    help="--selftest: concurrent sessions; --loadgen: "
@@ -320,6 +379,10 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "this path")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--trace", type=str, default=None,
+                   help="host-side span trace (Chrome trace JSON), with one "
+                        "admit→queue→prefill→decode→readback timeline row "
+                        "per request (open in Perfetto)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
@@ -358,6 +421,90 @@ def _parse_spec_ladder(spec: str) -> tuple[int, ...]:
         raise SystemExit(f"--spec-ladder: need at least one rung >= 1, got "
                          f"{spec!r}")
     return rungs
+
+
+def _parse_decode_kernels(spec: str) -> tuple[str, ...]:
+    from .serve.engine import DECODE_KERNELS
+
+    kernels = tuple(dict.fromkeys(
+        k.strip() for k in spec.split(",") if k.strip()))
+    bad = [k for k in kernels if k not in DECODE_KERNELS]
+    if not kernels or bad:
+        raise SystemExit(
+            f"--decode-kernel: expected one of {DECODE_KERNELS} (or a "
+            f"comma list for the --loadgen comparison), got {spec!r}")
+    return kernels
+
+
+def _single_decode_kernel(args) -> str:
+    kernels = _parse_decode_kernels(args.decode_kernel)
+    if len(kernels) > 1:
+        raise SystemExit(
+            f"--decode-kernel {args.decode_kernel!r}: a comma list is the "
+            "--loadgen comparison mode; this mode needs a single kernel")
+    return kernels[0]
+
+
+def _autotune_chunk_choices(args, chunk: int | None) -> tuple[int, ...] | None:
+    """The warmed chunk sizes the autotuner moves among, as JAX's command
+    derives them: explicit ``--autotune-chunks`` entries must each be a
+    valid ``--prefill-chunk``; the default is half, base and double of
+    the chunk with invalid ones dropped. None without chunking."""
+    if chunk is None:
+        if args.autotune_chunks:
+            raise SystemExit(
+                "--autotune-chunks needs --prefill-chunk (the knob moves "
+                "among chunk sizes, it cannot turn chunking on)")
+        return None
+    max_bucket = max(_parse_buckets(args.prefill_buckets,
+                                    "--prefill-buckets"))
+
+    def ok(c: int) -> bool:
+        if c < 1 or c > max_bucket:
+            return False
+        return (args.prefix_cache != "on" or c % args.prefix_stride == 0
+                or args.prefix_stride % c == 0)
+
+    if args.autotune_chunks:
+        try:
+            choices = tuple(int(x) for x in args.autotune_chunks.split(",")
+                            if x.strip())
+        except ValueError:
+            raise SystemExit(
+                f"--autotune-chunks: expected comma-separated ints, got "
+                f"{args.autotune_chunks!r}")
+        bad = [c for c in choices if not ok(c)]
+        if not choices or bad:
+            raise SystemExit(
+                f"--autotune-chunks: entries must be in [1, {max_bucket}] "
+                f"and stride-compatible with --prefix-stride "
+                f"{args.prefix_stride}; bad: {bad or 'empty'}")
+        return tuple(sorted(set(choices) | {chunk}))
+    derived = {c for c in (chunk // 2, chunk, chunk * 2) if ok(c)}
+    return tuple(sorted(derived | {chunk}))
+
+
+def _autotune_config(args, chunk: int | None):
+    """``(AutoTuneConfig or None, chunk choices or None)`` from the
+    ``--autotune`` flags, refused as JAX's command refuses them."""
+    if args.autotune != "on":
+        return None, None
+    if args.telemetry == "off":
+        raise SystemExit(
+            "--autotune on needs --telemetry on (the controller watches "
+            "the live serve histograms)")
+    from .serve import AutoTuneConfig
+
+    if args.autotune_interval <= 0:
+        raise SystemExit(f"--autotune-interval must be > 0, got "
+                         f"{args.autotune_interval}")
+    if args.slo_ms <= 0:
+        raise SystemExit(f"--slo-ms must be > 0, got {args.slo_ms}")
+    choices = _autotune_chunk_choices(args, chunk)
+    return AutoTuneConfig(
+        interval_s=args.autotune_interval, slo_s=args.slo_ms / 1e3,
+        host_tier_max=args.autotune_host_tier_max or None,
+        best_effort_floor=args.autotune_be_floor), choices
 
 
 def _parse_class_weights(spec: str) -> tuple[int, int]:
@@ -430,8 +577,10 @@ def _checkpoint_params(args, params):
     return state.params
 
 
-def _build_serve_stack(args):
-    """(cpu params, cfg, server) from the serve flags."""
+def _build_serve_stack(args, registry=None):
+    """(cpu params, cfg, server) from the serve flags; ``registry`` (a
+    fresh one per stack for the kernel comparison) overrides the
+    process-wide default."""
     from . import obs
     from .models.lstm_lm import LMConfig, init_lm
     from .serve import ServeEngine, ServeServer
@@ -448,6 +597,8 @@ def _build_serve_stack(args):
             "stride-aligned prefix insert points), or use --prefix-cache off")
     weights = _parse_class_weights(args.class_weights)
     _parse_replicas(args.replicas)
+    decode_kernel = _single_decode_kernel(args)
+    autotune, chunk_choices = _autotune_config(args, chunk)
     cfg = LMConfig(vocab_size=args.vocab_size, hidden_size=args.hidden_units,
                    num_layers=args.num_layers,
                    tie_embeddings=args.tie_embeddings,
@@ -469,8 +620,9 @@ def _build_serve_stack(args):
             prefix_entries=args.prefix_entries,
             tiered_cache=args.tiered_cache == "on",
             host_tier_entries=args.host_tier_entries,
-            session_dir=args.session_dir,
-            registry=obs.NULL_REGISTRY if args.telemetry == "off" else None)
+            session_dir=args.session_dir, decode_kernel=decode_kernel,
+            registry=(obs.NULL_REGISTRY if args.telemetry == "off"
+                      else registry))
     except ValueError as e:  # e.g. --prefix-stride 0
         raise SystemExit(f"serve: {e}")
     spec_kw = {}
@@ -485,7 +637,8 @@ def _build_serve_stack(args):
         server = ServeServer(
             engine, max_active=args.max_active, queue_size=args.queue_size,
             window_ladder=_parse_window_ladder(args.decode_window),
-            prefill_chunk=chunk, class_weights=weights,
+            prefill_chunk=chunk, prefill_chunk_choices=chunk_choices,
+            autotune=autotune, class_weights=weights,
             best_effort_queue_frac=args.best_effort_queue_frac,
             deadline_defaults={
                 "priority": args.deadline_priority_s or None,
@@ -495,6 +648,13 @@ def _build_serve_stack(args):
     except ValueError as e:  # e.g. --spec-k off the ladder
         raise SystemExit(f"serve: {e}")
     return params, cfg, server
+
+
+def _serve_sampling(args):
+    from .serve import SamplingParams
+
+    return SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p, greedy=args.greedy)
 
 
 def _serve_selftest(args) -> int:
@@ -563,7 +723,8 @@ def _serve_http(args) -> int:
 
     _, _, server = _build_serve_stack(args)
     print("serve: warming up...", flush=True)
-    n = server.warmup(prompt_lens=server.engine.prefill_buckets)
+    n = server.warmup(_serve_sampling(args),
+                      prompt_lens=server.engine.prefill_buckets)
     print(f"serve: {n} warm-up dispatches on {server.device}", flush=True)
     httpd = make_http_server(server, args.host, args.port)
     host, port = httpd.server_address[:2]
@@ -639,6 +800,8 @@ def _loadgen_engine(server) -> dict:
 
     es = server.engine.stats()
     return {"device": es["device"], "decode_kernel": es["decode_kernel"],
+            "decode_window_scan_fallbacks":
+                es["decode_window_scan_fallbacks"],
             "window_form": es["window_form"], "dispatches": es["dispatches"],
             "kernel_launches": es["kernel_launches"],
             "launch_counts": es["launch_counts"],
@@ -646,7 +809,7 @@ def _loadgen_engine(server) -> dict:
 
 
 def _serve_loadgen(args) -> int:
-    from .serve import GREEDY, concurrency_sweep, run_loadgen
+    from .serve import concurrency_sweep, run_loadgen
 
     if args.shared_prefix_len and args.shared_prefix_len >= args.prompt_len:
         print(f"error: --shared-prefix-len {args.shared_prefix_len} must be "
@@ -657,13 +820,20 @@ def _serve_loadgen(args) -> int:
         print("error: --arrival burst/sine and --arrival-trace shape "
               "OPEN-loop arrivals; add --mode open", file=sys.stderr)
         return USAGE_RC
+    kernels = _parse_decode_kernels(args.decode_kernel)
     _parse_replicas(args.replicas)
+    if len(kernels) > 1:
+        if args.idle_churn:
+            print("error: --decode-kernel comparison runs at one replica "
+                  "count without --idle-churn", file=sys.stderr)
+            return USAGE_RC
+        return _serve_loadgen_kernel_sweep(args, kernels)
     if args.idle_churn:
         return _serve_loadgen_longtail(args)
     if args.workload == "template-mix":
         return _serve_loadgen_template_mix(args)
     _, cfg, server = _build_serve_stack(args)
-    sampling = GREEDY
+    sampling = _serve_sampling(args)
     # the prefix and inject probes are single-run workloads
     probe_run = bool(args.shared_prefix_len or args.inject_prompt_len)
     if probe_run and args.compare:
@@ -720,6 +890,9 @@ def _serve_loadgen(args) -> int:
                   "class_weights")}
     out["router_totals"] = server.router.stats()
     out["server_metrics"] = server.metrics_summary()
+    # the controller's moves (--autotune on); None when off
+    out["autotune"] = (None if server.autotuner is None
+                       else server.autotuner.stats())
     r = out.get("levels", {}).get(args.sessions, out)
     px = r.get("prefix_cache") or {}
     return _emit_report(args, out, (
@@ -736,19 +909,20 @@ def _serve_loadgen_longtail(args) -> int:
     """``serve --loadgen --idle-churn``: the long-tail kept-session
     workload, with per-tier hit rates, re-prefill cost and hot-set
     tokens/s."""
-    from .serve import GREEDY, run_longtail
+    from .serve import run_longtail
 
     _, cfg, server = _build_serve_stack(args)
+    sampling = _serve_sampling(args)
     with server:
         # re-prefills replay whole histories, which land on any bucket:
         # warm every final-prefill length
-        server.warmup(GREEDY, prompt_lens=tuple(
+        server.warmup(sampling, prompt_lens=tuple(
             set(server.engine.prefill_buckets) | {args.prompt_len}))
         out = run_longtail(
             server, vocab_size=cfg.vocab_size, sessions=args.sessions,
             requests_per_session=args.requests_per_session,
             prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
-            sampling=GREEDY, zipf_s=args.zipf_s, seed=args.seed)
+            sampling=sampling, zipf_s=args.zipf_s, seed=args.seed)
         out["tier_stats_total"] = {
             r.index: r.engine.stats()["tiers"] for r in server.replicas}
     out["engine"] = _loadgen_engine(server)
@@ -769,18 +943,19 @@ def _serve_loadgen_template_mix(args) -> int:
     """``serve --loadgen --workload template-mix``: tenant preamble x
     template x unique suffix on a bounded worker pool, with the
     computed-vs-offered prefill tokens."""
-    from .serve import GREEDY, run_template_mix
+    from .serve import run_template_mix
 
     _, cfg, server = _build_serve_stack(args)
+    sampling = _serve_sampling(args)
     prompt_len = args.preamble_len + args.template_len + args.suffix_len
     with server:
-        server.warmup(GREEDY, prompt_lens=(prompt_len,))
+        server.warmup(sampling, prompt_lens=(prompt_len,))
         out = run_template_mix(
             server, vocab_size=cfg.vocab_size, sessions=args.sessions,
             tenants=args.tenants, templates=args.templates,
             preamble_len=args.preamble_len, template_len=args.template_len,
             suffix_len=args.suffix_len, max_new_tokens=args.max_new_tokens,
-            sampling=GREEDY, workers=args.workers, seed=args.seed)
+            sampling=sampling, workers=args.workers, seed=args.seed)
     out["engine"] = _loadgen_engine(server)
     out["server_metrics"] = server.metrics_summary()
     pf = out.get("prefill", {})
@@ -793,6 +968,42 @@ def _serve_loadgen_template_mix(args) -> int:
         f"{pf.get('tokens_offered', '?')} offered "
         f"(ratio {pf.get('compute_ratio', '?')}), prefix mode "
         f"{px.get('mode', 'n/a')} hit rate {px.get('hit_rate', 'n/a')}"))
+
+
+def _serve_loadgen_kernel_sweep(args, kernels: tuple[str, ...]) -> int:
+    """``serve --loadgen --decode-kernel pallas,scan``: the same closed-loop
+    workload on a fresh stack (and registry) per kernel, tokens/s and
+    TTFT / ITL deltas, greedy token parity, each arm's scan fallbacks."""
+    import copy
+
+    from .obs import MetricsRegistry
+    from .serve import kernel_sweep
+
+    if args.mode != "closed":
+        print("error: --decode-kernel comparison is closed-loop only",
+              file=sys.stderr)
+        return USAGE_RC
+
+    def make_server(kern):
+        a = copy.copy(args)
+        a.decode_kernel = kern
+        return _build_serve_stack(a, registry=MetricsRegistry())[2]
+
+    out = kernel_sweep(
+        make_server, vocab_size=args.vocab_size, kernels=kernels,
+        sessions=args.sessions,
+        requests_per_session=args.requests_per_session,
+        prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
+        sampling=_serve_sampling(args), seed=args.seed)
+    vs = out.get("pallas_vs_scan", {})
+    _emit_report(args, out, (
+        f"kernel sweep: tokens/s "
+        f"{ {k: r['tokens_per_sec'] for k, r in out['kernels'].items()} }, "
+        f"pallas/scan ratio {vs.get('tokens_per_sec_ratio', 'n/a')}, "
+        f"p99 ITL delta {vs.get('p99_itl_delta_ms', 'n/a')} ms, "
+        f"scan fallbacks {out['scan_fallbacks']}, "
+        f"parity_ok {out.get('parity_ok', 'n/a')}"))
+    return OK_RC if out.get("parity_ok", True) else FAIL_RC
 
 
 def build_train_parser() -> argparse.ArgumentParser:
@@ -888,8 +1099,26 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "steps (one host sync per step while on; 0 = off)")
     p.add_argument("--jsonl", type=str, default=None,
                    help="metrics JSONL path")
+    p.add_argument("--trace", type=str, default=None,
+                   help="host-side span trace output (Chrome trace-event "
+                        "JSON): load, setup, train, eval, checkpoint and "
+                        "generate spans")
+    p.add_argument("--generate-tokens", type=int, default=0,
+                   help="after training, sample N continuation tokens from "
+                        "the LM")
+    p.add_argument("--prompt", type=str, default=None,
+                   help="generation prompt text (defaults to the corpus "
+                        "start)")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top-k", type=int, default=None)
+    p.add_argument("--top-p", type=float, default=None,
+                   help="nucleus sampling mass in (0, 1]")
+    p.add_argument("--greedy", action="store_true", help="argmax decoding")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
+
+
+LM_DATASETS = ("ptb_char", "wikitext2", "wikitext103")
 
 
 def _refusal(args) -> str | None:
@@ -936,6 +1165,10 @@ def training(argv, *, graph: bool = True, logger=None):
 
 
 def _training(args, dev, logger, graph):
+    if args.dataset not in LM_DATASETS and args.generate_tokens > 0:
+        raise SystemExit(
+            "--generate-tokens applies to the LM datasets only "
+            f"(got --dataset {args.dataset})")
     if args.dataset == "imdb":
         from .tasks.classification import classifier_training
 
@@ -950,6 +1183,7 @@ def _training(args, dev, logger, graph):
 def _run_train(args, graph: bool = True) -> int:
     from .device import configure_precision, resolve_device
     from .train import AnomalousTrainingError, MetricsLogger, train_loop
+    from .utils import Tracer, set_tracer, span
 
     refused = _refusal(args)
     if refused:
@@ -958,20 +1192,73 @@ def _run_train(args, graph: bool = True) -> int:
     dev = resolve_device(args.device)
     configure_precision()
     with MetricsLogger(args.jsonl) as logger:
+        tracer = None
+        if args.trace:
+            tracer = Tracer()
+            set_tracer(tracer)
         try:
-            run = _training(args, dev, logger, graph)
-        except UsageError as e:
-            print(f"train: {e}", file=sys.stderr)
-            return USAGE_RC
-        try:
-            state = train_loop(run.state, run.step, run.feed, logger=logger,
-                               **run.loop_kw)
-        except AnomalousTrainingError as e:
-            print(f"anomaly abort: {e} (exit {ANOMALY_RC})", file=sys.stderr)
-            return ANOMALY_RC
-        logger.log({"step": state.step, **run.eval_fn(state.params),
-                    "note": "final"})
+            try:
+                run = _training(args, dev, logger, graph)
+            except UsageError as e:
+                print(f"train: {e}", file=sys.stderr)
+                return USAGE_RC
+            try:
+                with span("train", steps=run.loop_kw.get("num_steps"),
+                          backend="single"):
+                    state = train_loop(run.state, run.step, run.feed,
+                                       logger=logger, **run.loop_kw)
+            except AnomalousTrainingError as e:
+                print(f"anomaly abort: {e} (exit {ANOMALY_RC})",
+                      file=sys.stderr)
+                return ANOMALY_RC
+            with span("eval_final"):
+                final = run.eval_fn(state.params)
+            logger.log({"step": state.step, **final, "note": "final"})
+            if run.generate is not None:
+                with span("generate", tokens=args.generate_tokens):
+                    run.generate(state.params)
+        finally:
+            if tracer is not None:
+                set_tracer(None)  # uninstall first: a failed save must not leak it
+                try:
+                    tracer.save(args.trace)
+                except OSError as e:
+                    # never mask the run's own outcome with a trace-write error
+                    print(f"warning: could not write --trace file: {e}")
     return OK_RC
+
+
+def _generate_text(args, logger, cfg, data, params, dev) -> None:
+    """Sample ``--generate-tokens`` after training (JAX's
+    ``_generate_text``): encode the prompt (the corpus start without one,
+    its first 8 tokens when the prompt encodes to nothing), run the
+    port's ``generate`` on the run's device with noise from a generator
+    seeded ``--seed + 17``, and log and print the decoded continuation."""
+    from .models.generate import generate
+
+    level = "char" if args.dataset == "ptb_char" else "word"
+    vocab = data["vocab"]
+    if args.prompt:
+        prompt_ids = vocab.encode_text(args.prompt, level)
+        if prompt_ids.size == 0:
+            prompt_ids = np.asarray(data["train"][:8], np.int32)
+    else:
+        prompt_ids = np.asarray(data["train"][:32], np.int32)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    out = generate(params, prompt_ids[None, :], cfg,
+                   max_new_tokens=args.generate_tokens,
+                   temperature=args.temperature, top_k=args.top_k,
+                   top_p=args.top_p, greedy=args.greedy, generator=gen,
+                   device=dev)[0].cpu().numpy()
+    sep = "" if level == "char" else " "
+    prompt_txt = sep.join(vocab.decode(prompt_ids))
+    cont_txt = sep.join(vocab.decode(out[prompt_ids.size:]))
+    logger.log({
+        "note": "generate", "prompt": prompt_txt, "continuation": cont_txt,
+        "temperature": args.temperature, "top_k": args.top_k,
+        "top_p": args.top_p, "greedy": bool(args.greedy),
+    })
+    print(f"--- prompt ---\n{prompt_txt}\n--- continuation ---\n{cont_txt}")
 
 
 def _lm_training(args, dev, logger, graph):
@@ -985,12 +1272,14 @@ def _lm_training(args, dev, logger, graph):
                         make_train_step)
     from .train.checkpoint import wire_checkpoint
     from .train.loop import Training, device_batches, eval_metrics
+    from .utils import span
 
     seq_len = args.seq_len or 64
     B = args.batch_size
     k = args.steps_per_call
     try:
-        data = get_dataset(args.dataset, args.data_path)
+        with span("load_dataset", dataset=args.dataset):
+            data = get_dataset(args.dataset, args.data_path)
     except ValueError as e:
         raise UsageError(str(e)) from e
     if data["synthetic"]:
@@ -1012,8 +1301,9 @@ def _lm_training(args, dev, logger, graph):
     def loss_fn(params, batch, carries=None):  # eval: deterministic
         return lm_loss(params, batch, cfg, carries=carries)
 
-    params = params_to(init_lm(torch.Generator().manual_seed(args.seed), cfg),
-                       dev)
+    with span("setup", hidden=cfg.hidden_size, layers=cfg.num_layers):
+        params = params_to(
+            init_lm(torch.Generator().manual_seed(args.seed), cfg), dev)
     optimizer = make_optimizer(
         args.optimizer, args.learning_rate, momentum=args.momentum,
         clip_norm=args.clip_norm, weight_decay=args.weight_decay,
@@ -1091,7 +1381,9 @@ def _lm_training(args, dev, logger, graph):
              eval_every=args.eval_every, tokens_per_batch=B * seq_len,
              anomaly_limit=args.anomaly_limit, steps_per_call=k,
              fused_eval=((lambda ms: eval_metrics(float(ms["eval_loss"])))
-                         if fused_eval else None)))
+                         if fused_eval else None)),
+        generate=((lambda p: _generate_text(args, logger, cfg, data, p, dev))
+                  if args.generate_tokens > 0 else None))
 
 
 def main(argv=None, *, graph: bool = True) -> int:
@@ -1106,8 +1398,22 @@ def main(argv=None, *, graph: bool = True) -> int:
               "see train --help, serve --help", file=sys.stderr)
         return USAGE_RC
     args = build_serve_parser().parse_args(argv[1:])
-    if args.selftest:
-        return _serve_selftest(args)
-    if args.loadgen:
-        return _serve_loadgen(args)
-    return _serve_http(args)
+    from .utils import Tracer, set_tracer
+
+    tracer = None
+    if args.trace:
+        tracer = Tracer()
+        set_tracer(tracer)
+    try:
+        if args.selftest:
+            return _serve_selftest(args)
+        if args.loadgen:
+            return _serve_loadgen(args)
+        return _serve_http(args)
+    finally:
+        if tracer is not None:
+            set_tracer(None)
+            try:
+                tracer.save(args.trace)
+            except OSError as e:
+                print(f"warning: could not write --trace file: {e}")

@@ -1,10 +1,12 @@
 """Autoregressive generation for the LSTM LM (plain PyTorch).
 
-Port of ``lstm_tensorspark_tpu/models/generate.py`` for greedy and
-temperature sampling. Temperature sampling is the Gumbel-argmax identity
-``argmax(logits / max(t, 1e-6) + g)`` with ``g`` Gumbel noise — either
-given by the caller (tests hand both packages the same numpy draw) or
-drawn from an explicit ``torch.Generator``. Top-k and top-p are refused.
+Port of ``lstm_tensorspark_tpu/models/generate.py``: greedy argmax,
+temperature scaling, top-k truncation and top-p (nucleus) truncation, with
+JAX's semantics. Sampling is the Gumbel-argmax identity behind
+``jax.random.categorical``: ``argmax(truncated logits / max(t, 1e-6) +
+g)`` with ``g`` Gumbel noise — either given by the caller (tests hand both
+packages the draws of ``jax.random.gumbel``) or drawn from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import dataclasses
 import torch
 
 from ..device import resolve_device
-from ..ops.cuda_decode import sampling_supported
 from ..ops.embedding import embed_lookup
 from ..ops.lstm_cell import fuse_params, lstm_step
 from .lstm_lm import (LMConfig, _head_kernel, head_logits, init_carries,
@@ -23,14 +24,15 @@ from .lstm_lm import (LMConfig, _head_kernel, head_logits, init_carries,
 
 def check_sampling(temperature: float = 1.0, top_k=None, top_p=None,
                    greedy: bool = False) -> None:
-    """Raise ``ValueError`` for a sampling config the port does not serve:
-    greedy and pure temperature sampling only (top-k / top-p truncation is
-    not ported yet). Greedy ignores the other fields, as in the JAX
-    package."""
-    if not sampling_supported(temperature, top_k, top_p, greedy):
-        raise ValueError(
-            "top-k / top-p sampling is not supported by the PyTorch port "
-            "(greedy and temperature sampling only)")
+    """Raise ``ValueError`` for what JAX's ``sample_logits`` refuses:
+    ``top_k < 1``, or ``top_p`` outside (0, 1]. Greedy ignores the other
+    fields, as in the JAX package."""
+    if greedy:
+        return
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
 
 def gumbel_noise(shape, *, generator: torch.Generator | None = None,
@@ -43,12 +45,34 @@ def gumbel_noise(shape, *, generator: torch.Generator | None = None,
     return -torch.log(-torch.log(u))
 
 
+def truncate_logits(logits: torch.Tensor, top_k=None,
+                    top_p=None) -> torch.Tensor:
+    """JAX's truncation: logits below the k-th largest become -inf, then
+    those outside the nucleus — the tokens whose exclusive cumulative
+    mass, in descending order, is < ``top_p`` stay (the top token always
+    does)."""
+    if top_k is not None and top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, -torch.inf, logits)
+    if top_p is not None and top_p < 1.0:
+        desc = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(desc, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < top_p
+        cutoff = torch.where(keep, desc, torch.inf).amin(dim=-1,
+                                                         keepdim=True)
+        logits = torch.where(logits < cutoff, -torch.inf, logits)
+    return logits
+
+
 def sample_logits(logits: torch.Tensor, *, temperature: float = 1.0,
                   top_k=None, top_p=None, greedy: bool = False,
                   noise: torch.Tensor | None = None,
                   generator: torch.Generator | None = None) -> torch.Tensor:
-    """Token ids [B] int32 from logits [B, V]. Ties break to the lowest
-    index (``torch.argmax`` and ``jnp.argmax`` agree on that)."""
+    """Token ids [B] int32 from logits [B, V]: argmax when ``greedy``, else
+    Gumbel-argmax over the scaled, truncated logits (``noise`` [B, V], or
+    drawn from ``generator``). Ties break to the lowest index
+    (``torch.argmax`` and ``jnp.argmax`` agree on that)."""
     check_sampling(temperature, top_k, top_p, greedy)
     logits = logits.float()
     if greedy:
@@ -58,10 +82,11 @@ def sample_logits(logits: torch.Tensor, *, temperature: float = 1.0,
         # scalar divisor may become a reciprocal multiply on the card)
         logits = logits / torch.full((), max(temperature, 1e-6),
                                      dtype=torch.float32, device=logits.device)
+    logits = truncate_logits(logits, top_k, top_p)
     if noise is None:
         noise = gumbel_noise(logits.shape, generator=generator,
                              device=logits.device)
-    return torch.argmax(logits + noise, dim=-1).to(torch.int32)
+    return torch.argmax(noise + logits, dim=-1).to(torch.int32)
 
 
 def fuse_layers(params, cfg: LMConfig):
@@ -88,10 +113,12 @@ def decode_one(params, fused_layers, cfg: LMConfig, carries, token):
 def generate(params, prompt, cfg: LMConfig, *, max_new_tokens: int,
              temperature: float = 1.0, top_k=None, top_p=None,
              greedy: bool = False, generator: torch.Generator | None = None,
+             noise: torch.Tensor | None = None,
              device: str | torch.device = "cuda") -> torch.Tensor:
-    """prompt [B, T0] int → [B, T0 + N] int32 on ``device``. Temperature
-    sampling draws its Gumbel noise from ``generator`` (a generator on
-    ``device``). Params are moved to ``device`` first.
+    """prompt [B, T0] int → [B, T0 + N] int32 on ``device``. Sampling
+    draws its Gumbel noise from ``generator`` (a generator on ``device``),
+    one [B, V] draw a token, unless ``noise`` [N, B, V] gives the draws
+    (the tests feed JAX's). Params are moved to ``device`` first.
     """
     check_sampling(temperature, top_k, top_p, greedy)
     # inference never rematerialises: remat_chunk is a training-memory
@@ -103,17 +130,19 @@ def generate(params, prompt, cfg: LMConfig, *, max_new_tokens: int,
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
     B = prompt.shape[0]
 
-    def sample(logits):
-        return sample_logits(logits, temperature=temperature, greedy=greedy,
-                             generator=generator)
+    def sample(logits, i):
+        return sample_logits(
+            logits, temperature=temperature, top_k=top_k, top_p=top_p,
+            greedy=greedy, generator=generator,
+            noise=None if noise is None or greedy else noise[i].to(dev))
 
     logits, carries = lm_forward(params, prompt, cfg,
                                  carries=init_carries(cfg, B, device=dev))
-    token = sample(logits[:, -1, :])
+    token = sample(logits[:, -1, :], 0)
     fused = fuse_layers(params, cfg)
     out = [token]
-    for _ in range(1, max_new_tokens):
+    for i in range(1, max_new_tokens):
         logits, carries = decode_one(params, fused, cfg, carries, token)
-        token = sample(logits)
+        token = sample(logits, i)
         out.append(token)
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)

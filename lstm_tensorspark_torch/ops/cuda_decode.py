@@ -65,9 +65,11 @@ INT_MAX = 2**31 - 1
 
 
 def sampling_supported(temperature: float, top_k, top_p, greedy: bool) -> bool:
-    """Greedy and pure temperature sampling (at any temperature, a runtime
-    argument of the kernel); top-k / top-p are not ported. The one home of
-    this rule: ``models.generate.check_sampling`` refuses what it declines."""
+    """The sampling configs the window kernel computes: greedy and pure
+    temperature sampling (at any temperature, a runtime argument of the
+    kernel). Top-k / top-p need a sort over V; the engine dispatches
+    those to its scan window (JAX's ``pallas_decode.sampling_supported``
+    rule)."""
     return greedy or (top_k is None and top_p is None)
 
 

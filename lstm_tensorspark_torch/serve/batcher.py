@@ -87,7 +87,14 @@ outcomes and deadline expiries by stage, and the sheds and Retry-After
 hints of this layer's own bound. Instruments are resolved once here; a
 record site costs a lock and an add. ``Request.phases`` keeps each
 request's queue / prefill / decode / readback intervals, summarised in the
-HTTP reply as ``phases_ms``.
+HTTP reply as ``phases_ms`` and, with a tracer installed (``--trace``),
+emitted as the request's timeline row (:meth:`Batcher._emit_timeline`).
+
+The serve autotuner's knobs (``serve/autotune.py``) are the setters
+:meth:`Batcher.set_window_cap`, :meth:`Batcher.set_prefill_chunk` (among
+the warmed ``prefill_chunk_choices``), :meth:`Batcher.set_spec_k` and
+:meth:`Batcher.set_max_active`; each refuses a value outside what
+:meth:`Batcher.warmup` warmed.
 """
 
 from __future__ import annotations
@@ -100,6 +107,7 @@ from collections import deque
 
 import numpy as np
 
+from ..utils import tracing
 from .engine import GREEDY, PAD_TOKEN, DecodeWindow, SamplingParams, ServeEngine
 from .state_cache import PREFIX_SID_NAMESPACE
 
@@ -334,6 +342,7 @@ class Batcher:
                  queue_size: int = 64,
                  window_ladder: tuple[int, ...] = DEFAULT_WINDOW_LADDER,
                  prefill_chunk: int | None = None,
+                 prefill_chunk_choices: tuple[int, ...] | None = None,
                  class_weights: tuple[int, int] = DEFAULT_CLASS_WEIGHTS,
                  speculative: bool = False,
                  spec_ladder: tuple[int, ...] = DEFAULT_SPEC_LADDER,
@@ -351,6 +360,17 @@ class Batcher:
             raise ValueError(f"window_ladder needs positive window sizes, "
                              f"got {window_ladder!r}")
         self._validate_chunk(prefill_chunk, engine)
+        if prefill_chunk_choices:
+            if prefill_chunk is None:
+                # the choice set is the autotuner's range for a chunked
+                # scheduler; turning chunking on or off at run time would
+                # flip submit()'s prompt-length rule under a client
+                raise ValueError(
+                    "prefill_chunk_choices needs prefill_chunk set (the "
+                    "knob moves among chunk sizes, it cannot turn "
+                    "chunking on or off)")
+            for c in prefill_chunk_choices:
+                self._validate_chunk(int(c), engine)
         if (len(class_weights) != len(CLASSES)
                 or any(int(w) < 1 for w in class_weights)):
             raise ValueError(
@@ -382,7 +402,15 @@ class Batcher:
         # rung 1 is always present: the pick falls back to it near a
         # session's budget end
         self.window_ladder = tuple(sorted({1} | set(window_ladder)))
+        # the live ceiling on the window pick (the autotuner's K knob),
+        # always a ladder rung; the top rung is the uncapped pick
+        self.window_cap = self.window_ladder[-1]
         self.prefill_chunk = prefill_chunk
+        # the warmed chunk sizes the autotuner may move prefill_chunk among
+        self.prefill_chunk_choices = (
+            tuple(sorted({int(c) for c in prefill_chunk_choices}
+                         | {prefill_chunk}))
+            if prefill_chunk_choices else ())
         # one queue per admission class, dequeued by weighted round-robin
         # over the non-empty ones (the _wrr_seq cursor); queue_size bounds
         # their sum
@@ -591,6 +619,40 @@ class Batcher:
                 f"of prefix stride {engine.prefix.stride} — chunks would "
                 "be truncated to stride alignment; pick a compatible "
                 "chunk or disable the prefix cache")
+
+    def set_window_cap(self, k: int) -> None:
+        """Move the decode-window ceiling to ladder rung ``k`` (the
+        autotuner's K knob); takes effect at the next pick. Only warmed
+        rungs are accepted."""
+        if k not in self.window_ladder:
+            raise ValueError(
+                f"window cap {k} is not a warmed ladder rung "
+                f"{self.window_ladder}")
+        with self._lock:
+            self.window_cap = int(k)
+
+    def set_max_active(self, n: int) -> None:
+        """Move the active-set bound, at most the cache's slot count (the
+        rule ``__init__`` enforces: admission must always pin a slot)."""
+        if n < 1:
+            raise ValueError(f"max_active must be >= 1, got {n}")
+        if n > self.engine.cache.num_slots:
+            raise ValueError(
+                f"max_active {n} exceeds the cache's "
+                f"{self.engine.cache.num_slots} slots")
+        with self._lock:
+            self.max_active = int(n)
+
+    def set_prefill_chunk(self, chunk: int) -> None:
+        """Move the prefill chunk size to a member of the warmed
+        ``prefill_chunk_choices`` (the autotuner's chunk knob):
+        :meth:`warmup` warmed the stops of every mix of them."""
+        if chunk not in self.prefill_chunk_choices:
+            raise ValueError(
+                f"prefill_chunk {chunk} is not in the warmed choice set "
+                f"{self.prefill_chunk_choices}")
+        with self._lock:
+            self.prefill_chunk = int(chunk)
 
     def set_spec_k(self, k: int) -> None:
         """Move the speculative K_draft cap to spec-ladder rung ``k`` (0 =
@@ -990,10 +1052,12 @@ class Batcher:
         return True
 
     def _pick_window(self, min_remaining: int) -> int:
-        """Largest ladder rung no session would overshoot."""
+        """Largest ladder rung no session would overshoot, at most
+        ``window_cap``."""
         k = 1
+        cap = self.window_cap
         for w in self.window_ladder:
-            if w <= min_remaining:
+            if w <= min_remaining and w <= cap:
                 k = max(k, w)
         return k
 
@@ -1211,6 +1275,7 @@ class Batcher:
         s.req.t_done = time.perf_counter()
         self.completed += 1
         self._m_req["completed"].inc()
+        self._emit_timeline(s.req)
         s.req.done.set()
 
     def _fail(self, req: Request, error: str) -> None:
@@ -1218,6 +1283,7 @@ class Batcher:
         req.t_done = time.perf_counter()
         self.failed += 1
         self._m_req["failed"].inc()
+        self._emit_timeline(req)
         req.done.set()
 
     def _settle_timeout(self, req: Request, stage: str) -> None:
@@ -1229,7 +1295,24 @@ class Batcher:
         self.timed_out += 1
         self._m_req["timeout"].inc()
         self._m_deadline[stage].inc()
+        self._emit_timeline(req)
         req.done.set()
+
+    @staticmethod
+    def _emit_timeline(req: Request) -> None:
+        """Emit the request's phases into the installed tracer
+        (``--trace``): one complete event a phase on a row of the request's
+        own, plus a ``failed`` span for a failure. No tracer: nothing."""
+        t = tracing.get_tracer()
+        if t is None or not req.phases:
+            return
+        tid = req.id
+        t.set_tid_name(tid, f"request {req.id}")
+        for name, a, b in req.phases:
+            t.complete(name, a, b, tid=tid, request=req.id)
+        if req.error is not None:
+            t.complete("failed", req.phases[-1][2], req.t_done, tid=tid,
+                       request=req.id, error=req.error)
 
     # ---- run loops ---------------------------------------------------------
 
@@ -1239,13 +1322,19 @@ class Batcher:
         lengths. The chunk and prefix-insert split lengths are scheduler
         policy, so this replays :meth:`_stop_from`'s stops for each length
         — a cold fresh prompt, a fresh prompt resumed from any prefix hit,
-        a continuation fragment — and warms the union of final and intermediate lengths, every
-        window-ladder rung and, when speculative, the draft prefills and
-        every spec-ladder rung, for every batch bucket."""
+        a continuation fragment — with every chunk size the scheduler can
+        run (the live one and each of ``prefill_chunk_choices``, in any
+        mix: a knob move can land mid-prompt), and warms the union of
+        final and intermediate lengths, every window-ladder rung and, when
+        speculative, the draft prefills and every spec-ladder rung, for
+        every batch bucket."""
         finals: set[int] = set()
         chunks: set[int] = set()
         prefix = self.engine.prefix
-        chunk = self.prefill_chunk
+        with self._lock:
+            live_chunk = self.prefill_chunk
+        chunk_values = sorted({live_chunk} | set(self.prefill_chunk_choices),
+                              key=lambda c: (c is None, c))
         for t in prompt_lens:
             t = max(1, int(t))
             stack = [(0, True), (0, False)]
@@ -1259,10 +1348,11 @@ class Batcher:
                 if pos >= t or (pos, fresh) in seen:
                     continue
                 seen.add((pos, fresh))
-                stop = self._stop_from(pos, t, fresh, chunk=chunk)
-                (finals if stop >= t else chunks).add(stop - pos)
-                if stop < t:
-                    stack.append((stop, fresh))
+                for chunk in chunk_values:
+                    stop = self._stop_from(pos, t, fresh, chunk=chunk)
+                    (finals if stop >= t else chunks).add(stop - pos)
+                    if stop < t:
+                        stack.append((stop, fresh))
         return self.engine.warmup(
             sampling, prompt_lens=tuple(sorted(finals)),
             windows=self.window_ladder,
@@ -1341,6 +1431,8 @@ class Batcher:
             queued_by_class = {c: len(q) for c, q in self._queues.items()}
             prefilling = len(self._prefilling)
             submitted, rejected = self.submitted, self.rejected
+            window_cap, prefill_chunk = self.window_cap, self.prefill_chunk
+            max_active, spec_k = self.max_active, self.spec_k
         return {
             "replica": self.replica,
             "submitted": submitted,
@@ -1353,21 +1445,23 @@ class Batcher:
             "queued": queued,
             "active": active,
             "prefilling": prefilling,
-            "max_active": self.max_active,
+            "max_active": max_active,
             "queue_size": self.queue_size,
             "tokens_generated": self.tokens_generated,
             "prefills_dispatched": self.prefills_dispatched,
-            "prefill_chunk": self.prefill_chunk,
+            "prefill_chunk": prefill_chunk,
+            "prefill_chunk_choices": list(self.prefill_chunk_choices),
             "prefill_chunks_dispatched": self.prefill_chunks_dispatched,
             "prefix_resumed": self.prefix_resumed,
             "prefix_tokens_saved": self.prefix_tokens_saved,
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "window_ladder": list(self.window_ladder),
+            "window_cap": window_cap,
             "windows_dispatched": dict(self.windows_dispatched),
             "windows_pipelined": self.windows_pipelined,
             "speculative": self.speculative,
             "spec_ladder": list(self.spec_ladder),
-            "spec_k": self.spec_k,
+            "spec_k": spec_k,
             "spec_windows_dispatched": dict(self.spec_windows_dispatched),
             "spec_accepted_tokens": self.spec_accepted_tokens,
             "spec_rows_verified": self.spec_rows_verified,

@@ -16,9 +16,20 @@ Port of the single-device, single-model part of
   windows' bfloat16 forms (W and U fused in bfloat16, the bias, the
   embedding and the head float32, as JAX's ``fuse_params`` leaves them);
   ``logits_dtype`` bfloat16 rounds every head's logits as JAX's does.
-- **decode windows** — every decode step goes through
-  ``ops/cuda_decode.decode_window``: on the card that is the hand-written
-  window kernel, on the CPU its plain version. ``decode`` (K=1) is the
+- **decode windows** — a decode window runs one of two programs, chosen as
+  JAX's engine chooses (``decode_kernel``, one of :data:`DECODE_KERNELS`,
+  resolved once at construction): ``"pallas"`` names the fused window,
+  ``ops/cuda_decode.decode_window`` — on the card the hand-written window
+  kernel, on the CPU its plain version; ``"scan"`` names JAX's non-kernel
+  window, K steps of ``decode_one`` and ``sample_logits`` in plain PyTorch
+  (:meth:`ServeEngine._scan_window`). ``"auto"`` resolves to ``"pallas"``
+  (on the CPU too, where the plain version stands in for the kernel).
+  Under ``"pallas"`` a window the kernel does not compute — top-k / top-p
+  sampling — runs the scan window, each such dispatch counted in
+  ``decode_window_scan_fallbacks`` and the cause announced once on
+  stdout; a kernel that fails to build or to launch, or a model its plan
+  refuses, still raises.
+  ``decode`` (K=1) is the
   window at ``window=1`` with ``remaining=1`` and no EOS, which the latch
   algebra makes identical to a single decode step. A window returns device
   handles (:class:`DecodeWindow`); ``decode_window_next`` chains the next
@@ -58,9 +69,12 @@ the tiers, and the batcher, the router and the server read it from here.
 
 Every host-visible batch is padded to a bucket: prompts to a length
 bucket, batches to a batch bucket with dead rows at the cache's scratch
-slot. Sampling: greedy, or temperature sampling by Gumbel-argmax with noise
-drawn from the engine's own ``torch.Generator`` (seeded by ``rng_seed``).
-Top-k and top-p are refused with ``ValueError``.
+slot. Sampling: greedy, or Gumbel-argmax over the scaled and top-k /
+top-p truncated logits, with noise drawn from the engine's own
+``torch.Generator`` (seeded by ``rng_seed``), one [K, B, V] draw a window
+whichever program runs it. Any number of sampling configs is served: the
+port compiles nothing per config, so JAX's ``max_sampling_configs`` cap
+has no counterpart.
 """
 
 from __future__ import annotations
@@ -75,7 +89,8 @@ import torch
 from .. import obs
 from ..device import configure_precision, resolve_device
 from ..kernels import LaunchCounts
-from ..models.generate import check_sampling, fuse_layers, gumbel_noise, sample_logits
+from ..models.generate import (check_sampling, decode_one, fuse_layers,
+                               gumbel_noise, sample_logits)
 from ..models.lstm_lm import (LMConfig, _head_kernel, head_logits,
                               lm_backbone, params_to)
 from ..ops import cuda_decode, cuda_spec
@@ -83,8 +98,14 @@ from ..ops.cuda_lstm import counts_of
 from ..ops.cuda_decode import PAD_TOKEN
 from .state_cache import DetachedState, PrefixCache, SessionTiers, StateCache
 
-__all__ = ["PAD_TOKEN", "GREEDY", "SamplingParams", "DecodeWindow",
-           "ServeEngine"]
+__all__ = ["PAD_TOKEN", "GREEDY", "DECODE_KERNELS", "SamplingParams",
+           "DecodeWindow", "ServeEngine"]
+
+#: decode_kernel choices (JAX's): "pallas" = the fused window
+#: (``ops/cuda_decode.py``: the hand-written kernel on the card, its plain
+#: version on the CPU); "scan" = the engine's scan window; "auto" = pallas
+#: when the window plan takes the model, scan otherwise
+DECODE_KERNELS = ("auto", "pallas", "scan")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +176,11 @@ class ServeEngine:
                  tiered_cache: bool = False,
                  host_tier_entries: int = 256,
                  session_dir: str | None = None,
+                 decode_kernel: str = "auto",
                  registry=None):
+        if decode_kernel not in DECODE_KERNELS:
+            raise ValueError(f"decode_kernel must be one of {DECODE_KERNELS},"
+                             f" got {decode_kernel!r}")
         self.device = resolve_device(device)
         configure_precision()
         # serving never rematerialises (the same override as generate())
@@ -166,7 +191,12 @@ class ServeEngine:
         self.fused_layers = fuse_layers(self.params, cfg)  # once, at init
         self.weights = cuda_decode.decode_weights(
             self.params, self.fused_layers, cfg.tie_embeddings, cfg.ldtype)
-        self.decode_kernel = "cuda" if self.device.type == "cuda" else "reference"
+        # resolved once to "pallas" or "scan"; under "pallas" a window the
+        # kernel does not compute falls back to the scan window, counted
+        self.decode_kernel = ("pallas" if decode_kernel == "auto"
+                              else decode_kernel)
+        self.decode_window_scan_fallbacks = 0
+        self._fallback_announced = False
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self.batch_buckets = tuple(sorted(batch_buckets))
         # the one model this engine serves, under the JAX engine's default
@@ -259,9 +289,10 @@ class ServeEngine:
     # ---- helpers ---------------------------------------------------------
 
     def check_sampling(self, sampling: SamplingParams) -> None:
-        """Raise ``ValueError`` for a config this engine will not serve
-        (top-k / top-p). Temperature is a runtime argument of the kernel,
-        so any number of distinct temperatures is served."""
+        """Raise ``ValueError`` for a config JAX's sampler refuses (``top_k
+        < 1``, ``top_p`` outside (0, 1]). Every other config is served, any
+        number of them: temperature is a runtime argument of the kernel,
+        and top-k / top-p run the scan window."""
         check_sampling(sampling.temperature, sampling.top_k, sampling.top_p,
                        sampling.greedy)
 
@@ -366,6 +397,7 @@ class ServeEngine:
             logits = head_logits(last, kernel, bias, self.cfg)
             noise = None if sampling.greedy else self._noise(logits.shape)
             token = sample_logits(logits, temperature=sampling.temperature,
+                                  top_k=sampling.top_k, top_p=sampling.top_p,
                                   greedy=sampling.greedy, noise=noise)
             self._count("prefill")
             out = token.cpu().numpy()
@@ -405,19 +437,91 @@ class ServeEngine:
 
     # ---- decode ----------------------------------------------------------
 
+    def _window_fn_for(self, sampling: SamplingParams):
+        """The window program for this dispatch: the fused window when
+        ``decode_kernel`` is "pallas" and the kernel computes this
+        sampling config (JAX's ``_pallas_window_ok``: greedy or pure
+        temperature); otherwise the scan window, a fallback from "pallas"
+        counted in ``decode_window_scan_fallbacks`` (and announced the
+        first time)."""
+        if self.decode_kernel == "pallas":
+            if cuda_decode.sampling_supported(
+                    sampling.temperature, sampling.top_k, sampling.top_p,
+                    sampling.greedy):
+                return self._fused_window
+            with self._counts_lock:
+                self.decode_window_scan_fallbacks += 1
+                first = not self._fallback_announced
+                self._fallback_announced = True
+            if first:
+                print("serve: top-k / top-p sampling is not computed by the "
+                      "decode-window kernel — those windows run the scan "
+                      "window, counted in decode_window_scan_fallbacks",
+                      flush=True)
+        return self._scan_window
+
+    def _fused_window(self, h_in, c_in, tokens, alive, remaining, eos_ids,
+                      noise, *, window: int, sampling: SamplingParams):
+        return cuda_decode.decode_window(
+            self.weights, h_in, c_in, tokens, alive, remaining, eos_ids,
+            noise, window=window, temperature=sampling.temperature,
+            greedy=sampling.greedy)
+
+    def _scan_window(self, h_in, c_in, tokens, alive, remaining, eos_ids,
+                     noise, *, window: int, sampling: SamplingParams):
+        """JAX's non-kernel window (``_get_decode_window_fn``) in plain
+        PyTorch: K steps of ``decode_one`` and ``sample_logits`` (top-k /
+        top-p included, step k's Gumbel draws ``noise[k]``), with the fused
+        window's latches — a row alive at a step's entry emits that step's
+        token and commits its carries, then latches dead at its EOS or at
+        the end of its budget; dead rows emit ``PAD_TOKEN``, keep their
+        carries frozen and feed token 0. Same arguments and outputs as
+        ``cuda_decode.decode_window``, so the batcher cannot tell the two
+        apart."""
+        cfg = self.cfg
+        carries = [(h_in[l], c_in[l]) for l in range(cfg.num_layers)]
+        tok = tokens.to(torch.int32)
+        alive = alive.to(torch.bool)
+        rem = remaining.to(torch.int32)
+        eos = eos_ids.to(torch.int32)
+        toks = []
+        for k in range(window):
+            logits, new = decode_one(self.params, self.fused_layers, cfg,
+                                     carries, tok)
+            nxt = sample_logits(
+                logits, temperature=sampling.temperature,
+                top_k=sampling.top_k, top_p=sampling.top_p,
+                greedy=sampling.greedy,
+                noise=None if sampling.greedy else noise[k])
+            emit = alive
+            toks.append(torch.where(emit, nxt,
+                                    torch.full_like(nxt, PAD_TOKEN)))
+            new_rem = rem - emit.to(torch.int32)
+            hit_eos = emit & (eos >= 0) & (nxt == eos)
+            new_alive = emit & ~hit_eos & (new_rem > 0)
+            carries = [(torch.where(emit[:, None], hn, ho),
+                        torch.where(emit[:, None], cn, co))
+                       for (ho, co), (hn, cn) in zip(carries, new)]
+            tok = torch.where(new_alive, nxt, torch.zeros_like(nxt))
+            alive, rem = new_alive, new_rem
+        return (torch.stack([h for h, _ in carries]).float(),
+                torch.stack([c for _, c in carries]).float(),
+                torch.stack(toks), tok, alive.to(torch.int32), rem)
+
     def _dispatch_window(self, slots_d, tokens_d, alive_d, rem_d, eos_d, *,
                          batch_b: int, window: int, n: int,
                          sampling: SamplingParams) -> DecodeWindow:
-        """Gather → window (kernel on the card) → scatter, all enqueued on
-        the current stream; the summary copy is queued right behind the
-        window so a later fetch waits for this window only."""
+        """Gather → window (the fused kernel on the card, or the scan
+        window) → scatter, all enqueued on the current stream; the summary
+        copy is queued right behind the window so a later fetch waits for
+        this window only."""
+        fn = self._window_fn_for(sampling)
         h_in, c_in = self.cache.read_slots(slots_d)
         noise = (None if sampling.greedy
                  else self._noise((window, batch_b, self.cfg.vocab_size)))
-        h_out, c_out, toks, next_tok, alive, rem = cuda_decode.decode_window(
-            self.weights, h_in, c_in, tokens_d, alive_d, rem_d, eos_d, noise,
-            window=window, temperature=sampling.temperature,
-            greedy=sampling.greedy)
+        h_out, c_out, toks, next_tok, alive, rem = fn(
+            h_in, c_in, tokens_d, alive_d, rem_d, eos_d, noise,
+            window=window, sampling=sampling)
         self.cache.write_slots(slots_d, h_out, c_out)
         return self._window_handles(
             toks, next_tok, alive, rem, slots_d, eos_d, batch_b=batch_b,
@@ -672,19 +776,24 @@ class ServeEngine:
         return self.tiers is not None and self.tiers.has(session_id)
 
     def stats(self) -> dict:
-        """The engine's counts. ``kernel_launches`` / ``reference_windows``
-        (and the spec window's) count the window form this engine runs
+        """The engine's counts. ``decode_kernel`` is the resolved window
+        choice ("pallas" or "scan") and ``decode_window_scan_fallbacks``
+        the windows that fell back from "pallas" to the scan window (JAX's
+        keys). ``kernel_launches`` / ``reference_windows`` (and the spec
+        window's) count the fused window form this engine runs
         (``window_form``: float32, or bfloat16 under bf16 compute);
         ``launch_counts`` is every kernel counter of the process that
         launched, by name (the prefill's recurrence forwards too)."""
         with self._counts_lock:
             dispatches = dict(self.dispatches)
+            fallbacks = self.decode_window_scan_fallbacks
         wd = cuda_decode.layers_dtype(self.weights)
         dc = counts_of(wd, cuda_decode.counts, cuda_decode.counts_bf16)
         sc = counts_of(wd, cuda_spec.counts, cuda_spec.counts_bf16)
         return {
             "device": str(self.device),
             "decode_kernel": self.decode_kernel,
+            "decode_window_scan_fallbacks": fallbacks,
             "window_form": str(wd).removeprefix("torch."),
             "dispatches": dispatches,
             "kernel_launches": dc.kernel,

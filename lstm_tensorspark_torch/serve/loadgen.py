@@ -1,8 +1,8 @@
 """Load generator for the serve stack (runs on the CPU and on the card).
 
-Port of ``lstm_tensorspark_tpu/serve/loadgen.py`` (its ``replica_sweep``,
-``mesh_sweep`` and ``kernel_sweep`` need replicas, a mesh and
-``--decode-kernel``, which the port does not have). Two modes:
+Port of ``lstm_tensorspark_tpu/serve/loadgen.py`` (its ``replica_sweep``
+and ``mesh_sweep`` need replicas and a mesh, which the port does not
+have). Two modes:
 
 - **closed-loop**: N session threads, each issuing its requests back to
   back through the server — N always-busy clients;
@@ -23,7 +23,9 @@ client-side numbers. :func:`run_template_mix` drives the tenant-preamble x
 template x suffix workload on a bounded worker pool;
 :func:`run_longtail` the Zipf-popularity kept-session workload the tiered
 cache serves; :func:`concurrency_sweep` the closed loop at several session
-counts on one warm server.
+counts on one warm server; :func:`kernel_sweep` the same closed loop on a
+fresh server per decode-window program (``--decode-kernel pallas,scan``).
+Each run is a span of the installed tracer (``--trace``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import time
 import numpy as np
 
 from ..backoff import backoff_delay
+from ..utils import span
 from .batcher import CLASSES, DeadlineExceededError, QueueFullError
 from .engine import GREEDY, SamplingParams
 from .server import ServeServer
@@ -400,52 +403,53 @@ def run_loadgen(
             "tokens": len(req.tokens),
         })
 
-    t_start = time.perf_counter()
-    inject_thread = None
-    if inject_prompt_len > 0:
-        inject_thread = threading.Thread(target=inject, daemon=True)
-        inject_thread.start()
-    if mode == "closed":
-        def worker(wid: int) -> None:
-            # per-session class: the first n_priority sessions are
-            # priority, the rest best-effort
-            klass = "priority" if wid < n_priority else "best_effort"
-            for r in range(requests_per_session):
-                one_request(prompts[wid * requests_per_session + r],
-                            klass)
+    with span("loadgen", mode=mode, sessions=sessions, total=total):
+        t_start = time.perf_counter()
+        inject_thread = None
+        if inject_prompt_len > 0:
+            inject_thread = threading.Thread(target=inject, daemon=True)
+            inject_thread.start()
+        if mode == "closed":
+            def worker(wid: int) -> None:
+                # per-session class: the first n_priority sessions are
+                # priority, the rest best-effort
+                klass = "priority" if wid < n_priority else "best_effort"
+                for r in range(requests_per_session):
+                    one_request(prompts[wid * requests_per_session + r],
+                                klass)
 
-        threads = [
-            threading.Thread(target=worker, args=(i,), daemon=True)
-            for i in range(sessions)
-        ]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-    else:  # open loop: arrivals follow the schedule, not completion
-        offsets = arrival_offsets(
-            len(prompts), rate=rate, arrival=arrival,
-            arrival_times=arrival_times, burst_n=burst_n,
-            burst_gap_s=burst_gap_s, sine_period_s=sine_period_s,
-            sine_amp=sine_amp)
-        threads = []
-        for i, prompt in enumerate(prompts):
-            # interleaved class pattern (period = sessions): a burst
-            # carries both classes throughout, not one then the other
-            klass = ("priority"
-                     if (i % max(sessions, 1)) < n_priority
-                     else "best_effort")
-            target = t_start + offsets[i]
-            delay = target - time.perf_counter()
-            if delay > 0:
-                time.sleep(delay)
-            t = threading.Thread(
-                target=one_request, args=(prompt, klass), daemon=True
-            )
-            t.start()
-            threads.append(t)
-        for t in threads:
-            t.join()
+            threads = [
+                threading.Thread(target=worker, args=(i,), daemon=True)
+                for i in range(sessions)
+            ]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        else:  # open loop: arrivals follow the schedule, not completion
+            offsets = arrival_offsets(
+                len(prompts), rate=rate, arrival=arrival,
+                arrival_times=arrival_times, burst_n=burst_n,
+                burst_gap_s=burst_gap_s, sine_period_s=sine_period_s,
+                sine_amp=sine_amp)
+            threads = []
+            for i, prompt in enumerate(prompts):
+                # interleaved class pattern (period = sessions): a burst
+                # carries both classes throughout, not one then the other
+                klass = ("priority"
+                         if (i % max(sessions, 1)) < n_priority
+                         else "best_effort")
+                target = t_start + offsets[i]
+                delay = target - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                t = threading.Thread(
+                    target=one_request, args=(prompt, klass), daemon=True
+                )
+                t.start()
+                threads.append(t)
+            for t in threads:
+                t.join()
     # wall covers the POOLED workload only — joining the probe after
     # would charge its sleep+request tail to tokens_per_sec while its
     # tokens are excluded from results
@@ -635,13 +639,14 @@ def run_template_mix(
                 if collect_tokens:
                     tokens_by_session[i] = [int(t) for t in req.tokens]
 
-    t_start = time.perf_counter()
-    threads = [threading.Thread(target=worker, daemon=True)
-               for _ in range(min(workers, sessions))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    with span("template_mix", sessions=sessions, workers=workers):
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(min(workers, sessions))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
     wall = time.perf_counter() - t_start
     report = _report(results, 0, failed[0], wall, "closed", sessions)
     report["workload"] = "template-mix"
@@ -860,13 +865,15 @@ def run_longtail(
                     busy.discard(logical)
                     cond.notify_all()
 
-    t_start = time.perf_counter()
-    threads = [threading.Thread(target=worker, daemon=True)
-               for _ in range(max(1, concurrency))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    with span("loadgen_longtail", sessions=sessions,
+              turns=len(schedule)):
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(max(1, concurrency))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
     wall = time.perf_counter() - t_start
 
     report = _report(results, rejected[0], failed[0], wall, "longtail",
@@ -945,9 +952,10 @@ def concurrency_sweep(
     (the server warms every program the levels dispatch before timing, so
     no level is charged a first launch). Returns
     ``{"levels": {n: report}, "speedup_max_vs_1": x}``."""
-    # the batcher derives its own window-ladder / chunk / prefix-split
-    # programs, so no level is charged a first launch mid-run
-    server.warmup(sampling, prompt_lens=(prompt_len,))
+    with span("loadgen_warmup"):
+        # the batcher derives its own window-ladder / chunk / prefix-split
+        # programs, so no level is charged a first launch mid-run
+        server.warmup(sampling, prompt_lens=(prompt_len,))
     reports = {}
     for n in levels:
         reports[n] = run_loadgen(
@@ -962,4 +970,71 @@ def concurrency_sweep(
         out["speedup_max_vs_1"] = round(
             max(r["tokens_per_sec"] for r in reports.values()) / base, 3
         )
+    return out
+
+
+def kernel_sweep(
+    make_server,
+    *,
+    vocab_size: int,
+    kernels: tuple[str, ...] = ("scan", "pallas"),
+    sessions: int = 8,
+    requests_per_session: int = 4,
+    prompt_len: int = 8,
+    max_new_tokens: int = 16,
+    sampling: SamplingParams = GREEDY,
+    seed: int = 0,
+    parity_prompts: int = 4,
+) -> dict:
+    """The decode-window comparison (``serve --loadgen --decode-kernel
+    pallas,scan``): the same closed-loop workload on a fresh
+    ``make_server(kernel)`` stack per kernel, with tokens/s and TTFT / ITL
+    percentiles per kernel, the pallas-against-scan deltas, each arm's
+    scan fallbacks, and greedy token parity across kernels (the window must
+    give the same stream whichever program computes it)."""
+    kernels = tuple(dict.fromkeys(kernels))  # dedupe, keep order
+    if not kernels:
+        raise ValueError("kernels must name at least one decode kernel")
+    check_parity = parity_prompts > 0 and sampling.greedy
+    probes = (_random_prompts(parity_prompts, prompt_len, vocab_size,
+                              seed + 4242) if check_parity else [])
+    out: dict = {"kernels": {}}
+    parity: dict[str, list[list[int]]] = {}
+    fallbacks: dict[str, int] = {}
+    for kern in kernels:
+        server = make_server(kern)
+        with server:
+            with span("kernel_sweep_warmup", kernel=kern):
+                server.warmup(sampling, prompt_lens=(prompt_len,))
+            out["kernels"][kern] = run_loadgen(
+                server, vocab_size=vocab_size, sessions=sessions,
+                requests_per_session=requests_per_session,
+                prompt_len=prompt_len, max_new_tokens=max_new_tokens,
+                sampling=sampling, seed=seed,
+            )
+            if probes:
+                parity[kern] = [
+                    list(server.generate(p, max_new_tokens=max_new_tokens,
+                                         sampling=sampling).tokens)
+                    for p in probes
+                ]
+            es = server.engine.stats()
+            out["kernels"][kern]["decode_kernel"] = es["decode_kernel"]
+            fallbacks[kern] = es["decode_window_scan_fallbacks"]
+    out["scan_fallbacks"] = fallbacks
+    if "scan" in out["kernels"] and "pallas" in out["kernels"]:
+        s, p = out["kernels"]["scan"], out["kernels"]["pallas"]
+        out["pallas_vs_scan"] = {
+            "tokens_per_sec_ratio": round(
+                p["tokens_per_sec"] / (s["tokens_per_sec"] or 1e-9), 3),
+            "p50_itl_delta_ms": round(
+                p["p50_itl_ms"] - s["p50_itl_ms"], 3),
+            "p99_itl_delta_ms": round(
+                p["p99_itl_ms"] - s["p99_itl_ms"], 3),
+            "p50_ttft_delta_ms": round(
+                p["p50_ttft_ms"] - s["p50_ttft_ms"], 3),
+        }
+    if parity:
+        base = kernels[0]
+        out["parity_ok"] = all(parity[k] == parity[base] for k in kernels)
     return out

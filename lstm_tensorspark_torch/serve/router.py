@@ -243,6 +243,17 @@ class Router:
         s = self._qwait.aggregate_over("replica").get("") or {}
         return max(deficit, retry_after_from_p99(s.get("p99"), 0.0))
 
+    def set_best_effort_frac(self, frac: float) -> None:
+        """Move the best-effort shed bound at run time (the serve
+        autotuner's admission knob), validated as at construction."""
+        if not 0.0 < frac <= 1.0:
+            raise ValueError(
+                f"best_effort_frac must be in (0, 1], got {frac}")
+        with self._lock:
+            self.best_effort_frac = float(frac)
+            self._best_effort_bound = max(
+                1, int(round(self.queue_size * frac)))
+
     def _retry_after_locked(self, queued: int) -> float:
         """Retry-After of a shed: the queue-wait p99 through the shared
         policy at the current fullness."""

@@ -11,7 +11,8 @@ synchronous request path both front-ends use:
 - :func:`make_http_server` — a ``ThreadingHTTPServer`` JSON endpoint:
 
   - ``POST /v1/generate`` body ``{"prompt": [ids], "max_new_tokens": N,
-    "greedy": bool, "temperature": t, "eos_id": id, "timeout": s,
+    "greedy": bool, "temperature": t, "top_k": k, "top_p": p,
+    "eos_id": id, "timeout": s,
     "session_id": str, "keep_session": bool, "use_prefix": bool,
     "class": "priority" | "best_effort", "deadline_s": s, "tenant": str,
     "request_id": str}`` →
@@ -37,8 +38,9 @@ Every non-200 reply has one shape: ``{"error": message, "code": token,
 "retryable": bool, "retry_after_s": s or null}``. A shed is 429
 ``queue_full`` with the ``Retry-After`` header (whole seconds, rounded
 up); a deadline is 504 ``deadline_exceeded`` carrying the partial
-``tokens``; a bad body, a reserved ``session_id`` or an unsupported
-sampling config (top-k, top-p) 400 ``bad_request``; a scheduler-side
+``tokens``; a bad body, a reserved ``session_id`` or a sampling config
+JAX's sampler refuses (``top_k < 1``, ``top_p`` outside (0, 1]) 400
+``bad_request``; a scheduler-side
 failure (an unknown or busy session) 500 ``internal``; a client-side wait
 past ``timeout`` 504 ``client_timeout``; an unknown route 404
 ``not_found``.
@@ -165,12 +167,17 @@ class ServeServer:
     (priority, best_effort); ``deadline_defaults`` ``{class: seconds}``
     applied when a request names no deadline (0 or None: no default);
     ``tenant_rate`` / ``tenant_burst`` the router's per-tenant token
-    bucket (off by default)."""
+    bucket (off by default); ``prefill_chunk_choices`` the warmed chunk
+    sizes the autotuner may move ``prefill_chunk`` among; ``autotune`` an
+    :class:`~.autotune.AutoTuneConfig` to run the online autotuner (its
+    thread started by :meth:`start` and joined by :meth:`stop`; None, the
+    default, moves no knob)."""
 
     def __init__(self, engine: ServeEngine, *, max_active: int = 16,
                  queue_size: int = 64,
                  window_ladder: tuple[int, ...] = Batcher.DEFAULT_WINDOW_LADDER,
                  prefill_chunk: int | None = None,
+                 prefill_chunk_choices: tuple[int, ...] | None = None,
                  class_weights: tuple[int, int] = Batcher.DEFAULT_CLASS_WEIGHTS,
                  speculative: bool = False,
                  spec_ladder: tuple[int, ...] = Batcher.DEFAULT_SPEC_LADDER,
@@ -178,7 +185,8 @@ class ServeServer:
                  best_effort_queue_frac: float = 0.5,
                  deadline_defaults: dict | None = None,
                  tenant_rate: float | None = None,
-                 tenant_burst: float = 5.0):
+                 tenant_burst: float = 5.0,
+                 autotune=None):
         if isinstance(engine, (list, tuple)):
             if len(engine) != 1:
                 raise ValueError(
@@ -200,6 +208,7 @@ class ServeServer:
                           queue_size=queue_size,
                           window_ladder=window_ladder,
                           prefill_chunk=prefill_chunk,
+                          prefill_chunk_choices=prefill_chunk_choices,
                           class_weights=class_weights,
                           speculative=speculative,
                           spec_ladder=spec_ladder, spec_k=spec_k)
@@ -213,6 +222,13 @@ class ServeServer:
         self.settled = SettledCache(registry=engine.metrics)
         self._model_info_seen: set[tuple[str, str]] = set()
         self._stop = threading.Event()
+        # built over the finished stack, so it sees the batcher, the tiers
+        # and the router
+        self.autotuner = None
+        if autotune is not None:
+            from .autotune import AutoTuner
+
+            self.autotuner = AutoTuner(self, autotune)
 
     @property
     def engine(self) -> ServeEngine:
@@ -242,9 +258,15 @@ class ServeServer:
         rep.thread.start()
         # arm the death sweep only once the thread runs
         self.router.set_stopping(False)
+        if self.autotuner is not None:
+            self.autotuner.start()
         return self
 
     def stop(self, timeout: float = 30.0) -> None:
+        # the controller parks first: no knob moves while the scheduler is
+        # joined
+        if self.autotuner is not None:
+            self.autotuner.stop()
         # disarm the sweep first: a joined thread is not a dead one
         self.router.set_stopping(True)
         self._stop.set()
@@ -311,7 +333,10 @@ class ServeServer:
     def stats(self) -> dict:
         return {"engine": self.engine.stats(), "batcher": self.batcher.stats(),
                 "router": self.router.stats(),
-                "metrics": self.metrics_summary()}
+                "metrics": self.metrics_summary(),
+                # the controller's decisions and last window; None = off
+                "autotune": (None if self.autotuner is None
+                             else self.autotuner.stats())}
 
     def _collect_gauges(self) -> None:
         """Refresh the poll-style gauges at scrape time (an idle scheduler

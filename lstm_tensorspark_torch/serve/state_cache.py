@@ -1013,6 +1013,22 @@ class SessionTiers:
         for job in stored:
             self._m_spill_lat.observe(end - job.t0)
 
+    def set_host_entries(self, n: int) -> None:
+        """Resize the host tier's bound at run time (the serve autotuner's
+        capacity knob). Growing is free; shrinking pushes the overflow
+        through the spill path's own cascade (disk-bound victims park until
+        their write lands, the rest are dropped and counted), the disk
+        writes outside the lock."""
+        if n < 1:
+            raise ValueError(f"host_entries must be >= 1, got {n}")
+        disk_writes: list = []
+        with self._lock:
+            self.host_entries = int(n)
+            dropped = self._cascade_overflow_locked(disk_writes)
+        if dropped:
+            self._m_lost["overflow"].inc(dropped)
+        self._flush_disk_writes(disk_writes)
+
     def _cascade_overflow_locked(self, disk_writes: list) -> int:
         """Pop host-tier overflow victims: disk-bound ones park in
         ``_evacuating`` (still fillable) until their write lands, the rest

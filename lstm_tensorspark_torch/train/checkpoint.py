@@ -46,6 +46,8 @@ import threading
 
 import torch
 
+from ..utils import span
+
 #: the file of a step by format: the port's ``step_<N>.pt`` and the JAX
 #: package's ``step_<N>.msgpack`` (read only, ``train/jax_checkpoint.py``);
 #: sidecars and quarantined files do not match
@@ -180,16 +182,18 @@ class Checkpointer:
         path."""
         if self.fmt != "torch":
             raise ValueError(f"a {self.fmt} checkpoint directory is read only")
-        buf = io.BytesIO()
-        torch.save(_host(state), buf)
-        path = self.path_for(int(state["step"]))
-        atomic_write(path, buf.getvalue(), checksum=True)
-        for step in self._steps()[:-self.keep]:
-            for name in (self.path_for(step), self.path_for(step) + ".sha256"):
-                try:
-                    os.remove(name)
-                except FileNotFoundError:
-                    pass
+        with span("checkpoint_save"):
+            buf = io.BytesIO()
+            torch.save(_host(state), buf)
+            path = self.path_for(int(state["step"]))
+            atomic_write(path, buf.getvalue(), checksum=True)
+            for step in self._steps()[:-self.keep]:
+                for name in (self.path_for(step),
+                             self.path_for(step) + ".sha256"):
+                    try:
+                        os.remove(name)
+                    except FileNotFoundError:
+                        pass
         return path
 
     def _quarantine(self, step: int, reason: str) -> None:

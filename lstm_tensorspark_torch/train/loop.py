@@ -216,14 +216,16 @@ class Training(NamedTuple):
     """A run as the train command wires it, before its loop: the first
     ``state``, the train call ``step`` and its ``feed`` (what
     :func:`train_loop` drives), the eval of the final record
-    (``eval_fn(params) -> record``) and :func:`train_loop`'s other keyword
-    arguments (``loop_kw``)."""
+    (``eval_fn(params) -> record``), :func:`train_loop`'s other keyword
+    arguments (``loop_kw``) and what runs after the final record
+    (``generate(params)``: the LM's ``--generate-tokens``, or None)."""
 
     state: TrainState
     step: Callable
     feed: Iterable
     eval_fn: Callable
     loop_kw: dict
+    generate: Callable | None = None
 
 
 def summarize_scan_metrics(ms: list[dict]) -> dict:

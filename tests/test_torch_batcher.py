@@ -136,8 +136,9 @@ def test_submit_validation(params):
     b = Batcher(_engine(params), queue_size=1)
     with pytest.raises(ValueError, match="largest prefill bucket"):
         b.submit(Request(np.zeros(17, np.int32), 2))
-    with pytest.raises(ValueError, match="top-k / top-p"):
-        b.submit(Request([1], 2, sampling=SamplingParams(top_p=0.5)))
+    # top-p is served; a top_p outside (0, 1] is refused, as JAX refuses it
+    with pytest.raises(ValueError, match="top_p must be in"):
+        b.submit(Request([1], 2, sampling=SamplingParams(top_p=1.5)))
     with pytest.raises(ValueError, match="slots"):
         Batcher(b.engine, max_active=17)
     with pytest.raises(ValueError):
