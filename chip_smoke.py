@@ -205,7 +205,9 @@ Phases (each one fails the run):
    at K=1 host-fed and K=8 ``--device-data``; (c) ``serve --http
    --compute-dtype bfloat16 --checkpoint-dir`` on that checkpoint as a
    subprocess, plain and ``--speculative``: phase 4's burst, tokens equal
-   to the CPU plain ``generate`` of the checkpoint in bf16, the bf16
+   to the CPU plain ``generate`` of the checkpoint in bf16 (the
+   speculative server's draft, ``draft_config``'s shape drawn from seed 1,
+   published to a registry and loaded with ``--registry-dir``), the bf16
    windows' and the prefill form's launches from the server's
    ``/v1/stats`` (no other kernel, no plain twin), tokens/s, TTFT and the
    largest gap between tokens; (d) phase 13's burst at config 3's width in
@@ -290,10 +292,30 @@ Phases (each one fails the run):
    set, ``serve_autotune_moves_total`` equal to the stats' counts (and
    (c)'s greedy tokens held with the controller on); (g) ``train
    --generate-tokens 64 --top-k 5`` at config 1: the continuation and its
-   JSONL record. Its launches (c) join the kernel report's rows.
+   JSONL record. Its launches (c) join the kernel report's rows;
+22. distil a draft and serve it as JAX's ``serve --speculative`` does,
+   each command a subprocess whose launches come from its own report,
+   against a teacher trained first (config 1 as ``configs/ptb_char.sh``
+   trains it, bf16, 300 captured steps): (a) ``distill --checkpoint-dir``
+   for 200 eager steps on the card, its first 5 losses within 2e-3 of the
+   same command on the CPU, exactly one launch a step of the teacher's
+   ``lstm_fwd_bf16u`` and of the draft's ``lstm_fwd_bf16`` and
+   ``lstm_bwd_bf16``, its steps/s; (b) ``serve --http --speculative
+   --registry-dir`` over 17c's burst with that draft, then with a seeded
+   one (``--draft-model``): tokens equal to the CPU plain ``generate``,
+   spec windows dispatched, ``/v1/stats`` naming the draft's version, the
+   mean accepted length of each (the distilled one's must be the higher),
+   and a draft whose parent is another teacher's refused at boot; (c) at
+   config 3's width (seeded teacher published to a registry, f32)
+   ``distill`` for 10 steps, its first 3 losses within 1e-4 of the CPU
+   run (started beside phase 19), two ``lstm_tiled_fwd`` launches a step
+   for the teacher and one of ``lstm_fwd`` and ``lstm_bwd`` for the H=162
+   draft, then a 4-request ``serve --speculative`` burst against the CPU
+   plain ``generate``. Its launches join the kernel report's rows.
 
 Each phase prints the seconds it took. ``python3 <this file>
---sampling`` runs phase 21 alone; ``--loadgen`` runs phase 20 alone
+--distill`` runs phase 22 alone; ``--sampling`` runs phase 21
+alone; ``--loadgen`` runs phase 20 alone
 (about 2 minutes of the tool's time);
 ``--sessions`` runs phase 19 alone; ``--forecast`` runs phase 18 alone; ``--train-calls LABEL`` phase 14 alone; ``--bf16 train`` the bf16
 parts of phases 5, 7 and 9 and phases 15 and 16 (``--bf16 kernels``
@@ -466,19 +488,21 @@ def card_line() -> str:
 
 class HostRuns:
     """The CLI runs on the host's CPU that the card's first losses are held
-    against (config 2's in phases 8 and 16, each over a minute), started as
-    subprocesses (``python -m lstm_tensorspark_torch train ... --device
-    cpu``, niced, ``HOST_THREADS`` threads each) before the kernels are
-    built, so they run beside the card's phases; a phase waits for its own
-    run's losses. ``stop`` kills every run still going (the script
-    registers it to run at exit)."""
+    against (config 2's in phases 8 and 16, each over a minute; phase 22's
+    distill commands), started as subprocesses (``python -m
+    lstm_tensorspark_torch train|distill ... --device cpu``, niced,
+    ``HOST_THREADS`` threads each) before the card needs them, so they run
+    beside the card's phases; a phase waits for its own run's losses.
+    ``stop`` kills every run still going (the script registers it to run
+    at exit)."""
 
     def __init__(self):
         self.runs, self.done = {}, {}
         self.dir = None
 
     def start(self, name, flags):
-        """Start the run ``train <flags> --device cpu`` as ``name`` (once)."""
+        """Start the run ``<flags> --device cpu`` (``flags`` begin with the
+        subcommand) as ``name`` (once)."""
         if name in self.runs:
             return
         self.dir = self.dir or tempfile.mkdtemp(prefix="chip_smoke_host_")
@@ -3824,9 +3848,12 @@ def resumed_bit_for_bit(cli, tmp, flags, runs):
 SERVE_BOOT_LIMIT_S = 180
 
 
-def serve_cmd_burst(torch, cli, tgen, tlm, ckpt_dir, vocab, speculative):
-    """Boot the serve command on the checkpoint, send the burst, stop it;
-    returns (responses, wall s, launches during the burst by counter)."""
+def serve_cmd_burst(torch, cli, tgen, tlm, ckpt_dir, vocab, speculative,
+                    extra=()):
+    """Boot the serve command on the checkpoint (``extra`` flags added),
+    send the burst, stop it; returns (responses, wall s, launches during
+    the burst by counter, boot s, the expected tokens, ``/v1/stats``
+    before and after the burst)."""
     import numpy as np
 
     cfg = tlm.LMConfig(vocab_size=vocab, hidden_size=128, num_layers=1,
@@ -3855,6 +3882,7 @@ def serve_cmd_burst(torch, cli, tgen, tlm, ckpt_dir, vocab, speculative):
            "8,16,32,64", "--max-new-tokens", str(n_new)]
     if speculative:
         cmd.append("--speculative")
+    cmd += list(extra)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     atexit.register(lambda: proc.poll() is None and proc.kill())
@@ -3873,15 +3901,7 @@ def serve_cmd_burst(torch, cli, tgen, tlm, ckpt_dir, vocab, speculative):
                 fail(f"serve did not boot in {SERVE_BOOT_LIMIT_S} s")
         boot = time.perf_counter() - t0
 
-        def stats():
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-            try:
-                conn.request("GET", "/v1/stats")
-                return json.loads(conn.getresponse().read())["engine"]
-            finally:
-                conn.close()
-
-        before = stats()
+        before = get_stats(port)
         out = [None] * len(prompts)
 
         def one(i):
@@ -3899,7 +3919,7 @@ def serve_cmd_burst(torch, cli, tgen, tlm, ckpt_dir, vocab, speculative):
         for t in threads:
             t.join(300)
         wall = time.perf_counter() - t1
-        after = stats()
+        stats = get_stats(port)
     finally:
         proc.send_signal(2)  # SIGINT: the command's own shutdown
         try:
@@ -3908,6 +3928,7 @@ def serve_cmd_burst(torch, cli, tgen, tlm, ckpt_dir, vocab, speculative):
             proc.kill()
             proc.wait()
     mode = "speculative" if speculative else "plain"
+    after = stats["engine"]
     for i, r in enumerate(out):
         if r is None or r[0] != 200:
             fail(f"serve {mode}: request {i} failed: {r}")
@@ -3920,25 +3941,51 @@ def serve_cmd_burst(torch, cli, tgen, tlm, ckpt_dir, vocab, speculative):
     if after["reference_windows"] or after["spec_reference_windows"]:
         fail(f"serve {mode}: windows ran the plain twins on the card")
     launches = {k: after["launch_counts"].get(k, 0)
-                - before["launch_counts"].get(k, 0)
+                - before["engine"]["launch_counts"].get(k, 0)
                 for k in after["launch_counts"]}
-    return out, wall, launches, boot, expect
+    return out, wall, launches, boot, expect, (before, stats)
+
+
+def ckpt_vocab(torch, ckpt_dir):
+    """The vocabulary of the port's checkpoints in ``ckpt_dir`` (the
+    embedding's rows)."""
+    import glob
+
+    for path in glob.glob(os.path.join(ckpt_dir, "step_*.pt")):
+        return torch.load(path, weights_only=True)["params"][0].shape[0]
+    fail(f"no checkpoint in {ckpt_dir}")
+
+
+def publish_seeded_draft(tlm, cfg, registry_dir, seed, **kw):
+    """Publish ``draft_config(cfg)`` with weights drawn from ``seed`` as
+    the verified pair of the target ``cfg`` (``publish_draft``'s keywords
+    in ``kw``); returns the record."""
+    import torch
+
+    from lstm_tensorspark_torch.train.distill import draft_config, publish_draft
+
+    dcfg = draft_config(cfg)
+    return publish_draft(registry_dir, tlm.init_lm(
+        torch.Generator().manual_seed(seed), dcfg), dcfg, cfg, **kw)
 
 
 def bf16_serve_phase(torch, cli, tgen, tlm, ckpt_dir):
     print("== phase 17c: serve --compute-dtype bfloat16 --checkpoint-dir "
-          "(the checkpoint of 17b), plain and speculative", flush=True)
-    import glob
-
-    vocab = None
-    for path in glob.glob(os.path.join(ckpt_dir, "step_*.pt")):
-        vocab = torch.load(path, weights_only=True)["params"][0].shape[0]
-        break
+          "(the checkpoint of 17b), plain and speculative (the draft "
+          "draft_config's shape drawn from --seed + 1, published to a "
+          "registry)", flush=True)
+    vocab = ckpt_vocab(torch, ckpt_dir)
+    registry = tempfile.mkdtemp(prefix="chip_smoke_registry_")
+    atexit.register(shutil.rmtree, registry, True)
+    publish_seeded_draft(tlm, tlm.LMConfig(
+        vocab_size=vocab, hidden_size=128, num_layers=1,
+        compute_dtype="bfloat16"), registry, 1)
     out = {}
     for speculative in (False, True):
         mode = "speculative" if speculative else "plain"
-        res, wall, launches, boot, expect = serve_cmd_burst(
-            torch, cli, tgen, tlm, ckpt_dir, vocab, speculative)
+        res, wall, launches, boot, expect, _ = serve_cmd_burst(
+            torch, cli, tgen, tlm, ckpt_dir, vocab, speculative,
+            ("--registry-dir", registry) if speculative else ())
         want = "spec_window_bf16" if speculative else "decode_window_bf16"
         for name in (want, "lstm_fwd_bf16u"):
             if launches.get(name, 0) < 1:
@@ -5926,6 +5973,329 @@ def phase21(torch, tlm, tgen, cd, serve, device):
     return launches, sampled, scan
 
 
+# ---------------------------------------------------------------------------
+# phase 22: distil a draft and serve it as JAX's `serve --speculative` does:
+# `distill` trains the draft (draft_config: H/4, one layer) against a
+# teacher's logits and publishes it to a model registry as a verified pair;
+# `serve --speculative --registry-dir` loads the pair and serves through the
+# spec window. Each command runs as a subprocess, whose launch counts start
+# at 0 and are read from its own report (the distill record's
+# `launch_counts`, /v1/stats)
+# ---------------------------------------------------------------------------
+
+DISTILL_STEPS = 200     # 22a's card run (the command's default)
+DISTILL_FIRST = 5       # the first losses held against the CPU run
+DISTILL3_STEPS = 10     # 22c's card run at config 3's width
+DISTILL3_FIRST = 3      # 22c's first losses (a CPU step there takes seconds)
+# the first losses of the card against the CPU run of the same command:
+# absolute limits, bf16 (the draft's kernel route rounds its streams, the
+# CPU's plain loop does not) and f32
+DISTILL_BF16_TOL, DISTILL_F32_TOL = 2e-3, 1e-4
+# the teacher of 22a-b: config 1 as configs/ptb_char.sh trains it (bf16),
+# captured, for this many steps
+DISTILL_TEACHER_STEPS = 300
+DISTILL_LIMIT_S = 300
+CONFIG1_TEACHER = ["--hidden-units", "128", "--num-layers", "1",
+                   "--compute-dtype", "bfloat16"]
+CONFIG3_TEACHER = ["--hidden-units", "650", "--num-layers", "2",
+                   "--vocab-size", "33278", "--dataset", "wikitext2"]
+# 22c's burst at config 3's width: prompt lengths, new tokens a request
+DISTILL3_LENS, DISTILL3_NEW = (5, 9, 12, 16), 16
+
+
+class Distill:
+    """``distill <flags>`` as a subprocess on the card, started at
+    construction; :meth:`result` waits for it."""
+
+    def __init__(self, flags, tmp, name):
+        self.name = name
+        self.path = os.path.join(tmp, f"{name}.jsonl")
+        self.out = open(os.path.join(tmp, f"{name}.out"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "lstm_tensorspark_torch", "distill",
+             *flags, "--jsonl", self.path],
+            stdout=self.out, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda: self.proc.poll() is None and self.proc.kill())
+
+    def result(self):
+        """(the ``{"distill": ...}`` record, the logged step records, the
+        command's wall s); fails the script unless it exited 0."""
+        left = DISTILL_LIMIT_S - (time.perf_counter() - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            fail(f"{self.name}: distill did not end in {DISTILL_LIMIT_S} s")
+        wall = time.perf_counter() - self.t0
+        self.out.seek(0)
+        text = self.out.read()
+        self.out.close()
+        if rc != 0:
+            fail(f"{self.name}: distill exited {rc}: {text[-3000:]}")
+        rec = json.loads(text.strip().splitlines()[-1])["distill"]
+        with open(self.path) as f:
+            steps = [r for r in map(json.loads, f) if "loss" in r]
+        return rec, steps, wall
+
+
+def held_first(name, card_steps, cpu_losses, n, tol):
+    """The card's first ``n`` losses against the CPU run's, within ``tol``
+    (absolute)."""
+    card = [r["loss"] for r in card_steps[:n]]
+    if len(card) != n or len(cpu_losses) < n:
+        fail(f"{name}: logged {len(card)} / {len(cpu_losses)} losses, not "
+             f"{n}")
+    gap = max(abs(a - b) for a, b in zip(card, cpu_losses))
+    print(f"  {name}: first {n} losses card {[round(x, 6) for x in card]}, "
+          f"CPU {[round(x, 6) for x in cpu_losses[:n]]}; max |d| {gap:.3e} "
+          f"(limit {tol})", flush=True)
+    if not gap <= tol:
+        fail(f"{name}: the card's first losses differ from the CPU run's by "
+             f"{gap:.3e} > {tol}")
+
+
+def exact_launches(name, got, want):
+    if got != want:
+        fail(f"{name}: launched {got}, expected exactly {want}")
+
+
+def distill_config1_phase(run, cpu_losses, steps):
+    """22a: the card run against the CPU run's first losses, its launches
+    (the teacher's plain-rounding resident forward, the draft's resident
+    pair in bf16, one each a step) and its eager steps/s."""
+    print("== phase 22a: distill a draft of config 1 (bf16) against the "
+          "teacher's checkpoint, on the card", flush=True)
+    rec, recs, wall = run.result()
+    held_first("22a config 1 bf16", recs, cpu_losses, DISTILL_FIRST,
+               DISTILL_BF16_TOL)
+    exact_launches("22a", rec["launch_counts"], {
+        "lstm_fwd_bf16u": steps, "lstm_fwd_bf16": steps,
+        "lstm_bwd_bf16": steps})
+    rates = sorted(r["steps_per_sec"] for r in recs[10:])
+    print(f"  {rec['draft']} v{rec['version']} published (H="
+          f"{rec['hidden_size']}, {rec['payload_bytes']} bytes); {steps} "
+          f"eager steps, a loss read back each: median {rates[len(rates) // 2]:.1f} "
+          f"steps/s (range {rates[0]:.1f}-{rates[-1]:.1f}), last loss "
+          f"{recs[-1]['loss']:.4f} (first {recs[0]['loss']:.4f}); the "
+          f"command took {wall:.1f} s; launches {rec['launch_counts']}",
+          flush=True)
+    return rec
+
+
+def distill_serve_phase(torch, cli, tgen, tlm, ckpt_dir, vocab, reg, rec):
+    """22b: ``serve --http --speculative --registry-dir`` over phase 17's
+    burst with the distilled draft, then with a seeded one
+    (``--draft-model``), each against the CPU plain ``generate`` of the
+    checkpoint; their mean accepted lengths; a pair that does not verify
+    refused at boot. Returns the bursts' launches by counter."""
+    import dataclasses
+
+    print("== phase 22b: serve --speculative --registry-dir: the distilled "
+          "draft, a seeded draft (--draft-model), a pair that does not "
+          "verify", flush=True)
+    cfg = tlm.LMConfig(vocab_size=vocab, hidden_size=128, num_layers=1,
+                       compute_dtype="bfloat16")
+    seeded = publish_seeded_draft(tlm, cfg, reg, 1, draft_id="seeded-draft")
+    # a teacher with the same draft shape: its draft's parent is not ours
+    publish_seeded_draft(tlm, dataclasses.replace(cfg, num_layers=2), reg,
+                         2, draft_id="other-teacher-draft")
+    launches, accepted = {}, {}
+    for label, extra, version in (
+            ("distilled", (), rec["version"]),
+            ("seeded", ("--draft-model", "seeded-draft"),
+             seeded["version"])):
+        res, wall, got, boot, _, (before, after) = serve_cmd_burst(
+            torch, cli, tgen, tlm, ckpt_dir, vocab, True,
+            ("--registry-dir", reg) + extra)
+        want = {"hidden_size": 32, "num_layers": 1, "version": version}
+        if after["engine"]["draft"] != want:
+            fail(f"22b {label}: /v1/stats draft {after['engine']['draft']}"
+                 f" != {want}")
+        stray = {k: v for k, v in got.items()
+                 if v and k not in ("decode_window_bf16", "spec_window_bf16",
+                                    "lstm_fwd_bf16u")}
+        if stray or got.get("spec_window_bf16", 0) < 1:
+            fail(f"22b {label}: the burst launched {got}")
+        b0, b1 = before["batcher"], after["batcher"]
+        windows = (sum(b1["spec_windows_dispatched"].values())
+                   - sum(b0["spec_windows_dispatched"].values()))
+        acc = b1["spec_accepted_tokens"] - b0["spec_accepted_tokens"]
+        rows = b1["spec_rows_verified"] - b0["spec_rows_verified"]
+        if windows < 1 or rows < 1:
+            fail(f"22b {label}: {windows} spec windows, {rows} rows verified")
+        accepted[label] = acc / rows
+        tokens = sum(len(r[1]["tokens"]) for r in res)
+        print(f"  {label} draft v{version}: booted in {boot:.1f} s; 6 "
+              f"requests, tokens identical to the CPU plain generate of the "
+              f"checkpoint in bf16; {windows} spec windows, {acc} proposals "
+              f"accepted over {rows} rows verified: mean accepted length "
+              f"{accepted[label]:.4f}; {tokens} tokens in {wall:.3f} s = "
+              f"{tokens / wall:.1f} tokens/s; launches {got}", flush=True)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    if not accepted["distilled"] > accepted["seeded"]:
+        fail(f"22b: the distilled draft's mean accepted length "
+             f"{accepted['distilled']:.4f} is not above the seeded draft's "
+             f"{accepted['seeded']:.4f}")
+    cmd = [sys.executable, "-m", "lstm_tensorspark_torch", "serve", "--http",
+           "--port", "0", "--compute-dtype", "bfloat16", "--checkpoint-dir",
+           ckpt_dir, "--vocab-size", str(vocab), "--hidden-units", "128",
+           "--num-layers", "1", "--speculative", "--registry-dir", reg,
+           "--draft-model", "other-teacher-draft"]
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+    said = (p.stdout + p.stderr).strip()
+    if p.returncode == 0 or "does not match the serving teacher" not in said:
+        fail(f"22b: serve of an unverified pair exited {p.returncode}: "
+             f"{said[-2000:]}")
+    print(f"  an unverified pair (another teacher's draft): exit "
+          f"{p.returncode}, {said.splitlines()[-1][:240]}", flush=True)
+    return launches
+
+
+def distill_config3_phase(tgen, tlm, run, cpu_losses, params3, cfg3, reg3):
+    """22c: the card run at config 3's width against the CPU run's first
+    losses and its launches (the teacher's tiled forward, two layers a
+    step; the H=162 draft's resident pair), then a ``serve --speculative``
+    burst from that registry against the CPU plain ``generate``. Returns
+    the launches by counter."""
+    import numpy as np
+
+    print("== phase 22c: distill and serve at config 3's width (L=2, H=650, "
+          "V=33,278, seeded teacher from the registry, f32)", flush=True)
+    rec, recs, wall = run.result()
+    held_first("22c config 3's width f32", recs, cpu_losses, DISTILL3_FIRST,
+               DISTILL_F32_TOL)
+    exact_launches("22c", rec["launch_counts"], {
+        "lstm_tiled_fwd": 2 * DISTILL3_STEPS, "lstm_fwd": DISTILL3_STEPS,
+        "lstm_bwd": DISTILL3_STEPS})
+    print(f"  {rec['draft']} v{rec['version']} (H={rec['hidden_size']}): "
+          f"{DISTILL3_STEPS} steps, last loss {recs[-1]['loss']:.4f}; the "
+          f"command took {wall:.1f} s; launches {rec['launch_counts']}",
+          flush=True)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg3.vocab_size, size=t).tolist()
+               for t in DISTILL3_LENS]
+    refs = [cpu_generate(tgen, params3, cfg3, p, DISTILL3_NEW)
+            for p in prompts]
+    proc, port, boot = boot_serve(
+        [sys.executable, "-m", "lstm_tensorspark_torch", "serve", "--http",
+         "--port", "0", "--registry-dir", reg3, "--speculative",
+         *CONFIG3_TEACHER[:6], "--num-slots", "16", "--prefill-buckets",
+         "8,16", "--batch-buckets", "1,2,4", "--max-new-tokens",
+         str(DISTILL3_NEW)], "22c")
+    try:
+        before = get_stats(port)
+        t0 = time.perf_counter()
+        res = post_all(port, [{"prompt": p, "max_new_tokens": DISTILL3_NEW,
+                               "greedy": True} for p in prompts])
+        wall = time.perf_counter() - t0
+        after = get_stats(port)
+    finally:
+        proc.send_signal(2)
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    for i, r in enumerate(res):
+        if r is None or r[0] != 200 or r[1]["tokens"] != refs[i]:
+            fail(f"22c: request {i} served {r}, the CPU plain generate "
+                 f"{refs[i]}")
+    want = {"hidden_size": 162, "num_layers": 1, "version": rec["version"]}
+    if after["engine"]["draft"] != want:
+        fail(f"22c: /v1/stats draft {after['engine']['draft']} != {want}")
+    e0, e1 = before["engine"]["launch_counts"], after["engine"]["launch_counts"]
+    got = {k: v - e0.get(k, 0) for k, v in e1.items() if v - e0.get(k, 0)}
+    b0, b1 = before["batcher"], after["batcher"]
+    rows = b1["spec_rows_verified"] - b0["spec_rows_verified"]
+    acc = b1["spec_accepted_tokens"] - b0["spec_accepted_tokens"]
+    if got.get("spec_window", 0) < 1 or rows < 1:
+        fail(f"22c: the burst launched {got}, {rows} rows verified")
+    print(f"  serve --speculative: booted in {boot:.1f} s; "
+          f"{len(prompts)} requests x {DISTILL3_NEW} tokens identical to the "
+          f"CPU plain generate; mean accepted length {acc / rows:.4f} "
+          f"({acc} over {rows} rows); {wall:.3f} s; launches {got}",
+          flush=True)
+    return {k: rec["launch_counts"].get(k, 0) + got.get(k, 0)
+            for k in set(rec["launch_counts"]) | set(got)}
+
+
+def phase22_setup(torch, tlm, host):
+    """22c's teacher (the weights ``serve`` draws from ``--seed 0`` at
+    config 3's width) published as a registry's model, and the CPU run of
+    22c's distill command started on it, beside the card's phases (a few
+    CPU seconds a step at V=33,278); returns what :func:`phase22` needs."""
+    from lstm_tensorspark_torch.serve.registry import (
+        ModelRegistry, config_fingerprint, encode_params)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_distill_")
+    atexit.register(shutil.rmtree, tmp, True)
+    cfg3 = tlm.LMConfig(vocab_size=CONFIG3["vocab"],
+                        hidden_size=CONFIG3["hidden"],
+                        num_layers=CONFIG3["layers"])
+    params3 = tlm.init_lm(torch.Generator().manual_seed(0), cfg3)
+    reg3 = os.path.join(tmp, "registry-config3")
+    ModelRegistry(reg3).publish("default", encode_params(params3),
+                                config_hash=config_fingerprint(cfg3))
+    flags3 = ["--registry-dir", reg3, *CONFIG3_TEACHER, "--log-every", "1"]
+    host.start("distill-config3", ["distill", *flags3, "--draft-id",
+                                   "cpu-draft", "--steps",
+                                   str(DISTILL3_FIRST)])
+    return dict(tmp=tmp, cfg3=cfg3, params3=params3, reg3=reg3,
+                flags3=flags3)
+
+
+def phase22(torch, cli, tgen, tlm, host, prep):
+    """Phase 22 (a)-(c) (``prep``: :func:`phase22_setup`'s); returns the
+    launches of its commands by counter. The teacher of (a) and (b) is
+    trained first, in this process: config 1 as ``configs/ptb_char.sh``
+    trains it (bf16), captured, for :data:`DISTILL_TEACHER_STEPS` steps
+    (17b's 24-step checkpoint greedily emits one token forever, which no
+    draft's argmax is distilled to follow)."""
+    t0 = time.perf_counter()
+    tmp = prep["tmp"]
+    ckpt_dir = os.path.join(tmp, "teacher")
+    rc = cli.main(CONFIG1_BF16_FLAGS + [
+        "--num-steps", str(DISTILL_TEACHER_STEPS), "--log-every", "0",
+        "--checkpoint-dir", ckpt_dir, "--checkpoint-every",
+        str(DISTILL_TEACHER_STEPS), "--jsonl",
+        os.path.join(tmp, "teacher.jsonl")])
+    if rc != 0:
+        fail(f"22: the teacher's train run exited {rc}")
+    with open(os.path.join(tmp, "teacher.jsonl")) as f:
+        final = [r for r in map(json.loads, f) if r.get("note") == "final"]
+    print(f"  teacher: config 1 in bf16, {DISTILL_TEACHER_STEPS} captured "
+          f"steps, eval_loss {final[0]['eval_loss']:.4f}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    vocab = ckpt_vocab(torch, ckpt_dir)
+    flags1 = ["--checkpoint-dir", ckpt_dir, *CONFIG1_TEACHER, "--vocab-size",
+              str(vocab), "--log-every", "1"]
+    host.start("distill-config1", ["distill", *flags1, "--registry-dir",
+                                   os.path.join(tmp, "registry-cpu"),
+                                   "--steps", str(DISTILL_FIRST)])
+    reg1 = os.path.join(tmp, "registry-config1")
+    run1 = Distill([*flags1, "--registry-dir", reg1, "--steps",
+                    str(DISTILL_STEPS)], tmp, "22a-card")
+    rec1 = distill_config1_phase(run1, host.losses("distill-config1", None),
+                                 DISTILL_STEPS)
+    launches = dict(rec1["launch_counts"])
+    # 22c's card run goes beside 22b's servers
+    run3 = Distill([*prep["flags3"], "--steps", str(DISTILL3_STEPS)], tmp,
+                   "22c-card")
+    for got in (distill_serve_phase(torch, cli, tgen, tlm, ckpt_dir, vocab,
+                                    reg1, rec1),
+                distill_config3_phase(tgen, tlm, run3,
+                                      host.losses("distill-config3", None),
+                                      prep["params3"], prep["cfg3"],
+                                      prep["reg3"])):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"  phase 22: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def timed(fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -6014,10 +6384,12 @@ def main() -> int:
     serve_rows = timed(phase17, torch, cli, tlm, tgen, cd, cs, cl, ct, serve,
                        draft_config, device)
     config4_launches = phase18(torch, cli, cl, cx, ct, device, host)
+    distill_prep = phase22_setup(torch, tlm, host)  # beside phases 19-21
     session_launches = phase19(torch, tlm, tgen, cl, ct, serve, draft_config,
                                device)
     load_launches = phase20(torch, tlm, tgen, serve, device)
     sampling_launches = phase21(torch, tlm, tgen, cd, serve, device)[0]
+    distill_launches = phase22(torch, cli, tgen, tlm, host, distill_prep)
     for k, v in config4_launches.items():
         if k in bf16_launches:
             bf16_launches[k] += v
@@ -6104,11 +6476,11 @@ def main() -> int:
         "bound_by": spec_timings["config1"]["bound_by"],
         "library_ms": None,
     }] + lstm_rows + lstmx_rows + tiled_rows + bf16_rows + serve_rows
-    # phases 19, 20 and 21 drive the serve path again: their launches join
-    # the rows
+    # phases 19, 20 and 21 drive the serve path again, phase 22 the distill
+    # path and the spec window: their launches join the rows
     by_name = {r["name"]: r for r in rows}
     for phase, got in (("19", session_launches), ("20", load_launches),
-                       ("21", sampling_launches)):
+                       ("21", sampling_launches), ("22", distill_launches)):
         stray = set(got) - set(by_name)
         if stray:
             fail(f"phase {phase} launched kernels the report has no row of: "
@@ -6463,7 +6835,30 @@ def sampling() -> int:
     return 0
 
 
+def distill() -> int:
+    """Phase 22 alone, from the checkout in the working directory (its
+    kernels built first); prints its launches."""
+    torch, dev = _checkout("distill")
+    from lstm_tensorspark_torch import cli, kernels
+    from lstm_tensorspark_torch.models import generate as tgen
+    from lstm_tensorspark_torch.models import lstm_lm as tlm
+
+    host = HostRuns()
+    atexit.register(host.stop)
+    prep = phase22_setup(torch, tlm, host)
+    built = kernels.build(["decode_window", "decode_window_bf16",
+                           "spec_window", "spec_window_bf16", "lstm_fwd",
+                           "lstm_bwd", "lstm_tiled_fwd"])
+    print(f"phase 22 ({os.getcwd()}; {card_line()}); kernels built in "
+          f"{built:.1f} s", flush=True)
+    print(json.dumps(phase22(torch, cli, tgen, tlm, host, prep)),
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--distill"]:
+        sys.exit(distill())
     if sys.argv[1:] == ["--sampling"]:
         sys.exit(sampling())
     if sys.argv[1:] == ["--loadgen"]:

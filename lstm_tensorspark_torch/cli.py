@@ -1,4 +1,4 @@
-"""Command line of the port: ``python -m lstm_tensorspark_torch {train,serve}``.
+"""Command line of the port: ``python -m lstm_tensorspark_torch {train,serve,distill}``.
 
 - ``train`` trains the LSTM LM on the char corpus (BASELINE.md config 1 by
   its flags) or a word corpus (``--dataset wikitext2|wikitext103``, configs
@@ -34,9 +34,12 @@
   the full server path and checks that the greedy tokens equal the plain
   ``models/generate.generate`` on the CPU for the same weights (rc 0 on
   PASS, 1 on a mismatch or a request error); with ``--speculative`` the
-  sessions decode by speculative windows (a draft of ``draft_config``'s
-  shape proposes, the target verifies), and the run also fails when no
-  speculative window was dispatched;
+  sessions decode by speculative windows (the draft proposes, the target
+  verifies), and the run also fails when no speculative window was
+  dispatched. ``--speculative`` needs ``--registry-dir``: the draft is
+  the verified pair ``distill`` published there for ``--model-id``
+  (``--draft-model`` names another artifact), as JAX's command loads it;
+  the reports name its version (``draft``);
 - ``serve --http`` warms the engine and serves ``POST /v1/generate``,
   ``GET /healthz``, ``GET /v1/stats`` and ``GET /metrics`` until
   interrupted;
@@ -48,6 +51,12 @@
   prefix / inject probe), ``--idle-churn`` (the Zipf kept-session
   workload), ``--workload template-mix`` or, with ``--decode-kernel
   pallas,scan``, the decode-window comparison (``kernel_sweep``).
+- ``distill`` trains a draft LM (``train/distill.draft_config``: H/4, one
+  layer) against a teacher's logits with JAX's KL + CE loss, the teacher
+  from ``--checkpoint-dir`` or from the registry's ``--model-id``, and
+  publishes it to ``--registry-dir`` as ``<--model-id>-draft`` (JAX's
+  flags, defaults and one-line ``{"distill": ...}`` record, plus the
+  kernels the run launched).
 
 Requests of ``--loadgen`` and the ``--http`` warm-up sample as JAX's
 command does by default: ``--temperature 1.0``, with ``--top-k`` /
@@ -204,14 +213,29 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "With --loadgen a comma list (e.g. 'pallas,scan') "
                         "runs the comparison: the same workload per "
                         "kernel, tokens/s and ITL deltas, greedy parity")
+    p.add_argument("--registry-dir", type=str, default=None,
+                   help="model registry directory (serve/registry.py), "
+                        "shared with the JAX package: --speculative loads "
+                        "its draft from here. The rollout controller JAX's "
+                        "server attaches with it is not ported (/rollout "
+                        "answers 404)")
+    p.add_argument("--model-id", type=str, default="default",
+                   help="model id this server boots as (the registry "
+                        "namespace of the checkpoint loaded at startup: "
+                        "the draft pairs with '<--model-id>')")
     p.add_argument("--speculative", action="store_true",
                    help="lossless speculative decoding of greedy requests: "
-                        "a draft LM (train/distill.draft_config of the "
-                        "target: 1 layer, H/4) proposes K_draft tokens and "
-                        "the target verifies them in one pass; output is "
-                        "the plain greedy sequence. The draft's weights are "
-                        "drawn from --seed + 1 (the JAX CLI's registry "
-                        "draft, --draft-model, is not ported)")
+                        "a distilled draft LM (published by `distill`, "
+                        "loaded from --registry-dir as a verified pair with "
+                        "the target) proposes K_draft tokens and the target "
+                        "verifies them in one pass; output is the plain "
+                        "greedy sequence. Requires --registry-dir")
+    p.add_argument("--draft-model", type=str, default=None,
+                   help="registry id of the draft artifact (default: "
+                        "'<--model-id>-draft', the id `distill` publishes "
+                        "under). Its config_hash / parent record must "
+                        "verify against the serving target or boot refuses "
+                        "the pair")
     p.add_argument("--spec-ladder", type=str, default=DEFAULT_SPEC_LADDER,
                    help="warmed K_draft rungs (comma list, each >= 1; rung "
                         "0 = plain decode is always added)")
@@ -537,13 +561,14 @@ def _parse_replicas(spec: str) -> int:
     return 1
 
 
-def _checkpoint_params(args, params):
+def _checkpoint_params(args, params, cmd: str = "serve"):
     """The params of the newest valid checkpoint in ``--checkpoint-dir``
     (CPU tensors), checked against ``params``'s shapes (the model flags)
     and, for the port's own files, the optimizer state against
     ``--optimizer``'s (a JAX file is read for its params alone). Exits when
     the directory holds none, or when every one is corrupt (quarantined):
-    a serve command never falls back to random weights."""
+    the ``serve`` and ``distill`` commands (``cmd``) never fall back to
+    random weights."""
     from .convert import params_from_numpy
     from .train.checkpoint import Checkpointer
     from .train.jax_checkpoint import params_tree
@@ -553,7 +578,7 @@ def _checkpoint_params(args, params):
     found = [c for c in (Checkpointer(args.checkpoint_dir, fmt=f)
                          for f in ("torch", "jax")) if c.has_checkpoint()]
     if not found:
-        raise SystemExit(f"serve: no checkpoint in {args.checkpoint_dir}")
+        raise SystemExit(f"{cmd}: no checkpoint in {args.checkpoint_dir}")
     ckpt = max(found, key=lambda c: c.latest_step())  # the port's on a tie
     like = init_train_state(params, make_optimizer(args.optimizer,
                                                    args.learning_rate))
@@ -569,12 +594,33 @@ def _checkpoint_params(args, params):
 
     state = ckpt.restore_latest(parse)
     if state is None:
+        refusal = {"serve": "serve an untrained model",
+                   "distill": "distill an untrained teacher"}[cmd]
         raise SystemExit(
-            f"serve: every checkpoint in {args.checkpoint_dir} is corrupt "
-            "(now quarantined); refusing to serve an untrained model")
-    print(f"serve: params of step {state.step} "
+            f"{cmd}: every checkpoint in {args.checkpoint_dir} is corrupt "
+            f"(now quarantined); refusing to {refusal}")
+    print(f"{cmd}: params of step {state.step} "
           f"({ckpt.path_for(state.step)})", flush=True)
     return state.params
+
+
+def _serve_draft(args, cfg):
+    """``(meta, cpu params, cfg)`` of the draft ``--speculative`` serves:
+    the verified pair from ``--registry-dir`` (``train/distill.load_draft``),
+    with JAX's refusals."""
+    from .serve.registry import RegistryError
+    from .train.distill import load_draft
+
+    if not args.registry_dir:
+        raise SystemExit(
+            "--speculative needs --registry-dir (the draft loads "
+            "from the registry as a verified pair with the target; "
+            "publish one with `cli distill`)")
+    try:
+        return load_draft(args.registry_dir, cfg, teacher_id=args.model_id,
+                          draft_id=args.draft_model or None)
+    except (RegistryError, ValueError, KeyError, OSError) as e:
+        raise SystemExit(f"--speculative: cannot load draft: {e}")
 
 
 def _build_serve_stack(args, registry=None):
@@ -584,7 +630,6 @@ def _build_serve_stack(args, registry=None):
     from . import obs
     from .models.lstm_lm import LMConfig, init_lm
     from .serve import ServeEngine, ServeServer
-    from .train.distill import draft_config
 
     chunk = args.prefill_chunk or None
     if (chunk is not None and chunk > 0 and args.prefix_cache == "on"
@@ -603,6 +648,8 @@ def _build_serve_stack(args, registry=None):
                    num_layers=args.num_layers,
                    tie_embeddings=args.tie_embeddings,
                    compute_dtype=args.compute_dtype)
+    # the pair is verified before any weights are read or placed
+    draft = _serve_draft(args, cfg) if args.speculative else None
     gen = torch.Generator().manual_seed(args.seed)
     params = init_lm(gen, cfg)
     if args.checkpoint_dir:
@@ -626,10 +673,9 @@ def _build_serve_stack(args, registry=None):
     except ValueError as e:  # e.g. --prefix-stride 0
         raise SystemExit(f"serve: {e}")
     spec_kw = {}
-    if args.speculative:
-        dcfg = draft_config(cfg)
-        engine.attach_draft(
-            init_lm(torch.Generator().manual_seed(args.seed + 1), dcfg), dcfg)
+    if draft is not None:
+        dmeta, dparams, dcfg = draft
+        engine.attach_draft(dparams, dcfg, version=dmeta["version"])
         spec_kw = {"speculative": True,
                    "spec_ladder": _parse_spec_ladder(args.spec_ladder),
                    "spec_k": args.spec_k}
@@ -707,6 +753,7 @@ def _serve_selftest(args) -> int:
         "window_form": stats["engine"]["window_form"],
         "kernel_launches": stats["engine"]["kernel_launches"],
         "spec_kernel_launches": stats["engine"]["spec_kernel_launches"],
+        "draft": stats["engine"]["draft"],
         **stats["batcher"],
     }))
     if (args.speculative and n_new >= 3
@@ -794,15 +841,17 @@ def _read_arrival_trace(path: str | None) -> list[float] | None:
 
 
 def _loadgen_engine(server) -> dict:
-    """The report's engine section: dispatches, kernel launches, prefix
-    totals and the state cache's counters."""
+    """The report's engine section: dispatches, kernel launches, the
+    draft (JAX's stats block), prefix totals and the state cache's
+    counters."""
     from .serve.loadgen import prefix_totals
 
     es = server.engine.stats()
     return {"device": es["device"], "decode_kernel": es["decode_kernel"],
             "decode_window_scan_fallbacks":
                 es["decode_window_scan_fallbacks"],
-            "window_form": es["window_form"], "dispatches": es["dispatches"],
+            "window_form": es["window_form"], "draft": es["draft"],
+            "dispatches": es["dispatches"],
             "kernel_launches": es["kernel_launches"],
             "launch_counts": es["launch_counts"],
             "prefix_cache": prefix_totals(server), **es["cache"]}
@@ -1386,6 +1435,152 @@ def _lm_training(args, dev, logger, graph):
                   if args.generate_tokens > 0 else None))
 
 
+def build_distill_parser() -> argparse.ArgumentParser:
+    """``distill``: train a speculative-decoding draft against a trained
+    target and publish it to the model registry (``train/distill.py``);
+    the JAX command's flags and defaults, and ``--device``."""
+    p = argparse.ArgumentParser(
+        prog="lstm_tensorspark_torch distill",
+        description="distill a draft LM (H/4, 1 layer, shared vocab) "
+                    "against a trained target's logits with a KL+CE "
+                    "mixed loss, and publish it to the model registry "
+                    "as a verified pair — the artifact `serve "
+                    "--speculative` loads")
+    # --- teacher (must match the producing training run) ---
+    p.add_argument("--vocab-size", type=int, default=89)
+    p.add_argument("--hidden-units", type=int, default=64)
+    p.add_argument("--num-layers", type=int, default=2)
+    p.add_argument("--tie-embeddings", action="store_true")
+    p.add_argument("--compute-dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--registry-dir", type=str, required=True,
+                   help="model registry (serve/registry.py): the teacher "
+                        "loads from here when --checkpoint-dir is not "
+                        "given, and the draft publishes here as "
+                        "'<--model-id>-draft'")
+    p.add_argument("--model-id", type=str, default="default",
+                   help="the teacher's registry id (the id the server "
+                        "boots as)")
+    p.add_argument("--draft-id", type=str, default=None,
+                   help="publish the draft under this id instead of "
+                        "'<--model-id>-draft'")
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="restore the teacher from a training checkpoint "
+                        "(step_<N>.pt of this package or step_<N>.msgpack "
+                        "of the JAX package) instead of the registry")
+    p.add_argument("--optimizer", type=str, default="sgd",
+                   choices=OPTIMIZERS,
+                   help="the training run's optimizer (a checkpoint's "
+                        "optimizer state must match it; the draft trains "
+                        "with --distill-optimizer)")
+    p.add_argument("--learning-rate", type=float, default=1.0,
+                   help="accepted as the JAX command takes it (restore "
+                        "only)")
+    # --- corpus (the logit-harvest stream) ---
+    p.add_argument("--data-path", type=str, default=None,
+                   help="corpus directory (falls back to the dataset's "
+                        "synthetic stand-in)")
+    p.add_argument("--dataset", type=str, default="ptb_char",
+                   choices=list(LM_DATASETS))
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--seq-len", type=int, default=32)
+    # --- distillation ---
+    p.add_argument("--steps", type=int, default=200,
+                   help="draft optimizer steps (each scores one [B,T] "
+                        "window through the teacher first)")
+    p.add_argument("--alpha", type=float, default=0.5,
+                   help="KL(teacher||student) weight in [0,1]; 1-alpha "
+                        "weights the hard-label cross-entropy")
+    p.add_argument("--distill-temperature", type=float, default=2.0,
+                   help="softmax temperature of the KL term (Hinton tau; "
+                        "the loss scales by tau^2)")
+    p.add_argument("--distill-optimizer", type=str, default="adam",
+                   choices=OPTIMIZERS)
+    p.add_argument("--distill-lr", type=float, default=1e-3)
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--jsonl", type=str, default=None,
+                   help="metrics JSONL path for the distill run")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return p
+
+
+def _run_distill(argv) -> int:
+    """``distill``: the teacher from ``--checkpoint-dir`` (else the
+    registry's ``--model-id``, its fingerprint checked against the model
+    flags), the draft trained over the corpus on ``--device``, published as
+    ``<--model-id>-draft``; prints JAX's ``{"distill": {...}}`` record, with
+    the kernels the run launched (``launch_counts``)."""
+    from .data import get_dataset, lm_batch_stream
+    from .device import configure_precision, resolve_device
+    from .kernels import LaunchCounts
+    from .models.lstm_lm import LMConfig, init_lm
+    from .serve.registry import ModelRegistry, RegistryError, config_fingerprint
+    from .train import MetricsLogger
+    from .train.distill import distill, publish_draft
+
+    args = build_distill_parser().parse_args(argv)
+    dev = resolve_device(args.device)
+    configure_precision()
+    cfg = LMConfig(vocab_size=args.vocab_size, hidden_size=args.hidden_units,
+                   num_layers=args.num_layers,
+                   tie_embeddings=args.tie_embeddings,
+                   compute_dtype=args.compute_dtype)
+    registry = ModelRegistry(args.registry_dir)
+    template = init_lm(torch.Generator().manual_seed(args.seed), cfg)
+    if args.checkpoint_dir:
+        tparams = _checkpoint_params(args, template, cmd="distill")
+    else:
+        try:
+            meta, tparams = registry.load_params(args.model_id, template)
+        except (RegistryError, ValueError, KeyError) as e:
+            raise SystemExit(
+                f"cannot load teacher {args.model_id!r} from "
+                f"{args.registry_dir}: {e} (publish one, or pass "
+                "--checkpoint-dir)")
+        if (meta.get("config_hash")
+                and meta["config_hash"] != config_fingerprint(cfg)):
+            raise SystemExit(
+                f"teacher {args.model_id} v{meta['version']} was "
+                f"published for config {meta['config_hash']}, the model "
+                f"flags describe {config_fingerprint(cfg)} — align the "
+                "flags with the producing run")
+    try:
+        ds = get_dataset(args.dataset, args.data_path)
+    except ValueError as e:
+        raise SystemExit(f"distill: {e}")
+    if len(ds["vocab"]) > cfg.vocab_size:
+        raise SystemExit(
+            f"corpus vocab ({len(ds['vocab'])}) exceeds --vocab-size "
+            f"({cfg.vocab_size}); the teacher cannot score tokens "
+            "outside its embedding")
+    with MetricsLogger(args.jsonl) as logger:
+        dparams, dcfg = distill(
+            tparams, cfg, lm_batch_stream(ds["train"], args.batch_size,
+                                          args.seq_len),
+            num_steps=args.steps, alpha=args.alpha,
+            temperature=args.distill_temperature,
+            optimizer=args.distill_optimizer, learning_rate=args.distill_lr,
+            seed=args.seed, log_every=args.log_every, logger=logger,
+            device=dev)
+    meta = publish_draft(registry, dparams, dcfg, cfg,
+                         teacher_id=args.model_id, draft_id=args.draft_id)
+    print(json.dumps({
+        "distill": {
+            "draft": meta["model"], "version": meta["version"],
+            "hidden_size": dcfg.hidden_size,
+            "num_layers": dcfg.num_layers,
+            "config_hash": meta["config_hash"],
+            "parent": meta["parent"],
+            "payload_bytes": meta["payload_bytes"],
+            "steps": args.steps,
+            "launch_counts": {c.name: c.kernel for c in LaunchCounts.every()
+                              if c.kernel},
+        }
+    }))
+    return OK_RC
+
+
 def main(argv=None, *, graph: bool = True) -> int:
     """The command line. ``graph=False`` runs every train call eagerly on
     the card too, instead of replaying its CUDA graph: the form the card's
@@ -1393,9 +1588,12 @@ def main(argv=None, *, graph: bool = True) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "train":
         return _run_train(build_train_parser().parse_args(argv[1:]), graph)
+    if argv and argv[0] == "distill":
+        return _run_distill(argv[1:])
     if not argv or argv[0] != "serve":
-        print("usage: python -m lstm_tensorspark_torch {train,serve} [flags]; "
-              "see train --help, serve --help", file=sys.stderr)
+        print("usage: python -m lstm_tensorspark_torch {train,serve,distill} "
+              "[flags]; see train --help, serve --help, distill --help",
+              file=sys.stderr)
         return USAGE_RC
     args = build_serve_parser().parse_args(argv[1:])
     from .utils import Tracer, set_tracer

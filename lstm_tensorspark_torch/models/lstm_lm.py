@@ -174,11 +174,14 @@ def head_logits(ys: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig, *, carries=None,
                dropout_gen: torch.Generator | None = None,
-               dropout_keeps: Iterator[torch.Tensor] | None = None):
-    """tokens [B, T] → (logits [B, T, V], final per-layer carries)."""
+               dropout_keeps: Iterator[torch.Tensor] | None = None,
+               plain_rounding: bool = False):
+    """tokens [B, T] → (logits [B, T, V], final per-layer carries).
+    ``plain_rounding``: as in :func:`lm_backbone` (forward only)."""
     finals, ys = lm_backbone(params, tokens, cfg, carries=carries,
                              dropout_gen=dropout_gen,
-                             dropout_keeps=dropout_keeps)
+                             dropout_keeps=dropout_keeps,
+                             plain_rounding=plain_rounding)
     kernel, bias = _head_kernel(params, cfg)
     return head_logits(ys, kernel, bias, cfg), finals
 

@@ -247,11 +247,14 @@ class ServeEngine:
     def has_draft(self) -> bool:
         return self.draft is not None
 
-    def attach_draft(self, draft_params, draft_cfg: LMConfig) -> None:
+    def attach_draft(self, draft_params, draft_cfg: LMConfig, *,
+                     version: int | str = 0) -> None:
         """Install the draft LM that proposes tokens for
-        :meth:`spec_window`. It must share the target's vocabulary. Greedy
-        output stays the plain greedy sequence whatever its weights: they
-        move only how many proposals the target accepts. The draft's state
+        :meth:`spec_window`; ``version`` is the registry version it was
+        loaded as (``stats()["draft"]``). It must share the target's
+        vocabulary. Greedy output stays the plain greedy sequence whatever
+        its weights: they move only how many proposals the target accepts.
+        The draft's state
         (``draft_cache``: ``[Ld, num_slots + 1, Hd]`` f32, the same slot
         indexing as the state cache; only its device tensors are used)
         starts at zero, which is always safe for the same reason."""
@@ -269,7 +272,7 @@ class ServeEngine:
             draft_cfg = dataclasses.replace(draft_cfg, remat_chunk=None)
         params = params_to(draft_params, self.device)
         fused = fuse_layers(params, draft_cfg)
-        draft = {"params": params, "cfg": draft_cfg,
+        draft = {"params": params, "cfg": draft_cfg, "version": version,
                  "weights": cuda_decode.decode_weights(
                      params, fused, draft_cfg.tie_embeddings,
                      draft_cfg.ldtype)}
@@ -783,10 +786,13 @@ class ServeEngine:
         window's) count the fused window form this engine runs
         (``window_form``: float32, or bfloat16 under bf16 compute);
         ``launch_counts`` is every kernel counter of the process that
-        launched, by name (the prefill's recurrence forwards too)."""
+        launched, by name (the prefill's recurrence forwards too);
+        ``draft`` is JAX's block for an attached draft (its width, layers
+        and registry version), None without one."""
         with self._counts_lock:
             dispatches = dict(self.dispatches)
             fallbacks = self.decode_window_scan_fallbacks
+        draft = self.draft
         wd = cuda_decode.layers_dtype(self.weights)
         dc = counts_of(wd, cuda_decode.counts, cuda_decode.counts_bf16)
         sc = counts_of(wd, cuda_spec.counts, cuda_spec.counts_bf16)
@@ -798,7 +804,12 @@ class ServeEngine:
             "dispatches": dispatches,
             "kernel_launches": dc.kernel,
             "reference_windows": dc.reference,
-            "has_draft": self.draft is not None,
+            "has_draft": draft is not None,
+            "draft": None if draft is None else {
+                "hidden_size": draft["cfg"].hidden_size,
+                "num_layers": draft["cfg"].num_layers,
+                "version": draft["version"],
+            },
             "spec_kernel_launches": sc.kernel,
             "spec_reference_windows": sc.reference,
             "launch_counts": {c.name: c.kernel

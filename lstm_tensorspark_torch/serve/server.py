@@ -43,7 +43,9 @@ JAX's sampler refuses (``top_k < 1``, ``top_p`` outside (0, 1]) 400
 ``bad_request``; a scheduler-side
 failure (an unknown or busy session) 500 ``internal``; a client-side wait
 past ``timeout`` 504 ``client_timeout``; an unknown route 404
-``not_found``.
+``not_found``. ``GET`` and ``POST /rollout`` answer 404 ``not_found`` too:
+the rollout controller JAX's server attaches with a model registry is not
+ported (the port's ``--registry-dir`` serves the speculative draft alone).
 
 :meth:`ServeServer.stop` flushes the engine's tiers, so a clean stop lands
 every kept session's checkpoint on the disk tier.
@@ -65,6 +67,9 @@ from .router import Replica, Router
 #: a scheduler whose heartbeat is older than this is reported down (and
 #: its queue no longer counts against the router's bound)
 STALE_HEARTBEAT_S = 30.0
+_NO_ROLLOUT = ("no rollout controller: the rollout controller "
+               "(serve/rollout.py) is not ported; --registry-dir serves the "
+               "speculative draft alone")
 
 
 class SettledCache:
@@ -511,11 +516,16 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
+        elif self.path == "/rollout":
+            self._error(404, "not_found", _NO_ROLLOUT, retryable=False)
         else:
             self._error(404, "not_found", f"no route {self.path}",
                         retryable=False)
 
     def do_POST(self) -> None:
+        if self.path == "/rollout":
+            self._error(404, "not_found", _NO_ROLLOUT, retryable=False)
+            return
         if self.path != "/v1/generate":
             self._error(404, "not_found", f"no route {self.path}",
                         retryable=False)

@@ -13,6 +13,10 @@ msgpack), so a model trained on a TPU can be served on the card:
 with its layers as a list, ready for ``convert.params_from_numpy``, and
 :func:`read_params` reads one file, checked against its sha256 sidecar as
 the port's own checkpoints are (``train/checkpoint.read_verified``).
+:func:`encode` is the writer: for the same tree it gives the bytes of
+``flax.serialization.to_bytes``, byte for byte, so an artifact the port
+publishes to a model registry (``serve/registry.py``) carries the sha256
+the JAX package would give it.
 """
 
 from __future__ import annotations
@@ -20,11 +24,15 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
 
 from .checkpoint import classified_parse, read_verified
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+#: flax's ``MAX_CHUNK_SIZE``: an array leaf of more bytes is written as a
+#: map of flat chunks of at most this many bytes
+MAX_CHUNK_SIZE = 2**30
 
 
 class _Reader:
@@ -144,6 +152,161 @@ def decode(data: bytes):
         raise ValueError(f"msgpack: {len(r.data) - r.pos} bytes after the "
                          "document")
     return out
+
+
+class _Writer:
+    """msgpack encoding as ``msgpack.packb(use_bin_type=True)`` chooses its
+    forms: the smallest int, str and bin sizes, float64, fixext where the
+    payload fits one."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def pack(self, fmt: str, *vals) -> None:
+        self.out += struct.pack(">" + fmt, *vals)
+
+    def sized(self, n: int, fix: int | None, fix_max: int, forms) -> None:
+        """A header for ``n`` items or bytes: the fix form below
+        ``fix_max``, else the first (code, struct format, limit) that
+        holds ``n``."""
+        if fix is not None and n < fix_max:
+            self.pack("B", fix | n)
+            return
+        for code, fmt, limit in forms:
+            if n < limit:
+                self.pack("B" + fmt, code, n)
+                return
+        raise ValueError(f"msgpack: {n} is too large")
+
+    def value(self, x) -> None:
+        if x is None:
+            self.pack("B", 0xC0)
+        elif x is True or x is False:
+            self.pack("B", 0xC3 if x else 0xC2)
+        elif isinstance(x, (np.ndarray, torch.Tensor)):
+            self.ext(_EXT_NDARRAY, _array_bytes(x))
+        elif isinstance(x, np.generic):
+            self.ext(_EXT_NPSCALAR, _array_bytes(np.asarray(x)))
+        elif type(x) is int:
+            self.int(x)
+        elif type(x) is float:
+            self.pack("Bd", 0xCB, x)
+        elif type(x) is str:
+            b = x.encode("utf-8")
+            self.sized(len(b), 0xA0, 32, ((0xD9, "B", 2**8), (0xDA, "H", 2**16),
+                                          (0xDB, "I", 2**32)))
+            self.out += b
+        elif type(x) is bytes:
+            self.sized(len(x), None, 0, ((0xC4, "B", 2**8), (0xC5, "H", 2**16),
+                                         (0xC6, "I", 2**32)))
+            self.out += x
+        elif type(x) in (list, tuple):
+            self.sized(len(x), 0x90, 16, ((0xDC, "H", 2**16),
+                                          (0xDD, "I", 2**32)))
+            for v in x:
+                self.value(v)
+        elif type(x) is dict:
+            self.sized(len(x), 0x80, 16, ((0xDE, "H", 2**16),
+                                          (0xDF, "I", 2**32)))
+            for k, v in x.items():
+                self.value(k)
+                self.value(v)
+        else:
+            raise TypeError(f"msgpack: cannot encode {type(x).__name__}")
+
+    def int(self, x: int) -> None:
+        if 0 <= x < 0x80 or -0x20 <= x < 0:
+            self.pack("b" if x < 0 else "B", x)
+            return
+        forms = ((0xCC, "B", 0, 0xFF), (0xD0, "b", -0x80, -1),
+                 (0xCD, "H", 0, 0xFFFF), (0xD1, "h", -0x8000, -1),
+                 (0xCE, "I", 0, 0xFFFFFFFF), (0xD2, "i", -2**31, -1),
+                 (0xCF, "Q", 0, 2**64 - 1), (0xD3, "q", -2**63, -1))
+        for code, fmt, lo, hi in forms:
+            if lo <= x <= hi:
+                self.pack("B" + fmt, code, x)
+                return
+        raise ValueError(f"msgpack: int {x} out of range")
+
+    def ext(self, code: int, payload: bytes) -> None:
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        n = len(payload)
+        if n in fixext:
+            self.pack("Bb", fixext[n], code)
+        else:
+            for head, fmt, limit in ((0xC7, "B", 2**8), (0xC8, "H", 2**16),
+                                     (0xC9, "I", 2**32)):
+                if n < limit:
+                    self.pack("B" + fmt + "b", head, n, code)
+                    break
+        self.out += payload
+
+
+def _pack(x) -> bytes:
+    w = _Writer()
+    w.value(x)
+    return bytes(w.out)
+
+
+def _array_bytes(a) -> bytes:
+    """flax's ``_ndarray_to_bytes``: msgpack of (shape, dtype name,
+    C-order bytes). A torch tensor is written as the numpy array it holds;
+    a bfloat16 tensor (which numpy lacks) by its raw 16-bit words, named
+    ``bfloat16`` as JAX names it."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return _pack((tuple(t.shape), "bfloat16",
+                          t.view(torch.int16).numpy().tobytes()))
+        a = t.numpy()
+    if a.dtype.hasobject:
+        raise ValueError("msgpack: object arrays cannot be encoded")
+    return _pack((a.shape, a.dtype.name, a.tobytes("C")))
+
+
+def _nbytes(a) -> int:
+    return a.numel() * a.element_size() if isinstance(a, torch.Tensor) \
+        else a.size * a.dtype.itemsize
+
+
+def _chunk(a) -> dict:
+    """flax's ``_chunk``: the flat array in pieces of at most
+    :data:`MAX_CHUNK_SIZE` bytes, with its shape."""
+    flat = a.reshape(-1)
+    itemsize = a.element_size() if isinstance(a, torch.Tensor) \
+        else a.dtype.itemsize
+    size = max(1, int(MAX_CHUNK_SIZE / itemsize))
+    n = flat.numel() if isinstance(flat, torch.Tensor) else flat.size
+    return {_CHUNKED: True,
+            "shape": {str(i): d for i, d in enumerate(tuple(a.shape))},
+            "chunks": {str(j): flat[i:i + size]
+                       for j, i in enumerate(range(0, n, size))}}
+
+
+def _state_dict(tree):
+    """flax's ``to_state_dict`` and array chunking over ``tree``: maps keep
+    their order with ``str`` keys, named tuples become maps by field,
+    lists and tuples maps keyed "0", "1", …; an array leaf above
+    :data:`MAX_CHUNK_SIZE` bytes becomes its chunked map."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: _state_dict(getattr(tree, k)) for k in tree._fields}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    if isinstance(tree, (np.ndarray, torch.Tensor)) \
+            and _nbytes(tree) > MAX_CHUNK_SIZE:
+        return _chunk(tree)
+    return tree
+
+
+def encode(tree) -> bytes:
+    """``tree`` (maps, lists, tuples, named tuples; numpy arrays, torch
+    tensors, numpy and Python scalars, str, bytes, None) as
+    ``flax.serialization.to_bytes`` writes it: flax's state dict, then
+    msgpack with each array as ext type 1 (a numpy scalar as ext type 3).
+    :func:`decode` reads it back."""
+    return _pack(_state_dict(tree))
 
 
 def params_tree(state: dict) -> dict:

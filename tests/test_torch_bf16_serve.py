@@ -37,6 +37,7 @@ from lstm_tensorspark_torch.ops import cuda_decode, cuda_lstm, cuda_spec
 from lstm_tensorspark_torch.ops import cuda_lstm_tiled
 from lstm_tensorspark_torch.ops import scan as tscan
 from lstm_tensorspark_torch.serve import InprocessClient, ServeEngine
+from lstm_tensorspark_torch.train.distill import draft_config, publish_draft
 from lstm_tensorspark_tpu.models import LMConfig, init_lm, make_generate_fn
 from lstm_tensorspark_tpu.models.generate import fuse_layers as j_fuse
 from lstm_tensorspark_tpu.ops import pallas_decode
@@ -284,11 +285,18 @@ SERVE_FLAGS = ["--device", "cpu", "--compute-dtype", "bfloat16",
 
 @pytest.mark.parametrize("speculative", [False, True])
 def test_serve_jax_checkpoint_matches_jax_engine(jax_checkpoint,
-                                                 speculative):
+                                                 speculative, tmp_path):
     d, prompts, want = jax_checkpoint
     flags = ["--selftest", "--checkpoint-dir", d] + SERVE_FLAGS
     if speculative:
-        flags.append("--speculative")
+        # the draft the command served before it loaded drafts from a
+        # registry: draft_config's shape drawn from --seed + 1
+        cfg = tlm.LMConfig(vocab_size=V, hidden_size=H, num_layers=2,
+                           compute_dtype="bfloat16")
+        dcfg = draft_config(cfg)
+        publish_draft(str(tmp_path), tlm.init_lm(
+            torch.Generator().manual_seed(1), dcfg), dcfg, cfg)
+        flags += ["--speculative", "--registry-dir", str(tmp_path)]
     args = tcli.build_serve_parser().parse_args(flags)
     _, cfg, server = tcli._build_serve_stack(args)
     assert cfg.compute_dtype == "bfloat16"

@@ -48,7 +48,7 @@ def test_importing_every_module_loads_no_jax():
                 "ops.cuda_lstmx", "ops.cuda_bilstm", "ops.masking",
                 "models.classifier", "tasks.classification", "ops.cuda_spec",
                 "train.distill", "train.checkpoint",
-                "train.jax_checkpoint"):
+                "train.jax_checkpoint", "serve.registry"):
         assert f"lstm_tensorspark_torch.{mod}" in report["modules"]
 
 

@@ -15,7 +15,8 @@
   the port's ``generate``; the all-reject draft leaves the target's slot
   state bitwise equal to plain decode; the draft prefill equals JAX's.
 - The batcher and the CLI serve the plain greedy sequence while
-  dispatching spec windows.
+  dispatching spec windows; the CLI's ``--speculative`` loads its draft
+  from ``--registry-dir`` and, as JAX's, refuses to start without one.
 - The kernel's shared-memory plan, and the launch path's refusals.
 """
 
@@ -41,7 +42,7 @@ from lstm_tensorspark_torch.serve import (
     ServeEngine,
 )
 from lstm_tensorspark_torch.serve.batcher import _Session
-from lstm_tensorspark_torch.train.distill import draft_config
+from lstm_tensorspark_torch.train.distill import draft_config, publish_draft
 from lstm_tensorspark_tpu.models import LMConfig, init_lm
 from lstm_tensorspark_tpu.models.generate import fuse_layers as j_fuse_layers
 from lstm_tensorspark_tpu.ops import pallas_decode
@@ -520,18 +521,34 @@ def test_failed_draft_prefill_is_counted_not_fatal(targets, monkeypatch):
 # ---- the CLI and the plan -------------------------------------------------
 
 
-def test_cli_serve_selftest_speculative(capsys):
-    rc = tcli.main(["serve", "--selftest", "--speculative", "--device", "cpu",
-                    "--sessions", "3", "--max-new-tokens", "10",
-                    "--vocab-size", "37", "--hidden-units", "32",
-                    "--num-layers", "1", "--prefill-buckets", "8,16",
-                    "--batch-buckets", "1,2,4"])
+CLI_SPEC = ["serve", "--selftest", "--speculative", "--device", "cpu",
+            "--sessions", "3", "--max-new-tokens", "10", "--vocab-size", "37",
+            "--hidden-units", "32", "--num-layers", "1", "--prefill-buckets",
+            "8,16", "--batch-buckets", "1,2,4"]
+
+
+def test_cli_serve_selftest_speculative(capsys, tmp_path):
+    # the draft the command served before it loaded drafts from a
+    # registry: draft_config's shape drawn from --seed + 1
+    cfg = tlm.LMConfig(vocab_size=37, hidden_size=32, num_layers=1)
+    dcfg = draft_config(cfg)
+    publish_draft(str(tmp_path), tlm.init_lm(
+        torch.Generator().manual_seed(1), dcfg), dcfg, cfg)
+    rc = tcli.main(CLI_SPEC + ["--registry-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert rc == 0, out
     assert '"mismatches": 0' in out and "serve selftest: PASS" in out
     assert '"spec_windows_dispatched": {}' not in out
     with pytest.raises(SystemExit):
         tcli._parse_spec_ladder("0")
+
+
+def test_cli_serve_speculative_needs_a_registry():
+    """JAX's refusal: the draft loads from the registry as a verified
+    pair, so --speculative without --registry-dir exits."""
+    with pytest.raises(SystemExit, match="--speculative needs "
+                                         "--registry-dir"):
+        tcli.main(CLI_SPEC)
 
 
 def test_spec_shared_memory_plan_and_refusals():
